@@ -1,0 +1,29 @@
+"""FrogWild! on PyTorch and CUDA: the port of ``repro`` (JAX + Pallas).
+
+The same module layout and names as ``repro``; inside, plain PyTorch:
+functions on tensors, an explicit ``device`` and explicit PRNG keys
+(``repro_torch.prng``, bit for bit ``jax.random``'s threefry streams). The
+walker superstep, stitch rounds and histograms run through hand-written
+CUDA kernels (``repro_torch/kernels``) on the card and through their plain
+PyTorch versions on the CPU. Entry points run on the card unless the
+caller passes ``device="cpu"``.
+
+The port never imports ``jax`` or ``repro``.
+"""
+from repro_torch.config import (FrogWildConfig, KernelConfig, RuntimeConfig,
+                                ServingConfig, ShardConfig, WalkIndexConfig)
+from repro_torch.service import (FrogWildService, QueryHandle,
+                                 batch_pagerank, build_index)
+
+__all__ = [
+    "FrogWildConfig",
+    "FrogWildService",
+    "KernelConfig",
+    "QueryHandle",
+    "RuntimeConfig",
+    "ServingConfig",
+    "ShardConfig",
+    "WalkIndexConfig",
+    "batch_pagerank",
+    "build_index",
+]

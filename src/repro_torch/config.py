@@ -1,0 +1,183 @@
+"""Layered runtime configuration: every dispatch flag defined exactly once.
+
+The port's copy of ``repro/config.py``: the same dataclasses with the same
+defaults, except the kernel flags, whose values name the port's backends:
+
+* ``"auto"``  — (default) the hand-written CUDA kernel for CUDA tensors, the
+  plain PyTorch version for CPU tensors;
+* ``"cuda"``  — the CUDA kernel; a CPU tensor raises;
+* ``"torch"`` — the plain PyTorch version on any device.
+
+A field exists here once the port reads it: the reference's blocking-draw,
+engine-placement and wave-supervision fields arrive with the slices that
+port them, so passing one today is a ``TypeError``, not a setting silently
+ignored. Erasure, more than one shard, checkpoints and fault injection
+raise ``NotImplementedError`` naming the ``ROADMAP.md`` Queue 1 item that
+ports them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+DEFAULT_NUM_FROGS = 100_000
+DEFAULT_NUM_STEPS = 4
+DEFAULT_P_T = 0.15
+DEFAULT_P_S = 1.0
+
+KERNEL_IMPLS = ("auto", "cuda", "torch")
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP.md Queue 1 "
+        f"item {item})")
+
+
+def _check_erasure(erasure: str) -> None:
+    if erasure != "none":
+        raise _not_ported(f"erasure={erasure!r} (p_s < 1 blocking walks)",
+                          "7, erasure draws")
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelConfig:
+    """Kernel dispatch flags. ``step_impl`` runs the walker superstep
+    (``frog_step``), ``stitch_impl`` the serving wave's stitch rounds
+    (``stitch_gather`` / ``stitch_step``), ``tally_impl`` the endpoint
+    histogram (``frog_count``: the batch cut-off tally and the wave
+    tally)."""
+
+    step_impl: str = "auto"     # auto | cuda | torch
+    stitch_impl: str = "auto"   # auto | cuda | torch
+    tally_impl: str = "auto"    # auto | cuda | torch
+
+    def __post_init__(self):
+        for name in ("step_impl", "stitch_impl", "tally_impl"):
+            v = getattr(self, name)
+            if v not in KERNEL_IMPLS:
+                raise ValueError(
+                    f"KernelConfig.{name} must be one of {KERNEL_IMPLS}, "
+                    f"got {v!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardConfig:
+    """Placement: one shard so far, and the PRNG seed."""
+
+    num_shards: int = 1
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.num_shards > 1:
+            raise _not_ported(f"num_shards={self.num_shards}",
+                              "8 and 9, distributed engine and sharded "
+                              "serving")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingConfig:
+    """Walk-index geometry and scheduler shapes.
+
+    ``build_shards`` is the index-build partitioning: it bounds the walkers
+    alive per build step and, with the per-vertex key streams, leaves the
+    slab content unchanged. ``walk_buckets`` / ``query_buckets`` override
+    the wave-shape ladder (each wave runs at the smallest bucket that fits
+    its allocation; ``None`` = the cap and its halvings).
+    """
+
+    segments_per_vertex: int = 16    # R — endpoints stored per vertex
+    segment_len: int = 4             # L — steps per precomputed segment
+    build_shards: int = 8            # index-build partitioning
+    max_walks: int = 8192            # walk slots per wave
+    max_queries: int = 8             # query slots per wave
+    max_steps: int = 32              # walk-truncation cap for query plans
+    checkpoint_dir: Optional[str] = None
+    wave_time_estimate_s: Optional[float] = None  # seeds the admission EMA
+    walk_buckets: Optional[Tuple[int, ...]] = None
+    query_buckets: Optional[Tuple[int, ...]] = None
+
+    def __post_init__(self):
+        if self.checkpoint_dir is not None:
+            raise _not_ported("serving.checkpoint_dir",
+                              "10, checkpoints and faults")
+
+
+_KERNEL = KernelConfig()
+_SHARD = ShardConfig()
+_SERVING = ServingConfig()
+
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeConfig:
+    """The one config :class:`repro_torch.service.FrogWildService` reads."""
+
+    num_frogs: int = DEFAULT_NUM_FROGS
+    num_steps: int = DEFAULT_NUM_STEPS
+    p_T: float = DEFAULT_P_T
+    p_s: float = DEFAULT_P_S
+    erasure: str = "none"            # none (independent | channel: later)
+    kernel: KernelConfig = _KERNEL
+    runtime: ShardConfig = _SHARD
+    serving: ServingConfig = _SERVING
+    faults: Optional[object] = None
+
+    def __post_init__(self):
+        _check_erasure(self.erasure)
+        if self.faults is not None:
+            raise _not_ported("fault injection", "10, checkpoints and faults")
+
+    def frogwild(self) -> "FrogWildConfig":
+        return FrogWildConfig(
+            num_frogs=self.num_frogs, num_steps=self.num_steps,
+            p_T=self.p_T, p_s=self.p_s, erasure=self.erasure,
+            step_impl=self.kernel.step_impl,
+            tally_impl=self.kernel.tally_impl,
+        )
+
+    def walk_index(self) -> "WalkIndexConfig":
+        return WalkIndexConfig(
+            segments_per_vertex=self.serving.segments_per_vertex,
+            segment_len=self.serving.segment_len,
+            num_shards=self.serving.build_shards,
+            step_impl=self.kernel.step_impl,
+            seed=self.runtime.seed,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class FrogWildConfig:
+    """Walker view (``core/frogwild.py``). ``tally_impl`` runs the cut-off
+    tally, which the reference does with an XLA scatter."""
+
+    num_frogs: int = DEFAULT_NUM_FROGS
+    num_steps: int = DEFAULT_NUM_STEPS
+    p_T: float = DEFAULT_P_T
+    p_s: float = DEFAULT_P_S
+    erasure: str = "none"
+    step_impl: str = _KERNEL.step_impl
+    tally_impl: str = _KERNEL.tally_impl
+
+    def __post_init__(self):
+        _check_erasure(self.erasure)
+
+
+@dataclasses.dataclass(frozen=True)
+class WalkIndexConfig:
+    """Index-build view (``query/index.py``)."""
+
+    segments_per_vertex: int = _SERVING.segments_per_vertex
+    segment_len: int = _SERVING.segment_len
+    num_shards: int = _SERVING.build_shards
+    step_impl: str = _KERNEL.step_impl
+    seed: int = _SHARD.seed
+
+
+__all__ = [
+    "KernelConfig",
+    "ShardConfig",
+    "ServingConfig",
+    "RuntimeConfig",
+    "FrogWildConfig",
+    "WalkIndexConfig",
+]

@@ -1,0 +1,26 @@
+"""Where the port computes.
+
+Entry points take ``device=None``, which means the CUDA card. There is no
+silent fallback: without a card they raise, and a caller that wants the CPU
+(the tests, a laptop) says so with ``device="cpu"``.
+"""
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``None`` → ``cuda``; ``"cpu"`` only on request; raises when a CUDA
+    device is asked for and none is present."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev} (cuda or cpu)")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "port's plain PyTorch path on the CPU")
+    return dev

@@ -1,0 +1,170 @@
+"""Threefry-2x32 keys and draws, bit for bit as ``jax.random`` computes them.
+
+The reference draws every random number with ``jax.random`` under
+``jax_threefry_partitionable=True`` (jax 0.9.0). Whole answers of the port
+match the reference byte for byte only if these streams do, so this module
+reimplements the pieces the reference uses:
+
+* ``PRNGKey(seed)``         — ``[0, seed mod 2**32]``;
+* ``split(key, num)``       — ``threefry(key, (0, i))`` for ``i < num``;
+* ``fold_in(key, data)``    — ``threefry(key, (0, data))``, scalar or one
+  key per element of a data tensor (the reference's ``vmap``);
+* ``random_bits(key, shape)`` — ``y1 ^ y2`` of ``threefry(key, (i >> 32,
+  i & M))`` over the flat index ``i``;
+* ``randint`` (two bit streams from ``split(key)``, combined modulo the
+  span), ``uniform`` (the mantissa trick) and ``bernoulli``.
+
+A key is a ``uint32[..., 2]`` value held as an int64 tensor on the key's
+device; leading dimensions batch independent keys, and every draw then
+gains those dimensions in front. All uint32 arithmetic is done in int64 and
+masked back to 32 bits.
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple, Union
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+_M32 = 0xFFFFFFFF
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+Shape = Union[int, Sequence[int]]
+
+
+def _shape(shape: Shape) -> Tuple[int, ...]:
+    return (int(shape),) if isinstance(shape, int) else tuple(int(s)
+                                                             for s in shape)
+
+
+def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:
+    return ((v << r) & _M32) | (v >> (32 - r))
+
+
+def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor,
+                 x2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Threefry-2x32 block cipher (20 rounds), elementwise over
+    broadcast int64 operands holding uint32 values."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x = [(x1 + ks[0]) & _M32, (x2 + ks[1]) & _M32]
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x[0] = (x[0] + x[1]) & _M32
+            x[1] = _rotl(x[1], r) ^ x[0]
+        x[0] = (x[0] + ks[(i + 1) % 3]) & _M32
+        x[1] = (x[1] + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x[0], x[1]
+
+
+def _halves(key: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    if key.dtype != torch.int64 or key.shape[-1:] != (2,):
+        raise TypeError(
+            f"a key is an int64[..., 2] tensor of uint32 values, got "
+            f"{key.dtype}{list(key.shape)}")
+    return key[..., 0], key[..., 1]
+
+
+def PRNGKey(seed: int, device: DeviceLike = None) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` with 64-bit types off (the reference's
+    mode): the seed wraps to 32 bits, so the key is ``[0, seed mod 2**32]``.
+    """
+    return torch.tensor([0, int(seed) & _M32], dtype=torch.int64,
+                        device=resolve_device(device))
+
+
+def wrap_key_data(data, device: DeviceLike = None) -> torch.Tensor:
+    """A key from raw ``uint32[..., 2]`` data (a numpy array, a list or a
+    tensor); values outside ``[0, 2**32)`` raise."""
+    if isinstance(data, torch.Tensor):
+        t = data.to(torch.int64)
+        if device is not None:
+            t = t.to(resolve_device(device))
+    else:
+        t = torch.as_tensor(data, dtype=torch.int64,
+                            device=resolve_device(device))
+    if t.shape[-1:] != (2,):
+        raise ValueError(f"key data must end in a dimension of 2, got "
+                         f"{list(t.shape)}")
+    if t.numel() and (int(t.min()) < 0 or int(t.max()) > _M32):
+        raise ValueError("key data must be uint32 values")
+    return t
+
+
+def key_data(key: torch.Tensor) -> torch.Tensor:
+    """The raw ``uint32[..., 2]`` words of ``key`` (as int64)."""
+    _halves(key)
+    return key
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split``: ``[..., num, 2]`` new keys."""
+    k1, k2 = _halves(key)
+    i = torch.arange(num, dtype=torch.int64, device=key.device)
+    y1, y2 = threefry2x32(k1[..., None], k2[..., None], torch.zeros_like(i),
+                          i)
+    return torch.stack([y1, y2], dim=-1)
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in``. ``data`` is a Python int (one new key per
+    key) or an integer tensor broadcast against the key's batch shape
+    (the reference's ``vmap`` of a scalar fold over vertices or keys)."""
+    k1, k2 = _halves(key)
+    if isinstance(data, torch.Tensor):
+        d = data.to(device=key.device, dtype=torch.int64) & _M32
+    else:
+        d = torch.tensor(int(data) & _M32, dtype=torch.int64,
+                         device=key.device)
+    y1, y2 = threefry2x32(k1, k2, torch.zeros_like(d), d)
+    return torch.stack(torch.broadcast_tensors(y1, y2), dim=-1)
+
+
+def random_bits(key: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """``jax.random.bits`` at 32 bits: ``int64[*batch, *shape]`` of uint32
+    values, one counter per flat output index."""
+    shape = _shape(shape)
+    k1, k2 = _halves(key)
+    size = math.prod(shape)
+    i = torch.arange(size, dtype=torch.int64, device=key.device)
+    batch = k1.dim()
+    k1 = k1.reshape(k1.shape + (1,))
+    k2 = k2.reshape(k2.shape + (1,))
+    y1, y2 = threefry2x32(k1, k2, i >> 32, i & _M32)
+    out = y1 ^ y2
+    return out.reshape(key.shape[:batch] + shape)
+
+
+def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int
+            ) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, int32)``: a high and
+    a low 32-bit stream from ``split(key)`` reduced modulo the span with
+    uint32 wraparound, exactly as ``jax._src.random._randint`` does."""
+    lo, hi = int(minval), int(maxval)
+    if not (-(1 << 31) <= lo and hi <= (1 << 31) - 1):
+        raise ValueError(f"randint bounds [{lo}, {hi}) exceed int32")
+    keys = split(key)
+    higher = random_bits(keys[..., 0, :], shape)
+    lower = random_bits(keys[..., 1, :], shape)
+    span = 1 if hi <= lo else (hi - lo) & _M32
+    # 2**32 mod span as the reference computes it in uint32: the square
+    # wraps to 0 once span exceeds 2**16, and then only ``lower`` counts.
+    mult = (1 << 16) % span
+    mult = ((mult * mult) & _M32) % span
+    off = (((higher % span) * mult) & _M32) + (lower % span)
+    off = (off & _M32) % span
+    return (lo + off).to(torch.int32)
+
+
+def uniform(key: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)`` in float32 on ``[0, 1)``: the top
+    23 bits as the mantissa of a float in ``[1, 2)``, minus 1."""
+    bits = random_bits(key, shape)
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return f - 1.0
+
+
+def bernoulli(key: torch.Tensor, p: float, shape: Shape) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)``: ``uniform < float32(p)``."""
+    u = uniform(key, shape)
+    return u < torch.tensor(p, dtype=torch.float32, device=u.device)

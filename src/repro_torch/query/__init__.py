@@ -1,0 +1,27 @@
+"""Walk index, query engine and continuous-batching scheduler."""
+from repro_torch.query.engine import (QueryPlan, WaveSpec, build_wave_program,
+                                      plan_query, query_counts,
+                                      sample_walk_lengths, walk_wave)
+from repro_torch.query.index import WalkIndex
+from repro_torch.query.scheduler import (AdmissionDecision, QueryPartial,
+                                         QueryRequest, QueryResult,
+                                         QueryScheduler, RejectReason,
+                                         SchedulerStats)
+
+__all__ = [
+    "AdmissionDecision",
+    "QueryPartial",
+    "QueryPlan",
+    "QueryRequest",
+    "QueryResult",
+    "QueryScheduler",
+    "RejectReason",
+    "SchedulerStats",
+    "WalkIndex",
+    "WaveSpec",
+    "build_wave_program",
+    "plan_query",
+    "query_counts",
+    "sample_walk_lengths",
+    "walk_wave",
+]

@@ -1,0 +1,605 @@
+"""Host-side continuous-batching query scheduler, dense single-device path
+(port of the "gathered" path of ``repro/query/scheduler.py``).
+
+Each wave: queued queries claim free query slots earliest deadline first
+(admit); walk slots are split fairly among active queries, shares and
+leftovers handed out in EDF order (allocate); one wave advances every walk
+and histograms endpoints into per-query rows (execute); queries whose walk
+budget completed, or whose anytime Theorem 1 bound reached ε with
+``early_stop``, finalize their top-k and free their slot (retire).
+
+Waves run at the smallest bucket of a ladder of shapes (walk slots × query
+slots) that fits the allocation, as in the reference; query slots are
+compacted into rows ``[0, Q_b)`` in EDF order. Admission is deadline- and
+queue-depth-aware: a request with ``slo_s`` is checked against the measured
+wave time, charged for the admitted walk demand that outranks it, and
+rejected or (``allow_downgrade``) shrunk with the weaker guarantee recorded
+in ``QueryPlan.epsilon_bound``.
+
+The key stream, bucket choice and allocation are the reference's, so
+results are byte-equal to ``repro.query.scheduler`` for the same seed.
+The sharded, mesh and legacy-loop waves and the fault supervisor come with
+later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+import math
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import prng
+from repro_torch.core import theory
+from repro_torch.graph.csr import CSRGraph
+from repro_torch.query.engine import (QueryPlan, WaveSpec, build_wave_program,
+                                      plan_query)
+from repro_torch.query.index import WalkIndex
+
+# A "clean" wave more than this factor above the EMA is clamped before the
+# fold — one GC pause must not trip SLO rejections.
+_EMA_OUTLIER_CLAMP = 4.0
+
+
+def _topk_stable(scores: np.ndarray, k: int) -> np.ndarray:
+    """First ``k`` indices of ``np.argsort(-scores, kind="stable")`` without
+    sorting all ``n`` scores (sparse support: sort only the nonzeros; dense:
+    ``np.partition`` to the k-th largest, then sort the candidates)."""
+    n = scores.shape[0]
+    if k >= n:
+        return np.argsort(-scores, kind="stable")[:k]
+    nz = np.flatnonzero(scores)
+    if nz.size <= n >> 2 and (nz.size == 0 or scores[nz].min() > 0):
+        top = nz[np.argsort(-scores[nz], kind="stable")][:k]
+        if top.size == k:
+            return top
+        pad = np.setdiff1d(np.arange(min(n, k + nz.size)),
+                           nz)[:k - top.size]
+        return np.concatenate([top, pad])
+    kth = np.partition(scores, n - k)[n - k]
+    cand = np.flatnonzero(scores >= kth)
+    return cand[np.argsort(-scores[cand], kind="stable")][:k]
+
+
+@dataclasses.dataclass
+class QueryRequest:
+    rid: int
+    kind: str = "topk"               # "topk" | "ppr"
+    k: int = 10
+    source: int = 0                  # PPR start vertex (ignored for topk)
+    epsilon: float = 0.3
+    delta: float = 0.1
+    num_walks: Optional[int] = None  # override the (ε, δ) plan's walk count
+    slo_s: Optional[float] = None    # latency SLO (deadline = submit + slo_s)
+    allow_downgrade: bool = False    # shrink the plan to fit the SLO budget
+    early_stop: bool = False         # finish once the anytime bound hits ε
+    t_submit: Optional[float] = None  # stamped by submission
+
+
+class RejectReason(str, enum.Enum):
+    """Why admission refused a request (``SHARD_LOSS`` is reserved for the
+    sharded-serving slice)."""
+
+    NONE = "none"
+    INFEASIBLE_SLO = "infeasible_slo"
+    CAPACITY = "capacity"
+    SHARD_LOSS = "shard_loss"
+
+
+@dataclasses.dataclass(frozen=True)
+class AdmissionDecision:
+    """What admission did with a request: dropped (``admitted=False``, the
+    kind of refusal in ``reason_code``), or admitted, possibly with a
+    clamped walk count recorded in ``plan.epsilon_bound``."""
+
+    rid: int
+    admitted: bool
+    reason: str = ""
+    reason_code: RejectReason = RejectReason.NONE
+    downgraded: bool = False
+    plan: Optional[QueryPlan] = None
+    num_walks: int = 0
+
+
+@dataclasses.dataclass
+class QueryResult:
+    rid: int
+    kind: str
+    vertices: np.ndarray             # int64[k] — estimated top-k
+    scores: np.ndarray               # f64[k]  — π̂ / PPR estimates
+    num_walks: int                   # walks actually executed (≤ budget)
+    num_steps: int
+    waves: int                       # device waves this query spanned
+    latency_s: float
+    epsilon_bound: float = 0.0       # the ε Theorem 1 certifies for (t, N)
+    downgraded: bool = False
+    met_slo: Optional[bool] = None   # None when no SLO was requested
+    early_stopped: bool = False
+    degraded: bool = False           # sharded-serving provenance (later)
+    shards_lost: Tuple[int, ...] = ()
+    walks_lost: int = 0
+    epoch: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryPartial:
+    """Anytime snapshot; ``epsilon_bound`` is the ε certified for the walks
+    tallied so far (``inf`` before the first wave)."""
+
+    rid: int
+    kind: str
+    k: int
+    vertices: np.ndarray
+    scores: np.ndarray
+    walks_done: int
+    waves: int
+    epsilon_bound: float
+    done: bool
+    degraded: bool = False
+    shards_lost: Tuple[int, ...] = ()
+    walks_lost: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class SchedulerStats:
+    """One snapshot of serving and admission state."""
+
+    queued: int
+    active: int
+    finished: int
+    rejected: int
+    cancelled: int
+    backlog_walks: int               # queued + in-flight walk demand
+    waves_run: int
+    walks_executed: int
+    wave_time_ema_s: Optional[float]
+    wave_occupancy: float            # allocated walk slots / capacity
+    lost_shards: Tuple[int, ...]
+    max_walks: int
+    max_queries: int
+    t_last_wave: Optional[float] = None
+    last_wave_s: Optional[float] = None
+    epoch: int = 0
+
+
+@dataclasses.dataclass
+class _Queued:
+    req: QueryRequest
+    plan: QueryPlan
+    walks: int
+    deadline: float                  # math.inf when no SLO
+    downgraded: bool
+
+
+@dataclasses.dataclass
+class _Active:
+    req: QueryRequest
+    plan: QueryPlan
+    remaining: int
+    counts: np.ndarray               # int64[n] accumulator
+    waves: int
+    t_submit: float
+    deadline: float
+    downgraded: bool
+    executed: int = 0                # walks whose tallies have landed
+
+
+class QueryScheduler:
+    """Fixed-slot continuous batching over a dense :class:`WalkIndex` on
+    the graph's device."""
+
+    def __init__(self, g: CSRGraph, index: WalkIndex, max_walks: int = 8192,
+                 max_queries: int = 8, max_steps: int = 32,
+                 p_T: float = 0.15, impl: str = "auto",
+                 tally_impl: str = "auto", seed: int = 0,
+                 wave_time_estimate_s: Optional[float] = None,
+                 walk_buckets: Optional[Tuple[int, ...]] = None,
+                 query_buckets: Optional[Tuple[int, ...]] = None):
+        if not isinstance(index, WalkIndex):
+            raise NotImplementedError(
+                "only the dense WalkIndex is ported (sharded serving is "
+                "ROADMAP.md Queue 1 item 9)")
+        if index.endpoints.device != g.device:
+            raise ValueError(f"graph on {g.device}, slab on "
+                             f"{index.endpoints.device}")
+        self.g = g
+        self.index = index
+        self.epoch = g.epoch
+        self.max_walks = max_walks
+        self.max_queries = max_queries
+        self.max_steps = max_steps
+        self.p_T = p_T
+        self.impl = impl
+        self.tally_impl = tally_impl
+        self._walk_ladder = self._normalize_buckets(
+            walk_buckets, max_walks, "walk_buckets",
+            floor=max(1, max_walks // 8))
+        self._query_ladder = self._normalize_buckets(
+            query_buckets, max_queries, "query_buckets", floor=1)
+        self._wave_fns: Dict[Tuple[int, int], object] = {}
+        self.queue: List[_Queued] = []
+        self.active: Dict[int, _Active] = {}
+        self.finished: List[QueryResult] = []
+        self.rejected: List[AdmissionDecision] = []
+        self.cancelled: List[int] = []
+        self._key = prng.PRNGKey(seed, g.device)
+        self._wave_time = wave_time_estimate_s   # EMA of measured wave s
+        self._waves_run = 0
+        self._walks_allocated = 0
+        self._walks_executed = 0
+        self._t_last_wave: Optional[float] = None
+        self._last_wave_s: Optional[float] = None
+
+    # --- wave programs (one per ladder bucket) ---------------------------
+
+    @property
+    def _q_max(self) -> int:
+        return self.max_steps // self.index.segment_len
+
+    @staticmethod
+    def _normalize_buckets(buckets: Optional[Tuple[int, ...]], cap: int,
+                           name: str, floor: int) -> Tuple[int, ...]:
+        """A user ladder, validated, or the default: ``cap`` and its
+        halvings down to ``floor``. ``cap`` is always a member."""
+        if buckets is None:
+            out = {cap}
+            b = cap
+            while b // 2 >= floor:
+                b //= 2
+                out.add(b)
+            return tuple(sorted(out))
+        ladder = sorted(set(int(b) for b in buckets))
+        if not ladder or ladder[0] < 1 or ladder[-1] > cap:
+            raise ValueError(
+                f"{name} must be within [1, {cap}], got {buckets!r}")
+        if ladder[-1] != cap:
+            ladder.append(cap)
+        return tuple(ladder)
+
+    @staticmethod
+    def _bucket(ladder: Tuple[int, ...], demand: int) -> int:
+        """Smallest ladder bucket ≥ demand (the ladder top bounds demand)."""
+        for b in ladder:
+            if b >= demand:
+                return b
+        return ladder[-1]
+
+    def _spec(self, W_b: int, Q_b: int) -> WaveSpec:
+        return WaveSpec(
+            n=self.g.n, R=self.index.segments_per_vertex,
+            L=self.index.segment_len, q_max=self._q_max, W=W_b, Q=Q_b,
+            p_T=self.p_T, impl=self.impl, tally_impl=self.tally_impl)
+
+    def _wave_for(self, W_b: int, Q_b: int):
+        """The wave for one ladder bucket, ``wave(start, uniform, qid,
+        t_cap, key) -> int64[Q_b, n]`` on the host."""
+        fn = self._wave_fns.get((W_b, Q_b))
+        if fn is None:
+            prog = build_wave_program(self._spec(W_b, Q_b))
+            g, slab = self.g, self.index.endpoints
+
+            def fn(start, uniform, qid, t_cap, key):
+                return prog(slab, g.row_ptr, g.col_idx, g.out_deg, start,
+                            uniform, qid, t_cap, key).cpu().numpy()
+
+            self._wave_fns[(W_b, Q_b)] = fn
+        return fn
+
+    # --- admission (deadline-aware) --------------------------------------
+
+    def _submit(self, req: QueryRequest) -> AdmissionDecision:
+        """Validates, plans, and admission-checks a request. The latency
+        clock starts here, so queue wait counts toward the SLO."""
+        if req.num_walks is not None and req.num_walks <= 0:
+            raise ValueError(
+                f"request {req.rid}: num_walks must be positive, got "
+                f"{req.num_walks}")
+        if req.kind == "ppr" and not (0 <= req.source < self.g.n):
+            raise ValueError(
+                f"request {req.rid}: ppr source {req.source} outside "
+                f"[0, {self.g.n})")
+        if req.kind not in ("topk", "ppr"):
+            raise ValueError(f"request {req.rid}: unknown kind {req.kind!r}")
+        if req.slo_s is not None and req.slo_s <= 0:
+            raise ValueError(
+                f"request {req.rid}: slo_s must be positive, got {req.slo_s}")
+        if req.t_submit is None:
+            req.t_submit = time.perf_counter()
+
+        plan = plan_query(
+            req.k, req.epsilon, req.delta, p_T=self.p_T,
+            max_steps=self.max_steps,
+            segments_per_vertex=self.index.segments_per_vertex,
+            segment_len=self.index.segment_len)
+        walks = req.num_walks if req.num_walks is not None else plan.num_walks
+        downgraded = False
+
+        if req.slo_s is not None and self._wave_time is not None:
+            # Remaining wave budget under the SLO at full throughput,
+            # charged for the admitted demand whose deadline is at or
+            # before this one's (EDF drains it first; no-SLO work is never
+            # charged).
+            deadline_new = req.t_submit + req.slo_s
+            backlog = (sum(e.walks for e in self.queue
+                           if e.deadline <= deadline_new)
+                       + sum(a.remaining for a in self.active.values()
+                             if a.deadline <= deadline_new))
+            feasible = int(req.slo_s / self._wave_time)
+            eff = self.max_walks
+            needed = -(-(walks + backlog) // eff)
+            if feasible < 1:
+                return self._reject(
+                    req, plan,
+                    f"SLO {req.slo_s:.3g}s is shorter than one wave "
+                    f"(≈{self._wave_time:.3g}s)",
+                    RejectReason.INFEASIBLE_SLO)
+            if needed > feasible:
+                budget = feasible * eff - backlog
+                if not req.allow_downgrade or budget < 1:
+                    return self._reject(
+                        req, plan,
+                        f"plan needs {needed} waves ({backlog} walks "
+                        f"queued ahead at earlier deadlines), only "
+                        f"{feasible} fit the {req.slo_s:.3g}s SLO",
+                        RejectReason.CAPACITY)
+                plan = plan_query(
+                    req.k, req.epsilon, req.delta, p_T=self.p_T,
+                    max_walks=budget, max_steps=self.max_steps,
+                    segments_per_vertex=self.index.segments_per_vertex,
+                    segment_len=self.index.segment_len)
+                walks = min(budget, plan.num_walks if req.num_walks is None
+                            else req.num_walks)
+                downgraded = True
+
+        deadline = (math.inf if req.slo_s is None
+                    else req.t_submit + req.slo_s)
+        self.queue.append(_Queued(req=req, plan=plan, walks=walks,
+                                  deadline=deadline, downgraded=downgraded))
+        return AdmissionDecision(rid=req.rid, admitted=True,
+                                 downgraded=downgraded, plan=plan,
+                                 num_walks=walks)
+
+    def _reject(self, req: QueryRequest, plan: QueryPlan, reason: str,
+                code: RejectReason) -> AdmissionDecision:
+        decision = AdmissionDecision(rid=req.rid, admitted=False,
+                                     reason=reason, reason_code=code,
+                                     plan=plan)
+        self.rejected.append(decision)
+        return decision
+
+    # --- host scheduling --------------------------------------------------
+
+    def _admit(self) -> None:
+        """Queued queries claim free slots, earliest deadline first."""
+        free = [s for s in range(self.max_queries) if s not in self.active]
+        self.queue.sort(key=lambda e: (e.deadline, e.req.t_submit))
+        while self.queue and free:
+            e = self.queue.pop(0)
+            self.active[free.pop(0)] = _Active(
+                req=e.req, plan=e.plan, remaining=e.walks,
+                counts=np.zeros(self.g.n, np.int64),
+                waves=0, t_submit=e.req.t_submit, deadline=e.deadline,
+                downgraded=e.downgraded,
+            )
+
+    def _edf_order(self) -> List[int]:
+        return sorted(self.active,
+                      key=lambda s: (self.active[s].deadline, s))
+
+    def _allocate(self) -> Dict[int, int]:
+        """Walk-slot split: equal shares, handed out (and topped up from
+        the leftovers) in earliest-deadline-first order."""
+        slots = {}
+        budget = self.max_walks
+        order = self._edf_order()
+        share = max(1, budget // max(1, len(order)))
+        for s in order:
+            take = min(self.active[s].remaining, share, budget)
+            slots[s] = take
+            budget -= take
+        for s in order:                      # leftovers, EDF-greedy
+            if budget == 0:
+                break
+            extra = min(self.active[s].remaining - slots[s], budget)
+            slots[s] += extra
+            budget -= extra
+        return {s: w for s, w in slots.items() if w > 0}
+
+    def step_wave(self) -> bool:
+        """Runs one wave; returns False when nothing is in flight. The wave
+        runs at the smallest ladder bucket that fits the allocation."""
+        self._admit()
+        if not self.active:
+            return False
+        alloc = self._allocate()
+        W_b = self._bucket(self._walk_ladder, sum(alloc.values()))
+        Q_b = self._bucket(self._query_ladder, len(alloc))
+        start = np.zeros(W_b, np.int32)
+        uniform = np.zeros(W_b, bool)
+        qid = np.full(W_b, Q_b, np.int32)    # default: discard row
+        t_cap = np.zeros(W_b, np.int32)
+        cursor = 0
+        for ci, (s, w) in enumerate(alloc.items()):
+            a = self.active[s]
+            sl = slice(cursor, cursor + w)
+            qid[sl] = ci
+            t_cap[sl] = a.plan.num_steps
+            if a.req.kind == "ppr":
+                start[sl] = a.req.source
+            else:
+                uniform[sl] = True
+            cursor += w
+
+        self._key, k_wave = prng.split(self._key)
+        counts, dt = self._run_wave(start, uniform, qid, t_cap, k_wave,
+                                    W_b, Q_b)
+        now = time.perf_counter()
+        self._walks_allocated += sum(alloc.values())
+        # EMA of measured wave time for admission. The first wave includes
+        # the kernel build and is never folded in; outliers are clamped.
+        self._waves_run += 1
+        self._t_last_wave = time.monotonic()
+        self._last_wave_s = dt
+        if self._waves_run > 1:
+            if self._wave_time is not None:
+                dt = min(dt, _EMA_OUTLIER_CLAMP * self._wave_time)
+            self._wave_time = (dt if self._wave_time is None
+                               else 0.5 * self._wave_time + 0.5 * dt)
+
+        for ci, (s, w) in enumerate(alloc.items()):
+            a = self.active[s]
+            row = counts[ci]
+            landed = int(row.sum())
+            a.counts += row
+            a.remaining -= w
+            a.executed += landed
+            self._walks_executed += landed
+            a.waves += 1
+            early = (a.remaining > 0 and a.req.early_stop
+                     and self.anytime_bound(a.plan.num_steps, a.req.k,
+                                            a.req.delta, a.executed)
+                     <= a.req.epsilon)
+            if a.remaining == 0 or early:
+                self.finished.append(self._finalize(a, now, early=early))
+                del self.active[s]
+        return True
+
+    def _run_wave(self, start, uniform, qid, t_cap, k_wave, W_b, Q_b):
+        """Runs one wave from host operands → ``(counts int[Q_b, n], wall
+        seconds)``; the host copy of the counts ends the timed region."""
+        dev = self.g.device
+        t0 = time.perf_counter()
+        counts = self._wave_for(W_b, Q_b)(
+            torch.from_numpy(start).to(dev), torch.from_numpy(uniform).to(dev),
+            torch.from_numpy(qid).to(dev), torch.from_numpy(t_cap).to(dev),
+            k_wave)
+        return counts, time.perf_counter() - t0
+
+    # --- introspection ----------------------------------------------------
+
+    def stats(self) -> SchedulerStats:
+        backlog = (sum(e.walks for e in self.queue)
+                   + sum(a.remaining for a in self.active.values()))
+        capacity = self._waves_run * self.max_walks
+        return SchedulerStats(
+            queued=len(self.queue), active=len(self.active),
+            finished=len(self.finished), rejected=len(self.rejected),
+            cancelled=len(self.cancelled), backlog_walks=backlog,
+            waves_run=self._waves_run, walks_executed=self._walks_executed,
+            wave_time_ema_s=self._wave_time,
+            wave_occupancy=(self._walks_allocated / capacity
+                            if capacity else 0.0),
+            lost_shards=(), max_walks=self.max_walks,
+            max_queries=self.max_queries, t_last_wave=self._t_last_wave,
+            last_wave_s=self._last_wave_s, epoch=self.epoch)
+
+    # --- anytime (ε, δ) refinement ---------------------------------------
+
+    def anytime_bound(self, num_steps: int, k: int, delta: float,
+                      executed: int) -> float:
+        """The ε Theorem 1 certifies for the walks tallied so far; ``inf``
+        before the first wave."""
+        if executed < 1:
+            return math.inf
+        return theory.epsilon_bound(self.p_T, num_steps, k, delta,
+                                    executed, 1.0, 0.0)
+
+    def _finalize(self, a: _Active, now: float,
+                  early: bool = False) -> QueryResult:
+        # rank the integer counts (a positive divide keeps ranks and ties)
+        # and divide only the selected head.
+        k = min(a.req.k, self.g.n)
+        top = _topk_stable(a.counts, k)
+        scores_top = a.counts[top] / float(max(1, a.executed))
+        latency = now - a.t_submit
+        bound = (self.anytime_bound(a.plan.num_steps, a.req.k, a.req.delta,
+                                    a.executed)
+                 if a.req.early_stop else a.plan.epsilon_bound)
+        return QueryResult(
+            rid=a.req.rid, kind=a.req.kind, vertices=top,
+            scores=scores_top, num_walks=a.executed,
+            num_steps=a.plan.num_steps, waves=a.waves, latency_s=latency,
+            epsilon_bound=bound, downgraded=a.downgraded,
+            met_slo=(None if a.req.slo_s is None
+                     else bool(latency <= a.req.slo_s)),
+            early_stopped=early, epoch=self.epoch)
+
+    def query_state(self, rid: int) -> str:
+        """``queued`` | ``active`` | ``finished`` | ``rejected`` |
+        ``cancelled`` | ``unknown``."""
+        if any(r.rid == rid for r in self.finished):
+            return "finished"
+        if any(a.req.rid == rid for a in self.active.values()):
+            return "active"
+        if any(e.req.rid == rid for e in self.queue):
+            return "queued"
+        if rid in self.cancelled:
+            return "cancelled"
+        if any(d.rid == rid for d in self.rejected):
+            return "rejected"
+        return "unknown"
+
+    def result_for(self, rid: int) -> QueryResult:
+        for r in self.finished:
+            if r.rid == rid:
+                return r
+        raise KeyError(f"query {rid} has no finished result "
+                       f"(state: {self.query_state(rid)})")
+
+    def partial(self, rid: int) -> QueryPartial:
+        """Anytime snapshot: current top-k plus the ε certified so far."""
+        for r in self.finished:
+            if r.rid == rid:
+                return QueryPartial(
+                    rid=rid, kind=r.kind, k=len(r.vertices),
+                    vertices=r.vertices, scores=r.scores,
+                    walks_done=r.num_walks, waves=r.waves,
+                    epsilon_bound=r.epsilon_bound, done=True)
+        for a in self.active.values():
+            if a.req.rid != rid:
+                continue
+            k = min(a.req.k, self.g.n)
+            if a.executed:
+                vertices = _topk_stable(a.counts, k)
+                top_scores = a.counts[vertices] / float(a.executed)
+            else:
+                vertices = np.zeros(0, np.int64)
+                top_scores = np.zeros(0, np.float64)
+            return QueryPartial(
+                rid=rid, kind=a.req.kind, k=k, vertices=vertices,
+                scores=top_scores, walks_done=a.executed, waves=a.waves,
+                epsilon_bound=self.anytime_bound(
+                    a.plan.num_steps, a.req.k, a.req.delta, a.executed),
+                done=False)
+        for e in self.queue:
+            if e.req.rid == rid:
+                return QueryPartial(
+                    rid=rid, kind=e.req.kind, k=min(e.req.k, self.g.n),
+                    vertices=np.zeros(0, np.int64),
+                    scores=np.zeros(0, np.float64), walks_done=0, waves=0,
+                    epsilon_bound=math.inf, done=False)
+        raise KeyError(f"no in-flight query {rid} "
+                       f"(state: {self.query_state(rid)})")
+
+    def cancel(self, rid: int) -> bool:
+        """Drops a queued or in-flight query (its tallies are discarded)."""
+        for i, e in enumerate(self.queue):
+            if e.req.rid == rid:
+                del self.queue[i]
+                self.cancelled.append(rid)
+                return True
+        for s, a in list(self.active.items()):
+            if a.req.rid == rid:
+                del self.active[s]
+                self.cancelled.append(rid)
+                return True
+        return False
+
+    def _drain(self) -> List[QueryResult]:
+        """Drains queue + in-flight queries; results in finish order."""
+        while self.step_wave():
+            pass
+        return self.finished

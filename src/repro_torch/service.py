@@ -1,0 +1,334 @@
+"""Service facade: one front door for batch PageRank, the walk index, and
+top-k / PPR serving (port of ``repro/service.py``, single device).
+
+* :class:`FrogWildService` — ``open(graph_or_path, config, device=)`` owns
+  the graph on its device and the walk-index lifecycle. ``pagerank(ε, δ)``
+  inverts Theorem 1 into ``(t, N)`` and runs the walker estimator;
+  ``topk`` / ``ppr`` return :class:`QueryHandle` futures served by the
+  continuous-batching scheduler.
+* :class:`QueryHandle` — ``poll()`` / ``partial()`` / ``result()`` /
+  ``cancel()``; with ``early_stop`` (the default) a query finishes once the
+  anytime Theorem 1 bound reaches its ε.
+* :func:`batch_pagerank` / :func:`build_index` — the module-level
+  dispatchers under the facade.
+
+``device=None`` means the CUDA card everywhere; without one these raise,
+and ``device="cpu"`` runs the plain PyTorch path. Mesh runs, checkpoints,
+faults and epoch commits come with later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import List, Optional, Union
+
+import torch
+
+from repro_torch import prng
+from repro_torch.config import (FrogWildConfig, KernelConfig, RuntimeConfig,
+                                ServingConfig, ShardConfig, WalkIndexConfig)
+from repro_torch.core.frogwild import (FrogWildResult, _frogwild_walks,
+                                      compiled_estimate)
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.graph.csr import CSRGraph, load_graph
+from repro_torch.query.engine import plan_query
+from repro_torch.query.index import WalkIndex, _build_walk_index
+from repro_torch.query.scheduler import (QueryPartial, QueryRequest,
+                                         QueryResult, QueryScheduler,
+                                         SchedulerStats)
+
+__all__ = [
+    "FrogWildService",
+    "QueryHandle",
+    "QueryPartial",
+    "RuntimeConfig",
+    "KernelConfig",
+    "ShardConfig",
+    "ServingConfig",
+    "batch_pagerank",
+    "build_index",
+]
+
+
+def _key_on(key: Optional[torch.Tensor], seed: int,
+            device: torch.device) -> torch.Tensor:
+    if key is None:
+        return prng.PRNGKey(seed, device)
+    return prng.wrap_key_data(key, device)
+
+
+def batch_pagerank(graph: CSRGraph,
+                   config: Union[RuntimeConfig, FrogWildConfig], *,
+                   key: Optional[torch.Tensor] = None,
+                   seed: Optional[int] = None,
+                   device: DeviceLike = None) -> FrogWildResult:
+    """One batch FrogWild run on ``device`` (default: the card) with
+    ``key`` (or ``PRNGKey(seed)``, seed 0 by default)."""
+    dev = resolve_device(device)
+    cfg = config.frogwild() if isinstance(config, RuntimeConfig) else config
+    return _frogwild_walks(graph.to(dev), cfg,
+                           _key_on(key, 0 if seed is None else seed, dev))
+
+
+def build_index(graph: CSRGraph,
+                config: Union[RuntimeConfig, WalkIndexConfig], *,
+                key: Optional[torch.Tensor] = None,
+                device: DeviceLike = None) -> WalkIndex:
+    """One walk-index build on ``device`` (default: the card), the host
+    shard loop over ``build_shards`` range shards."""
+    dev = resolve_device(device)
+    cfg = (config.walk_index() if isinstance(config, RuntimeConfig)
+           else config)
+    if key is not None:
+        key = prng.wrap_key_data(key, dev)
+    return _build_walk_index(graph.to(dev), cfg, key)
+
+
+class QueryHandle:
+    """Future for one submitted query, with anytime (ε, δ) refinement.
+
+    Handles are cooperative: any handle's ``poll()`` / ``result()``
+    advances the shared scheduler, so all in-flight queries progress
+    together (continuous batching).
+    """
+
+    def __init__(self, service: "FrogWildService", request: QueryRequest,
+                 decision, scheduler: QueryScheduler):
+        self._service = service
+        self._sched = scheduler
+        self.request = request
+        self.decision = decision
+
+    @property
+    def rid(self) -> int:
+        return self.request.rid
+
+    @property
+    def admitted(self) -> bool:
+        return bool(self.decision.admitted)
+
+    def status(self) -> str:
+        """``rejected`` | ``queued`` | ``active`` | ``finished`` |
+        ``cancelled``."""
+        if not self.admitted:
+            return "rejected"
+        if self._service.closed:
+            return "cancelled"
+        return self._sched.query_state(self.rid)
+
+    def done(self) -> bool:
+        return self.status() in ("finished", "cancelled", "rejected")
+
+    def poll(self) -> bool:
+        """Advances the service by one wave unless already done."""
+        if not self.done():
+            self._service.step()
+        return self.done()
+
+    def partial(self) -> QueryPartial:
+        """Current anytime snapshot (no waves are driven)."""
+        st = self.status()
+        if st in ("rejected", "cancelled"):
+            raise RuntimeError(
+                f"query {self.rid} is {st}"
+                + (f": {self.decision.reason}" if st == "rejected" else ""))
+        return self._sched.partial(self.rid)
+
+    def result(self, max_waves: Optional[int] = None) -> QueryResult:
+        """Drives waves until this query finishes and returns its result."""
+        if not self.admitted:
+            raise RuntimeError(
+                f"query {self.rid} rejected at admission: "
+                f"{self.decision.reason}")
+        waves = 0
+        while True:
+            st = self.status()
+            if st == "finished":
+                return self._sched.result_for(self.rid)
+            if st == "cancelled":
+                raise RuntimeError(f"query {self.rid} was cancelled")
+            if max_waves is not None and waves >= max_waves:
+                raise TimeoutError(
+                    f"query {self.rid} still {st} after {waves} waves")
+            if not self._service.step():
+                raise RuntimeError(
+                    f"scheduler idle but query {self.rid} is {st}")
+            waves += 1
+
+    def cancel(self) -> bool:
+        """Drops the query; False when it already finished (or never ran)."""
+        if not self.admitted or self._service.closed:
+            return False
+        return self._sched.cancel(self.rid)
+
+
+class FrogWildService:
+    """Batch PageRank, walk-index lifecycle and top-k / PPR serving over
+    one graph on one device. Build one with :meth:`open`; the index and the
+    scheduler are built lazily."""
+
+    def __init__(self, graph: CSRGraph, config: RuntimeConfig,
+                 device: torch.device, index: Optional[WalkIndex] = None):
+        self.device = device
+        self.graph = graph.to(device)
+        self.config = config
+        if index is not None and index.endpoints.device != device:
+            index = dataclasses.replace(index,
+                                        endpoints=index.endpoints.to(device))
+        self._index = index
+        self._scheduler: Optional[QueryScheduler] = None
+        self._next_rid = 0
+        self._closed = False
+
+    # --- lifecycle -------------------------------------------------------
+
+    @classmethod
+    def open(cls, graph_or_path: Union[CSRGraph, str, os.PathLike],
+             config: Optional[RuntimeConfig] = None, *,
+             device: DeviceLike = None,
+             index: Optional[WalkIndex] = None) -> "FrogWildService":
+        """Opens a service over a graph (or a ``save_graph`` ``.npz`` path)
+        on ``device`` (default: the card; raises without one). ``index``
+        short-circuits the index build with a prebuilt slab."""
+        dev = resolve_device(device)
+        if config is None:
+            config = RuntimeConfig()
+        elif not isinstance(config, RuntimeConfig):
+            raise TypeError(f"config must be a RuntimeConfig, got "
+                            f"{type(config).__name__}")
+        if isinstance(graph_or_path, (str, os.PathLike)):
+            graph = load_graph(os.fspath(graph_or_path))
+        elif isinstance(graph_or_path, CSRGraph):
+            graph = graph_or_path
+        else:
+            raise TypeError(
+                f"graph_or_path must be a CSRGraph or a path, got "
+                f"{type(graph_or_path).__name__}")
+        return cls(graph, config, dev, index=index)
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    def close(self) -> None:
+        """Cancels queued and in-flight queries and drops the scheduler and
+        index; idempotent. New work on a closed service raises."""
+        if self._closed:
+            return
+        sched = self._scheduler
+        if sched is not None:
+            for rid in ([e.req.rid for e in sched.queue]
+                        + [a.req.rid for a in sched.active.values()]):
+                sched.cancel(rid)
+        self._scheduler = None
+        self._index = None
+        self._closed = True
+
+    def _check_open(self) -> None:
+        if self._closed:
+            raise RuntimeError(
+                "FrogWildService is closed — open a new service to submit "
+                "more work")
+
+    def __enter__(self) -> "FrogWildService":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # --- walk index ------------------------------------------------------
+
+    def ensure_index(self) -> WalkIndex:
+        """Builds the walk index on the service's device (idempotent)."""
+        self._check_open()
+        if self._index is None:
+            self._index = _build_walk_index(self.graph,
+                                            self.config.walk_index())
+        return self._index
+
+    # --- batch -----------------------------------------------------------
+
+    def pagerank(self, epsilon: Optional[float] = None, delta: float = 0.1,
+                 k: int = 10, *, key: Optional[torch.Tensor] = None,
+                 seed: Optional[int] = None,
+                 config: Optional[RuntimeConfig] = None) -> FrogWildResult:
+        """One batch FrogWild estimate of the full PageRank vector.
+
+        With ``epsilon`` given, Theorem 1 is inverted into ``(t, N)`` for a
+        ``μ_k`` guarantee at confidence ``1 − delta`` (``t`` capped by
+        ``serving.max_steps``); otherwise the config's ``num_frogs`` /
+        ``num_steps`` run as they are.
+        """
+        self._check_open()
+        rc = config if config is not None else self.config
+        if epsilon is not None:
+            plan = plan_query(k, epsilon, delta, p_T=rc.p_T,
+                              max_steps=rc.serving.max_steps)
+            rc = dataclasses.replace(rc, num_frogs=plan.num_walks,
+                                     num_steps=plan.num_steps)
+        key = _key_on(key, rc.runtime.seed if seed is None else seed,
+                      self.device)
+        return compiled_estimate(
+            _frogwild_walks(self.graph, rc.frogwild(), key))
+
+    # --- serving ---------------------------------------------------------
+
+    @property
+    def scheduler(self) -> QueryScheduler:
+        """The (lazily built) continuous-batching scheduler."""
+        self._check_open()
+        if self._scheduler is None:
+            index = self.ensure_index()
+            scfg = self.config.serving
+            self._scheduler = QueryScheduler(
+                self.graph, index, max_walks=scfg.max_walks,
+                max_queries=scfg.max_queries, max_steps=scfg.max_steps,
+                p_T=self.config.p_T, impl=self.config.kernel.stitch_impl,
+                tally_impl=self.config.kernel.tally_impl,
+                seed=self.config.runtime.seed,
+                wave_time_estimate_s=scfg.wave_time_estimate_s,
+                walk_buckets=scfg.walk_buckets,
+                query_buckets=scfg.query_buckets)
+        return self._scheduler
+
+    def serving_stats(self) -> Optional[SchedulerStats]:
+        """The scheduler's snapshot; ``None`` before the first query."""
+        if self._closed or self._scheduler is None:
+            return None
+        return self._scheduler.stats()
+
+    def topk(self, k: int = 10, epsilon: float = 0.3, delta: float = 0.1, *,
+             num_walks: Optional[int] = None, slo_s: Optional[float] = None,
+             allow_downgrade: bool = False,
+             early_stop: bool = True) -> QueryHandle:
+        """Submits a global top-k query; returns its :class:`QueryHandle`."""
+        return self._submit_request(
+            kind="topk", k=k, source=0, epsilon=epsilon, delta=delta,
+            num_walks=num_walks, slo_s=slo_s,
+            allow_downgrade=allow_downgrade, early_stop=early_stop)
+
+    def ppr(self, source: int, k: int = 10, epsilon: float = 0.3,
+            delta: float = 0.1, *, num_walks: Optional[int] = None,
+            slo_s: Optional[float] = None, allow_downgrade: bool = False,
+            early_stop: bool = True) -> QueryHandle:
+        """Submits a personalized-PageRank query pinned at ``source``."""
+        return self._submit_request(
+            kind="ppr", k=k, source=source, epsilon=epsilon, delta=delta,
+            num_walks=num_walks, slo_s=slo_s,
+            allow_downgrade=allow_downgrade, early_stop=early_stop)
+
+    def _submit_request(self, **kw) -> QueryHandle:
+        req = QueryRequest(rid=self._next_rid, **kw)
+        self._next_rid += 1
+        sched = self.scheduler
+        decision = sched._submit(req)
+        return QueryHandle(self, req, decision, sched)
+
+    def step(self) -> bool:
+        """Runs one wave; False when nothing is in flight."""
+        return self.scheduler.step_wave()
+
+    def drain(self) -> List[QueryResult]:
+        """Drives waves until queue and slots are empty; returns all results
+        finished so far (in finish order)."""
+        return self.scheduler._drain()

@@ -1,0 +1,231 @@
+"""The port's four kernels.
+
+On the CPU: each plain version (``repro_torch.kernels.ref``, what the
+wrappers run for CPU tensors) against the reference's Pallas kernel in
+interpret mode (``repro.kernels.ops``, ``impl="pallas"``) and its oracle
+(``impl="ref"``), byte for byte, at ragged sizes, with degree-0 vertices,
+padding sentinels, negative bits and all-0 / all-1 tallies.
+
+On the card (marker ``cuda``, skipped elsewhere): each CUDA kernel against
+its plain version on the same CUDA tensors, byte for byte. This file
+imports JAX only inside the reference comparisons, so the card tests run
+where JAX is not installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as kref
+
+
+def _jops():
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    return jnp, jops
+
+
+def _graph(n=37, seed=0):
+    """A CSR with degree-0 vertices (first, middle and last)."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, 6, n)
+    deg[[0, n // 2, n - 1]] = 0
+    row_ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    col_idx = rng.integers(0, n, int(row_ptr[-1])).astype(np.int32)
+    return row_ptr, col_idx, deg.astype(np.int32)
+
+
+def _walkers(N, n, mode, seed=1):
+    rng = np.random.default_rng(seed)
+    pos = rng.integers(0, n, N).astype(np.int32)
+    bits = rng.integers(-(1 << 31), 1 << 31, N, dtype=np.int64)
+    bits = bits.astype(np.int32)
+    if N:
+        bits[0] = np.iinfo(np.int32).min        # abs() stays negative
+    flag = {"random": rng.integers(0, 2, N), "zeros": np.zeros(N),
+            "ones": np.ones(N)}[mode].astype(np.int32)
+    return pos, flag, bits
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+MODES = ["random", "zeros", "ones"]
+
+
+@pytest.mark.parametrize("N", [1, 1000, 1537])
+@pytest.mark.parametrize("mode", MODES)
+def test_frog_step_plain_matches_pallas(N, mode):
+    jnp, jops = _jops()
+    row_ptr, col_idx, deg = _graph()
+    n = deg.shape[0]
+    pos, die, bits = _walkers(N, n, mode)
+    got_next, got_counts = ops.frog_step(*_t(pos, die, bits, row_ptr,
+                                             col_idx, deg), n)
+    for impl in ("pallas", "ref"):
+        want_next, want_counts = jops.frog_step(
+            *map(jnp.asarray, (pos, die, bits, row_ptr, col_idx, deg)), n,
+            impl=impl, vertex_block=16, frog_block=256)
+        assert (got_next.numpy() == np.asarray(want_next)).all(), impl
+        assert (got_counts.numpy() == np.asarray(want_counts)).all(), impl
+    assert got_next.dtype == got_counts.dtype == torch.int32
+
+
+@pytest.mark.parametrize("N", [1, 999, 2048])
+def test_frog_count_plain_matches_pallas(N):
+    jnp, jops = _jops()
+    n = 300
+    rng = np.random.default_rng(N)
+    dest = rng.integers(-3, n + 3, N).astype(np.int32)   # strays ignored
+    got = ops.frog_count(*_t(dest), n)
+    for impl in ("pallas", "ref", "sort"):
+        want = jops.frog_count(jnp.asarray(dest), n, impl=impl,
+                               vertex_block=64, frog_block=512)
+        assert (got.numpy() == np.asarray(want)).all(), impl
+    assert int(got.sum()) == int(((dest >= 0) & (dest < n)).sum())
+
+
+@pytest.mark.parametrize("W", [1, 700, 1029])
+@pytest.mark.parametrize("mode", MODES)
+def test_stitch_plain_matches_pallas(W, mode):
+    jnp, jops = _jops()
+    n, R = 50, 6
+    rng = np.random.default_rng(W)
+    endpoints = rng.integers(0, n, (n, R)).astype(np.int32)
+    pos, stop, bits = _walkers(W, n, mode, seed=W)
+    tpos, tstop, tbits, tend = _t(pos, stop, bits, endpoints)
+    got_next, got_counts = ops.stitch_step(tpos, tstop, tbits, tend, n)
+    got_gather, none = ops.stitch_step(tpos, tstop, tbits, tend, n,
+                                       tally=False)
+    assert none is None
+    assert torch.equal(got_gather, ops.stitch_gather(tpos, tbits, tend))
+    args = [jnp.asarray(a) for a in (pos, stop, bits, endpoints)]
+    for impl in ("pallas", "ref"):
+        want_next, want_counts = jops.stitch_step(
+            *args, n, impl=impl, vertex_block=16, walk_block=256)
+        want_gather, _ = jops.stitch_step(*args, n, impl=impl, tally=False,
+                                          walk_block=256)
+        assert (got_next.numpy() == np.asarray(want_next)).all(), impl
+        assert (got_counts.numpy() == np.asarray(want_counts)).all(), impl
+        assert (got_gather.numpy() == np.asarray(want_gather)).all(), impl
+
+
+def test_wrappers_refuse_bad_operands():
+    row_ptr, col_idx, deg = _t(*_graph())
+    n = deg.shape[0]
+    pos, die, bits = _t(*_walkers(10, n, "random"))
+    with pytest.raises(ValueError, match="impl='cuda' needs CUDA"):
+        ops.frog_step(pos, die, bits, row_ptr, col_idx, deg, n, impl="cuda")
+    with pytest.raises(ValueError, match="impl must be one of"):
+        ops.frog_count(pos, n, impl="pallas")
+    with pytest.raises(TypeError, match="int32"):
+        ops.frog_count(pos.long(), n)
+    with pytest.raises(ValueError, match="elements"):
+        ops.frog_step(pos, die[:5], bits, row_ptr, col_idx, deg, n)
+    with pytest.raises(ValueError, match="row_ptr"):
+        ops.frog_step(pos, die, bits, row_ptr[:-1], col_idx, deg, n)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.stitch_gather(pos, bits, torch.zeros(4, n, dtype=torch.int32).t())
+    before = ops.launch_counts()
+    ops.frog_count(pos, n)                      # CPU: the plain version
+    assert ops.launch_counts() == before
+
+
+# --- on the card ------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels are built with nvcc "
+                    "and run only on the card)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 1537, 300_001])
+@pytest.mark.parametrize("mode", MODES)
+def test_cuda_frog_step_matches_plain(cuda, N, mode):
+    row_ptr, col_idx, deg = [t.to(cuda) for t in _t(*_graph(4099))]
+    n = deg.shape[0]
+    pos, die, bits = [t.to(cuda) for t in _t(*_walkers(N, n, mode))]
+    before = ops.launch_counts()["frog_step"]
+    got = ops.frog_step(pos, die, bits, row_ptr, col_idx, deg, n)
+    assert ops.launch_counts()["frog_step"] == before + 1
+    want = kref.frog_step_ref(pos, die, torch.abs(bits), row_ptr, col_idx,
+                              deg, n)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 8192, 1_000_003])
+def test_cuda_frog_count_matches_plain(cuda, N):
+    n = 9 * 4099
+    g = torch.Generator().manual_seed(N)
+    dest = torch.randint(-5, n + 5, (N,), generator=g,
+                         dtype=torch.int32).to(cuda)
+    got = ops.frog_count(dest, n, impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(got, kref.frog_count_ref(dest, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 8192, 100_003])
+@pytest.mark.parametrize("mode", MODES)
+def test_cuda_stitch_matches_plain(cuda, W, mode):
+    n, R = 4099, 16
+    g = torch.Generator().manual_seed(W)
+    endpoints = torch.randint(0, n, (n, R), generator=g,
+                              dtype=torch.int32).to(cuda)
+    pos, stop, bits = [t.to(cuda) for t in _t(*_walkers(W, n, mode, W))]
+    got = ops.stitch_step(pos, stop, bits, endpoints, n)
+    want = kref.stitch_step_ref(pos, stop, torch.abs(bits), endpoints, n)
+    gather = ops.stitch_gather(pos, bits, endpoints)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(gather, want[0])
+
+
+@pytest.mark.cuda
+def test_cuda_walk_lengths_equal_cpu_for_every_uniform(cuda):
+    """All 2**23 float32 values ``uniform`` can return give the same walk
+    length on the card as on the CPU (and so as in the reference)."""
+    from repro_torch.query.engine import lengths_from_uniform
+    k = torch.arange(1 << 23, dtype=torch.int32)
+    u = (k | 0x3F800000).view(torch.float32) - 1.0
+    cpu = lengths_from_uniform(u, 0.15, 32)
+    gpu = lengths_from_uniform(u.to(cuda), 0.15, 32).cpu()
+    assert torch.equal(cpu, gpu)
+
+
+@pytest.mark.cuda
+def test_cuda_service_matches_plain_path(cuda):
+    """The whole slice on a small graph: kernels on the card against the
+    plain versions on the card, byte for byte."""
+    from repro_torch import (FrogWildService, KernelConfig, RuntimeConfig,
+                             ServingConfig)
+    from repro_torch.graph import chung_lu_powerlaw
+    g = chung_lu_powerlaw(3000, 8.0, seed=1)
+    serving = ServingConfig(segments_per_vertex=8, segment_len=3,
+                            build_shards=3, max_walks=1024, max_queries=4,
+                            max_steps=16)
+    out = {}
+    for impl in ("auto", "torch"):
+        rc = RuntimeConfig(kernel=KernelConfig(step_impl=impl,
+                                               stitch_impl=impl,
+                                               tally_impl=impl),
+                           serving=serving)
+        svc = FrogWildService.open(g, rc, device=cuda)
+        res = svc.pagerank(epsilon=0.3, k=10)
+        handles = [svc.topk(k=10), svc.ppr(5, k=5), svc.topk(k=5)]
+        out[impl] = (res.counts.cpu(), svc.ensure_index().endpoints.cpu(),
+                     [(h.result().vertices, h.result().scores)
+                      for h in handles])
+    a, b = out["auto"], out["torch"]
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    for (va, sa), (vb, sb) in zip(a[2], b[2]):
+        assert (va == vb).all() and (sa == sb).all()
