@@ -9,7 +9,8 @@ frogwild_graphs.py``) through the entry points a user calls, and checks
 every answer against its guarantee:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
-2. build    — the four CUDA kernels, compiled from ``csrc/`` with nvcc;
+2. build    — the seven CUDA kernels, compiled from ``csrc/`` with nvcc
+              (one nvcc per source, all at once);
 3. data     — the graph, generated on the host and moved to the card;
 4. batch    — ``FrogWildService.pagerank(ε=0.1, δ=0.1, k=100)``, held to
               its Theorem 1 bound against 50 power iterations;
@@ -18,14 +19,27 @@ every answer against its guarantee:
               to its bound;
 6. plain    — the batch run and one wave again through the plain PyTorch
               versions, byte-equal to the kernel path;
-7. kernels  — each kernel at the main path's shapes against its plain
-              version (byte-equal), with its time, bound and launches;
-8. profile  — one batch run and one serving wave under torch.profiler:
-              wall time against device-busy time (the idle share).
+7. stream   — ``pagerank`` again with ``step_impl="stream"``: the slab
+              layout's build time, ``E_blk`` and bytes; counts byte-equal
+              to phase 4's and within the same bound;
+8. sharded  — ``num_shards=8`` with ``step_impl="stream"``: the index built
+              through the streamed kernel equals phase 5's slab row-padded;
+              phase 5's 8 queries under ``sharded_dispatch="fused"`` and
+              ``"loop"`` give phase 5's answers byte for byte; one wave
+              with shard 3 lost is byte-equal between the two dispatches;
+9. kernels  — each kernel at the main path's shapes against its plain
+              version (byte-equal), with its time, bound and launches, and
+              the 8 shards' ``stitch_step_local`` summed against
+              ``stitch_step``;
+10. profile — a batch run (resident and streamed), a serving wave (dense)
+              and a loop wave (8 shards) under torch.profiler: wall time
+              against device-busy time (the idle share).
 
-Launch counts are reset just before phase 4 and read just after phase 5.
-The last line is ``{"ok": true, "device": {...}}``; any failed check or
-launch raises and exits non-zero, as does a machine without CUDA.
+Launch counts are reset just before phase 4 and read just after phase 5
+(slice 1's path), and reset again just before phase 7 and read just after
+the queries of phase 8 (the streamed and sharded paths). The last line is
+``{"ok": true, "device": {...}}``; any failed check or launch raises and
+exits non-zero, as does a machine without CUDA.
 """
 from __future__ import annotations
 
@@ -41,6 +55,7 @@ SRC = os.path.join(REPO, "src")
 LJ = dict(n=4_847_571, avg_out_deg=14.2, theta=2.2, seed=0)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM published memory rate
 REPS = 50
+SHARDS = 8
 
 
 def log(phase: str, **kw) -> None:
@@ -163,8 +178,7 @@ def phase_serving(svc, pi, dev):
     hubs = [int(v) for v in torch.argsort(g.out_deg.cpu(),
                                           stable=True)[-2:]]
     t0 = time.perf_counter()
-    handles = [svc.topk(k=10, epsilon=0.3) for _ in range(6)]
-    handles += [svc.ppr(h, k=10, epsilon=0.3) for h in hubs]
+    handles = submit_queries(svc, hubs)
     results = [h.result() for h in handles]
     t_serve = time.perf_counter() - t0
     mu_opt = float(mass_captured(pi, pi, 10))
@@ -203,7 +217,13 @@ def phase_serving(svc, pi, dev):
     log("5 query_counts", walks=plan.num_walks, seconds=t_q,
         mu10=mu, ok=mu >= mu_opt - plan.epsilon_bound)
     assert mu >= mu_opt - plan.epsilon_bound
-    return index, hubs
+    return index, hubs, results
+
+
+def submit_queries(svc, hubs):
+    """Phase 5's queries: 6 top-k and 2 PPR from the hubs, in this order."""
+    handles = [svc.topk(k=10, epsilon=0.3) for _ in range(6)]
+    return handles + [svc.ppr(h, k=10, epsilon=0.3) for h in hubs]
 
 
 def wave_inputs(n, hubs, W, Q, dev):
@@ -249,9 +269,111 @@ def phase_plain(svc, res, index, hubs, dev):
     assert batch_eq and wave_eq
 
 
-def kernel_rows(svc, index, hubs, launches, dev):
+def phase_stream(g, res, pi, dev):
+    """The batch estimate through the streamed superstep."""
+    import torch
+    from repro_torch import FrogWildService, KernelConfig, RuntimeConfig
+    from repro_torch.core import mass_captured
+    from repro_torch.kernels import ops
+    from repro_torch.query.engine import plan_query
+    svc = FrogWildService.open(g, RuntimeConfig(
+        kernel=KernelConfig(step_impl="stream")))
+    sync()
+    t0 = time.perf_counter()
+    blocked = svc.blocked_csr()
+    sync()
+    t_blk = time.perf_counter() - t0
+    log("7 blocked_csr", seconds=t_blk, vertex_block=blocked.vertex_block,
+        num_blocks=blocked.num_blocks, E_blk=blocked.e_blk,
+        bytes=blocked.nbytes,
+        col_in_shared_memory=4 * blocked.e_blk <= ops.STREAM_SMEM_COL_BYTES)
+    sync()
+    t0 = time.perf_counter()
+    res_s = svc.pagerank(epsilon=0.1, delta=0.1, k=100)
+    sync()
+    t_pr = time.perf_counter() - t0
+    plan = plan_query(100, 0.1, 0.1, p_T=svc.config.p_T,
+                      max_steps=svc.config.serving.max_steps)
+    equal = torch.equal(res_s.counts, res.counts)
+    mu_hat = float(mass_captured(res_s.pi_hat, pi, 100))
+    mu_opt = float(mass_captured(pi, pi, 100))
+    ok = mu_hat >= mu_opt - plan.epsilon_bound
+    log("7 stream", pagerank_s=t_pr, counts_equal_resident=equal,
+        mu_hat=mu_hat, epsilon_bound=plan.epsilon_bound, ok=ok)
+    assert equal, "streamed counts differ from the resident run"
+    assert ok, "streamed estimate misses its Theorem 1 bound"
+    return svc
+
+
+def phase_sharded(g, dense_index, dense_results, hubs, dev):
+    """Sharded serving, S = 8, through both single-device dispatches; the
+    index built through the streamed superstep."""
+    import torch
+    from repro_torch import (FrogWildService, KernelConfig, RuntimeConfig,
+                             ServingConfig, ShardConfig)
+    services = {}
+    for dispatch in ("fused", "loop"):
+        svc = FrogWildService.open(g, RuntimeConfig(
+            runtime=ShardConfig(num_shards=SHARDS),
+            kernel=KernelConfig(step_impl="stream"),
+            serving=ServingConfig(sharded_dispatch=dispatch)),
+            index=services["fused"].ensure_index() if services else None)
+        sync()
+        t0 = time.perf_counter()
+        index = svc.ensure_index()
+        sync()
+        t_idx = time.perf_counter() - t0
+        S, sz, R = index.blocks.shape
+        if dispatch == "fused":
+            flat = index.blocks.view(S * sz, R)
+            slab_eq = (torch.equal(flat[: g.n], dense_index.endpoints)
+                       and not bool(flat[g.n:].any()))
+            log("8 sharded_index", shards=S, shard_size=sz, build_s=t_idx,
+                equal_dense_row_padded=slab_eq)
+            assert (S, sz) == (SHARDS, -(-g.n // SHARDS)), (S, sz)
+            assert slab_eq, "stream-built blocks differ from the dense slab"
+        t0 = time.perf_counter()
+        results = [h.result() for h in submit_queries(svc, hubs)]
+        t_serve = time.perf_counter() - t0
+        same = all(
+            (a.vertices.tobytes(), a.scores.tobytes(), a.num_walks, a.waves,
+             a.epsilon_bound) == (b.vertices.tobytes(), b.scores.tobytes(),
+                                  b.num_walks, b.waves, b.epsilon_bound)
+            for a, b in zip(dense_results, results))
+        log("8 sharded", dispatch=dispatch, serve_s=t_serve,
+            waves=svc.scheduler.stats().waves_run,
+            query_latency_s=json.dumps([r.latency_s for r in results]),
+            equal_dense_answers=same)
+        assert svc.scheduler.dispatch == dispatch
+        assert same, f"{dispatch} answers differ from the dense service's"
+        services[dispatch] = svc
+    return services
+
+
+def phase_lost_wave(services, hubs, dev):
+    """One full wave with shard 3 lost: fused and loop byte-equal."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    g, sc = services["fused"].graph, services["fused"].config.serving
+    W, Q = sc.max_walks, sc.max_queries
+    lost = torch.zeros(SHARDS, dtype=torch.bool, device=dev)
+    lost[3] = True
+    out = {}
+    for name, svc in services.items():
+        out[name] = svc.scheduler._wave_for(W, Q)(
+            *wave_inputs(g.n, hubs, W, Q, dev), prng.PRNGKey(13, dev), lost)
+    equal = np.array_equal(out["fused"], out["loop"])
+    landed = int(out["fused"].sum())
+    log("8 lost_wave", lost_shard=3, walks=W, landed=landed, equal=equal)
+    assert equal and landed < W, "lost-shard waves differ between dispatches"
+
+
+def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded):
     """Each kernel at the main path's shapes: kernel vs plain (byte-equal),
-    times and bounds."""
+    times and bounds. ``launches`` maps each kernel to its count on the
+    path that runs it; ``blocked`` is the graph's slab layout and
+    ``sharded`` the S = 8 index."""
     import torch
     from repro_torch import prng
     from repro_torch.kernels import ops
@@ -273,7 +395,7 @@ def kernel_rows(svc, index, hubs, launches, dev):
                  ms=time_ms(kern), plain_ms=time_ms(plain),
                  bound_ms=bound_ms(nbytes), bound_by="bytes",
                  library_ms=time_ms(library) if library else None)
-        log("7 kernel", **{k: v for k, v in r.items()
+        log("9 kernel", **{k: v for k, v in r.items()
                            if k not in ("source", "replaces", "route")})
         rows.append(r)
 
@@ -333,7 +455,68 @@ def kernel_rows(svc, index, hubs, launches, dev):
     ms = time_ms(lambda: ops.frog_step(ipos, zeros, ibits, g.row_ptr,
                                        g.col_idx, g.out_deg, n, impl="cuda"),
                  reps=10)
-    log("7 frog_step_index_shape", frogs=C, ms=ms)
+    log("9 frog_step_index_shape", frogs=C, ms=ms)
+
+    # frog_step_stream_sorted at the batch superstep's shape, frogs sorted
+    bv, num_vb = blocked.vertex_block, blocked.num_blocks
+    pos_s, order = torch.sort(pos, stable=True)
+    seg_off = torch.searchsorted(
+        pos_s, torch.arange(num_vb + 1, dtype=torch.int32, device=dev) * bv,
+        out_int32=True)
+    die_s, bits_s = die[order], bits[order]
+    # the work items come from the wrapper's prologue: timed apart from
+    # the kernel, as the sort is
+    sched = ops.stream_schedule(seg_off, N)
+    vb = pos_s.long() // bv
+    local = pos_s.long() - vb * bv
+    d = blocked.deg[vb, local]
+    cidx = vb * blocked.e_blk + blocked.row_off[vb, local].long() + \
+        torch.remainder(bits_s, torch.clamp_min(d, 1)).long()
+    nb = (16 * N + 4 * num_vb * bv + 4 * (num_vb + 1)
+          + 32 * (2 * sectors(pos_s) + sectors(cidx[d > 0])))
+    row("frog_step_stream_sorted",
+        "src/repro_torch/kernels/csrc/frog_step_stream.cu",
+        "src/repro/kernels/frog_step_stream.py:215",
+        lambda: ops.frog_step_stream_sorted(pos_s, die_s, bits_s, seg_off,
+                                            sched, blocked, impl="cuda"),
+        lambda: kref.frog_step_stream_sorted_ref(
+            pos_s, die_s, bits_s, seg_off, blocked.row_off, blocked.deg,
+            blocked.col), nb)
+    # the whole streamed step (sort, kernel, unsort) at the index build's
+    # shape of one build shard: R · n / build_shards frogs
+    ms = time_ms(lambda: ops.frog_step(ipos, zeros, ibits, g.row_ptr,
+                                       g.col_idx, g.out_deg, n,
+                                       impl="stream", blocked=blocked),
+                 reps=10)
+    log("9 frog_step_stream_index_shape", frogs=C, ms=ms)
+
+    # the per-shard kernels at one wave's walks against shard 3's block
+    S, sz, _ = sharded.blocks.shape
+    base = 3 * sz
+    block = sharded.blocks[3]
+    lidx = wpos.long() - base
+    owned = (lidx >= 0) & (lidx < sz)
+    bidx = (lidx * R + torch.remainder(s0, R).long())[owned]
+    row("stitch_gather_local", "src/repro_torch/kernels/csrc/stitch_local.cu",
+        "src/repro/kernels/stitch.py:252",
+        lambda: ops.stitch_gather_local(wpos, s0, block, base, impl="cuda"),
+        lambda: kref.stitch_gather_local_ref(wpos, s0, block, base),
+        12 * W + 32 * sectors(bidx))
+    row("stitch_step_local", "src/repro_torch/kernels/csrc/stitch_local.cu",
+        "src/repro/kernels/stitch.py:300",
+        lambda: ops.stitch_step_local(wpos, stop, s0, block, base,
+                                      impl="cuda"),
+        lambda: kref.stitch_step_local_ref(wpos, stop, s0, block, base),
+        16 * W + 4 * sz + 32 * sectors(bidx))
+    # the 8 shards' rounds, summed, are stitch_step's round
+    parts = [ops.stitch_step_local(wpos, stop, s0, sharded.blocks[s], s * sz,
+                                   impl="cuda") for s in range(S)]
+    whole = ops.stitch_step(wpos, stop, s0, slab, n, impl="cuda")
+    composed = (torch.equal(sum(p[0] for p in parts), whole[0])
+                and torch.equal(torch.cat([p[1] for p in parts])[:n],
+                                whole[1]))
+    log("9 stitch_step_local_sum", shards=S, equal_stitch_step=composed)
+    assert composed, "per-shard stitch rounds do not sum to stitch_step"
     return rows
 
 
@@ -366,14 +549,19 @@ def device_busy_ms(fn) -> tuple:
     return wall, busy / 1e3, len(spans)
 
 
-def phase_profile(svc):
-    """Where one batch run and one serving wave spend their time."""
+def phase_profile(svc, stream_svc, loop_svc):
+    """Where a batch run (resident and streamed), a dense serving wave and
+    a loop wave over 8 shards spend their time."""
     for what, fn in (
             ("pagerank", lambda: svc.pagerank(epsilon=0.1, delta=0.1,
                                               k=100)),
-            ("wave", lambda: (svc.topk(k=10, epsilon=0.3), svc.step()))):
+            ("pagerank_stream", lambda: stream_svc.pagerank(
+                epsilon=0.1, delta=0.1, k=100)),
+            ("wave", lambda: (svc.topk(k=10, epsilon=0.3), svc.step())),
+            ("loop_wave", lambda: (loop_svc.topk(k=10, epsilon=0.3),
+                                   loop_svc.step()))):
         wall, busy, kernels = device_busy_ms(fn)
-        log("8 profile", what=what, wall_ms=wall,
+        log("10 profile", what=what, wall_ms=wall,
             device_busy_ms=busy if kernels else "not measured",
             idle_share=1 - busy / wall if kernels else "not measured",
             kernels=kernels)
@@ -403,17 +591,36 @@ def main() -> int:
     phase_build()
     g = phase_data(dev)
     svc = FrogWildService.open(g, RuntimeConfig())
+    # slice 1's path: batch estimate, walk index, serving
     ops.reset_launch_counts()
     res, pi = phase_batch(svc, dev)
-    index, hubs = phase_serving(svc, pi, dev)
+    index, hubs, results = phase_serving(svc, pi, dev)
     launches = ops.launch_counts()
-    log("launches", **launches)
-    missing = [k for k, v in launches.items() if v < 1]
+    log("launches", path="dense", **launches)
+    missing = [k for k in ("frog_step", "frog_count", "stitch_gather",
+                           "stitch_step") if launches[k] < 1]
     assert not missing, f"kernels never launched on the main path: {missing}"
     phase_plain(svc, res, index, hubs, dev)
-    rows = kernel_rows(svc, index, hubs, launches, dev)
-    phase_profile(svc)
-    svc.close()
+    # the streamed batch estimate and sharded serving
+    ops.reset_launch_counts()
+    stream_svc = phase_stream(g, res, pi, dev)
+    sharded = phase_sharded(g, index, results, hubs, dev)
+    launches2 = ops.launch_counts()
+    log("launches", path="stream_sharded", **launches2)
+    missing = [k for k in ("frog_step_stream_sorted", "stitch_gather_local",
+                           "stitch_gather", "frog_count")
+               if launches2[k] < 1]
+    assert not missing, f"kernels never launched on the path: {missing}"
+    phase_lost_wave(sharded, hubs, dev)
+    for k in ("frog_step_stream_sorted", "stitch_gather_local",
+              "stitch_step_local"):
+        launches[k] = launches2[k]
+    rows = kernel_rows(svc, index, hubs, launches, dev,
+                       stream_svc.blocked_csr(),
+                       sharded["fused"].ensure_index())
+    phase_profile(svc, stream_svc, sharded["loop"])
+    for s in (svc, stream_svc, *sharded.values()):
+        s.close()
     log("done", seconds=time.perf_counter() - t_all,
         peak_mem_bytes=torch.cuda.max_memory_allocated())
     print(smi, flush=True)

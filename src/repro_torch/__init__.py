@@ -3,8 +3,9 @@
 The same module layout and names as ``repro``; inside, plain PyTorch:
 functions on tensors, an explicit ``device`` and explicit PRNG keys
 (``repro_torch.prng``, bit for bit ``jax.random``'s threefry streams). The
-walker superstep, stitch rounds and histograms run through hand-written
-CUDA kernels (``repro_torch/kernels``) on the card and through their plain
+walker superstep (resident or streamed), the stitch rounds (over a dense
+slab or per shard) and the histograms run through hand-written CUDA
+kernels (``repro_torch/kernels``) on the card and through their plain
 PyTorch versions on the CPU. Entry points run on the card unless the
 caller passes ``device="cpu"``.
 
@@ -12,6 +13,8 @@ The port never imports ``jax`` or ``repro``.
 """
 from repro_torch.config import (FrogWildConfig, KernelConfig, RuntimeConfig,
                                 ServingConfig, ShardConfig, WalkIndexConfig)
+from repro_torch.distributed.runtime import ShardRuntime
+from repro_torch.query.index import ShardedWalkIndex, WalkIndex
 from repro_torch.service import (FrogWildService, QueryHandle,
                                  batch_pagerank, build_index)
 
@@ -23,6 +26,9 @@ __all__ = [
     "RuntimeConfig",
     "ServingConfig",
     "ShardConfig",
+    "ShardRuntime",
+    "ShardedWalkIndex",
+    "WalkIndex",
     "WalkIndexConfig",
     "batch_pagerank",
     "build_index",

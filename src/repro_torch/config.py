@@ -6,14 +6,21 @@ defaults, except the kernel flags, whose values name the port's backends:
 * ``"auto"``  — (default) the hand-written CUDA kernel for CUDA tensors, the
   plain PyTorch version for CPU tensors;
 * ``"cuda"``  — the CUDA kernel; a CPU tensor raises;
-* ``"torch"`` — the plain PyTorch version on any device.
+* ``"torch"`` — the plain PyTorch version on any device;
+* ``"stream"`` (``step_impl`` only) — the streamed superstep over
+  per-vertex-block slabs: its CUDA kernel for CUDA tensors, its plain
+  version for CPU tensors. The reference picks it under ``"auto"`` when the
+  graph outgrows a TPU core's VMEM; the card has no such budget, so here it
+  is asked for by name.
 
 A field exists here once the port reads it: the reference's blocking-draw,
 engine-placement and wave-supervision fields arrive with the slices that
 port them, so passing one today is a ``TypeError``, not a setting silently
-ignored. Erasure, more than one shard, checkpoints and fault injection
-raise ``NotImplementedError`` naming the ``ROADMAP.md`` Queue 1 item that
-ports them.
+ignored. ``num_shards > 1`` serves a sharded walk index on the service's
+one device (``ServingConfig.sharded_dispatch``: ``"fused"`` or
+``"loop"``). Erasure, checkpoints and fault injection raise
+``NotImplementedError`` naming the ``ROADMAP.md`` Queue 1 item that ports
+them.
 """
 from __future__ import annotations
 
@@ -26,6 +33,8 @@ DEFAULT_P_T = 0.15
 DEFAULT_P_S = 1.0
 
 KERNEL_IMPLS = ("auto", "cuda", "torch")
+STEP_IMPLS = KERNEL_IMPLS + ("stream",)
+SHARDED_DISPATCHES = ("fused", "loop")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -43,36 +52,39 @@ def _check_erasure(erasure: str) -> None:
 @dataclasses.dataclass(frozen=True)
 class KernelConfig:
     """Kernel dispatch flags. ``step_impl`` runs the walker superstep
-    (``frog_step``), ``stitch_impl`` the serving wave's stitch rounds
-    (``stitch_gather`` / ``stitch_step``), ``tally_impl`` the endpoint
-    histogram (``frog_count``: the batch cut-off tally and the wave
-    tally)."""
+    (``frog_step``, or ``frog_step_stream_sorted`` under ``"stream"``) of
+    the batch walk and the index build, ``stitch_impl`` the serving wave's
+    stitch rounds (``stitch_gather`` / ``stitch_step``, per shard
+    ``stitch_gather_local``), ``tally_impl`` the endpoint histogram
+    (``frog_count``: the batch cut-off tally and the wave tally)."""
 
-    step_impl: str = "auto"     # auto | cuda | torch
+    step_impl: str = "auto"     # auto | cuda | torch | stream
     stitch_impl: str = "auto"   # auto | cuda | torch
     tally_impl: str = "auto"    # auto | cuda | torch
 
     def __post_init__(self):
         for name in ("step_impl", "stitch_impl", "tally_impl"):
             v = getattr(self, name)
-            if v not in KERNEL_IMPLS:
+            allowed = STEP_IMPLS if name == "step_impl" else KERNEL_IMPLS
+            if v not in allowed:
                 raise ValueError(
-                    f"KernelConfig.{name} must be one of {KERNEL_IMPLS}, "
+                    f"KernelConfig.{name} must be one of {allowed}, "
                     f"got {v!r}")
 
 
 @dataclasses.dataclass(frozen=True)
 class ShardConfig:
-    """Placement: one shard so far, and the PRNG seed."""
+    """Placement: ``num_shards`` range shards of the walk index, served on
+    the service's one device (the mesh over several cards is ROADMAP.md
+    Queue 1 item 8), and the PRNG seed."""
 
     num_shards: int = 1
     seed: int = 0
 
     def __post_init__(self):
-        if self.num_shards > 1:
-            raise _not_ported(f"num_shards={self.num_shards}",
-                              "8 and 9, distributed engine and sharded "
-                              "serving")
+        if self.num_shards < 1:
+            raise ValueError(
+                f"num_shards must be ≥ 1, got {self.num_shards}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +96,9 @@ class ServingConfig:
     slab content unchanged. ``walk_buckets`` / ``query_buckets`` override
     the wave-shape ladder (each wave runs at the smallest bucket that fits
     its allocation; ``None`` = the cap and its halvings).
+    ``sharded_dispatch`` picks the wave over a sharded index: ``"fused"``,
+    one gather per round over the stacked blocks, or ``"loop"``, one
+    per-shard round per shard, byte-equal to it.
     """
 
     segments_per_vertex: int = 16    # R — endpoints stored per vertex
@@ -96,8 +111,13 @@ class ServingConfig:
     wave_time_estimate_s: Optional[float] = None  # seeds the admission EMA
     walk_buckets: Optional[Tuple[int, ...]] = None
     query_buckets: Optional[Tuple[int, ...]] = None
+    sharded_dispatch: str = "fused"  # fused | loop
 
     def __post_init__(self):
+        if self.sharded_dispatch not in SHARDED_DISPATCHES:
+            raise ValueError(
+                f"sharded_dispatch must be 'fused' or 'loop', got "
+                f"{self.sharded_dispatch!r}")
         if self.checkpoint_dir is not None:
             raise _not_ported("serving.checkpoint_dir",
                               "10, checkpoints and faults")

@@ -1,9 +1,10 @@
 """Carries the reference package's state across through numpy.
 
-The reference (``repro``) hands out graphs, walk-index slabs and PRNG keys
-as JAX arrays; ``np.asarray`` of them gives plain arrays, and these helpers
+The reference (``repro``) hands out graphs, walk-index slabs (dense or as
+per-shard blocks), streamed-step slab layouts and PRNG keys as JAX or
+numpy arrays; ``np.asarray`` of them gives plain arrays, and these helpers
 turn those into the port's objects, so both packages compute on the same
-graph, slab and key.
+graph, slab, layout and key.
 """
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ import torch
 from repro_torch import prng
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graph.csr import CSRGraph, _from_arrays
-from repro_torch.query.index import WalkIndex
+from repro_torch.kernels.frog_step_stream import BlockedCSR
+from repro_torch.query.index import ShardedWalkIndex, WalkIndex
 
 
 def graph_from_numpy(n: int, row_ptr, col_idx, epoch: int = 0,
@@ -41,6 +43,39 @@ def walk_index_from_numpy(endpoints, segment_len: int, seed: int,
             resolve_device(device)),
         segment_len=int(segment_len), seed=int(seed),
         graph_epoch=int(graph_epoch), mutation_offset=int(mutation_offset))
+
+
+def sharded_walk_index_from_numpy(blocks, n: int, segment_len: int,
+                                  seed: int, graph_epoch: int = 0,
+                                  mutation_offset: int = 0,
+                                  device: DeviceLike = "cpu"
+                                  ) -> ShardedWalkIndex:
+    """A ShardedWalkIndex from stacked ``int[S, shard_size, R]`` blocks, on
+    ``device``."""
+    b = np.asarray(blocks)
+    if b.ndim != 3 or b.shape[0] * b.shape[1] < int(n):
+        raise ValueError(f"blocks must be [S, shard_size, R] covering "
+                         f"n={n} rows, got shape {b.shape}")
+    return ShardedWalkIndex(
+        blocks=_i32(b, device), n=int(n), segment_len=int(segment_len),
+        seed=int(seed), graph_epoch=int(graph_epoch),
+        mutation_offset=int(mutation_offset))
+
+
+def blocked_csr_from_numpy(vertex_block: int, row_off, deg, col,
+                           device: DeviceLike = "cpu") -> BlockedCSR:
+    """A BlockedCSR from the reference's ``row_off`` / ``deg``
+    (``[num_vb, BV]``) and ``col`` (``[num_vb, E_blk]``) arrays."""
+    arrays = [np.asarray(a) for a in (row_off, deg, col)]
+    if any(a.ndim != 2 for a in arrays) or arrays[0].shape != arrays[1].shape:
+        raise ValueError("row_off and deg must be [num_vb, BV] and col "
+                         "[num_vb, E_blk]")
+    return BlockedCSR(int(vertex_block), *(_i32(a, device) for a in arrays))
+
+
+def _i32(a: np.ndarray, device: DeviceLike) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.int32)).to(
+        resolve_device(device))
 
 
 def key_from_jax(key_data, device: DeviceLike = "cpu") -> torch.Tensor:

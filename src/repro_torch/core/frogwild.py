@@ -4,14 +4,17 @@
 N frogs start uniformly at random, take at most ``t`` steps along P, die
 with probability ``p_T`` at each apply() and are tallied where they stop;
 π̂ = c/N (Definition 5). Every superstep runs through ``ops.frog_step``
-(the fused CUDA kernel on the card) and the cut-off tally through
-``ops.frog_count``. The key stream is the reference's, so counts and
-``pi_hat`` are byte-equal to ``repro.core.frogwild`` for the same key.
+(the fused CUDA kernel on the card, or with ``step_impl="stream"`` the
+streamed kernel over the graph's :class:`BlockedCSR` slabs, built once per
+run or passed in) and the cut-off tally through ``ops.frog_count``. The
+key stream is the reference's, so counts and ``pi_hat`` are byte-equal to
+``repro.core.frogwild`` for the same key.
 Erasure models (p_s < 1) come with a later slice.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -20,6 +23,7 @@ from repro_torch.config import FrogWildConfig
 from repro_torch.device import DeviceLike
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.kernels import ops
+from repro_torch.kernels.frog_step_stream import BlockedCSR, blocked_csr_of
 
 
 @dataclasses.dataclass
@@ -29,12 +33,16 @@ class FrogWildResult:
     num_frogs: int
 
 
-def _frogwild_walks(g: CSRGraph, cfg: FrogWildConfig, key: torch.Tensor
-                    ) -> FrogWildResult:
+def _frogwild_walks(g: CSRGraph, cfg: FrogWildConfig, key: torch.Tensor,
+                    blocked: Optional[BlockedCSR] = None) -> FrogWildResult:
     """Runs the FrogWild! process on ``g``'s device with ``key`` (a key on
-    the same device) and returns the stop-counter estimator."""
+    the same device) and returns the stop-counter estimator. ``blocked``
+    is ``g``'s slab layout for ``step_impl="stream"`` (built here when not
+    given)."""
     n = g.n
     N, t = cfg.num_frogs, cfg.num_steps
+    if cfg.step_impl == "stream" and blocked is None:
+        blocked = blocked_csr_of(g)
     k_init, k_loop = prng.split(key)
     pos = prng.randint(k_init, (N,), 0, n)
     alive = torch.ones(N, dtype=torch.bool, device=pos.device)
@@ -46,7 +54,7 @@ def _frogwild_walks(g: CSRGraph, cfg: FrogWildConfig, key: torch.Tensor
         slot_bits = prng.randint(k_move, (N,), 0, 1 << 30)
         nxt, death_counts = ops.frog_step(
             pos, die, slot_bits, g.row_ptr, g.col_idx, g.out_deg, n,
-            impl=cfg.step_impl)
+            impl=cfg.step_impl, blocked=blocked)
         counts += death_counts
         alive &= ~die
         pos = torch.where(alive, nxt, pos)

@@ -37,6 +37,12 @@ SIGNATURES = {
     "fw_frog_count": [_c_void_p] * 2 + [_c_int64, _c_int64, _c_void_p],
     "fw_stitch_gather": [_c_void_p] * 4 + [_c_int64, _c_int32, _c_void_p],
     "fw_stitch_step": [_c_void_p] * 6 + [_c_int64, _c_int32, _c_void_p],
+    "fw_stitch_gather_local": [_c_void_p] * 4 + [_c_int64] * 3
+    + [_c_int32, _c_void_p],
+    "fw_stitch_step_local": [_c_void_p] * 6 + [_c_int64] * 3
+    + [_c_int32, _c_void_p],
+    "fw_frog_step_stream_sorted": [_c_void_p] * 11 + [_c_int64]
+    + [_c_int32] * 5 + [_c_void_p],
 }
 
 _LOCK = threading.Lock()

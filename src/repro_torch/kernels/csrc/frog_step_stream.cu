@@ -1,0 +1,114 @@
+// frog_step_stream_sorted: the plain (p_s = 1) walker superstep over frogs
+// sorted by vertex, reading the graph as per-vertex-block slabs.
+//
+// Replaces the TPU kernel src/repro/kernels/frog_step_stream.py:215
+// ``frog_step_stream_sorted`` (pallas_call at :257, body ``_stream_kernel``
+// at :157). It computes what frog_step computes, on sorted frogs:
+//
+//   v = the vertex block of the frog's run, local = pos - v * BV
+//   d         = deg[v, local]
+//   next[f]   = d > 0 ? col[v, row_off[v, local] + abs(bits[f]) % d] : pos
+//   counts[pos[f]] += die[f]
+//
+// Layout (kernels/frog_step_stream.py:BlockedCSR): row_off and deg are
+// int32[num_vb, BV], col is int32[num_vb, E_blk] with each block's edges at
+// the front. The wrapper (ops.frog_step, impl "stream") sorts the frogs by
+// vertex, finds each block's run seg_off[v] .. seg_off[v+1], and cuts the
+// runs into CTA work items of at most FB frogs: cta_vid[c] is the block of
+// item c (num_vb for a spare item, which exits), cta_lo[c] its first frog.
+//
+// Design: one CTA per work item. It stages its block's row_off and deg
+// (2 x BV int32) in shared memory and tallies deaths into a shared
+// int32[BV] histogram that it adds to the global counts once, one
+// atomicAdd per nonzero bin. Its col slab (E_blk int32) it stages only
+// where that pays: staging reads E_blk·4 bytes, while the run's frogs read
+// at most one 32-byte sector each from device memory, so a CTA stages when
+// its run has at least E_blk / 8 frogs and the launch allows it. The
+// wrapper allows it (stage_col, which also sizes the shared memory) when
+// the slab fits and the frogs average E_blk / 8 per block; at 400,000
+// frogs over 9,468 blocks of E_blk ~ 7.6k they average 42, and every CTA
+// reads col from device memory. A hub block whose E_blk·4 exceeds the
+// slab is read from device memory the same way. The TPU kernel padded
+// every block's run to whole frog blocks and tallied by prefix sums over
+// the sorted tile; runs are cut without padding here, and the shared
+// histogram gives the same integers in any order.
+//
+// Bound (bytes only, 3.35 TB/s): 16 B per frog streamed (pos, die, bits,
+// next), one 32-byte sector per distinct sector of row_off, deg and col the
+// frogs touch, and the 4·n_pad-byte counts output written once.
+#include "common.cuh"
+
+__global__ void frog_step_stream_kernel(
+    const int32_t* __restrict__ pos, const int32_t* __restrict__ die,
+    const int32_t* __restrict__ bits, const int32_t* __restrict__ cta_vid,
+    const int32_t* __restrict__ cta_lo, const int32_t* __restrict__ seg_off,
+    const int32_t* __restrict__ row_off, const int32_t* __restrict__ deg,
+    const int32_t* __restrict__ col, int32_t* __restrict__ next,
+    int32_t* __restrict__ counts, int32_t num_vb, int32_t BV, int32_t E_blk,
+    int32_t FB, int32_t stage_col) {
+  extern __shared__ int32_t smem[];
+  const int32_t v = cta_vid[blockIdx.x];
+  if (v >= num_vb) return;                 // spare work item
+  int32_t* s_row_off = smem;
+  int32_t* s_deg = smem + BV;
+  int32_t* s_hist = smem + 2 * BV;
+  int32_t* s_col = smem + 3 * BV;
+  const int64_t vbase = (int64_t)v * BV;
+  for (int32_t i = threadIdx.x; i < BV; i += blockDim.x) {
+    s_row_off[i] = row_off[vbase + i];
+    s_deg[i] = deg[vbase + i];
+    s_hist[i] = 0;
+  }
+  const int64_t lo = cta_lo[blockIdx.x];
+  const int64_t end = seg_off[v + 1];
+  const int64_t hi = lo + FB < end ? lo + FB : end;
+  const bool stage = stage_col && (hi - lo) * 8 >= E_blk;
+  const int32_t* gcol = col + (int64_t)v * E_blk;
+  if (stage) {
+    for (int32_t i = threadIdx.x; i < E_blk; i += blockDim.x) {
+      s_col[i] = gcol[i];
+    }
+  }
+  __syncthreads();
+  const int32_t* cols = stage ? s_col : gcol;
+  for (int64_t f = lo + threadIdx.x; f < hi; f += blockDim.x) {
+    const int32_t p = pos[f];
+    const int32_t local = (int32_t)((int64_t)p - vbase);
+    const int32_t d = s_deg[local];
+    int32_t nxt = p;
+    if (d > 0) nxt = cols[s_row_off[local] + fw_slot(bits[f], d)];
+    next[f] = nxt;
+    const int32_t k = die[f];
+    if (k != 0) atomicAdd(&s_hist[local], k);
+  }
+  __syncthreads();
+  for (int32_t i = threadIdx.x; i < BV; i += blockDim.x) {
+    const int32_t h = s_hist[i];
+    if (h != 0) atomicAdd(&counts[vbase + i], h);
+  }
+}
+
+extern "C" int fw_frog_step_stream_sorted(
+    const void* pos, const void* die, const void* bits, const void* cta_vid,
+    const void* cta_lo, const void* seg_off, const void* row_off,
+    const void* deg, const void* col, void* next, void* counts,
+    int64_t num_cta, int32_t num_vb, int32_t BV, int32_t E_blk, int32_t FB,
+    int32_t stage_col, void* stream) {
+  if (num_cta <= 0) return (int)cudaGetLastError();
+  const size_t smem =
+      sizeof(int32_t) * ((size_t)3 * BV + (stage_col ? (size_t)E_blk : 0));
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        frog_step_stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  frog_step_stream_kernel<<<(unsigned int)num_cta, FW_THREADS, smem,
+                            (cudaStream_t)stream>>>(
+      (const int32_t*)pos, (const int32_t*)die, (const int32_t*)bits,
+      (const int32_t*)cta_vid, (const int32_t*)cta_lo,
+      (const int32_t*)seg_off, (const int32_t*)row_off, (const int32_t*)deg,
+      (const int32_t*)col, (int32_t*)next, (int32_t*)counts, num_vb, BV,
+      E_blk, FB, stage_col);
+  return (int)cudaGetLastError();
+}

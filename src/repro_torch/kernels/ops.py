@@ -1,5 +1,5 @@
-"""Wrappers over the port's four CUDA kernels (port of the matching
-wrappers in ``repro/kernels/ops.py``).
+"""Wrappers over the port's CUDA kernels (port of the matching wrappers in
+``repro/kernels/ops.py``).
 
 Same signatures and semantics as the reference: natural shapes, int32 slot
 bits taken as ``abs(bits)`` (inside the kernel, so no extra pass),
@@ -10,6 +10,13 @@ bits taken as ``abs(bits)`` (inside the kernel, so no extra pass),
   (``ref.py``) for CPU tensors;
 * ``"cuda"``  — the CUDA kernel; CPU tensors raise;
 * ``"torch"`` — the plain version on any device.
+
+``frog_step`` also takes ``"stream"``: the streamed superstep (sort by
+vertex, ``frog_step_stream_sorted`` over the :class:`BlockedCSR` slabs,
+unsort), whose kernel runs for CUDA tensors and whose plain version runs
+for CPU tensors. The reference switches to it when the graph outgrows the
+TPU core's VMEM; the card has no such budget, so ``"auto"`` stays on the
+resident kernel and ``"stream"`` is asked for by name.
 
 A CUDA tensor never falls back to the plain version: the kernel launches
 or the wrapper raises. Each wrapper adds one to ``LAUNCHES[name]`` where it
@@ -25,9 +32,20 @@ import torch
 from repro_torch.config import KERNEL_IMPLS as IMPLS
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels.frog_step_stream import BlockedCSR, block_csr
 
 LAUNCHES: Dict[str, int] = {"frog_step": 0, "frog_count": 0,
-                            "stitch_gather": 0, "stitch_step": 0}
+                            "stitch_gather": 0, "stitch_step": 0,
+                            "stitch_gather_local": 0, "stitch_step_local": 0,
+                            "frog_step_stream_sorted": 0}
+
+# Frogs per CTA work item of the streamed superstep.
+STREAM_FROG_BLOCK = 1024
+# Largest col slab a streamed launch stages in shared memory; a graph
+# whose E_blk·4 exceeds it (a hub block) reads col from device memory, as
+# does a launch whose frogs average fewer than E_blk / 8 per vertex block
+# (csrc/frog_step_stream.cu says why).
+STREAM_SMEM_COL_BYTES = 96 * 1024
 
 
 def launch_counts() -> Dict[str, int]:
@@ -85,10 +103,16 @@ def _launch(name: str, device: torch.device, *args) -> None:
 
 def frog_step(pos: torch.Tensor, die: torch.Tensor, bits: torch.Tensor,
               row_ptr: torch.Tensor, col_idx: torch.Tensor,
-              deg: torch.Tensor, n: int, impl: str = "auto"
+              deg: torch.Tensor, n: int, impl: str = "auto",
+              blocked: Optional[BlockedCSR] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused plain walker superstep → ``(next_pos int32[N], death_counts
-    int32[n])``."""
+    int32[n])``. ``impl="stream"`` runs the streamed superstep over
+    ``blocked`` (built here from the CSR when not given; callers that step
+    many times pass it in)."""
+    if impl == "stream":
+        return _frog_step_stream(pos, die, bits, row_ptr, col_idx, deg, n,
+                                 blocked)
     name = "frog_step"
     use = _use_kernel(name, impl, pos, die, bits, row_ptr, col_idx, deg)
     die = die.to(torch.int32).contiguous()
@@ -174,4 +198,157 @@ def stitch_step(pos: torch.Tensor, stop: torch.Tensor, bits: torch.Tensor,
         _launch(name, pos.device, pos.data_ptr(), stop.data_ptr(),
                 bits.data_ptr(), endpoints.data_ptr(), nxt.data_ptr(),
                 counts.data_ptr(), W, endpoints.shape[1])
+    return nxt, counts
+
+
+def _frog_step_stream(pos, die, bits, row_ptr, col_idx, deg, n: int,
+                      blocked: Optional[BlockedCSR]):
+    """Stream-path prologue and epilogue: a stable sort of the frogs by
+    vertex, each vertex block's run of sorted frogs (``seg_off``), the
+    sorted kernel, and the unsort. Runs are not padded; blocks no frog
+    visits keep zero counts."""
+    if blocked is None:
+        blocked = block_csr(row_ptr, col_idx, deg, n)
+    if blocked.n_pad < n:
+        raise ValueError(f"frog_step: the BlockedCSR covers {blocked.n_pad} "
+                         f"vertices, the graph has {n}")
+    _check_i32("frog_step", "pos", pos)
+    bv, num_vb = blocked.vertex_block, blocked.num_blocks
+    pos_s, order = torch.sort(pos, stable=True)
+    edges = torch.arange(num_vb + 1, dtype=torch.int32,
+                         device=pos.device) * bv
+    seg_off = torch.searchsorted(pos_s, edges, out_int32=True)
+    nxt_s, counts = frog_step_stream_sorted(
+        pos_s, die.to(torch.int32)[order], bits[order], seg_off,
+        stream_schedule(seg_off, pos.shape[0]), blocked)
+    nxt = torch.empty_like(pos)
+    nxt[order] = nxt_s
+    return nxt, counts[:n]
+
+
+def frog_step_stream_sorted(pos: torch.Tensor, die: torch.Tensor,
+                            bits: torch.Tensor, seg_off: torch.Tensor,
+                            schedule: Tuple[int, torch.Tensor, torch.Tensor],
+                            blocked: BlockedCSR, impl: str = "auto"
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The streamed superstep on frogs sorted by vertex, block ``v``'s run
+    being ``seg_off[v] .. seg_off[v + 1]`` → ``(next int32[N], death_counts
+    int32[n_pad])`` in the sorted order. ``schedule`` is
+    :func:`stream_schedule` of ``seg_off``: the kernel's work items, which
+    the plain version does not need."""
+    name = "frog_step_stream_sorted"
+    use = _use_kernel(name, impl, pos, die, bits, seg_off, *schedule[1:],
+                      blocked.row_off, blocked.deg, blocked.col)
+    die = die.to(torch.int32).contiguous()
+    N = pos.shape[0]
+    bv, num_vb, e_blk = (blocked.vertex_block, blocked.num_blocks,
+                         blocked.e_blk)
+    _check_i32(name, "pos", pos)
+    _check_i32(name, "die", die, numel=N)
+    _check_i32(name, "bits", bits, numel=N)
+    _check_i32(name, "seg_off", seg_off, numel=num_vb + 1)
+    for arg in ("row_off", "deg", "col"):
+        _check_i32(name, arg, getattr(blocked, arg), ndim=2)
+    if not use:
+        return kref.frog_step_stream_sorted_ref(
+            pos, die, torch.abs(bits), seg_off, blocked.row_off,
+            blocked.deg, blocked.col)
+    num_cta, cta_vid, cta_lo = schedule
+    _check_i32(name, "cta_vid", cta_vid, numel=num_cta)
+    _check_i32(name, "cta_lo", cta_lo, numel=num_cta)
+    nxt = torch.empty_like(pos)
+    counts = torch.zeros(num_vb * bv, dtype=torch.int32, device=pos.device)
+    if N:
+        _launch(name, pos.device, pos.data_ptr(), die.data_ptr(),
+                bits.data_ptr(), cta_vid.data_ptr(), cta_lo.data_ptr(),
+                seg_off.data_ptr(), blocked.row_off.data_ptr(),
+                blocked.deg.data_ptr(), blocked.col.data_ptr(),
+                nxt.data_ptr(), counts.data_ptr(), num_cta, num_vb, bv,
+                e_blk, STREAM_FROG_BLOCK,
+                int(4 * e_blk <= STREAM_SMEM_COL_BYTES
+                    and 8 * N >= e_blk * num_vb))
+    return nxt, counts
+
+
+def stream_schedule(seg_off: torch.Tensor, N: int,
+                    fb: int = STREAM_FROG_BLOCK
+                    ) -> Tuple[int, torch.Tensor, torch.Tensor]:
+    """The streamed kernel's CTA work items: each block's run of sorted
+    frogs cut into pieces of at most ``fb`` frogs → ``(num_cta, cta_vid
+    int32[num_cta], cta_lo int32[num_cta])``, item ``c`` covering frogs
+    ``cta_lo[c] .. min(cta_lo[c] + fb, seg_off[v + 1])`` of block ``v =
+    cta_vid[c]``. ``num_cta`` is the bound ``ceil(N / fb) + min(num_vb,
+    N)``, so nothing is read back to the host; the spare items carry
+    ``cta_vid = num_vb`` and do nothing."""
+    num_vb = seg_off.shape[0] - 1
+    items = torch.div(seg_off[1:] - seg_off[:-1] + fb - 1, fb,
+                      rounding_mode="floor").long()
+    ends = torch.cumsum(items, 0)
+    num_cta = -(-N // fb) + min(num_vb, N)
+    c = torch.arange(num_cta, device=seg_off.device)
+    vid = torch.searchsorted(ends, c, right=True)
+    v = torch.clamp_max(vid, num_vb - 1)
+    lo = seg_off[v].long() + (c - (ends[v] - items[v])) * fb
+    return num_cta, vid.to(torch.int32), lo.to(torch.int32)
+
+
+def _check_block(name: str, block: torch.Tensor, base: int) -> None:
+    _check_i32(name, "block", block, ndim=2)
+    if int(base) < 0:
+        raise ValueError(f"{name}: base must be ≥ 0, got {base}")
+
+
+def stitch_gather_local(pos: torch.Tensor, bits: torch.Tensor,
+                        block: torch.Tensor, base: int, impl: str = "auto"
+                        ) -> torch.Tensor:
+    """Per-shard gather-only stitch round against one shard's
+    ``int32[sz, R]`` block: walks the shard owns (``0 ≤ pos − base < sz``)
+    get ``block[pos − base, abs(bits) % R]``, the rest 0."""
+    name = "stitch_gather_local"
+    use = _use_kernel(name, impl, pos, bits, block)
+    _check_i32(name, "pos", pos)
+    _check_i32(name, "bits", bits, numel=pos.shape[0])
+    _check_block(name, block, base)
+    if not use:
+        return kref.stitch_gather_local_ref(pos, torch.abs(bits), block, base)
+    nxt = torch.empty_like(pos)
+    if pos.numel():
+        _launch(name, pos.device, pos.data_ptr(), bits.data_ptr(),
+                block.data_ptr(), nxt.data_ptr(), pos.numel(), int(base),
+                block.shape[0], block.shape[1])
+    return nxt
+
+
+def stitch_step_local(pos: torch.Tensor, stop: torch.Tensor,
+                      bits: torch.Tensor, block: torch.Tensor, base: int,
+                      impl: str = "auto", tally: bool = True
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Per-shard stitch round → ``(next_contrib int32[W], stop_counts
+    int32[sz])``: owned walks gather from the block and owned stopped walks
+    are tallied into the shard's local bins; the rest contribute 0, so the
+    outputs summed over the shards equal :func:`stitch_step`'s.
+
+    ``tally=False`` runs the gather-only kernel and returns
+    ``(next_contrib, None)``, byte-identical contributions.
+    """
+    if not tally:
+        return stitch_gather_local(pos, bits, block, base, impl=impl), None
+    name = "stitch_step_local"
+    use = _use_kernel(name, impl, pos, stop, bits, block)
+    stop = stop.to(torch.int32).contiguous()
+    W = pos.shape[0]
+    _check_i32(name, "pos", pos)
+    _check_i32(name, "stop", stop, numel=W)
+    _check_i32(name, "bits", bits, numel=W)
+    _check_block(name, block, base)
+    if not use:
+        return kref.stitch_step_local_ref(pos, stop, torch.abs(bits), block,
+                                          base)
+    sz, R = block.shape
+    nxt = torch.empty_like(pos)
+    counts = torch.zeros(sz, dtype=torch.int32, device=pos.device)
+    if W:
+        _launch(name, pos.device, pos.data_ptr(), stop.data_ptr(),
+                bits.data_ptr(), block.data_ptr(), nxt.data_ptr(),
+                counts.data_ptr(), W, int(base), sz, R)
     return nxt, counts

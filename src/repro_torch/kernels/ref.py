@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's four kernels (port of the matching
+"""Plain PyTorch versions of the port's kernels (port of the matching
 oracles in ``repro/kernels/ref.py``).
 
 Each computes exactly what its CUDA kernel computes, on any device; the
@@ -48,4 +48,56 @@ def stitch_step_ref(pos, stop, bits, endpoints, n: int):
     nxt = stitch_gather_ref(pos, bits, endpoints)
     counts = torch.zeros(n, dtype=torch.int32, device=pos.device)
     counts.index_add_(0, pos.long(), stop.to(torch.int32))
+    return nxt, counts
+
+
+def _local(pos, base: int, sz: int):
+    """``(owned bool[W], clamped local row int64[W])`` of walks against the
+    shard that owns rows ``[base, base + sz)``."""
+    local = pos.long() - int(base)
+    owned = (local >= 0) & (local < sz)
+    return owned, torch.clamp(local, 0, sz - 1)
+
+
+def stitch_gather_local_ref(pos, bits, block, base: int):
+    """The per-shard gather: owned walks (``0 ≤ pos − base < sz``) get
+    ``block[pos − base, bits % R]``, every other walk 0."""
+    sz, R = block.shape
+    owned, li = _local(pos, base, sz)
+    nxt = block.reshape(-1)[li * R + torch.remainder(bits, R).long()]
+    return torch.where(owned, nxt, 0).to(torch.int32)
+
+
+def stitch_step_local_ref(pos, stop, bits, block, base: int):
+    """The per-shard stitch round: ``(next int32[W], stop_counts
+    int32[sz])``; owned stopped walks are tallied into the shard's local
+    bins. Summed over the shards, both equal :func:`stitch_step_ref`."""
+    sz = block.shape[0]
+    owned, li = _local(pos, base, sz)
+    counts = torch.zeros(sz + 1, dtype=torch.int32, device=pos.device)
+    counts.index_add_(0, torch.where(owned, li, sz), stop.to(torch.int32))
+    return stitch_gather_local_ref(pos, bits, block, base), counts[:sz]
+
+
+def frog_step_stream_sorted_ref(pos, die, bits, seg_off, row_off, deg, col):
+    """The streamed superstep on frogs sorted by vertex: ``(next int32[N],
+    death_counts int32[n_pad])`` in the sorted order.
+
+    Frog ``f`` of block ``v``'s run ``seg_off[v] ≤ f < seg_off[v + 1]``
+    moves to ``col[v, row_off[v, local] + bits % d]`` with ``local = pos −
+    v·BV`` and ``d = deg[v, local]`` (stays put when ``d = 0``); deaths are
+    tallied at the frog's vertex.
+    """
+    num_vb, bv = deg.shape
+    N = pos.shape[0]
+    runs = (seg_off[1:] - seg_off[:-1]).long()
+    v = torch.repeat_interleave(torch.arange(num_vb, device=pos.device),
+                                runs, output_size=N)
+    local = pos.long() - v * bv
+    d = deg[v, local]
+    slot = torch.remainder(bits, torch.clamp_min(d, 1)).long()
+    edge = torch.where(d > 0, row_off[v, local].long() + slot, 0)
+    nxt = torch.where(d > 0, col[v, edge], pos).to(torch.int32)
+    counts = torch.zeros(num_vb * bv, dtype=torch.int32, device=pos.device)
+    counts.index_add_(0, pos.long(), die.to(torch.int32))
     return nxt, counts

@@ -2,7 +2,8 @@
 from repro_torch.query.engine import (QueryPlan, WaveSpec, build_wave_program,
                                       plan_query, query_counts,
                                       sample_walk_lengths, walk_wave)
-from repro_torch.query.index import WalkIndex
+from repro_torch.query.index import (ShardedWalkIndex, WalkIndex,
+                                     shard_walk_index)
 from repro_torch.query.scheduler import (AdmissionDecision, QueryPartial,
                                          QueryRequest, QueryResult,
                                          QueryScheduler, RejectReason,
@@ -17,11 +18,13 @@ __all__ = [
     "QueryScheduler",
     "RejectReason",
     "SchedulerStats",
+    "ShardedWalkIndex",
     "WalkIndex",
     "WaveSpec",
     "build_wave_program",
     "plan_query",
     "query_counts",
     "sample_walk_lengths",
+    "shard_walk_index",
     "walk_wave",
 ]

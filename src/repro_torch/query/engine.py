@@ -9,9 +9,10 @@ vertex (an exact sample of ``P^L``). Round ``j`` reads slot ``(s0 + j) mod
 R`` (per-walk random ``s0``), so a walk never rereads a slab cell while
 ``q ≤ R``. Per-query planning inverts Theorem 1 at ``p_s = 1``.
 
-The stitch rounds run through ``ops.stitch_gather`` (waves) or
-``ops.stitch_step`` (``walk_wave`` / ``query_counts``) and the wave's
-per-query histogram through ``ops.frog_count``. Key streams are the
+The stitch rounds run through ``ops.stitch_gather`` (waves, over a dense
+slab or a sharded index's stacked blocks) or ``ops.stitch_step``
+(``walk_wave`` / ``query_counts``) and the wave's per-query histogram
+through ``ops.frog_count``. Key streams are the
 reference's, so positions and counts are byte-equal to ``repro.query``.
 """
 from __future__ import annotations
@@ -137,9 +138,10 @@ def _plain_steps(row_ptr: torch.Tensor, col_idx: torch.Tensor,
 @dataclasses.dataclass(frozen=True)
 class WaveSpec:
     """Geometry of one scheduler wave: ``(W, Q)`` are the bucket shapes
-    (walk slots / query slots the operands are padded to) and ``q_max`` the
-    stitch-round budget. Dense single-device slab only; the sharded fields
-    of the reference come with sharded serving."""
+    (walk slots / query slots the operands are padded to), ``q_max`` the
+    stitch-round budget, and ``(S, sz)`` the shard granularity of the
+    eviction mask (``S = 1`` and ``sz = 0``, meaning ``n``, for a dense
+    slab, whose mask never flips)."""
 
     n: int               # graph vertices (tally bins per query row)
     R: int               # segments per vertex
@@ -150,6 +152,38 @@ class WaveSpec:
     p_T: float           # geometric stop probability
     impl: str            # stitch backend: auto | cuda | torch
     tally_impl: str      # histogram backend: auto | cuda | torch
+    S: int = 1           # shards (eviction-mask entries)
+    sz: int = 0          # shard size (0: n, a dense slab)
+
+
+def lost_of(lost: torch.Tensor, pos: torch.Tensor, S: int, sz: int
+            ) -> torch.Tensor:
+    """``lost[clip(pos // sz, 0, S − 1)]``: bool[W], True for walks sitting
+    in an evicted shard's rows."""
+    shard = torch.clamp(torch.div(pos, sz, rounding_mode="floor"), 0, S - 1)
+    return lost[shard.long()]
+
+
+def stitch_rounds(pos: torch.Tensor, q: torch.Tensor, q_max: int,
+                  round_fn: Callable[[torch.Tensor, int], torch.Tensor],
+                  lost_fn: Optional[Callable[[torch.Tensor], torch.Tensor]]
+                  = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``q_max`` stitch rounds: ``round_fn(pos, j)`` is round ``j``'s next
+    position for every walk, taken by the walks with ``j < q``. With
+    ``lost_fn(pos)`` marking walks in an evicted shard's rows, a walk that
+    still needs a gather there, or whose final vertex lies there, dies and
+    keeps its position. Returns ``(pos, alive)``, ``alive`` bool[W] or
+    ``None`` when no ``lost_fn`` is given (every walk lives)."""
+    if lost_fn is None:
+        for j in range(q_max):
+            pos = torch.where(j < q, round_fn(pos, j), pos)
+        return pos, None
+    alive = torch.ones_like(pos, dtype=torch.bool)
+    for j in range(q_max):
+        alive &= ~(lost_fn(pos) & (j < q))
+        pos = torch.where((j < q) & alive, round_fn(pos, j), pos)
+    alive &= ~lost_fn(pos)
+    return pos, alive
 
 
 def wave_prep(row_ptr: torch.Tensor, col_idx: torch.Tensor,
@@ -175,23 +209,42 @@ def build_wave_program(spec: WaveSpec) -> Callable[..., torch.Tensor]:
 
     Signature of the returned function::
 
-        wave(slab, row_ptr, col_idx, deg, start, uniform, qid, t_cap, key)
-            -> int32[Q, n]
+        wave(slab, row_ptr, col_idx, deg, start, uniform, qid, t_cap, key,
+             lost=None) -> int32[Q, n]
 
-    ``slab`` is the dense ``int32[n, R]`` endpoint slab. Walk ``w`` lands
-    in row ``qid[w]`` of the tally; idle slots carry ``qid = Q`` and land
-    in a discard row that is dropped.
+    ``slab`` is the dense ``int32[n, R]`` slab, or a sharded index's
+    stacked blocks viewed as ``int32[S·sz, R]`` (row-padded; walk positions
+    are graph vertices < n ≤ S·sz, so the padding rows are never gathered,
+    and gathering from the stacked blocks is byte-equal to the per-shard
+    masked gather and sum of the loop wave). Walk ``w`` lands in row
+    ``qid[w]`` of the tally; idle slots carry ``qid = Q`` and land in a
+    discard row that is dropped.
+
+    ``lost`` is the bool[S] eviction mask: a walk that still needs a gather
+    while sitting in a lost shard's rows, or whose final vertex lies in
+    one, dies (its position freezes and it lands in the discard row). An
+    all-False mask leaves the counts unchanged; ``None`` (no shard lost)
+    skips the mask altogether.
     """
-    n, L, Q = spec.n, spec.L, spec.Q
+    n, L, Q, S = spec.n, spec.L, spec.Q, spec.S
+    sz = spec.sz or n
 
-    def wave(slab, row_ptr, col_idx, deg, start, uniform, qid, t_cap, key):
+    def wave(slab, row_ptr, col_idx, deg, start, uniform, qid, t_cap, key,
+             lost=None):
         pos, q, s0 = wave_prep(row_ptr, col_idx, deg, start, uniform,
                                t_cap, key, n=n, L=L, p_T=spec.p_T)
-        for j in range(spec.q_max):
+
+        def round_fn(pos, j):
             # gather-only stitch kernel: the wave histograms once, below.
             nxt, _ = ops.stitch_step(pos, (q == j), s0 + j, slab, n,
                                      impl=spec.impl, tally=False)
-            pos = torch.where(j < q, nxt, pos)
+            return nxt
+
+        pos, alive = stitch_rounds(
+            pos, q, spec.q_max, round_fn,
+            None if lost is None else lambda p: lost_of(lost, p, S, sz))
+        if alive is not None:
+            qid = torch.where(alive, qid, Q)     # dead walks → discard row
         counts = ops.frog_count(pos + qid * n, (Q + 1) * n,
                                 impl=spec.tally_impl)
         return counts.reshape(Q + 1, n)[:Q]

@@ -1,5 +1,5 @@
-"""Host-side continuous-batching query scheduler, dense single-device path
-(port of the "gathered" path of ``repro/query/scheduler.py``).
+"""Host-side continuous-batching query scheduler on one device (port of
+the single-device paths of ``repro/query/scheduler.py``).
 
 Each wave: queued queries claim free query slots earliest deadline first
 (admit); walk slots are split fairly among active queries, shares and
@@ -16,10 +16,22 @@ wave time, charged for the admitted walk demand that outranks it, and
 rejected or (``allow_downgrade``) shrunk with the weaker guarantee recorded
 in ``QueryPlan.epsilon_bound``.
 
-The key stream, bucket choice and allocation are the reference's, so
-results are byte-equal to ``repro.query.scheduler`` for the same seed.
-The sharded, mesh and legacy-loop waves and the fault supervisor come with
-later slices.
+The index is dense (:class:`WalkIndex`, dispatch ``"gathered"``) or
+sharded (:class:`ShardedWalkIndex`), and a sharded one is served in one of
+two ways, as the reference serves it on one device:
+
+* ``"fused"`` — the gathered wave over the stacked blocks viewed as the
+  row-padded ``[S·sz, R]`` slab (no copy): one ``stitch_gather`` per round;
+* ``"loop"`` — per round, one ``stitch_gather_local`` per shard against
+  its own block, the contributions summed; per wave, one shard-local
+  histogram per shard. The reference keeps it as the structural twin the
+  fused wave is byte-compared against.
+
+Every wave takes the bool[S] eviction mask ``lost``, ``None`` while no
+shard is lost; the eviction that sets it needs the fault supervisor, which
+comes with a later slice, as do the mesh wave and the degraded bound. The key stream, bucket
+choice and allocation are the reference's, so results are byte-equal to
+``repro.query.scheduler`` for the same seed, on every dispatch.
 """
 from __future__ import annotations
 
@@ -27,17 +39,21 @@ import dataclasses
 import enum
 import math
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Set, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.config import SHARDED_DISPATCHES
 from repro_torch.core import theory
+from repro_torch.distributed.runtime import ShardRuntime
 from repro_torch.graph.csr import CSRGraph
+from repro_torch.kernels import ops
 from repro_torch.query.engine import (QueryPlan, WaveSpec, build_wave_program,
-                                      plan_query)
-from repro_torch.query.index import WalkIndex
+                                      lost_of, plan_query, stitch_rounds,
+                                      wave_prep)
+from repro_torch.query.index import ShardedWalkIndex, WalkIndex
 
 # A "clean" wave more than this factor above the EMA is clamped before the
 # fold — one GC pause must not trip SLO rejections.
@@ -81,7 +97,7 @@ class QueryRequest:
 
 class RejectReason(str, enum.Enum):
     """Why admission refused a request (``SHARD_LOSS`` is reserved for the
-    sharded-serving slice)."""
+    fault supervisor's re-check after an eviction, a later slice)."""
 
     NONE = "none"
     INFEASIBLE_SLO = "infeasible_slo"
@@ -118,7 +134,7 @@ class QueryResult:
     downgraded: bool = False
     met_slo: Optional[bool] = None   # None when no SLO was requested
     early_stopped: bool = False
-    degraded: bool = False           # sharded-serving provenance (later)
+    degraded: bool = False           # walks died on an evicted shard (later)
     shards_lost: Tuple[int, ...] = ()
     walks_lost: int = 0
     epoch: int = 0
@@ -188,23 +204,30 @@ class _Active:
 
 
 class QueryScheduler:
-    """Fixed-slot continuous batching over a dense :class:`WalkIndex` on
-    the graph's device."""
+    """Fixed-slot continuous batching over a dense :class:`WalkIndex` or a
+    :class:`ShardedWalkIndex` on the graph's device."""
 
-    def __init__(self, g: CSRGraph, index: WalkIndex, max_walks: int = 8192,
-                 max_queries: int = 8, max_steps: int = 32,
-                 p_T: float = 0.15, impl: str = "auto",
+    def __init__(self, g: CSRGraph, index: Union[WalkIndex,
+                                                 ShardedWalkIndex],
+                 max_walks: int = 8192, max_queries: int = 8,
+                 max_steps: int = 32, p_T: float = 0.15, impl: str = "auto",
                  tally_impl: str = "auto", seed: int = 0,
+                 runtime: Optional[ShardRuntime] = None,
                  wave_time_estimate_s: Optional[float] = None,
+                 sharded_dispatch: str = "fused",
                  walk_buckets: Optional[Tuple[int, ...]] = None,
                  query_buckets: Optional[Tuple[int, ...]] = None):
-        if not isinstance(index, WalkIndex):
-            raise NotImplementedError(
-                "only the dense WalkIndex is ported (sharded serving is "
-                "ROADMAP.md Queue 1 item 9)")
-        if index.endpoints.device != g.device:
-            raise ValueError(f"graph on {g.device}, slab on "
-                             f"{index.endpoints.device}")
+        if sharded_dispatch not in SHARDED_DISPATCHES:
+            raise ValueError(
+                f"sharded_dispatch must be 'fused' or 'loop', got "
+                f"{sharded_dispatch!r}")
+        sharded = isinstance(index, ShardedWalkIndex)
+        if not sharded and not isinstance(index, WalkIndex):
+            raise TypeError(f"index must be a WalkIndex or a "
+                            f"ShardedWalkIndex, got {type(index).__name__}")
+        slab = index.blocks if sharded else index.endpoints
+        if slab.device != g.device:
+            raise ValueError(f"graph on {g.device}, slab on {slab.device}")
         self.g = g
         self.index = index
         self.epoch = g.epoch
@@ -214,6 +237,26 @@ class QueryScheduler:
         self.p_T = p_T
         self.impl = impl
         self.tally_impl = tally_impl
+        if sharded:
+            self.runtime = (runtime if runtime is not None
+                            else ShardRuntime.acquire(index.num_shards))
+            if self.runtime.num_shards != index.num_shards:
+                raise ValueError(
+                    f"runtime has {self.runtime.num_shards} shards, index "
+                    f"has {index.num_shards}")
+            self._S, self._sz = index.num_shards, index.shard_size
+            # the stacked blocks are the row-padded dense slab: a view
+            self._slab = slab.view(self._S * self._sz,
+                                   index.segments_per_vertex)
+            self.dispatch = sharded_dispatch
+        else:
+            self.runtime = runtime
+            self._S, self._sz = 1, g.n
+            self._slab = slab
+            self.dispatch = "gathered"   # the fused wave at S = 1
+        # evicted shards, empty until the fault supervisor (a later slice)
+        # evicts one; a wave takes them as its bool[S] mask operand.
+        self.lost_shards: Set[int] = set()
         self._walk_ladder = self._normalize_buckets(
             walk_buckets, max_walks, "walk_buckets",
             floor=max(1, max_walks // 8))
@@ -271,22 +314,92 @@ class QueryScheduler:
         return WaveSpec(
             n=self.g.n, R=self.index.segments_per_vertex,
             L=self.index.segment_len, q_max=self._q_max, W=W_b, Q=Q_b,
-            p_T=self.p_T, impl=self.impl, tally_impl=self.tally_impl)
+            p_T=self.p_T, impl=self.impl, tally_impl=self.tally_impl,
+            S=self._S, sz=self._sz)
 
     def _wave_for(self, W_b: int, Q_b: int):
         """The wave for one ladder bucket, ``wave(start, uniform, qid,
-        t_cap, key) -> int64[Q_b, n]`` on the host."""
+        t_cap, key, lost) -> int32[Q_b, n]`` on the host; ``lost`` is the
+        bool[S] eviction mask, or ``None`` when no shard is lost."""
         fn = self._wave_fns.get((W_b, Q_b))
         if fn is None:
-            prog = build_wave_program(self._spec(W_b, Q_b))
-            g, slab = self.g, self.index.endpoints
-
-            def fn(start, uniform, qid, t_cap, key):
-                return prog(slab, g.row_ptr, g.col_idx, g.out_deg, start,
-                            uniform, qid, t_cap, key).cpu().numpy()
-
+            if self.dispatch == "loop":
+                fn = self._build_loop_wave(W_b, Q_b)
+            else:
+                fn = self._build_fused_wave(W_b, Q_b)
             self._wave_fns[(W_b, Q_b)] = fn
         return fn
+
+    def _build_fused_wave(self, W_b: int, Q_b: int):
+        """The gathered wave (dense slab, or the stacked blocks' view)."""
+        prog = build_wave_program(self._spec(W_b, Q_b))
+        g, slab = self.g, self._slab
+
+        def wave(start, uniform, qid, t_cap, key, lost):
+            return prog(slab, g.row_ptr, g.col_idx, g.out_deg, start,
+                        uniform, qid, t_cap, key, lost).cpu().numpy()
+
+        return wave
+
+    def _shard_round(self, block: torch.Tensor, base: int,
+                     pos: torch.Tensor, q: torch.Tensor, s0: torch.Tensor,
+                     j: int) -> torch.Tensor:
+        """One stitch round against one shard's block: owned walks that
+        still move gather their next endpoint, every other walk contributes
+        0, so the contributions sum across shards."""
+        nxt, _ = ops.stitch_step_local(pos, (q == j), s0 + j, block, base,
+                                       impl=self.impl, tally=False)
+        return torch.where(j < q, nxt, 0)
+
+    def _shard_tally(self, pos: torch.Tensor, qid: torch.Tensor, base: int,
+                     Q: int) -> torch.Tensor:
+        """Shard-local histogram ``int32[Q, sz]``: walks whose final vertex
+        the shard owns land in their query row; other shards' walks and
+        idle slots (``qid == Q``) go to a discard bin."""
+        sz = self._sz
+        local = pos.long() - base
+        mine = (local >= 0) & (local < sz)
+        bins = torch.where(mine, qid * sz + torch.clamp(local, 0, sz - 1),
+                           (Q + 1) * sz).to(torch.int32)
+        counts = ops.frog_count(bins, (Q + 1) * sz + 1,
+                                impl=self.tally_impl)
+        return counts[: (Q + 1) * sz].reshape(Q + 1, sz)[:Q]
+
+    def _build_loop_wave(self, W_b: int, Q_b: int):
+        """The per-shard wave on one device: ``S × q_max`` gather launches
+        and ``S`` shard-local histograms per wave, the sums across shards
+        on the device. Lost shards' blocks are never read: the walks that
+        would need them are dead."""
+        rt, g, index = self.runtime, self.g, self.index
+        Q, S, sz = Q_b, self._S, self._sz
+        blocks = index.blocks
+
+        def wave(start, uniform, qid, t_cap, key, lost):
+            pos, q, s0 = wave_prep(g.row_ptr, g.col_idx, g.out_deg, start,
+                                   uniform, t_cap, key, n=g.n,
+                                   L=index.segment_len, p_T=self.p_T)
+            lost_host = (np.zeros(S, bool) if lost is None
+                         else lost.cpu().numpy())
+
+            def round_fn(pos, j):
+                parts = rt.map_shards(
+                    lambda s: None if lost_host[s] else self._shard_round(
+                        blocks[s], s * sz, pos, q, s0, j))
+                return sum(p for p in parts if p is not None)
+
+            pos, alive = stitch_rounds(
+                pos, q, self._q_max, round_fn,
+                None if lost is None else lambda p: lost_of(lost, p, S, sz))
+            if alive is not None:
+                qid = torch.where(alive, qid, Q)  # dead walks → discard bin
+            parts = rt.map_shards(
+                lambda s: (torch.zeros(Q, sz, dtype=torch.int32,
+                                       device=pos.device) if lost_host[s]
+                           else self._shard_tally(pos, qid, s * sz, Q)))
+            out = torch.stack(parts, dim=1).reshape(Q, S * sz)[:, : g.n]
+            return out.cpu().numpy()
+
+        return wave
 
     # --- admission (deadline-aware) --------------------------------------
 
@@ -472,10 +585,13 @@ class QueryScheduler:
         seconds)``; the host copy of the counts ends the timed region."""
         dev = self.g.device
         t0 = time.perf_counter()
+        lost = None                  # no shard lost: the wave skips the mask
+        if self.lost_shards:
+            lost = torch.zeros(self._S, dtype=torch.bool, device=dev)
+            lost[sorted(self.lost_shards)] = True
         counts = self._wave_for(W_b, Q_b)(
-            torch.from_numpy(start).to(dev), torch.from_numpy(uniform).to(dev),
-            torch.from_numpy(qid).to(dev), torch.from_numpy(t_cap).to(dev),
-            k_wave)
+            *(torch.from_numpy(a).to(dev)
+              for a in (start, uniform, qid, t_cap)), k_wave, lost)
         return counts, time.perf_counter() - t0
 
     # --- introspection ----------------------------------------------------
@@ -492,7 +608,8 @@ class QueryScheduler:
             wave_time_ema_s=self._wave_time,
             wave_occupancy=(self._walks_allocated / capacity
                             if capacity else 0.0),
-            lost_shards=(), max_walks=self.max_walks,
+            lost_shards=tuple(sorted(self.lost_shards)),
+            max_walks=self.max_walks,
             max_queries=self.max_queries, t_last_wave=self._t_last_wave,
             last_wave_s=self._last_wave_s, epoch=self.epoch)
 

@@ -12,6 +12,14 @@ top-k / PPR serving (port of ``repro/service.py``, single device).
 * :func:`batch_pagerank` / :func:`build_index` — the module-level
   dispatchers under the facade.
 
+With ``runtime.num_shards = S > 1`` the service serves the walk index as
+``S`` range-partitioned blocks on its one device (a host-loop
+:class:`ShardRuntime`), through the fused or the per-shard loop wave
+(``serving.sharded_dispatch``); the batch estimate stays the single-device
+walk, as in the reference without a mesh. ``kernel.step_impl="stream"``
+runs the batch walk and the index build through the streamed superstep,
+whose slab layout the service builds once and keeps.
+
 ``device=None`` means the CUDA card everywhere; without one these raise,
 and ``device="cpu"`` runs the plain PyTorch path. Mesh runs, checkpoints,
 faults and epoch commits come with later slices.
@@ -30,9 +38,12 @@ from repro_torch.config import (FrogWildConfig, KernelConfig, RuntimeConfig,
 from repro_torch.core.frogwild import (FrogWildResult, _frogwild_walks,
                                       compiled_estimate)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.runtime import ShardRuntime
 from repro_torch.graph.csr import CSRGraph, load_graph
+from repro_torch.kernels.frog_step_stream import BlockedCSR, blocked_csr_of
 from repro_torch.query.engine import plan_query
-from repro_torch.query.index import WalkIndex, _build_walk_index
+from repro_torch.query.index import (ShardedWalkIndex, WalkIndex,
+                                     _build_walk_index, shard_walk_index)
 from repro_torch.query.scheduler import (QueryPartial, QueryRequest,
                                          QueryResult, QueryScheduler,
                                          SchedulerStats)
@@ -168,14 +179,20 @@ class FrogWildService:
     scheduler are built lazily."""
 
     def __init__(self, graph: CSRGraph, config: RuntimeConfig,
-                 device: torch.device, index: Optional[WalkIndex] = None):
+                 device: torch.device,
+                 index: Union[WalkIndex, ShardedWalkIndex, None] = None):
         self.device = device
         self.graph = graph.to(device)
         self.config = config
-        if index is not None and index.endpoints.device != device:
+        S = config.runtime.num_shards
+        self.runtime = ShardRuntime.acquire(S) if S > 1 else None
+        if isinstance(index, WalkIndex):
             index = dataclasses.replace(index,
                                         endpoints=index.endpoints.to(device))
+        elif isinstance(index, ShardedWalkIndex):
+            index = dataclasses.replace(index, blocks=index.blocks.to(device))
         self._index = index
+        self._blocked: Optional[BlockedCSR] = None
         self._scheduler: Optional[QueryScheduler] = None
         self._next_rid = 0
         self._closed = False
@@ -186,7 +203,8 @@ class FrogWildService:
     def open(cls, graph_or_path: Union[CSRGraph, str, os.PathLike],
              config: Optional[RuntimeConfig] = None, *,
              device: DeviceLike = None,
-             index: Optional[WalkIndex] = None) -> "FrogWildService":
+             index: Union[WalkIndex, ShardedWalkIndex, None] = None
+             ) -> "FrogWildService":
         """Opens a service over a graph (or a ``save_graph`` ``.npz`` path)
         on ``device`` (default: the card; raises without one). ``index``
         short-circuits the index build with a prebuilt slab."""
@@ -222,6 +240,7 @@ class FrogWildService:
                 sched.cancel(rid)
         self._scheduler = None
         self._index = None
+        self._blocked = None
         self._closed = True
 
     def _check_open(self) -> None:
@@ -238,12 +257,27 @@ class FrogWildService:
 
     # --- walk index ------------------------------------------------------
 
-    def ensure_index(self) -> WalkIndex:
-        """Builds the walk index on the service's device (idempotent)."""
+    def ensure_index(self) -> Union[WalkIndex, ShardedWalkIndex]:
+        """Builds the walk index on the service's device (idempotent).
+
+        ``runtime.num_shards = S > 1`` declares the serving layout: a dense
+        slab (built or passed in) is range-partitioned into ``S`` blocks and
+        dropped, and a sharded one laid out for another shard count is
+        re-split.
+        """
         self._check_open()
         if self._index is None:
-            self._index = _build_walk_index(self.graph,
-                                            self.config.walk_index())
+            cfg = self.config.walk_index()
+            self._index = _build_walk_index(
+                self.graph, cfg, blocked=(self.blocked_csr()
+                                          if cfg.step_impl == "stream"
+                                          else None))
+        S = self.config.runtime.num_shards
+        if S > 1:
+            if isinstance(self._index, WalkIndex):
+                self._index = shard_walk_index(self._index, S)
+            elif self._index.num_shards != S:
+                self._index = shard_walk_index(self._index.reassemble(), S)
         return self._index
 
     # --- batch -----------------------------------------------------------
@@ -268,8 +302,18 @@ class FrogWildService:
                                      num_steps=plan.num_steps)
         key = _key_on(key, rc.runtime.seed if seed is None else seed,
                       self.device)
+        cfg = rc.frogwild()
+        blocked = self.blocked_csr() if cfg.step_impl == "stream" else None
         return compiled_estimate(
-            _frogwild_walks(self.graph, rc.frogwild(), key))
+            _frogwild_walks(self.graph, cfg, key, blocked))
+
+    def blocked_csr(self) -> BlockedCSR:
+        """The graph's slab layout for ``step_impl="stream"``, built on
+        the service's device at first use and kept."""
+        self._check_open()
+        if self._blocked is None:
+            self._blocked = blocked_csr_of(self.graph)
+        return self._blocked
 
     # --- serving ---------------------------------------------------------
 
@@ -285,8 +329,9 @@ class FrogWildService:
                 max_queries=scfg.max_queries, max_steps=scfg.max_steps,
                 p_T=self.config.p_T, impl=self.config.kernel.stitch_impl,
                 tally_impl=self.config.kernel.tally_impl,
-                seed=self.config.runtime.seed,
+                seed=self.config.runtime.seed, runtime=self.runtime,
                 wave_time_estimate_s=scfg.wave_time_estimate_s,
+                sharded_dispatch=scfg.sharded_dispatch,
                 walk_buckets=scfg.walk_buckets,
                 query_buckets=scfg.query_buckets)
         return self._scheduler

@@ -181,8 +181,10 @@ def test_plan_query_equal(kw):
 def test_unported_features_raise():
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         tconfig.RuntimeConfig(erasure="channel", p_s=0.7)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tconfig.ShardConfig(num_shards=4)
+    # sharded serving on one device is ported: four shards build
+    assert tconfig.ShardConfig(num_shards=4).num_shards == 4
+    with pytest.raises(ValueError, match="num_shards"):
+        tconfig.ShardConfig(num_shards=0)
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         tconfig.ServingConfig(checkpoint_dir="/nonexistent")
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):

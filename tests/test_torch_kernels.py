@@ -1,4 +1,4 @@
-"""The port's four kernels.
+"""The port's kernels.
 
 On the CPU: each plain version (``repro_torch.kernels.ref``, what the
 wrappers run for CPU tensors) against the reference's Pallas kernel in
@@ -7,7 +7,8 @@ interpret mode (``repro.kernels.ops``, ``impl="pallas"``) and its oracle
 padding sentinels, negative bits and all-0 / all-1 tallies.
 
 On the card (marker ``cuda``, skipped elsewhere): each CUDA kernel against
-its plain version on the same CUDA tensors, byte for byte. This file
+its plain version on the same CUDA tensors, byte for byte, and the
+sharded and streamed service against the dense, resident one. This file
 imports JAX only inside the reference comparisons, so the card tests run
 where JAX is not installed:
 
@@ -229,3 +230,138 @@ def test_cuda_service_matches_plain_path(cuda):
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     for (va, sa), (vb, sb) in zip(a[2], b[2]):
         assert (va == vb).all() and (sa == sb).all()
+
+
+def _hub_csr(n, hub, hub_deg, seed=0):
+    """A CSR with degree-0 vertices and one vertex of ``hub_deg`` edges."""
+    row_ptr, col_idx, deg = _graph(n, seed)
+    deg = deg.astype(np.int64)
+    deg[hub] = hub_deg
+    rng = np.random.default_rng(seed + 1)
+    row_ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    col_idx = rng.integers(0, n, int(row_ptr[-1])).astype(np.int32)
+    return row_ptr, col_idx, deg.astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 1537, 300_001])
+@pytest.mark.parametrize("mode", MODES)
+def test_cuda_frog_step_stream_matches_plain(cuda, N, mode):
+    """The streamed superstep on the card against the plain version and
+    the resident kernel; frogs on the lower half of the vertices leave the
+    upper vertex blocks empty."""
+    from repro_torch.kernels.frog_step_stream import block_csr
+    row_ptr, col_idx, deg = [t.to(cuda) for t in _t(*_graph(4099))]
+    n = deg.shape[0]
+    blocked = block_csr(row_ptr, col_idx, deg, n)
+    pos, die, bits = [t.to(cuda) for t in _t(*_walkers(N, n // 2, mode))]
+    before = ops.launch_counts()["frog_step_stream_sorted"]
+    got = ops.frog_step(pos, die, bits, row_ptr, col_idx, deg, n,
+                        impl="stream", blocked=blocked)
+    assert ops.launch_counts()["frog_step_stream_sorted"] == before + 1
+    want = kref.frog_step_ref(pos, die, torch.abs(bits), row_ptr, col_idx,
+                              deg, n)
+    resident = ops.frog_step(pos, die, bits, row_ptr, col_idx, deg, n)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(got, resident))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hub_deg", [20_000, 40_000])
+def test_cuda_frog_step_stream_hub_block(cuda, hub_deg):
+    """A hub block whose slab needs more than 48 KB of shared memory
+    (20,000 edges: staged after raising the launch's limit) or more than
+    the launch stages (40,000 edges: col read from device memory)."""
+    from repro_torch.kernels.frog_step_stream import block_csr
+    row_ptr, col_idx, deg = [t.to(cuda)
+                             for t in _t(*_hub_csr(4099, 700, hub_deg))]
+    n = deg.shape[0]
+    blocked = block_csr(row_ptr, col_idx, deg, n)
+    staged = 4 * blocked.e_blk <= ops.STREAM_SMEM_COL_BYTES
+    assert staged == (hub_deg == 20_000) and 4 * blocked.e_blk > 48 * 1024
+    for N, mode in ((5000, "random"), (70_000, "ones")):
+        pos, die, bits = [t.to(cuda) for t in _t(*_walkers(N, n, mode))]
+        pos[: N // 2] = 700                        # half the frogs on the hub
+        got = ops.frog_step(pos, die, bits, row_ptr, col_idx, deg, n,
+                            impl="stream", blocked=blocked)
+        want = kref.frog_step_ref(pos, die, torch.abs(bits), row_ptr,
+                                  col_idx, deg, n)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), N
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 8192, 100_003])
+@pytest.mark.parametrize("mode", MODES)
+def test_cuda_stitch_local_matches_plain(cuda, W, mode):
+    """Per-shard gather and stitch round against their plain versions, with
+    walks no shard owns; summed over the shards, equal to stitch_step."""
+    n, R, S = 4099, 16, 4
+    sz = -(-n // S)
+    g = torch.Generator().manual_seed(W)
+    slab = torch.zeros(S * sz, R, dtype=torch.int32)
+    slab[:n] = torch.randint(0, n, (n, R), generator=g, dtype=torch.int32)
+    slab = slab.to(cuda)
+    pos, stop, bits = [t.to(cuda) for t in _t(*_walkers(W, n, mode, W))]
+    stray = pos.clone()
+    stray[::7] = -3                                # owned by no shard
+    sum_next = torch.zeros_like(pos)
+    sum_counts = []
+    for s in range(S):
+        block = slab[s * sz:(s + 1) * sz]
+        before = ops.launch_counts()
+        got = ops.stitch_step_local(pos, stop, bits, block, s * sz)
+        gather = ops.stitch_gather_local(stray, bits, block, s * sz)
+        after = ops.launch_counts()
+        assert after["stitch_step_local"] == before["stitch_step_local"] + 1
+        assert (after["stitch_gather_local"]
+                == before["stitch_gather_local"] + 1)
+        want = kref.stitch_step_local_ref(pos, stop, torch.abs(bits), block,
+                                          s * sz)
+        want_g = kref.stitch_gather_local_ref(stray, torch.abs(bits), block,
+                                              s * sz)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), s
+        assert torch.equal(gather, want_g), s
+        sum_next += got[0]
+        sum_counts.append(got[1])
+    whole = ops.stitch_step(pos, stop, bits, slab[:n], n)
+    torch.cuda.synchronize()
+    assert torch.equal(sum_next, whole[0])
+    assert torch.equal(torch.cat(sum_counts)[:n], whole[1])
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_streamed_service_matches_dense(cuda):
+    """S = 4 sharded serving (fused and loop) with the streamed superstep
+    against the dense, resident service on the card, byte for byte."""
+    from repro_torch import (FrogWildService, KernelConfig, RuntimeConfig,
+                             ServingConfig, ShardConfig)
+    from repro_torch.graph import chung_lu_powerlaw
+    g = chung_lu_powerlaw(3000, 8.0, seed=1)
+    serving = dict(segments_per_vertex=8, segment_len=3, build_shards=3,
+                   max_walks=1024, max_queries=4, max_steps=16)
+    out = {}
+    for name, shards, step, dispatch in (
+            ("dense", 1, "auto", "fused"), ("fused", 4, "stream", "fused"),
+            ("loop", 4, "stream", "loop")):
+        rc = RuntimeConfig(kernel=KernelConfig(step_impl=step),
+                           runtime=ShardConfig(num_shards=shards),
+                           serving=ServingConfig(sharded_dispatch=dispatch,
+                                                 **serving))
+        svc = FrogWildService.open(g, rc, device=cuda)
+        res = svc.pagerank(epsilon=0.3, k=10)
+        index = svc.ensure_index()
+        slab = (index.endpoints if shards == 1
+                else index.blocks.reshape(-1, 8)[:g.n])
+        handles = [svc.topk(k=10), svc.ppr(5, k=5), svc.topk(k=5)]
+        out[name] = (res.counts.cpu(), slab.cpu(),
+                     [(h.result().vertices, h.result().scores)
+                      for h in handles])
+    a = out["dense"]
+    for name in ("fused", "loop"):
+        b = out[name]
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), name
+        for (va, sa), (vb, sb) in zip(a[2], b[2]):
+            assert (va == vb).all() and (sa == sb).all(), name
