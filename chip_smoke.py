@@ -9,7 +9,7 @@ frogwild_graphs.py``) through the entry points a user calls, and checks
 every answer against its guarantee:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
-2. build    — the seven CUDA kernels, compiled from ``csrc/`` with nvcc
+2. build    — the eight CUDA kernels, compiled from ``csrc/`` with nvcc
               (one nvcc per source, all at once);
 3. data     — the graph, generated on the host and moved to the card;
 4. batch    — ``FrogWildService.pagerank(ε=0.1, δ=0.1, k=100)``, held to
@@ -27,17 +27,31 @@ every answer against its guarantee:
               phase 5's 8 queries under ``sharded_dispatch="fused"`` and
               ``"loop"`` give phase 5's answers byte for byte; one wave
               with shard 3 lost is byte-equal between the two dispatches;
-9. kernels  — each kernel at the main path's shapes against its plain
-              version (byte-equal), with its time, bound and launches, and
-              the 8 shards' ``stitch_step_local`` summed against
-              ``stitch_step``;
-10. profile — a batch run (resident and streamed), a serving wave (dense)
-              and a loop wave (8 shards) under torch.profiler: wall time
+9. erasure  — the quickstart's partial-synchronization walk
+              (``examples/quickstart.py``: 400,000 frogs, t =
+              ``suggested_steps(μ_20(π))``, p_s = 0.7, channel erasure over
+              16 shards, draw ``auto``), then the independent model and the
+              cumsum draw of both; each held to Theorem 1 with p_s;
+10. graphlab_pr — ``to_ell(g, K=32)``, ``power_iteration(spmv="ell")``
+              against the COO iteration, the reduced-iteration baseline
+              and the Figure 1 rows (ms per iteration and per superstep,
+              the wire-byte models);
+11. erasure_cpu — the six (model × draw) walks on a 100,000-vertex graph,
+              on the card and with ``device="cpu"``: byte-equal;
+12. kernels — each kernel at the main path's shapes against its plain
+              version (byte-equal), with its time, bound and launches, the
+              8 shards' ``stitch_step_local`` summed against
+              ``stitch_step`` and the slab product at K = 40;
+13. profile — a batch run (resident and streamed), a serving wave (dense),
+              a loop wave (8 shards), the ELL power iteration and the
+              quickstart's erasure run under torch.profiler: wall time
               against device-busy time (the idle share).
 
 Launch counts are reset just before phase 4 and read just after phase 5
-(slice 1's path), and reset again just before phase 7 and read just after
-the queries of phase 8 (the streamed and sharded paths). The last line is
+(slice 1's path), reset just before phase 7 and read just after the
+queries of phase 8 (the streamed and sharded paths), and reset just before
+phase 9 and read just after phase 10's ELL power iteration (the erasure
+walks and the GraphLab-PR baseline). The last line is
 ``{"ok": true, "device": {...}}``; any failed check or launch raises and
 exits non-zero, as does a machine without CUDA.
 """
@@ -48,11 +62,15 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(REPO, "src")
 
 LJ = dict(n=4_847_571, avg_out_deg=14.2, theta=2.2, seed=0)
+# examples/quickstart.py: N = 400,000 frogs, p_s = 0.7, channel erasure over
+# 16 destination shards, accuracy at k = 20
+QUICKSTART = dict(num_frogs=400_000, p_s=0.7, shards=16, k=20)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM published memory rate
 REPS = 50
 SHARDS = 8
@@ -369,11 +387,179 @@ def phase_lost_wave(services, hubs, dev):
     assert equal and landed < W, "lost-shard waves differ between dispatches"
 
 
-def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded):
+def erasure_config(model, draw, N, t, p_s=QUICKSTART["p_s"]):
+    from repro_torch import KernelConfig, RuntimeConfig, ShardConfig
+    return RuntimeConfig(num_frogs=N, num_steps=t, p_s=p_s, erasure=model,
+                         kernel=KernelConfig(draw=draw),
+                         runtime=ShardConfig(num_shards=QUICKSTART["shards"]))
+
+
+def picked_draw(model, draw, N, nnz, p_s):
+    """What ``draw_next`` runs: ``cumsum``, ``channel_enum`` (the channel
+    model's probe draw) or edge rejection in its ``one_shot`` or
+    ``chunked`` regime (``"auto"`` resolved as ``draw_next`` does)."""
+    from repro_torch.core import blocking
+    if draw == "auto":
+        nc = QUICKSTART["shards"] if model == "channel" else None
+        draw = ("rejection"
+                if blocking.rejection_is_profitable(N, nnz, p_s, nc)
+                else "cumsum")
+    if draw == "cumsum":
+        return draw
+    if model == "channel":
+        return "channel_enum"
+    chunked = blocking.num_rounds_for(p_s) * N > blocking.UNROLL_PROBES
+    return "rejection_chunked" if chunked else "rejection_one_shot"
+
+
+def phase_erasure(g, pi):
+    """The quickstart's partial-synchronization walk at LiveJournal scale,
+    then the independent model and the cumsum draw of both models, each
+    through ``FrogWildService.pagerank`` and held to Theorem 1 with p_s:
+    μ_20(π̂) ≥ μ_20(π) − ε(p_T, t, 20, δ = 0.1, N, p_s, p_∩ bound)."""
+    import torch
+    from repro_torch import FrogWildService
+    from repro_torch.core import (exact_identification, mass_captured,
+                                  normalized_mass_captured, theory)
+    k, N, p_s = QUICKSTART["k"], QUICKSTART["num_frogs"], QUICKSTART["p_s"]
+    mu_opt = float(mass_captured(pi, pi, k))
+    t = theory.suggested_steps(mu_opt)
+    svc = FrogWildService.open(g, erasure_config("channel", "auto", N, t))
+    p_T = svc.config.p_T
+    eps = theory.epsilon_bound(
+        p_T, t, k, 0.1, N, p_s,
+        theory.p_cap_bound(g.n, t, float(pi.max()), p_T))
+    log("9 erasure_plan", k=k, mu_opt=mu_opt, t=t, N=N, p_s=p_s,
+        shards=QUICKSTART["shards"], epsilon_bound=eps,
+        bound_vacuous=eps >= mu_opt)
+    runs, peak = {}, 0
+    for model, draw in (("channel", "auto"), ("independent", "auto"),
+                        ("channel", "cumsum"), ("independent", "cumsum")):
+        rc = erasure_config(model, draw, N, t)
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        res = svc.pagerank(seed=0, config=rc)
+        sync()
+        secs = time.perf_counter() - t0
+        run_peak = torch.cuda.max_memory_allocated()
+        peak = max(peak, run_peak)
+        assert int(res.counts.sum()) == N, "frogs not conserved"
+        assert bool(torch.isfinite(res.pi_hat).all())
+        mu_hat = float(mass_captured(res.pi_hat, pi, k))
+        ok = mu_hat >= mu_opt - eps
+        log("9 erasure", model=model, draw=draw,
+            runs=picked_draw(model, draw, N, g.nnz, p_s),
+            seconds=secs, ms_per_superstep=secs / t * 1e3, mu_hat=mu_hat,
+            mass_captured=float(normalized_mass_captured(res.pi_hat, pi, k)),
+            exact_identification=float(exact_identification(res.pi_hat, pi,
+                                                            k)),
+            ok=ok, peak_mem_bytes=run_peak)
+        assert ok, f"{model}/{draw} misses its Theorem 1 bound"
+        runs[(model, draw)] = secs
+    return svc, t, runs, peak
+
+
+def phase_erasure_cpu():
+    """The six (model × draw) walks on a 100,000-vertex graph, on the card
+    and on the CPU: no kernel of the path does float work, so the card
+    gives the CPU's bytes. 160,000 frogs put the independent model's edge
+    rejection in its chunked regime (14 rounds · 160,000 > 2**21)."""
+    import torch
+    from repro_torch import FrogWildService
+    from repro_torch.graph import chung_lu_powerlaw
+    g = chung_lu_powerlaw(100_000, avg_out_deg=LJ["avg_out_deg"],
+                          theta=LJ["theta"], seed=1)
+    N, t = 160_000, 8
+    for model in ("channel", "independent"):
+        for draw in ("auto", "rejection", "cumsum"):
+            rc = erasure_config(model, draw, N, t)
+            t0 = time.perf_counter()
+            card = FrogWildService.open(g, rc).pagerank(seed=0)
+            sync()
+            t_card = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cpu = FrogWildService.open(g, rc, device="cpu").pagerank(seed=0)
+            t_cpu = time.perf_counter() - t0
+            equal = (torch.equal(card.counts.cpu(), cpu.counts)
+                     and torch.equal(card.pi_hat.cpu(), cpu.pi_hat))
+            log("11 erasure_cpu", n=g.n, nnz=g.nnz, N=N, t=t, model=model,
+                draw=draw,
+                runs=picked_draw(model, draw, N, g.nnz, rc.p_s),
+                card_s=t_card, cpu_s=t_cpu, byte_equal=equal)
+            assert equal, f"{model}/{draw}: the card's walk differs from " \
+                "the CPU's"
+
+
+def phase_graphlab(g, pi):
+    """GraphLab-PR on the ELL SpMV kernel: the layout, and 50 power
+    iterations held to the COO iteration (both float32, summed in other
+    orders and with atomics: max relative difference ≤ 1e-3)."""
+    import torch
+    from repro_torch.core import mass_captured, power_iteration
+    from repro_torch.graph import to_ell
+    sync()
+    t0 = time.perf_counter()
+    ell = to_ell(g, K=32)
+    sync()
+    log("10 to_ell", seconds=time.perf_counter() - t0, K=ell.K,
+        n_rows=ell.n_rows, spill_nnz=ell.spill_nnz, bytes=ell.nbytes,
+        slab_lanes_valid=int(ell.valid.sum()))
+    sync()
+    t0 = time.perf_counter()
+    pi_ell = power_iteration(g, num_iters=50, spmv="ell")
+    sync()
+    t_ell = time.perf_counter() - t0
+    assert pi_ell.shape == (g.n,) and bool(torch.isfinite(pi_ell).all())
+    rel = float(((pi_ell - pi).abs() / pi).max())
+    mu = [float(mass_captured(v, pi, 100)) for v in (pi_ell, pi)]
+    log("10 graphlab_pr", iters=50, seconds=t_ell, max_rel_diff_coo=rel,
+        mu100_ell=mu[0], mu100_coo=mu[1], ok=rel <= 1e-3)
+    assert rel <= 1e-3, "the ELL iteration strays from the COO iteration"
+    return ell
+
+
+def phase_figure1(g, pi, ell, erasure_runs, t):
+    """The reduced-iteration baseline and the paper's Figure 1 rows: time
+    per ELL and per COO iteration, per erasure superstep, and the
+    wire-byte models. No speed target."""
+    from repro_torch.core import (mass_captured, pagerank,
+                                  reduced_iteration_baseline)
+    from repro_torch.engine import frogwild_bytes_model, pagerank_bytes_model
+    from repro_torch.graph.csr import transition_edges
+    from repro_torch.kernels import ops
+    for iters in (1, 2):
+        sync()
+        t0 = time.perf_counter()
+        x = reduced_iteration_baseline(g, iters)
+        sync()
+        log("10 reduced_baseline", iters=iters,
+            seconds=time.perf_counter() - t0,
+            mu100=float(mass_captured(x, pi, 100)),
+            mu100_opt=float(mass_captured(pi, pi, 100)))
+    n, p_T = g.n, 0.15
+    x = pi.clone()
+    ell_ms = time_ms(lambda: (1.0 - p_T) * ops.spmv(ell, x)[:n] + p_T / n)
+    src, dst, w = transition_edges(g)
+    coo_ms = time_ms(lambda: pagerank._power_iter_coo(src, dst, w, n, 1,
+                                                      p_T))
+    N, p_s, S = QUICKSTART["num_frogs"], QUICKSTART["p_s"], QUICKSTART[
+        "shards"]
+    fw = frogwild_bytes_model(N, t, p_T, p_s, S)
+    pr = pagerank_bytes_model(n, 2, S)
+    log("10 figure1", ell_iter_ms=ell_ms, coo_iter_ms=coo_ms,
+        erasure_superstep_ms=json.dumps({
+            f"{m}/{d}": s / t * 1e3 for (m, d), s in erasure_runs.items()}),
+        frogwild_bytes=fw.total, pagerank_2iter_bytes=pr.total,
+        bytes_ratio=fw.total / pr.total)
+
+
+def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
     """Each kernel at the main path's shapes: kernel vs plain (byte-equal),
     times and bounds. ``launches`` maps each kernel to its count on the
-    path that runs it; ``blocked`` is the graph's slab layout and
-    ``sharded`` the S = 8 index."""
+    path that runs it; ``blocked`` is the graph's slab layout, ``sharded``
+    the S = 8 index, ``ell`` the K = 32 ELL layout and ``pi`` a rank
+    vector to multiply."""
     import torch
     from repro_torch import prng
     from repro_torch.kernels import ops
@@ -387,7 +573,9 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded):
         a, b = kern(), plain()
         a = a if isinstance(a, tuple) else (a,)
         b = b if isinstance(b, tuple) else (b,)
-        err = max(int((x.long() - y.long()).abs().max()) if x.numel() else 0
+        err = max((x.double() - y.double()).abs().max().item()
+                  if x.is_floating_point() else
+                  int((x.long() - y.long()).abs().max()) if x.numel() else 0
                   for x, y in zip(a, b))
         assert all(torch.equal(x, y) for x, y in zip(a, b)), name
         r = dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -395,7 +583,7 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded):
                  ms=time_ms(kern), plain_ms=time_ms(plain),
                  bound_ms=bound_ms(nbytes), bound_by="bytes",
                  library_ms=time_ms(library) if library else None)
-        log("9 kernel", **{k: v for k, v in r.items()
+        log("12 kernel", **{k: v for k, v in r.items()
                            if k not in ("source", "replaces", "route")})
         rows.append(r)
 
@@ -455,7 +643,7 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded):
     ms = time_ms(lambda: ops.frog_step(ipos, zeros, ibits, g.row_ptr,
                                        g.col_idx, g.out_deg, n, impl="cuda"),
                  reps=10)
-    log("9 frog_step_index_shape", frogs=C, ms=ms)
+    log("12 frog_step_index_shape", frogs=C, ms=ms)
 
     # frog_step_stream_sorted at the batch superstep's shape, frogs sorted
     bv, num_vb = blocked.vertex_block, blocked.num_blocks
@@ -488,7 +676,7 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded):
                                        g.col_idx, g.out_deg, n,
                                        impl="stream", blocked=blocked),
                  reps=10)
-    log("9 frog_step_stream_index_shape", frogs=C, ms=ms)
+    log("12 frog_step_stream_index_shape", frogs=C, ms=ms)
 
     # the per-shard kernels at one wave's walks against shard 3's block
     S, sz, _ = sharded.blocks.shape
@@ -515,8 +703,37 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded):
     composed = (torch.equal(sum(p[0] for p in parts), whole[0])
                 and torch.equal(torch.cat([p[1] for p in parts])[:n],
                                 whole[1]))
-    log("9 stitch_step_local_sum", shards=S, equal_stitch_step=composed)
+    log("12 stitch_step_local_sum", shards=S, equal_stitch_step=composed)
     assert composed, "per-shard stitch rounds do not sum to stitch_step"
+
+    # the ELL slab product of one power iteration: int32/f32[rows, 32]
+    # read once, x (n floats) read once, y written once; the library
+    # yardstick is cuSPARSE's CSR SpMV over the slab's valid lanes
+    rows_, K = ell.idx.shape
+    valid = ell.valid
+    with warnings.catch_warnings():      # "beta", "invariant checks off"
+        warnings.simplefilter("ignore", UserWarning)
+        csr = torch.sparse_csr_tensor(
+            torch.cat([valid.new_zeros(1, dtype=torch.int64),
+                       torch.cumsum(valid.sum(1), 0)]),
+            ell.idx[valid].long(), ell.weight[valid], size=(rows_, n))
+    x = pi.contiguous()
+    row("spmv_ell_slab", "src/repro_torch/kernels/csrc/spmv_ell.cu",
+        "src/repro/kernels/spmv_ell.py:49",
+        lambda: ops.spmv_ell_slab(ell.idx, ell.weight, x, impl="cuda"),
+        lambda: kref.spmv_ref(ell.idx, ell.weight, x),
+        8 * rows_ * K + 4 * n + 4 * rows_,
+        library=lambda: torch.mv(csr, x))
+    # a K = 40 slab (160-byte rows) over the n rows, not a multiple of 8
+    from repro_torch.graph import to_ell
+    e40 = to_ell(g, K=40)
+    idx40, w40 = e40.idx[:n], e40.weight[:n]
+    eq40 = torch.equal(ops.spmv_ell_slab(idx40, w40, x, impl="cuda"),
+                       kref.spmv_ref(idx40, w40, x))
+    log("12 spmv_ell_slab_k40", rows=n, K=40, byte_equal=eq40,
+        ms=time_ms(lambda: ops.spmv_ell_slab(idx40, w40, x, impl="cuda")),
+        bound_ms=bound_ms(8 * n * 40 + 8 * n))
+    assert eq40, "spmv_ell_slab differs from spmv_ref at K = 40"
     return rows
 
 
@@ -549,9 +766,11 @@ def device_busy_ms(fn) -> tuple:
     return wall, busy / 1e3, len(spans)
 
 
-def phase_profile(svc, stream_svc, loop_svc):
-    """Where a batch run (resident and streamed), a dense serving wave and
-    a loop wave over 8 shards spend their time."""
+def phase_profile(svc, stream_svc, loop_svc, erasure_svc, g):
+    """Where a batch run (resident and streamed), a dense serving wave, a
+    loop wave over 8 shards, the ELL power iteration and the quickstart's
+    erasure run spend their time."""
+    from repro_torch.core import power_iteration
     for what, fn in (
             ("pagerank", lambda: svc.pagerank(epsilon=0.1, delta=0.1,
                                               k=100)),
@@ -559,9 +778,12 @@ def phase_profile(svc, stream_svc, loop_svc):
                 epsilon=0.1, delta=0.1, k=100)),
             ("wave", lambda: (svc.topk(k=10, epsilon=0.3), svc.step())),
             ("loop_wave", lambda: (loop_svc.topk(k=10, epsilon=0.3),
-                                   loop_svc.step()))):
+                                   loop_svc.step())),
+            ("power_iteration_ell", lambda: power_iteration(
+                g, num_iters=50, spmv="ell")),
+            ("erasure_quickstart", lambda: erasure_svc.pagerank(seed=0))):
         wall, busy, kernels = device_busy_ms(fn)
-        log("10 profile", what=what, wall_ms=wall,
+        log("13 profile", what=what, wall_ms=wall,
             device_busy_ms=busy if kernels else "not measured",
             idle_share=1 - busy / wall if kernels else "not measured",
             kernels=kernels)
@@ -615,14 +837,27 @@ def main() -> int:
     for k in ("frog_step_stream_sorted", "stitch_gather_local",
               "stitch_step_local"):
         launches[k] = launches2[k]
+    peak = torch.cuda.max_memory_allocated()
+    # the quickstart's erasure walks and the GraphLab-PR baseline
+    ops.reset_launch_counts()
+    erasure_svc, t, erasure_runs, erasure_peak = phase_erasure(g, pi)
+    ell = phase_graphlab(g, pi)
+    launches3 = ops.launch_counts()
+    log("launches", path="erasure_graphlab_pr", **launches3)
+    assert launches3["spmv_ell_slab"] == 50, launches3
+    assert launches3["frog_count"] >= 1, launches3
+    launches["spmv_ell_slab"] = launches3["spmv_ell_slab"]
+    phase_figure1(g, pi, ell, erasure_runs, t)
+    phase_erasure_cpu()
     rows = kernel_rows(svc, index, hubs, launches, dev,
                        stream_svc.blocked_csr(),
-                       sharded["fused"].ensure_index())
-    phase_profile(svc, stream_svc, sharded["loop"])
-    for s in (svc, stream_svc, *sharded.values()):
+                       sharded["fused"].ensure_index(), ell, pi)
+    phase_profile(svc, stream_svc, sharded["loop"], erasure_svc, g)
+    for s in (svc, stream_svc, erasure_svc, *sharded.values()):
         s.close()
     log("done", seconds=time.perf_counter() - t_all,
-        peak_mem_bytes=torch.cuda.max_memory_allocated())
+        peak_mem_bytes=max(peak, erasure_peak,
+                           torch.cuda.max_memory_allocated()))
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,11 @@ walker superstep (resident or streamed), the stitch rounds (over a dense
 slab or per shard) and the histograms run through hand-written CUDA
 kernels (``repro_torch/kernels``) on the card and through their plain
 PyTorch versions on the CPU. Entry points run on the card unless the
-caller passes ``device="cpu"``.
+caller passes ``device="cpu"``. The batch estimate runs the plain walk
+(p_s = 1) and the partial-synchronization walks (``erasure=
+"independent"`` or ``"channel"`` with p_s < 1); the GraphLab-PR baseline,
+``core.power_iteration(spmv="ell")``, runs through the hand-written ELL
+SpMV kernel.
 
 The port never imports ``jax`` or ``repro``.
 """

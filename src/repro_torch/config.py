@@ -13,14 +13,18 @@ defaults, except the kernel flags, whose values name the port's backends:
   graph outgrows a TPU core's VMEM; the card has no such budget, so here it
   is asked for by name.
 
-A field exists here once the port reads it: the reference's blocking-draw,
+``KernelConfig.draw`` picks the blocking-walk draw of the erasure models
+(p_s < 1), as in the reference: ``"auto"``, ``"rejection"`` or
+``"cumsum"``.
+
+A field exists here once the port reads it: the reference's
 engine-placement and wave-supervision fields arrive with the slices that
 port them, so passing one today is a ``TypeError``, not a setting silently
 ignored. ``num_shards > 1`` serves a sharded walk index on the service's
 one device (``ServingConfig.sharded_dispatch``: ``"fused"`` or
-``"loop"``). Erasure, checkpoints and fault injection raise
-``NotImplementedError`` naming the ``ROADMAP.md`` Queue 1 item that ports
-them.
+``"loop"``) and sets the channel erasure's destination shards.
+Checkpoints and fault injection raise ``NotImplementedError`` naming the
+``ROADMAP.md`` Queue 1 item that ports them.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ DEFAULT_P_S = 1.0
 KERNEL_IMPLS = ("auto", "cuda", "torch")
 STEP_IMPLS = KERNEL_IMPLS + ("stream",)
 SHARDED_DISPATCHES = ("fused", "loop")
+DRAWS = ("auto", "rejection", "cumsum")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -43,29 +48,27 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"item {item})")
 
 
-def _check_erasure(erasure: str) -> None:
-    if erasure != "none":
-        raise _not_ported(f"erasure={erasure!r} (p_s < 1 blocking walks)",
-                          "7, erasure draws")
-
-
 @dataclasses.dataclass(frozen=True)
 class KernelConfig:
-    """Kernel dispatch flags. ``step_impl`` runs the walker superstep
-    (``frog_step``, or ``frog_step_stream_sorted`` under ``"stream"``) of
-    the batch walk and the index build, ``stitch_impl`` the serving wave's
-    stitch rounds (``stitch_gather`` / ``stitch_step``, per shard
-    ``stitch_gather_local``), ``tally_impl`` the endpoint histogram
-    (``frog_count``: the batch cut-off tally and the wave tally)."""
+    """Kernel dispatch flags. ``draw`` picks the erasure models' blocking
+    draw (``core/frogwild.py:draw_next``), ``step_impl`` runs the walker
+    superstep (``frog_step``, or ``frog_step_stream_sorted`` under
+    ``"stream"``) of the batch walk and the index build, ``stitch_impl``
+    the serving wave's stitch rounds (``stitch_gather`` / ``stitch_step``,
+    per shard ``stitch_gather_local``), ``tally_impl`` the endpoint
+    histogram (``frog_count``: the batch walk's tallies and the wave
+    tally)."""
 
+    draw: str = "auto"          # auto | rejection | cumsum
     step_impl: str = "auto"     # auto | cuda | torch | stream
     stitch_impl: str = "auto"   # auto | cuda | torch
     tally_impl: str = "auto"    # auto | cuda | torch
 
     def __post_init__(self):
-        for name in ("step_impl", "stitch_impl", "tally_impl"):
+        for name, allowed in (("draw", DRAWS), ("step_impl", STEP_IMPLS),
+                              ("stitch_impl", KERNEL_IMPLS),
+                              ("tally_impl", KERNEL_IMPLS)):
             v = getattr(self, name)
-            allowed = STEP_IMPLS if name == "step_impl" else KERNEL_IMPLS
             if v not in allowed:
                 raise ValueError(
                     f"KernelConfig.{name} must be one of {allowed}, "
@@ -76,7 +79,8 @@ class KernelConfig:
 class ShardConfig:
     """Placement: ``num_shards`` range shards of the walk index, served on
     the service's one device (the mesh over several cards is ROADMAP.md
-    Queue 1 item 8), and the PRNG seed."""
+    Queue 1 item 8), which are also the channel erasure's destination
+    shards, and the PRNG seed."""
 
     num_shards: int = 1
     seed: int = 0
@@ -136,14 +140,13 @@ class RuntimeConfig:
     num_steps: int = DEFAULT_NUM_STEPS
     p_T: float = DEFAULT_P_T
     p_s: float = DEFAULT_P_S
-    erasure: str = "none"            # none (independent | channel: later)
+    erasure: str = "none"            # none | independent | channel
     kernel: KernelConfig = _KERNEL
     runtime: ShardConfig = _SHARD
     serving: ServingConfig = _SERVING
     faults: Optional[object] = None
 
     def __post_init__(self):
-        _check_erasure(self.erasure)
         if self.faults is not None:
             raise _not_ported("fault injection", "10, checkpoints and faults")
 
@@ -151,7 +154,8 @@ class RuntimeConfig:
         return FrogWildConfig(
             num_frogs=self.num_frogs, num_steps=self.num_steps,
             p_T=self.p_T, p_s=self.p_s, erasure=self.erasure,
-            step_impl=self.kernel.step_impl,
+            num_shards=max(1, self.runtime.num_shards),
+            draw=self.kernel.draw, step_impl=self.kernel.step_impl,
             tally_impl=self.kernel.tally_impl,
         )
 
@@ -167,19 +171,19 @@ class RuntimeConfig:
 
 @dataclasses.dataclass(frozen=True)
 class FrogWildConfig:
-    """Walker view (``core/frogwild.py``). ``tally_impl`` runs the cut-off
-    tally, which the reference does with an XLA scatter."""
+    """Walker view (``core/frogwild.py``). ``num_shards`` is the channel
+    erasure's granularity (destination range shards); ``tally_impl`` runs
+    the walk's tallies, which the reference does with XLA scatters."""
 
     num_frogs: int = DEFAULT_NUM_FROGS
     num_steps: int = DEFAULT_NUM_STEPS
     p_T: float = DEFAULT_P_T
     p_s: float = DEFAULT_P_S
-    erasure: str = "none"
+    erasure: str = "none"            # none | independent | channel
+    num_shards: int = 16             # channel model: destination shards
+    draw: str = _KERNEL.draw
     step_impl: str = _KERNEL.step_impl
     tally_impl: str = _KERNEL.tally_impl
-
-    def __post_init__(self):
-        _check_erasure(self.erasure)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,8 @@
 """Carries the reference package's state across through numpy.
 
 The reference (``repro``) hands out graphs, walk-index slabs (dense or as
-per-shard blocks), streamed-step slab layouts and PRNG keys as JAX or
-numpy arrays; ``np.asarray`` of them gives plain arrays, and these helpers
+per-shard blocks), streamed-step slab layouts, hybrid ELL layouts and PRNG
+keys as JAX or numpy arrays; ``np.asarray`` of them gives plain arrays, and these helpers
 turn those into the port's objects, so both packages compute on the same
 graph, slab, layout and key.
 """
@@ -14,6 +14,7 @@ import torch
 from repro_torch import prng
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graph.csr import CSRGraph, _from_arrays
+from repro_torch.graph.partition import EllGraph
 from repro_torch.kernels.frog_step_stream import BlockedCSR
 from repro_torch.query.index import ShardedWalkIndex, WalkIndex
 
@@ -71,6 +72,26 @@ def blocked_csr_from_numpy(vertex_block: int, row_off, deg, col,
         raise ValueError("row_off and deg must be [num_vb, BV] and col "
                          "[num_vb, E_blk]")
     return BlockedCSR(int(vertex_block), *(_i32(a, device) for a in arrays))
+
+
+def ell_from_numpy(n_rows: int, K: int, idx, valid, weight, spill_src,
+                   spill_dst, spill_w, device: DeviceLike = "cpu"
+                   ) -> EllGraph:
+    """An EllGraph from the reference's arrays (``idx`` / ``valid`` /
+    ``weight`` ``[n_rows, K]`` and the spill tail), on ``device``."""
+    dev = resolve_device(device)
+    slab = [np.asarray(a) for a in (idx, valid, weight)]
+    if any(a.shape != (int(n_rows), int(K)) for a in slab):
+        raise ValueError(f"idx, valid and weight must be [{n_rows}, {K}]")
+
+    def t(a, dtype):
+        return torch.from_numpy(np.array(a, dtype=dtype)).to(dev)
+
+    return EllGraph(
+        n_rows=int(n_rows), K=int(K), idx=t(idx, np.int32),
+        valid=t(valid, np.bool_), weight=t(weight, np.float32),
+        spill_src=t(spill_src, np.int32), spill_dst=t(spill_dst, np.int32),
+        spill_w=t(spill_w, np.float32))
 
 
 def _i32(a: np.ndarray, device: DeviceLike) -> torch.Tensor:

@@ -1,17 +1,24 @@
-"""The estimator, exact PageRank, accuracy metrics and analytic bounds."""
+"""The estimator and its erasure draws, exact PageRank and the
+reduced-iteration baseline, the sparsification baseline, accuracy metrics
+and analytic bounds."""
 from repro_torch.core import theory
-from repro_torch.core.frogwild import FrogWildResult, frogwild
+from repro_torch.core.frogwild import FrogWildResult, draw_next, frogwild
 from repro_torch.core.metrics import (exact_identification, mass_captured,
                                       normalized_mass_captured)
-from repro_torch.core.pagerank import pagerank_residual, power_iteration
+from repro_torch.core.pagerank import (pagerank_residual, power_iteration,
+                                       reduced_iteration_baseline)
+from repro_torch.core.sparsify import sparsify_uniform
 
 __all__ = [
     "FrogWildResult",
+    "draw_next",
     "exact_identification",
     "frogwild",
     "mass_captured",
     "normalized_mass_captured",
     "pagerank_residual",
     "power_iteration",
+    "reduced_iteration_baseline",
+    "sparsify_uniform",
     "theory",
 ]

@@ -28,6 +28,10 @@ class CSRGraph:
       col_idx:  int32[nnz]   — destination vertex of each out-edge.
       out_deg:  int32[n]     — ``row_ptr[1:] - row_ptr[:-1]``.
       epoch / mutation_offset: mutation provenance (0 = never mutated).
+
+    The derived per-edge arrays (``edge_src``, ``edge_dst_shard``,
+    ``channel_layout``) are computed on the graph's device at first use
+    and memoized on the instance; :meth:`to` starts a new, empty cache.
     """
 
     n: int
@@ -36,6 +40,8 @@ class CSRGraph:
     out_deg: torch.Tensor
     epoch: int = 0
     mutation_offset: int = 0
+    _derived: dict = dataclasses.field(default_factory=dict, init=False,
+                                       repr=False, compare=False)
 
     @property
     def nnz(self) -> int:
@@ -44,6 +50,51 @@ class CSRGraph:
     @property
     def device(self) -> torch.device:
         return self.row_ptr.device
+
+    @property
+    def edge_src(self) -> torch.Tensor:
+        """int32[nnz] — source vertex of each edge (memoized)."""
+        if "edge_src" not in self._derived:
+            self._derived["edge_src"] = torch.repeat_interleave(
+                torch.arange(self.n, dtype=torch.int32, device=self.device),
+                self.out_deg, output_size=self.nnz)
+        return self._derived["edge_src"]
+
+    def shard_size(self, num_shards: int) -> int:
+        """Vertices per range shard (ceil division)."""
+        return max(1, -(-self.n // num_shards))
+
+    def edge_dst_shard(self, num_shards: int) -> torch.Tensor:
+        """int32[nnz] — destination range shard of each edge (memoized per
+        shard count): the channel granularity of the channel erasure."""
+        key = ("edge_dst_shard", num_shards)
+        if key not in self._derived:
+            self._derived[key] = torch.div(
+                self.col_idx, self.shard_size(num_shards),
+                rounding_mode="floor")
+        return self._derived[key]
+
+    def channel_layout(self, num_shards: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Channel-grouped edge layout for the exact channel draw
+        (memoized per shard count): ``(col_sorted int32[nnz], chan_cnt
+        int32[n, S], chan_off int32[n, S])`` — ``col_idx`` with each
+        vertex's edges stably reordered by destination shard, the edges of
+        ``v`` into shard ``d``, and the offset of ``(v, d)``'s first edge
+        within ``v``'s segment. The reference sorts on the host with
+        ``np.lexsort((dst_shard, src))``; a stable sort by ``src·S +
+        dst_shard`` on the graph's device gives the same bytes."""
+        key = ("channel_layout", num_shards)
+        if key not in self._derived:
+            S = num_shards
+            chan = (self.edge_src.long() * S
+                    + self.edge_dst_shard(S).long())
+            order = torch.sort(chan, stable=True).indices
+            cnt = torch.bincount(chan, minlength=self.n * S).view(self.n, S)
+            off = torch.cumsum(cnt, 1) - cnt
+            self._derived[key] = (self.col_idx[order], cnt.to(torch.int32),
+                                  off.to(torch.int32))
+        return self._derived[key]
 
     def to(self, device: DeviceLike) -> "CSRGraph":
         """The same graph on ``device`` (itself when already there)."""

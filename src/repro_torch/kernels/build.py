@@ -43,6 +43,7 @@ SIGNATURES = {
     + [_c_int32, _c_void_p],
     "fw_frog_step_stream_sorted": [_c_void_p] * 11 + [_c_int64]
     + [_c_int32] * 5 + [_c_void_p],
+    "fw_spmv_ell_slab": [_c_void_p] * 4 + [_c_int64, _c_int32, _c_void_p],
 }
 
 _LOCK = threading.Lock()

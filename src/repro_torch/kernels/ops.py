@@ -4,7 +4,9 @@
 Same signatures and semantics as the reference: natural shapes, int32 slot
 bits taken as ``abs(bits)`` (inside the kernel, so no extra pass),
 ``die`` / ``stop`` cast to int32, and ``frog_count`` ignoring bins outside
-``[0, n)``. ``impl`` picks the backend:
+``[0, n)``; ``spmv`` is the hybrid ELL product, the slab through its
+kernel and the COO spill tail added with ``index_add_``. ``impl`` picks
+the backend:
 
 * ``"auto"``  — the CUDA kernel for CUDA tensors, the plain version
   (``ref.py``) for CPU tensors;
@@ -30,6 +32,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.config import KERNEL_IMPLS as IMPLS
+from repro_torch.graph.partition import EllGraph
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.frog_step_stream import BlockedCSR, block_csr
@@ -37,7 +40,8 @@ from repro_torch.kernels.frog_step_stream import BlockedCSR, block_csr
 LAUNCHES: Dict[str, int] = {"frog_step": 0, "frog_count": 0,
                             "stitch_gather": 0, "stitch_step": 0,
                             "stitch_gather_local": 0, "stitch_step_local": 0,
-                            "frog_step_stream_sorted": 0}
+                            "frog_step_stream_sorted": 0,
+                            "spmv_ell_slab": 0}
 
 # Frogs per CTA work item of the streamed superstep.
 STREAM_FROG_BLOCK = 1024
@@ -352,3 +356,41 @@ def stitch_step_local(pos: torch.Tensor, stop: torch.Tensor,
                 bits.data_ptr(), block.data_ptr(), nxt.data_ptr(),
                 counts.data_ptr(), W, int(base), sz, R)
     return nxt, counts
+
+
+def spmv_ell_slab(idx: torch.Tensor, weight: torch.Tensor, x: torch.Tensor,
+                  impl: str = "auto") -> torch.Tensor:
+    """The ELL slab product ``y[r] = Σ_k weight[r, k] · x[idx[r, k]]``
+    (float32[rows]) over an ``int32[rows, K]`` / ``float32[rows, K]``
+    slab whose ids lie in ``[0, len(x))`` (``to_ell`` makes them so, padded
+    lanes included); ragged row counts need no padding."""
+    name = "spmv_ell_slab"
+    use = _use_kernel(name, impl, idx, weight, x)
+    _check_i32(name, "idx", idx, ndim=2)
+    for arg, t in (("weight", weight), ("x", x)):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise TypeError(f"{name}: {arg} must be contiguous float32")
+    if weight.shape != idx.shape or x.dim() != 1:
+        raise ValueError(f"{name}: weight must have idx's shape "
+                         f"{list(idx.shape)} and x be 1-D")
+    if not use:
+        return kref.spmv_ref(idx, weight, x)
+    rows, K = idx.shape
+    y = torch.empty(rows, dtype=torch.float32, device=x.device)
+    if rows:
+        _launch(name, x.device, idx.data_ptr(), weight.data_ptr(),
+                x.data_ptr(), y.data_ptr(), rows, K)
+    return y
+
+
+def spmv(ell: EllGraph, x: torch.Tensor, impl: str = "auto"
+         ) -> torch.Tensor:
+    """Hybrid-ELL SpMV ``y = P @ x`` (float32[ell.n_rows]): the slab
+    through :func:`spmv_ell_slab`, plus the COO spill tail. ``x`` covers
+    every vertex id the layout names; callers slice ``y`` to the true
+    ``n``."""
+    y = spmv_ell_slab(ell.idx, ell.weight, x, impl=impl)
+    if ell.spill_nnz:
+        y = y + kref.spill_ref(ell.spill_src, ell.spill_dst, ell.spill_w, x,
+                               ell.n_rows)
+    return y

@@ -4,8 +4,9 @@ oracles in ``repro/kernels/ref.py``).
 Each computes exactly what its CUDA kernel computes, on any device; the
 wrappers in ``ops.py`` take them for CPU tensors, the tests hold them
 against the reference's Pallas kernels, and ``chip_smoke.py`` holds the
-kernels against them on the card. Integer outputs, so every comparison is
-byte-equal.
+kernels against them on the card. Every comparison is byte-equal: the
+outputs are integers, except ``spmv_ref``'s float32, which sums in the
+kernel's own order with separately rounded products and sums.
 """
 from __future__ import annotations
 
@@ -101,3 +102,21 @@ def frog_step_stream_sorted_ref(pos, die, bits, seg_off, row_off, deg, col):
     counts = torch.zeros(num_vb * bv, dtype=torch.int32, device=pos.device)
     counts.index_add_(0, pos.long(), die.to(torch.int32))
     return nxt, counts
+
+
+def spmv_ref(idx, weight, x):
+    """The ELL slab product ``y[r] = Σ_k weight[r, k] · x[idx[r, k]]``
+    (float32[rows]) in the kernel's order: ``k = 0 … K − 1``, each product
+    rounded, then added. Padded lanes (``weight = 0``, ``idx`` in range)
+    add ``0 · x[idx]``."""
+    y = torch.zeros(idx.shape[0], dtype=x.dtype, device=x.device)
+    for k in range(idx.shape[1]):
+        y = y + weight[:, k] * x[idx[:, k].long()]
+    return y
+
+
+def spill_ref(spill_src, spill_dst, spill_w, x, n: int):
+    """The COO tail of the hybrid SpMV: ``y[dst] += w · x[src]``
+    (float32[n]; ``index_add_``, float atomics on the card)."""
+    y = torch.zeros(n, dtype=x.dtype, device=x.device)
+    return y.index_add_(0, spill_dst.long(), x[spill_src.long()] * spill_w)

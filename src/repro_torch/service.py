@@ -20,6 +20,11 @@ walk, as in the reference without a mesh. ``kernel.step_impl="stream"``
 runs the batch walk and the index build through the streamed superstep,
 whose slab layout the service builds once and keeps.
 
+The batch estimate also runs the partial-synchronization walks
+(``erasure="independent"`` or ``"channel"`` with ``p_s < 1``; the channel
+model's destination shards are ``runtime.num_shards``) with the blocking
+draw ``kernel.draw`` picks.
+
 ``device=None`` means the CUDA card everywhere; without one these raise,
 and ``device="cpu"`` runs the plain PyTorch path. Mesh runs, checkpoints,
 faults and epoch commits come with later slices.

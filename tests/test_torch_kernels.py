@@ -7,8 +7,10 @@ interpret mode (``repro.kernels.ops``, ``impl="pallas"``) and its oracle
 padding sentinels, negative bits and all-0 / all-1 tallies.
 
 On the card (marker ``cuda``, skipped elsewhere): each CUDA kernel against
-its plain version on the same CUDA tensors, byte for byte, and the
-sharded and streamed service against the dense, resident one. This file
+its plain version on the same CUDA tensors, byte for byte (the ELL SpMV's
+float spill tail and power iteration within a stated tolerance), a refused
+launch raising, the sharded and streamed service against the dense,
+resident one, and the erasure walks against the CPU's. This file
 imports JAX only inside the reference comparisons, so the card tests run
 where JAX is not installed:
 
@@ -365,3 +367,95 @@ def test_cuda_sharded_streamed_service_matches_dense(cuda):
         assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), name
         for (va, sa), (vb, sb) in zip(a[2], b[2]):
             assert (va == vb).all() and (sa == sb).all(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [8, 16, 32, 40])
+@pytest.mark.parametrize("rows", [1, 1003, 300_001])
+def test_cuda_spmv_ell_slab_matches_plain(cuda, K, rows):
+    """The slab kernel against its plain version byte for byte: ragged row
+    counts (a last warp with fewer than 32 rows), x ~ N(0, 1) (negative
+    values), zero-weight padded lanes, full 32-lane chunks and a partial
+    one (K = 8, and K = 40's second chunk); operands at an offset view."""
+    g = torch.Generator().manual_seed(rows * K)
+    n = 4099
+    idx = torch.randint(0, n, (rows, K), generator=g, dtype=torch.int32)
+    w = torch.randn(rows, K, generator=g)
+    w[torch.rand(rows, K, generator=g) < 0.3] = 0.0
+    x = torch.randn(n, generator=g)
+    idx, w, x = idx.to(cuda), w.to(cuda), x.to(cuda)
+    before = ops.launch_counts()["spmv_ell_slab"]
+    got = ops.spmv_ell_slab(idx, w, x)
+    assert ops.launch_counts()["spmv_ell_slab"] == before + 1
+    # an operand 4 bytes off its allocation's alignment: the same bytes
+    w_odd = torch.empty(rows * K + 1, device=cuda)[1:].view(rows, K)
+    w_odd.copy_(w)
+    odd = ops.spmv_ell_slab(idx, w_odd, x)
+    torch.cuda.synchronize()
+    want = kref.spmv_ref(idx, w, x)
+    assert torch.equal(got, want) and torch.equal(odd, want)
+
+
+@pytest.mark.cuda
+def test_cuda_spmv_with_large_spill_close_to_plain(cuda):
+    """A hub row that spills 19,980 in-edges: the layout and the slab are
+    byte-equal to the CPU's. The spill's float atomics add the hub's terms
+    in any order; 20 shuffles of that order on the CPU moved the whole
+    product by up to 5.2e-5 and the 50-iteration ELL power iteration by up
+    to 0.77 of rtol=1e-5, atol=1e-7, so both are held to 4× and 13× those
+    spreads: rtol=1e-5, atol=2e-4 and rtol=1e-4, atol=1e-7."""
+    from repro_torch.core import power_iteration
+    from repro_torch.graph import build_csr, to_ell
+    n = 20_003
+    rng = np.random.default_rng(0)
+    src = np.concatenate([np.arange(n), rng.integers(0, n, 8 * n)])
+    dst = np.concatenate([np.full(n, 7), rng.integers(0, n, 8 * n)])
+    g = build_csr(n, src, dst)
+    ell_cpu = to_ell(g, K=32)
+    ell = to_ell(g.to(cuda), K=32)
+    assert ell.spill_nnz == ell_cpu.spill_nnz > n - 32
+    for f in ("idx", "valid", "weight", "spill_src", "spill_dst", "spill_w"):
+        assert torch.equal(getattr(ell, f).cpu(), getattr(ell_cpu, f)), f
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    assert torch.equal(ops.spmv_ell_slab(ell.idx, ell.weight, x.to(cuda))
+                       .cpu(), kref.spmv_ref(ell_cpu.idx, ell_cpu.weight, x))
+    np.testing.assert_allclose(ops.spmv(ell, x.to(cuda)).cpu().numpy(),
+                               ops.spmv(ell_cpu, x).numpy(), rtol=1e-5,
+                               atol=2e-4)
+    before = ops.launch_counts()["spmv_ell_slab"]
+    pi = power_iteration(g.to(cuda), num_iters=50, spmv="ell")
+    assert ops.launch_counts()["spmv_ell_slab"] == before + 50
+    np.testing.assert_allclose(
+        pi.cpu().numpy(), power_iteration(g, num_iters=50, spmv="ell").numpy(),
+        rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_cuda_refused_launch_raises(cuda):
+    """A launch the card refuses (a grid of 2**31 blocks, one more than
+    the limit) raises from the wrapper's launch; the kernel never runs, so
+    its null operands are never read."""
+    with pytest.raises(RuntimeError, match="spmv_ell_slab: kernel launch "
+                                           "failed with CUDA error"):
+        ops._launch("spmv_ell_slab", cuda, 0, 0, 0, 0, 1 << 39, 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["independent", "channel"])
+@pytest.mark.parametrize("draw", ["rejection", "cumsum", "auto"])
+def test_cuda_erasure_walk_equals_cpu(cuda, model, draw):
+    """The erasure walk on the card gives the CPU's counts byte for byte
+    (it does no float work); the frog_count kernel tallies its deaths."""
+    from repro_torch import (FrogWildService, KernelConfig, RuntimeConfig,
+                             ShardConfig)
+    from repro_torch.graph import chung_lu_powerlaw
+    g = chung_lu_powerlaw(3000, 8.0, seed=1)
+    rc = RuntimeConfig(num_frogs=20_000, num_steps=9, p_s=0.7, erasure=model,
+                       kernel=KernelConfig(draw=draw),
+                       runtime=ShardConfig(num_shards=16))
+    before = ops.launch_counts()["frog_count"]
+    got = FrogWildService.open(g, rc, device=cuda).pagerank(seed=3)
+    assert ops.launch_counts()["frog_count"] == before + 10
+    want = FrogWildService.open(g, rc, device="cpu").pagerank(seed=3)
+    assert torch.equal(got.counts.cpu(), want.counts)
+    assert torch.equal(got.pi_hat.cpu(), want.pi_hat)

@@ -303,9 +303,11 @@ def test_sharded_config_runtime_and_unported_features():
         == "loop"
     with pytest.raises(ValueError, match="sharded_dispatch"):
         tconfig.ServingConfig(sharded_dispatch="mesh")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tconfig.RuntimeConfig(runtime=tconfig.ShardConfig(num_shards=4),
-                              erasure="channel", p_s=0.7)
+    # the channel erasure is ported: its shards are the runtime's
+    rc = tconfig.RuntimeConfig(runtime=tconfig.ShardConfig(num_shards=4),
+                               erasure="channel", p_s=0.7)
+    assert (rc.frogwild().erasure, rc.frogwild().num_shards) == ("channel",
+                                                                4)
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         tconfig.RuntimeConfig(runtime=tconfig.ShardConfig(num_shards=4),
                               faults=object())
