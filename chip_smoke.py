@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path once at LiveJournal scale (n = 4,847,571,
-avg out-degree 14.2, θ = 2.2, seed 0; ``src/repro/configs/
-frogwild_graphs.py``) through the entry points a user calls, and checks
-every answer against its guarantee:
+Drives the port's main paths once through the entry points a user calls:
+FrogWild! at LiveJournal scale (n = 4,847,571, avg out-degree 14.2,
+θ = 2.2, seed 0; ``src/repro/configs/frogwild_graphs.py``) and the LM
+stack's dense serving path at llama3.2-1b's full width. It checks every
+answer against its guarantee:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
-2. build    — the eight CUDA kernels, compiled from ``csrc/`` with nvcc
+2. build    — the nine CUDA kernels, compiled from ``csrc/`` with nvcc
               (one nvcc per source, all at once);
 3. data     — the graph, generated on the host and moved to the card;
 4. batch    — ``FrogWildService.pagerank(ε=0.1, δ=0.1, k=100)``, held to
@@ -38,25 +39,56 @@ every answer against its guarantee:
               the wire-byte models);
 11. erasure_cpu — the six (model × draw) walks on a 100,000-vertex graph,
               on the card and with ``device="cpu"``: byte-equal;
+14. lm_prefill — llama3.2-1b at full width and depth (1.24 B parameters,
+              random, ``torch.Generator`` seed 0): ``forward_train`` on
+              1 × 32,768 tokens (``prefill_32k``'s length, batch cut from
+              32 to 1), ``flash_attention`` launched once a layer; bf16
+              logits within 5e-2 relative Frobenius of the plain path's;
+              each of the 16 launches within ``ATTN_REL`` of the chunked
+              version on its own inputs; float32 at S = 4,096: logits
+              within 1e-3 of max |logits| and each layer's attention
+              output within ``ATTN_REL``, which a planted fault must fail;
+15. lm_serve — the serving launcher's 6 requests (``max_batch`` 4,
+              ``max_len`` 256, 16 new tokens, greedy) through
+              ``BatchScheduler``; ms per ``serve_step`` at B = 4; decode
+              logits (relative error ≤ 1e-3) and each layer's attention
+              output (``ATTN_REL``) against the forward's at 64 positions
+              in float32, a gate a planted decode fault must fail;
+16. lm_cpu  — the reduced llama3.2-1b's 6 requests on the card and on the
+              CPU: equal tokens (a near tie, top-2 margin < 1e-4,
+              printed), each decode step's logits and attention outputs
+              within ``ATTN_REL`` of the CPU's, a gate a planted decode
+              fault on the card must fail (the random tied-embedding
+              model echoes its prompt, so its tokens alone show little);
 12. kernels — each kernel at the main path's shapes against its plain
-              version (byte-equal), with its time, bound and launches, the
-              8 shards' ``stitch_step_local`` summed against
-              ``stitch_step`` and the slab product at K = 40;
+              version (byte-equal; ``flash_attention`` within 2e-2 in bf16
+              and 2e-3 in float32 of ``attention_ref`` at S = 4,096 and of
+              the chunked version at 32k, and within ``ATTN_REL``'s
+              relative Frobenius error over all rows and the last eighth,
+              a gate two planted faults must fail at 32k), with its time,
+              bound and launches, the 8 shards' ``stitch_step_local``
+              summed against ``stitch_step`` and the slab product at
+              K = 40;
 13. profile — a batch run (resident and streamed), a serving wave (dense),
-              a loop wave (8 shards), the ELL power iteration and the
-              quickstart's erasure run under torch.profiler: wall time
-              against device-busy time (the idle share).
+              a loop wave (8 shards), the ELL power iteration, the
+              quickstart's erasure run, one 32k prefill forward and one
+              ``serve_step`` under torch.profiler: wall time against
+              device-busy time (the idle share).
 
+Phases 14-16 run after phase 11 and before 12 and 13, which read them.
 Launch counts are reset just before phase 4 and read just after phase 5
 (slice 1's path), reset just before phase 7 and read just after the
-queries of phase 8 (the streamed and sharded paths), and reset just before
+queries of phase 8 (the streamed and sharded paths), reset just before
 phase 9 and read just after phase 10's ELL power iteration (the erasure
-walks and the GraphLab-PR baseline). The last line is
+walks and the GraphLab-PR baseline), reset just before the 32k forward of
+phase 14 and read just after it, and reset just before phase 15's
+scheduler run and read just after it. The last line is
 ``{"ok": true, "device": {...}}``; any failed check or launch raises and
 exits non-zero, as does a machine without CUDA.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -72,8 +104,34 @@ LJ = dict(n=4_847_571, avg_out_deg=14.2, theta=2.2, seed=0)
 # 16 destination shards, accuracy at k = 20
 QUICKSTART = dict(num_frogs=400_000, p_s=0.7, shards=16, k=20)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM published memory rate
+BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor-core peak
 REPS = 50
 SHARDS = 8
+# the LM stack: llama3.2-1b at full width and depth
+# (src/repro_torch/configs/llama32_1b.py), random weights from seed 0;
+# the prefill at prefill_32k's length with its batch cut from 32 to 1
+# (the [32, 32768, 128256] bf16 logits alone would be 269 GB)
+LM_ARCH = "llama3.2-1b"
+LM_PREFILL = dict(batch=1, seq=32_768, gate2_seq=4_096)
+# the serving launcher's workload (python -m repro_torch.launch.serve)
+LM_SERVE = dict(requests=6, max_new=16, max_batch=4, invariant_seq=64)
+# flash_attention against attention_ref at S = 4,096 (a 32k oracle would
+# hold 137 GB of logits): B, Hq, Hkv, Sq, Skv, D, window, causal, cap,
+# q_offset, dtype, max abs tolerance (tests/test_kernels.py:153's)
+FA_CHECKS = {
+    "llama3.2-1b": (1, 32, 8, 4096, 4096, 64, None, True, None, 0,
+                    "bfloat16", 2e-2),
+    "gemma3-4b_local": (1, 8, 4, 4096, 4096, 256, 1024, True, None, 0,
+                        "bfloat16", 2e-2),
+    "softcap_offset_ragged": (1, 8, 2, 4096, 4000, 128, None, False, 30.0,
+                              96, "float32", 2e-3),
+}
+# relative Frobenius limits on attention outputs, over all rows and over
+# the last eighth (whose outputs are the smallest, |out| ~ (i/e)^-1/2 for
+# unit-normal q, k, v). Sound H100 runs read at most 1.4e-4 in bf16 (both
+# sides round the same float32 value, so few elements differ) and 1.9e-6
+# in float32 (reduction order); the planted faults read 0.045 and above
+ATTN_REL = {"bfloat16": 1e-3, "float32": 1e-5}
 
 
 def log(phase: str, **kw) -> None:
@@ -96,6 +154,14 @@ def time_ms(fn, reps: int = REPS) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_ms_auto(fn) -> tuple:
+    """``(ms, reps)``: :func:`time_ms` over 50 calls, or over 5 for a call
+    above 10 ms (one call timed first, after the warm-ups)."""
+    one = time_ms(fn, reps=1)
+    reps = REPS if one < 10.0 else 5
+    return time_ms(fn, reps=reps), reps
 
 
 def sectors(idx) -> int:
@@ -737,6 +803,549 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the LM stack: llama3.2-1b's prefill forward and serving loop
+# ---------------------------------------------------------------------------
+
+def lm_model(cfg, dev):
+    """Random parameters from ``torch.Generator`` seed 0 on ``dev``."""
+    import torch
+    from repro_torch.models import init_params
+    return init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+
+
+def rel_frobenius(a, b, dim: int = 1, start: int = 0,
+                  chunk: int = 4096) -> float:
+    """``‖a − b‖_F / ‖b‖_F`` over the positions ``start:`` of dimension
+    ``dim`` (1 for ``[B, S, …]`` logits and hidden states, 2 for
+    ``[B, H, S, D]`` attention outputs), in float64 sums of float32 slices
+    of ``chunk`` positions (no float32 copy of the whole)."""
+    num = den = 0.0
+    n = a.shape[dim]
+    for s0 in range(start, n, chunk):
+        w = min(chunk, n - s0)
+        x, y = a.narrow(dim, s0, w).float(), b.narrow(dim, s0, w).float()
+        num += float((x - y).double().square().sum())
+        den += float(y.double().square().sum())
+    return (num / den) ** 0.5
+
+
+def rel_rows(a, b, dim: int) -> tuple:
+    """(relative Frobenius error over all positions, over the last
+    eighth): a fault in late rows, whose outputs are small, shows in the
+    second."""
+    n = a.shape[dim]
+    return rel_frobenius(a, b, dim), rel_frobenius(a, b, dim, n - n // 8)
+
+
+@contextlib.contextmanager
+def patched(module, name, make):
+    """``module.<name>`` replaced by ``make(original)`` inside the block
+    (a tap that records, or a planted fault)."""
+    orig = getattr(module, name)
+    setattr(module, name, make(orig))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def late_keys_dropped(orig):
+    """Planted fault: the kernel with a window of S/2, so each row past
+    S/2 loses its keys more than S/2 back (half of a late row's keys)."""
+    def fn(q, k, v, **kw):
+        return orig(q, k, v, **{**kw, "window": q.shape[2] // 2})
+    return fn
+
+
+def newest_keys_dropped(orig, n: int = 64):
+    """Planted fault: each row loses its ``n`` newest keys (a kernel that
+    skips the diagonal key tile; rows below ``n`` come out 0)."""
+    import torch
+
+    def fn(q, k, v, **kw):
+        out = torch.zeros_like(q)
+        out[:, :, n:] = orig(q[:, :, n:], k, v, **kw)
+        return out
+    return fn
+
+
+def decode_newest_key_dropped(orig):
+    """Planted fault in decode: attention over the cache's valid prefix
+    less its newest key (the token just written)."""
+    def fn(q, k, v, length, **kw):
+        return orig(q, k, v, max(1, length - 1), **kw)
+    return fn
+
+
+@contextlib.contextmanager
+def lm_taps():
+    """Record what the LM path computes: ``attn`` gets every layer's
+    attention output (``attention_forward`` and ``decode_attention``,
+    after ``wo``, in call order), ``steps`` one ``(tokens, logits, that
+    step's attention outputs)`` for each ``decode_step`` that ``prefill``
+    and ``serve_step`` call."""
+    import importlib
+    from repro_torch.models import transformer
+    attn, steps = [], []
+
+    def forward(orig):
+        def fn(*a, **kw):
+            out = orig(*a, **kw)
+            attn.append(out)
+            return out
+        return fn
+
+    def decode(orig):
+        def fn(*a, **kw):
+            out, cache = orig(*a, **kw)
+            attn.append(out)
+            return out, cache
+        return fn
+
+    def step(orig):
+        def fn(params, state, tokens, cfg):
+            n = len(attn)
+            logits, st = orig(params, state, tokens, cfg)
+            steps.append((tokens.clone(), logits, attn[n:]))
+            return logits, st
+        return fn
+
+    with contextlib.ExitStack() as stack:
+        for mod, name, make in (
+                (transformer, "attention_forward", forward),
+                (transformer, "decode_attention", decode),
+                (importlib.import_module("repro_torch.serving.decode"),
+                 "decode_step", step),
+                (importlib.import_module("repro_torch.serving.prefill"),
+                 "decode_step", step)):
+            stack.enter_context(patched(mod, name, make))
+        yield attn, steps
+
+
+def max_layer_rel(got, want, dim: int = 1) -> tuple:
+    """The largest (all rows, last eighth) relative Frobenius errors over
+    a list of per-layer outputs."""
+    pairs = [rel_rows(a, b, dim) for a, b in zip(got, want, strict=True)]
+    return max(p[0] for p in pairs), max(p[1] for p in pairs)
+
+
+def phase_lm_prefill(cfg, dev, batch=LM_PREFILL["batch"],
+                     seq=LM_PREFILL["seq"],
+                     gate2_seq=LM_PREFILL["gate2_seq"]):
+    """``forward_train`` at full width and depth on ``[batch, seq]``
+    tokens through the ``flash_attention`` kernel (one launch a layer),
+    then gate 1 (bf16: relative Frobenius error against the same forward
+    under ``attn_impl="torch"`` ≤ 5e-2), gate 1b (each launch against the
+    chunked version on its own inputs, ``ATTN_REL``) and gate 2 (float32
+    at ``gate2_seq``: max abs error ≤ 1e-3 · max |logits|, and each
+    layer's attention output within ``ATTN_REL``, which a planted fault
+    must fail)."""
+    import dataclasses
+    import torch
+    from repro_torch import prng
+    from repro_torch.kernels import ops
+    from repro_torch.models import forward_train
+    t0 = time.perf_counter()
+    params = lm_model(cfg, dev)
+    sync()
+    n_params = sum(p.numel() for p in params.parameters())
+    log("14 lm_model", arch=cfg.name, params=n_params,
+        param_bytes=sum(p.numel() * p.element_size()
+                        for p in params.parameters()),
+        init_s=time.perf_counter() - t0)
+    toks = prng.randint(prng.PRNGKey(1, dev), (batch, seq), 0,
+                        cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits, _ = forward_train(params, {"tokens": toks}, cfg)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log("launches", path="lm_prefill", **launches)
+    assert launches["flash_attention"] == cfg.num_layers, launches
+    assert logits.shape == (batch, seq, cfg.vocab_size), logits.shape
+    assert logits.dtype == torch.bfloat16
+    finite = all(bool(torch.isfinite(logits[:, s0:s0 + 4096]).all())
+                 for s0 in range(0, seq, 4096))
+    log("14 lm_prefill", batch=batch, seq=seq, wall_s=wall,
+        tokens_per_s=batch * seq / wall, peak_mem_bytes=peak,
+        finite=finite)
+    assert finite, "non-finite prefill logits"
+    plain = dataclasses.replace(cfg, attn_impl="torch")
+    sync()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits_t, _ = forward_train(params, {"tokens": toks}, plain)
+    sync()
+    t_plain = time.perf_counter() - t0
+    rel = rel_frobenius(logits, logits_t)
+    log("14 lm_prefill_gate1", dtype=cfg.dtype, plain_wall_s=t_plain,
+        rel_frobenius=rel, limit=5e-2, ok=rel <= 5e-2)
+    assert rel <= 5e-2, "bf16 prefill logits stray from the plain path"
+    del logits, logits_t
+    # Gate 1b: the residual stream (|x| ~ √d_model) rounds small attention
+    # outputs away in bf16 and the tied embedding dominates the logits, so
+    # gate 1 barely sees attention. Each of the forward's 16 launches is
+    # held instead to the plain chunked version on its own (strided) inputs.
+    calls = []
+
+    def record(orig):
+        def fn(q, k, v, **kw):
+            out = orig(q, k, v, **kw)
+            calls.append((q, k, v, kw, out))
+            return out
+        return fn
+
+    with patched(ops, "attention", record), torch.inference_mode():
+        forward_train(params, {"tokens": toks}, cfg)
+    assert len(calls) == cfg.num_layers, len(calls)
+    worst = (0.0, 0.0)
+    with torch.inference_mode():
+        for q, k, v, kw, out in calls:
+            want = ops.attention(q, k, v, **{**kw, "impl": "torch"})
+            worst = tuple(map(max, worst, rel_rows(out, want, dim=2)))
+            del want
+    lim = ATTN_REL[cfg.dtype]
+    log("14 lm_prefill_gate1b", dtype=cfg.dtype, launches=len(calls),
+        max_rel_frobenius=worst[0], max_rel_frobenius_last_eighth=worst[1],
+        limit=lim, ok=max(worst) <= lim)
+    assert max(worst) <= lim, "a launch strays from the chunked version"
+    del calls
+    # Gate 2: float32 at gate2_seq; the logits and each layer's attention
+    # output against the plain path's, then the same with a planted fault
+    # (the kernel drops the keys more than S/2 back) to show which of the
+    # two gates sees it.
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    short = {"tokens": toks[:, :gate2_seq]}
+    runs = {}
+    for what, c, fault in (
+            ("kernel", f32, None),
+            ("torch", dataclasses.replace(f32, attn_impl="torch"), None),
+            ("fault", f32, late_keys_dropped)):
+        with contextlib.ExitStack() as stack:
+            attn, _ = stack.enter_context(lm_taps())
+            if fault is not None:
+                stack.enter_context(patched(ops, "attention", fault))
+            stack.enter_context(torch.inference_mode())
+            lg, _ = forward_train(params, short, c)
+        runs[what] = (lg, attn)
+    (a, a_attn), (b, b_attn) = runs["kernel"], runs["torch"]
+    scale = float(b.abs().max())
+    lim = ATTN_REL["float32"]
+    for what in ("kernel", "fault"):
+        got, got_attn = runs[what]
+        err = float((got - b).abs().max())
+        att = max_layer_rel(got_attn, b_attn)
+        log("14 lm_prefill_gate2", run=what, dtype="float32", seq=gate2_seq,
+            max_abs_err=err, max_abs_logit=scale, ratio=err / scale,
+            limit=1e-3, logits_ok=err <= 1e-3 * scale,
+            attn_max_rel_frobenius=att[0],
+            attn_max_rel_frobenius_last_eighth=att[1], attn_limit=lim,
+            attn_ok=max(att) <= lim)
+        if what == "kernel":
+            assert err <= 1e-3 * scale, \
+                "f32 prefill logits stray from the plain path"
+            assert max(att) <= lim, \
+                "f32 attention outputs stray from the plain path"
+        else:
+            assert max(att) > lim, "the attention gate misses a planted fault"
+    del runs, a, b, a_attn, b_attn
+    return params, toks, launches["flash_attention"], peak
+
+
+def phase_lm_serve(params, cfg, dev, requests=LM_SERVE["requests"],
+                   max_new=LM_SERVE["max_new"],
+                   max_batch=LM_SERVE["max_batch"],
+                   invariant_seq=LM_SERVE["invariant_seq"]):
+    """The launcher's workload (``BatchScheduler`` over
+    ``launch.serve.make_requests``, greedy), ms per ``serve_step`` at
+    B = ``max_batch``, and the serving invariant in float32: decode logits
+    at each of ``invariant_seq`` positions against ``forward_train``'s,
+    relative error ≤ 1e-3, and each layer's attention output within
+    ``ATTN_REL``, which a planted decode fault must fail."""
+    import dataclasses
+    import torch
+    from repro_torch import prng
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch.serve import MAX_LEN, make_requests
+    from repro_torch.models import (decode_step, forward_train,
+                                    init_decode_state)
+    from repro_torch.serving import BatchScheduler, prefill, serve_step
+    sched = BatchScheduler(params, cfg, max_batch=max_batch, max_len=MAX_LEN)
+    reqs = make_requests(cfg, requests, 0, max_new)
+    for r in reqs:
+        sched.submit(r)
+    ops.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    done = sched.run()
+    sync()
+    wall = time.perf_counter() - t0
+    log("launches", path="lm_serve", **ops.launch_counts())
+    total = sum(len(r.output) for r in done)
+    assert len(done) == requests and all(
+        r.done and 1 <= len(r.output) <= max_new for r in done)
+    assert all(0 <= t < cfg.vocab_size for r in done for t in r.output)
+    # ms per serve_step at B = max_batch, from a prefilled wave
+    prompts = torch.stack([torch.tensor(r.prompt[:3], device=dev)
+                           for r in reqs[:max_batch]])
+    logits, state = prefill(params, cfg, prompts, MAX_LEN)
+    cur = torch.argmax(logits, -1).to(torch.int32)
+    steps = 8
+    sync()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        cur, state = serve_step(params, state, cur, cfg,
+                                key=prng.fold_in(prng.PRNGKey(0, dev), i))
+    sync()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    log("15 lm_serve", requests=requests, max_batch=max_batch,
+        max_len=MAX_LEN, tokens=total, wall_s=wall,
+        tokens_per_s=total / wall, serve_step_ms=step_ms, batch=max_batch,
+        outputs=json.dumps([r.output for r in done]))
+    # the serving invariant at full width, float32: the decode logits and
+    # each layer's attention output against the forward's, then the same
+    # with a planted decode fault (the newest key left out) to show which
+    # of the two gates sees it
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    toks = prng.randint(prng.PRNGKey(2, dev), (1, invariant_seq), 0,
+                        cfg.vocab_size)
+    with lm_taps() as (want_attn, _), torch.inference_mode():
+        want, _ = forward_train(params, {"tokens": toks}, f32)
+    lim = ATTN_REL["float32"]
+    for what, fault in (("sound", None), ("fault", decode_newest_key_dropped)):
+        with contextlib.ExitStack() as stack:
+            attn, _ = stack.enter_context(lm_taps())
+            if fault is not None:
+                stack.enter_context(patched(kref, "decode_attention_ref",
+                                            fault))
+            st = init_decode_state(params, f32, 1, invariant_seq)
+            rel = 0.0
+            for t in range(invariant_seq):
+                got, st = decode_step(params, st, toks[:, t], f32)
+                w = want[:, t]
+                rel = max(rel, float((got - w).norm() / w.norm()))
+        L = cfg.num_layers
+        per_layer = [torch.cat(attn[i::L], dim=1) for i in range(L)]
+        att = max_layer_rel(per_layer, want_attn)
+        log("15 lm_serve_invariant", run=what, dtype="float32",
+            seq=invariant_seq, max_rel_err=rel, limit=1e-3,
+            logits_ok=rel <= 1e-3, attn_max_rel_frobenius=att[0],
+            attn_max_rel_frobenius_last_eighth=att[1], attn_limit=lim,
+            attn_ok=max(att) <= lim)
+        if fault is None:
+            assert rel <= 1e-3, "decode logits stray from the forward's"
+            assert max(att) <= lim, \
+                "decode attention outputs stray from the forward's"
+        else:
+            assert max(att) > lim, "the attention gate misses a planted fault"
+    return state, cur
+
+
+def phase_lm_cpu(cfg, dev, requests=LM_SERVE["requests"],
+                 max_new=LM_SERVE["max_new"],
+                 max_batch=LM_SERVE["max_batch"]):
+    """The reduced config's scheduler run on the card and on the CPU, one
+    set of weights: equal tokens (a differing token fails unless the CPU's
+    top-2 logit margin at that step is below 1e-4, printed), and each
+    decode step's logits and attention outputs within ``ATTN_REL``, which
+    a planted decode fault on the card must fail."""
+    import copy
+    import torch
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch.serve import MAX_LEN, make_requests
+    from repro_torch.models import init_params
+    from repro_torch.serving import BatchScheduler, prefill
+    cpu_params = init_params(cfg, 0, device="cpu")
+    runs, steps = {}, {}
+    for where, params, fault in (
+            ("cuda", copy.deepcopy(cpu_params).to(dev), None),
+            ("cpu", cpu_params, None),
+            ("cuda_fault", copy.deepcopy(cpu_params).to(dev),
+             decode_newest_key_dropped)):
+        sched = BatchScheduler(params, cfg, max_batch=max_batch,
+                               max_len=MAX_LEN)
+        for r in make_requests(cfg, requests, 0, max_new):
+            sched.submit(r)
+        with contextlib.ExitStack() as stack:
+            _, steps[where] = stack.enter_context(lm_taps())
+            if fault is not None:
+                stack.enter_context(patched(kref, "decode_attention_ref",
+                                            fault))
+            t0 = time.perf_counter()
+            runs[where] = sched.run()
+            sync()
+        log("16 lm_cpu_run", device=where, seconds=time.perf_counter() - t0,
+            decode_steps=len(steps[where]))
+    # the decode steps' logits and attention outputs, card against CPU,
+    # while both fed the same tokens
+    lim = ATTN_REL["float32"]
+    for what in ("cuda", "cuda_fault"):
+        n = 0
+        lg = att = 0.0
+        for (ta, la, aa), (tb, lb, ab) in zip(steps[what], steps["cpu"]):
+            if not torch.equal(ta.cpu(), tb):
+                break
+            n += 1
+            lg = max(lg, float((la.cpu() - lb).norm() / lb.norm()))
+            att = max(att, max(float((x.cpu() - y).norm() / y.norm())
+                               for x, y in zip(aa, ab, strict=True)))
+        log("16 lm_cpu_steps", run=what, steps_compared=n,
+            steps=len(steps["cpu"]), logits_max_rel_err=lg,
+            attn_max_rel_err=att, limit=lim, logits_ok=lg <= lim,
+            attn_ok=att <= lim)
+        assert n >= 1, "no decode step fed the same tokens on both devices"
+        if what == "cuda":
+            assert lg <= lim and att <= lim, \
+                "the card's decode steps stray from the CPU's"
+        else:
+            assert att > lim, "the attention gate misses a planted fault"
+    log("16 lm_cpu_fault_tokens", equal_cpu=all(
+        a.output == b.output for a, b in zip(runs["cuda_fault"],
+                                             runs["cpu"])))
+    differ, near_ties = 0, []
+    for i, (a, b) in enumerate(zip(runs["cuda"], runs["cpu"])):
+        if a.output == b.output:
+            continue
+        j = next(j for j, (x, y) in enumerate(zip(a.output, b.output))
+                 if x != y)
+        wave = runs["cpu"][i - i % max_batch: i - i % max_batch + max_batch]
+        width = max(len(r.prompt) for r in wave)
+        seq = [1] * (width - len(b.prompt)) + b.prompt + b.output[:j]
+        logits, _ = prefill(cpu_params, cfg, torch.tensor([seq]), MAX_LEN)
+        top = torch.topk(logits[0].float(), 2).values
+        margin = float(top[0] - top[1])
+        log("16 lm_cpu_differ", rid=b.rid, step=j, cuda=a.output[j],
+            cpu=b.output[j], cpu_top2_margin=margin)
+        differ += 1
+        near_ties.append(margin < 1e-4)
+    log("16 lm_cpu", arch=cfg.name, requests=requests,
+        tokens=sum(len(r.output) for r in runs["cpu"]),
+        requests_differing=differ, equal=differ == 0)
+    assert all(near_ties), "the card's tokens differ from the CPU's"
+
+
+def flash_attention_row(launches, cfg, dev, batch=LM_PREFILL["batch"],
+                        seq=LM_PREFILL["seq"]):
+    """``flash_attention`` at the slice's shape (``cfg``'s heads at S =
+    32,768, bf16, random q, k and v): the kernel's ms, its bound, SDPA's ms
+    and the plain chunked version's answer (max abs error ≤ 2e-2, relative
+    Frobenius error over all rows and over the last eighth within
+    ``ATTN_REL``, a gate two planted faults must fail); then the kernel
+    against ``attention_ref`` at S = 4,096 on the three ``FA_CHECKS``
+    shapes, whose first gives the plain ms."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    B, S = batch, seq
+    Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn((B, h, S, D), generator=gen, device=dev,
+                           dtype=torch.bfloat16) for h in (Hq, Hkv, Hkv))
+    kern = lambda: ops.attention(q, k, v, impl="cuda")      # noqa: E731
+    out = kern()
+    plain32k = kref.attention_chunked(q, k, v)
+    err32k = float((out.float() - plain32k.float()).abs().max())
+    lim = ATTN_REL["bfloat16"]
+    rel32k = rel_rows(out, plain32k, dim=2)
+    log("12 flash_attention_32k", max_abs_err=err32k, tolerance=2e-2,
+        rel_frobenius=rel32k[0], rel_frobenius_last_eighth=rel32k[1],
+        limit=lim, ok=err32k <= 2e-2 and max(rel32k) <= lim)
+    assert err32k <= 2e-2 and max(rel32k) <= lim, \
+        f"flash_attention strays at 32k: {err32k}, {rel32k}"
+    # controls: the same gate must fail a kernel that drops half of a late
+    # row's keys, or each row's newest 64 keys
+    for what, fault in (("late_keys_dropped", late_keys_dropped),
+                        ("newest_64_keys_dropped", newest_keys_dropped)):
+        bad = fault(lambda *a, **kw: ops.attention(*a, impl="cuda", **kw))(
+            q, k, v, causal=True)
+        ctl = rel_rows(bad, plain32k, dim=2)
+        ctl_abs = float((bad.float() - plain32k.float()).abs().max())
+        del bad
+        log("12 flash_attention_32k_control", fault=what,
+            max_abs_err=ctl_abs, rel_frobenius=ctl[0],
+            rel_frobenius_last_eighth=ctl[1], limit=lim,
+            caught=max(ctl) > lim, caught_by_max_abs=ctl_abs > 2e-2)
+        assert max(ctl) > lim, f"the 32k gate misses a planted fault ({what})"
+    del plain32k
+    ms, reps = time_ms_auto(kern)
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
+            q, k, v, is_causal=True, enable_gqa=True)
+        lib_ms, lib_reps = time_ms_auto(sdpa)
+    pairs = S * (S + 1) // 2
+    flops = 4 * B * Hq * pairs * D
+    nbytes = 2 * (2 * B * Hq * S * D + 2 * B * Hkv * S * D)
+    bound = max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    errs, plain_ms = [], None
+    for what, (b, hq, hkv, sq, skv, d, window, causal, cap, qo, dt,
+               tol) in FA_CHECKS.items():
+        dtype = getattr(torch, dt)
+        qq, kk, vv = (torch.randn((b, h, n, d), generator=gen, device=dev,
+                                  dtype=dtype)
+                      for h, n in ((hq, sq), (hkv, skv), (hkv, skv)))
+        kw = dict(causal=causal, window=window, q_offset=qo)
+        got = ops.attention(qq, kk, vv, soft_cap=cap, impl="cuda", **kw)
+        want = kref.attention_ref(qq, kk, vv, logit_soft_cap=cap, **kw)
+        err = float((got.float() - want.float()).abs().max())
+        rel = rel_rows(got, want, dim=2)
+        ok = err <= tol and max(rel) <= ATTN_REL[dt]
+        log("12 flash_attention_check", shape=what, dtype=dt, Sq=sq,
+            Skv=skv, D=d, window=window, causal=causal, soft_cap=cap,
+            q_offset=qo, max_abs_err=err, tolerance=tol,
+            rel_frobenius=rel[0], rel_frobenius_last_eighth=rel[1],
+            rel_limit=ATTN_REL[dt], ok=ok)
+        assert ok, f"flash_attention strays from attention_ref ({what})"
+        errs.append(err)
+        if plain_ms is None:
+            plain_ms, plain_reps = time_ms_auto(
+                lambda: kref.attention_ref(qq, kk, vv, **kw))
+    r = dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:110",
+             launches=launches, max_abs_err=max([err32k] + errs), ms=ms,
+             plain_ms=plain_ms, bound_ms=bound, bound_by="operations",
+             library_ms=lib_ms)
+    log("12 kernel", **{k: v for k, v in r.items()
+                        if k not in ("source", "replaces", "route")},
+        reps=reps, library_reps=lib_reps, plain_reps=plain_reps,
+        max_abs_err_32k_vs_chunked=err32k,
+        plain="attention_ref at S=4096 (llama heads); at 32k it would "
+        "hold 137 GB of logits", library="SDPA flash backend, enable_gqa",
+        flop=flops, bytes=nbytes)
+    return r
+
+
+def phase_lm_profile(params, cfg, toks, state, cur):
+    """Where one 32k prefill forward and one ``serve_step`` at B = 4 spend
+    their time."""
+    import torch
+    from repro_torch.models import forward_train
+    from repro_torch.serving import serve_step
+
+    def prefill_fwd():
+        with torch.inference_mode():
+            forward_train(params, {"tokens": toks}, cfg)
+
+    for what, fn in (("lm_prefill_32k", prefill_fwd),
+                     ("lm_serve_step", lambda: serve_step(params, state, cur,
+                                                          cfg))):
+        wall, busy, kernels = device_busy_ms(fn)
+        log("13 profile", what=what, wall_ms=wall,
+            device_busy_ms=busy if kernels else "not measured",
+            idle_share=1 - busy / wall if kernels else "not measured",
+            kernels=kernels)
+
+
 def device_busy_ms(fn) -> tuple:
     """``(wall ms, device-busy ms, kernels)`` of one ``fn()``: the union of
     the kernel intervals ``torch.profiler`` traced (CUPTI sees the ctypes
@@ -804,6 +1413,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
+    # float32 products in full float32 (the LM gates compare float32
+    # logits at 1e-3); both defaults stated, not assumed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     from repro_torch import FrogWildService, RuntimeConfig
     from repro_torch.kernels import ops
 
@@ -849,14 +1462,23 @@ def main() -> int:
     launches["spmv_ell_slab"] = launches3["spmv_ell_slab"]
     phase_figure1(g, pi, ell, erasure_runs, t)
     phase_erasure_cpu()
+    # the LM stack: llama3.2-1b's 32k prefill forward, its serving loop,
+    # and the reduced model's tokens against the CPU's
+    from repro_torch.configs import get_config, reduced_config
+    lm_cfg = get_config(LM_ARCH)
+    params, toks, fa_launches, lm_peak = phase_lm_prefill(lm_cfg, dev)
+    state, cur = phase_lm_serve(params, lm_cfg, dev)
+    phase_lm_cpu(reduced_config(lm_cfg), dev)
     rows = kernel_rows(svc, index, hubs, launches, dev,
                        stream_svc.blocked_csr(),
                        sharded["fused"].ensure_index(), ell, pi)
+    rows.append(flash_attention_row(fa_launches, lm_cfg, dev))
     phase_profile(svc, stream_svc, sharded["loop"], erasure_svc, g)
+    phase_lm_profile(params, lm_cfg, toks, state, cur)
     for s in (svc, stream_svc, erasure_svc, *sharded.values()):
         s.close()
     log("done", seconds=time.perf_counter() - t_all,
-        peak_mem_bytes=max(peak, erasure_peak,
+        peak_mem_bytes=max(peak, erasure_peak, lm_peak,
                            torch.cuda.max_memory_allocated()))
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -11,7 +11,10 @@ caller passes ``device="cpu"``. The batch estimate runs the plain walk
 (p_s = 1) and the partial-synchronization walks (``erasure=
 "independent"`` or ``"channel"`` with p_s < 1); the GraphLab-PR baseline,
 ``core.power_iteration(spmv="ell")``, runs through the hand-written ELL
-SpMV kernel.
+SpMV kernel. The LM stack's dense family (``repro_torch.models``,
+``configs``, ``serving``, ``launch.serve``) runs its full-sequence
+forward through the hand-written ``flash_attention`` kernel and serves
+through a KV cache.
 
 The port never imports ``jax`` or ``repro``.
 """

@@ -1,0 +1,101 @@
+"""The LLM architecture registry of the port (port of the LLM half of
+``repro/configs/registry.py``): ``get_config``, ``SHAPES``,
+``shape_applicable`` and ``reduced_config``.
+
+The four dense architectures are ported; ``get_config`` of the other six
+raises ``NotImplementedError`` naming their ``ROADMAP.md`` item. The
+reference's ``input_specs`` / ``param_specs`` are ``eval_shape`` tooling
+and come with the launch tools (Queue 1 item 15).
+
+Shape semantics:
+  * train_4k     — train_step   (tokens+labels, seq 4096, global batch 256)
+  * prefill_32k  — serve prefill (forward, seq 32768, batch 32)
+  * decode_32k   — serve_step    (ONE new token, KV cache of 32768, batch 128)
+  * long_500k    — serve_step    (one token, 524288 cache, batch 1) —
+                   sub-quadratic archs only (``ModelConfig.subquadratic``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any, Dict, Tuple
+
+from repro_torch.models.config import ModelConfig
+
+_ARCH_MODULES = {
+    "h2o-danube-3-4b": "repro_torch.configs.h2o_danube3_4b",
+    "starcoder2-7b": "repro_torch.configs.starcoder2_7b",
+    "gemma3-4b": "repro_torch.configs.gemma3_4b",
+    "llama3.2-1b": "repro_torch.configs.llama32_1b",
+}
+_NOT_PORTED = {
+    "llava-next-mistral-7b": "14 (the vlm branch)",
+    "olmoe-1b-7b": "14 (models/moe.py)",
+    "phi3.5-moe-42b-a6.6b": "14 (models/moe.py)",
+    "whisper-medium": "14 (the encdec branch)",
+    "rwkv6-3b": "14 (models/rwkv6.py)",
+    "zamba2-1.2b": "14 (models/mamba2.py and the hybrid branch)",
+}
+ARCHS = tuple(_ARCH_MODULES)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{arch} is not ported to repro_torch yet (ROADMAP.md Queue 1 "
+            f"item {_NOT_PORTED[arch]})")
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: "
+                       f"{sorted(_ARCH_MODULES) + sorted(_NOT_PORTED)}")
+    return importlib.import_module(_ARCH_MODULES[arch]).CONFIG
+
+
+def shape_applicable(cfg: ModelConfig, shape: str) -> Tuple[bool, str]:
+    """(applicable?, reason-if-not)."""
+    spec = SHAPES[shape]
+    if spec.name == "long_500k" and not cfg.subquadratic:
+        return False, ("pure full-attention arch — 500k decode needs "
+                       "sub-quadratic attention (skip per brief)")
+    return True, ""
+
+
+def reduced_config(cfg: ModelConfig) -> ModelConfig:
+    """Same wiring, toy width: one forward/decode runs on a CPU. The
+    reference's rules for the dense family."""
+    kw: Dict[str, Any] = dict(
+        name=cfg.name + "-smoke",
+        family=cfg.family,
+        num_layers=min(cfg.num_layers, 4),
+        d_model=128,
+        num_heads=4,
+        d_ff=256,
+        vocab_size=512,
+        head_dim=32,
+        rope_theta=cfg.rope_theta,
+        tie_embeddings=cfg.tie_embeddings,
+        dtype="float32",
+    )
+    # keep the kv:q ratio flavour
+    kw["num_kv_heads"] = 4 if cfg.num_kv_heads == cfg.num_heads else 2
+    if cfg.sliding_window is not None:
+        kw["sliding_window"] = 8
+    if cfg.global_every is not None:
+        kw["global_every"] = 2
+        kw["num_layers"] = 4
+    return ModelConfig(**kw)

@@ -1,12 +1,15 @@
 """Carries the reference package's state across through numpy.
 
 The reference (``repro``) hands out graphs, walk-index slabs (dense or as
-per-shard blocks), streamed-step slab layouts, hybrid ELL layouts and PRNG
-keys as JAX or numpy arrays; ``np.asarray`` of them gives plain arrays, and these helpers
-turn those into the port's objects, so both packages compute on the same
-graph, slab, layout and key.
+per-shard blocks), streamed-step slab layouts, hybrid ELL layouts, PRNG
+keys and LM parameter trees as JAX or numpy arrays; ``np.asarray`` of them
+gives plain arrays, and these helpers turn those into the port's objects,
+so both packages compute on the same graph, slab, layout, key and weights.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -16,6 +19,9 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graph.csr import CSRGraph, _from_arrays
 from repro_torch.graph.partition import EllGraph
 from repro_torch.kernels.frog_step_stream import BlockedCSR
+from repro_torch.models.config import ATTN_RENAMED, ModelConfig
+from repro_torch.models.layers import pdtype_of
+from repro_torch.models.transformer import Transformer, init_params
 from repro_torch.query.index import ShardedWalkIndex, WalkIndex
 
 
@@ -103,3 +109,48 @@ def key_from_jax(key_data, device: DeviceLike = "cpu") -> torch.Tensor:
     """The port's key for the reference key whose ``jax.random.key_data``
     (``uint32[..., 2]``) is given."""
     return prng.wrap_key_data(np.asarray(key_data).astype(np.int64), device)
+
+
+def model_config_from_reference(fields: Mapping[str, Any]) -> ModelConfig:
+    """The port's ``ModelConfig`` for the reference config whose
+    ``dataclasses.asdict`` is ``fields``: the fields the dense path reads,
+    with ``attn_impl`` renamed (``"pallas"`` → ``"auto"``, ``"jnp_flash"``
+    → ``"torch"``). The reference's family-specific fields are dropped
+    (the dense path reads none of them), so another family raises
+    ``ModelConfig``'s ``NotImplementedError``."""
+    names = {f.name for f in dataclasses.fields(ModelConfig)}
+    kw = {k: v for k, v in fields.items() if k in names}
+    impl = kw.get("attn_impl", "auto")
+    kw["attn_impl"] = ATTN_RENAMED.get(impl, impl)
+    return ModelConfig(**kw)
+
+
+def model_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
+                            device: DeviceLike = "cpu") -> Transformer:
+    """The port's parameter modules from the reference's tree (``embed``,
+    ``final_norm``, optional ``head``, and ``blocks`` stacked ``[L, …]``),
+    each leaf taken through ``np.asarray``. Matrices are transposed from
+    the reference's ``[in, out]`` to ``[out, in]``."""
+    params = init_params(cfg, device="meta")
+    blocks = tree["blocks"]
+    state: Dict[str, np.ndarray] = {
+        "embed.embedding": tree["embed"]["embedding"],
+        "final_norm.scale": tree["final_norm"]["scale"],
+    }
+    if params.head is not None:
+        state["head.kernel"] = np.asarray(tree["head"]["kernel"]).T
+    for i in range(cfg.num_layers):
+        pre = f"blocks.{i}."
+        for ln in ("ln1", "ln2"):
+            state[pre + ln + ".scale"] = np.asarray(blocks[ln]["scale"])[i]
+        for w in ("wq", "wk", "wv", "wo"):
+            state[pre + "attn." + w] = np.asarray(blocks["attn"][w])[i].T
+        for w in ("w_up", "w_gate", "w_down"):
+            if w in blocks["mlp"]:
+                state[pre + "mlp." + w] = np.asarray(blocks["mlp"][w])[i].T
+    dev = resolve_device(device)
+    tensors = {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(
+        dev, pdtype_of(cfg))
+        for k, v in state.items()}
+    params.load_state_dict(tensors, strict=True, assign=True)
+    return params

@@ -30,6 +30,7 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 CFLAGS = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _c_void_p, _c_int64, _c_int32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+_c_float = ctypes.c_float
 # C entry points and their argument types (every pointer and the stream as
 # c_void_p, so ctypes never truncates them to 32 bits).
 SIGNATURES = {
@@ -44,6 +45,8 @@ SIGNATURES = {
     "fw_frog_step_stream_sorted": [_c_void_p] * 11 + [_c_int64]
     + [_c_int32] * 5 + [_c_void_p],
     "fw_spmv_ell_slab": [_c_void_p] * 4 + [_c_int64, _c_int32, _c_void_p],
+    "fw_flash_attention": [_c_void_p] * 4 + [_c_int64] * 9 + [_c_int32] * 10
+    + [_c_float, _c_int32, _c_float, _c_int32, _c_void_p],
 }
 
 _LOCK = threading.Lock()

@@ -20,6 +20,9 @@ for CPU tensors. The reference switches to it when the graph outgrows the
 TPU core's VMEM; the card has no such budget, so ``"auto"`` stays on the
 resident kernel and ``"stream"`` is asked for by name.
 
+``attention`` also takes ``"ref"`` (the O(S²)-memory oracle); its
+``"torch"`` is the plain chunked version.
+
 A CUDA tensor never falls back to the plain version: the kernel launches
 or the wrapper raises. Each wrapper adds one to ``LAUNCHES[name]`` where it
 launches its kernel, and nowhere else, so a run can show which kernels its
@@ -41,7 +44,7 @@ LAUNCHES: Dict[str, int] = {"frog_step": 0, "frog_count": 0,
                             "stitch_gather": 0, "stitch_step": 0,
                             "stitch_gather_local": 0, "stitch_step_local": 0,
                             "frog_step_stream_sorted": 0,
-                            "spmv_ell_slab": 0}
+                            "spmv_ell_slab": 0, "flash_attention": 0}
 
 # Frogs per CTA work item of the streamed superstep.
 STREAM_FROG_BLOCK = 1024
@@ -394,3 +397,67 @@ def spmv(ell: EllGraph, x: torch.Tensor, impl: str = "auto"
         y = y + kref.spill_ref(ell.spill_src, ell.spill_dst, ell.spill_w, x,
                                ell.n_rows)
     return y
+
+
+ATTN_DTYPES = (torch.float32, torch.bfloat16)
+ATTN_MAX_HEAD_DIM = 256
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, window: Optional[int] = None,
+              q_offset: int = 0, soft_cap: Optional[float] = None,
+              impl: str = "auto", chunk: int = 512) -> torch.Tensor:
+    """GQA attention ``q [B, Hq, Sq, D]``, ``k``/``v [B, Hkv, Skv, D]`` →
+    ``[B, Hq, Sq, D]`` in ``q``'s dtype (port of the reference's
+    ``ops.attention``). ``impl``: ``"auto"`` / ``"cuda"`` run the
+    ``flash_attention`` kernel on CUDA tensors, ``"torch"`` (and
+    ``"auto"`` on CPU tensors) the plain chunked version, ``"ref"`` the
+    oracle. The kernel reads q, k and v through their strides (the last
+    dimension contiguous; any other layout is copied with
+    ``.contiguous()``) and takes ``Skv`` as it is: keys at or past it are
+    masked, so nothing is padded (the reference's wrapper pads K/V with
+    zero keys that only its causal mask hides)."""
+    name = "flash_attention"
+    if impl == "ref":
+        return kref.attention_ref(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset, logit_soft_cap=soft_cap)
+    use = _use_kernel(name, impl, q, k, v)
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"{name}: q must be [B, Hq, Sq, D] and k, v one "
+                         f"[B, Hkv, Skv, D] shape; got {list(q.shape)}, "
+                         f"{list(k.shape)}, {list(v.shape)}")
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Skv, _ = k.shape
+    if k.shape[0] != B or k.shape[3] != D or Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"{name}: q {list(q.shape)} and k {list(k.shape)} "
+                         f"disagree in batch or head_dim, or Hq is not a "
+                         f"multiple of Hkv")
+    if soft_cap is not None and soft_cap <= 0:
+        raise ValueError(f"{name}: soft_cap must be > 0, got {soft_cap}")
+    if not use:
+        return kref.attention_chunked(q, k, v, causal=causal, window=window,
+                                      q_offset=q_offset,
+                                      logit_soft_cap=soft_cap, chunk=chunk)
+    if q.dtype not in ATTN_DTYPES or k.dtype != q.dtype or \
+            v.dtype != q.dtype:
+        raise TypeError(f"{name}: q, k and v must all be float32 or "
+                        f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if D > ATTN_MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {D} > {ATTN_MAX_HEAD_DIM}")
+    if not 0 <= q_offset < 2 ** 30 or Sq >= 2 ** 30 or Skv >= 2 ** 31:
+        raise ValueError(f"{name}: q_offset {q_offset}, Sq {Sq} or Skv "
+                         f"{Skv} out of the kernel's int32 range")
+    # a window wider than every query's reach masks nothing
+    has_window = window is not None and window <= q_offset + Sq - 1
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
+    if out.numel():
+        _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), *q.stride()[:3], *k.stride()[:3],
+                *v.stride()[:3], B, Hq, Hkv, Sq, Skv, D, int(causal),
+                int(has_window), int(window) if has_window else 0,
+                int(q_offset), kref.attention_scale(D),
+                int(soft_cap is not None),
+                float(soft_cap) if soft_cap is not None else 0.0,
+                int(q.dtype == torch.bfloat16))
+    return out

@@ -4,12 +4,18 @@ oracles in ``repro/kernels/ref.py``).
 Each computes exactly what its CUDA kernel computes, on any device; the
 wrappers in ``ops.py`` take them for CPU tensors, the tests hold them
 against the reference's Pallas kernels, and ``chip_smoke.py`` holds the
-kernels against them on the card. Every comparison is byte-equal: the
-outputs are integers, except ``spmv_ref``'s float32, which sums in the
-kernel's own order with separately rounded products and sums.
+kernels against them on the card. Every walker comparison is byte-equal:
+the outputs are integers, except ``spmv_ref``'s float32, which sums in the
+kernel's own order with separately rounded products and sums. The
+attention versions (``attention_ref``, ``attention_chunked``,
+``decode_attention_ref``) compute in float32 and are held to the
+reference and to the ``flash_attention`` kernel within stated tolerances.
 """
 from __future__ import annotations
 
+from typing import Optional, Union
+
+import numpy as np
 import torch
 
 from repro_torch.graph.csr import uniform_successor
@@ -120,3 +126,118 @@ def spill_ref(spill_src, spill_dst, spill_w, x, n: int):
     (float32[n]; ``index_add_``, float atomics on the card)."""
     y = torch.zeros(n, dtype=x.dtype, device=x.device)
     return y.index_add_(0, spill_dst.long(), x[spill_src.long()] * spill_w)
+
+
+# ---------------------------------------------------------------------------
+# attention (port of repro/kernels/ref.py:attention_ref, attention_chunked,
+# decode_attention_ref)
+# ---------------------------------------------------------------------------
+
+def attention_scale(D: int) -> float:
+    """``1 / sqrt(D)`` rounded as the reference computes it in float32."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(D)))
+
+
+def _attend(q, k, v, mask, logit_soft_cap):
+    """Softmax attention of ``q [B, Hq, Sq, D]`` over ``k``/``v [B, Hkv,
+    Skv, D]`` in float32 under a ``[Sq, Skv]`` boolean mask; query head h
+    reads KV head ``h // (Hq / Hkv)`` through a reshape (K and V are never
+    repeated); fully-masked rows give 0. Returns float32 ``[B, Hq, Sq, D]``.
+    """
+    B, Hq, Sq, D = q.shape
+    Hkv = k.shape[1]
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    g = Hq // Hkv
+    qf = q.float().reshape(B, Hkv, g * Sq, D)
+    logits = torch.matmul(qf, k.float().transpose(-1, -2))
+    logits = logits.view(B, Hq, Sq, -1).mul_(attention_scale(D))
+    if logit_soft_cap is not None:
+        logits = torch.tanh(logits / logit_soft_cap).mul_(logit_soft_cap)
+    logits.masked_fill_(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    del logits
+    probs = torch.nan_to_num_(probs, nan=0.0)
+    out = torch.matmul(probs.view(B, Hkv, g * Sq, -1), v.float())
+    return out.view(B, Hq, Sq, D)
+
+
+def _mask(qpos, kpos, causal: bool, window: Optional[int]):
+    mask = torch.ones(qpos.shape[0], kpos.shape[0], dtype=torch.bool,
+                      device=qpos.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    return mask
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, window: Optional[int] = None,
+                  q_offset: int = 0,
+                  logit_soft_cap: Optional[float] = None) -> torch.Tensor:
+    """GQA scaled-dot-product attention oracle (float32 math, output in
+    ``q``'s dtype): ``q [B, Hq, Sq, D]``, ``k``/``v [B, Hkv, Skv, D]``;
+    query ``i`` sits at ``q_offset + i``; keys ``j ≤`` it under ``causal``
+    and ``j > q_pos − window`` under a window."""
+    dev = q.device
+    qpos = q_offset + torch.arange(q.shape[2], device=dev)
+    kpos = torch.arange(k.shape[2], device=dev)
+    out = _attend(q, k, v, _mask(qpos, kpos, causal, window),
+                  logit_soft_cap)
+    return out.to(q.dtype)
+
+
+def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True, window: Optional[int] = None,
+                      q_offset: int = 0,
+                      logit_soft_cap: Optional[float] = None,
+                      chunk: int = 512) -> torch.Tensor:
+    """Memory-bounded attention: a loop over query chunks, float32 math.
+
+    Peak live logits are ``[B, Hq, chunk, Skv]``. With a causal sliding
+    ``window`` each chunk slices only the K/V band it can see (its width
+    ``⌈(window + chunk) / chunk⌉ · chunk``, at most ``Skv``), so windowed
+    work is O(S·window), as in the reference. A ragged last chunk is run
+    short, where the reference pads it and strips the padding: the rows
+    kept are the same.
+    """
+    B, Hq, Sq, D = q.shape
+    Skv = k.shape[2]
+    dev = q.device
+    banded = window is not None and causal
+    if banded:
+        band = min(-(-(window + chunk) // chunk) * chunk, Skv)
+    out = torch.empty(q.shape, dtype=q.dtype, device=dev)
+    for c0 in range(0, Sq, chunk):
+        c1 = min(c0 + chunk, Sq)
+        q0 = c0 + q_offset                       # absolute q start
+        if banded:
+            start = min(max(q0 - window + 1, 0), Skv - band)
+            kc, vc = k[:, :, start:start + band], v[:, :, start:start + band]
+            kpos = start + torch.arange(band, device=dev)
+        else:
+            kc, vc = k, v
+            kpos = torch.arange(Skv, device=dev)
+        qpos = q0 + torch.arange(c1 - c0, device=dev)
+        out[:, :, c0:c1] = _attend(q[:, :, c0:c1], kc, vc,
+                                   _mask(qpos, kpos, causal, window),
+                                   logit_soft_cap)
+    return out
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor,
+                         length: Union[int, torch.Tensor],
+                         window: Optional[int] = None,
+                         logit_soft_cap: Optional[float] = None
+                         ) -> torch.Tensor:
+    """Single-token decode attention oracle: ``q [B, Hq, 1, D]`` over the
+    first ``length`` cache slots (the last ``window`` of them under a
+    window)."""
+    kpos = torch.arange(k_cache.shape[2], device=q.device)
+    mask = kpos < length
+    if window is not None:
+        mask &= kpos >= length - window
+    out = _attend(q, k_cache, v_cache, mask[None, :], logit_soft_cap)
+    return out.to(q.dtype)

@@ -1,0 +1,25 @@
+"""The LM stack's dense family on PyTorch (port of ``repro/models``).
+
+Parameters are ``nn.Module`` trees built by ``init_params``; the
+functions take them with a ``ModelConfig``, as the reference's take its
+parameter dicts. ``forward_train`` is the full-sequence forward (the
+prefill program), whose attention runs the hand-written CUDA
+``flash_attention`` kernel on the card; ``init_decode_state`` and
+``decode_step`` are the KV-cache serving path. The other families (MoE,
+RWKV6, Mamba2 and the hybrid, encoder-decoder and VLM branches) raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item.
+"""
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import (DecodeState, Transformer,
+                                            decode_step, forward_train,
+                                            init_decode_state, init_params)
+
+__all__ = [
+    "DecodeState",
+    "ModelConfig",
+    "Transformer",
+    "init_params",
+    "forward_train",
+    "init_decode_state",
+    "decode_step",
+]

@@ -1,0 +1,121 @@
+"""The model configuration of the port's LM stack (port of
+``repro/models/config.py``).
+
+Only the fields the dense path reads exist here: a field arrives with the
+slice that reads it, so passing one of the reference's other fields
+(``num_experts``, ``ssm_state``, ``encoder_layers``, …) is a
+``TypeError``, not a setting silently ignored. ``family`` other than
+``"dense"`` raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
+
+``attn_impl`` takes the port's names:
+
+* ``"auto"``  — (default) the hand-written CUDA ``flash_attention`` for
+  CUDA tensors, the plain chunked version for CPU tensors;
+* ``"cuda"``  — the CUDA kernel; CPU tensors raise;
+* ``"torch"`` — the plain chunked version (``ref.attention_chunked``) on
+  any device;
+* ``"ref"``   — the O(S²)-memory oracle (``ref.attention_ref``).
+
+The reference's ``"pallas"`` and ``"jnp_flash"`` raise ``ValueError``
+naming the port's equivalent; ``"cp_kv"`` needs the mesh.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+FAMILIES_NOT_PORTED = {
+    "moe": "14 (models/moe.py)",
+    "ssm": "14 (models/rwkv6.py)",
+    "hybrid": "14 (models/mamba2.py and the hybrid branch)",
+    "encdec": "14 (the encdec branch)",
+    "vlm": "14 (the vlm branch)",
+}
+ATTN_IMPLS = ("auto", "cuda", "torch", "ref")
+ATTN_RENAMED = {"pallas": "auto", "jnp_flash": "torch"}
+ACTS = ("silu", "gelu", "relu")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str = "model"
+    family: str = "dense"
+    num_layers: int = 2
+    d_model: int = 128
+    num_heads: int = 4
+    num_kv_heads: int = 4
+    d_ff: int = 512
+    vocab_size: int = 1024
+    head_dim: Optional[int] = None   # default: d_model // num_heads
+
+    # --- attention pattern ---
+    sliding_window: Optional[int] = None   # SWA width (danube, gemma3 locals)
+    global_every: Optional[int] = None     # gemma3: every Nth layer is global
+    rope_theta: float = 10_000.0
+    logit_soft_cap: Optional[float] = None
+
+    # --- numerics / misc ---
+    act: str = "silu"
+    mlp_gated: bool = True                 # False: classic 2-matrix MLP
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"                # compute dtype
+    param_dtype: str = "float32"           # storage dtype
+    attn_impl: str = "auto"                # auto | cuda | torch | ref
+    attn_chunk: int = 512                  # q-chunk of the plain version
+    kv_cache_dtype: str = "compute"        # "compute" (=dtype) | "int8"
+
+    def __post_init__(self):
+        if self.family in FAMILIES_NOT_PORTED:
+            raise NotImplementedError(
+                f"family {self.family!r} is not ported to repro_torch yet "
+                f"(ROADMAP.md Queue 1 item "
+                f"{FAMILIES_NOT_PORTED[self.family]})")
+        if self.family != "dense":
+            raise ValueError(f"unknown family {self.family!r}")
+        if self.attn_impl in ATTN_RENAMED:
+            raise ValueError(
+                f"attn_impl={self.attn_impl!r} is the reference's name; the "
+                f"port's equivalent is "
+                f"attn_impl={ATTN_RENAMED[self.attn_impl]!r}")
+        if self.attn_impl == "cp_kv":
+            raise NotImplementedError(
+                "attn_impl='cp_kv' needs the mesh, which is not ported to "
+                "repro_torch yet (ROADMAP.md Queue 1 item 8)")
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
+                             f"{self.attn_impl!r}")
+        if self.act not in ACTS:
+            raise ValueError(f"act must be one of {ACTS}, got {self.act!r}")
+        if self.kv_cache_dtype not in ("compute", "int8"):
+            raise ValueError(f"kv_cache_dtype must be 'compute' or 'int8', "
+                             f"got {self.kv_cache_dtype!r}")
+        if self.num_heads % self.num_kv_heads:
+            raise ValueError(f"num_heads={self.num_heads} is not a multiple "
+                             f"of num_kv_heads={self.num_kv_heads}")
+        if self.head_dim is None:
+            object.__setattr__(self, "head_dim",
+                               self.d_model // self.num_heads)
+
+    @property
+    def subquadratic(self) -> bool:
+        """Can this arch decode at 500k context? Dense archs can only with
+        a sliding window (danube's SWA, gemma3's local layers)."""
+        return self.sliding_window is not None
+
+    def layer_is_global(self, i: int) -> bool:
+        """gemma3-style local:global pattern; True ⇒ full attention."""
+        if self.global_every is None:
+            return self.sliding_window is None
+        return (i + 1) % self.global_every == 0
+
+    @property
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings, attention and MLP
+        matrices; the norm scales are left out, as in the reference)."""
+        d, f, V, L = self.d_model, self.d_ff, self.vocab_size, self.num_layers
+        hd, Hq, Hkv = self.head_dim, self.num_heads, self.num_kv_heads
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        attn = d * hd * (Hq + 2 * Hkv) + Hq * hd * d
+        mlp = (3 if self.mlp_gated else 2) * d * f
+        return int(emb + L * (attn + mlp))

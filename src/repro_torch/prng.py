@@ -12,7 +12,10 @@ reimplements the pieces the reference uses:
 * ``random_bits(key, shape)`` — ``y1 ^ y2`` of ``threefry(key, (i >> 32,
   i & M))`` over the flat index ``i``;
 * ``randint`` (two bit streams from ``split(key)``, combined modulo the
-  span), ``uniform`` (the mantissa trick) and ``bernoulli``.
+  span), ``uniform`` (the mantissa trick) and ``bernoulli``;
+* ``gumbel`` (the default ``"low"`` mode: ``-log(-log(u))`` of a uniform
+  on ``[tiny, 1)``) and ``categorical`` (the Gumbel-max trick), which the
+  LM stack's sampling draws.
 
 A key is a ``uint32[..., 2]`` value held as an int64 tensor on the key's
 device; leading dimensions batch independent keys, and every draw then
@@ -168,3 +171,23 @@ def bernoulli(key: torch.Tensor, p: float, shape: Shape) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, shape)``: ``uniform < float32(p)``."""
     u = uniform(key, shape)
     return u < torch.tensor(p, dtype=torch.float32, device=u.device)
+
+
+_F32_TINY = float(torch.finfo(torch.float32).tiny)
+
+
+def gumbel(key: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape)`` in float32, the default ``"low"``
+    mode: ``-log(-log(u))`` with ``u`` uniform on ``[tiny, 1)`` computed as
+    the reference does (``max(tiny, f · (1 − tiny) + tiny)``, where ``f``
+    is the mantissa draw on ``[0, 1)``; ``1 − tiny`` is 1 in float32).
+    torch's ``log`` and XLA's may differ in the last bit."""
+    u = torch.clamp_min(uniform(key, shape) + _F32_TINY, _F32_TINY)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis:
+    ``argmax(logits + gumbel(key, logits.shape))`` (int64)."""
+    g = gumbel(key, tuple(logits.shape))
+    return torch.argmax(g + logits, dim=-1)
