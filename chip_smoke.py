@@ -42,7 +42,8 @@ answer against its guarantee:
 14. lm_prefill — llama3.2-1b at full width and depth (1.24 B parameters,
               random, ``torch.Generator`` seed 0): ``forward_train`` on
               1 × 32,768 tokens (``prefill_32k``'s length, batch cut from
-              32 to 1), ``flash_attention`` launched once a layer; bf16
+              32 to 1), ``flash_attention`` launched once a layer, then
+              the same forward again (without the first call's set-up); bf16
               logits within 5e-2 relative Frobenius of the plain path's;
               each of the 16 launches within ``ATTN_REL`` of the chunked
               version on its own inputs; float32 at S = 4,096: logits
@@ -68,12 +69,18 @@ answer against its guarantee:
               a gate two planted faults must fail at 32k), with its time,
               bound and launches, the 8 shards' ``stitch_step_local``
               summed against ``stitch_step`` and the slab product at
-              K = 40;
+              K = 40; ``flash_attention`` also with the design its bf16
+              calls ran (``wgmma``; float32 runs the SIMT kernel), its
+              TFLOP/s, SDPA timed beside it at 32k and at the three
+              check shapes, and SDPA's own reading under the 32k gate
+              (information);
 13. profile — a batch run (resident and streamed), a serving wave (dense),
               a loop wave (8 shards), the ELL power iteration, the
               quickstart's erasure run, one 32k prefill forward and one
               ``serve_step`` under torch.profiler: wall time against
-              device-busy time (the idle share).
+              device-busy time (the idle share), the port's kernels'
+              launches and device time by name, and ``flash_attention``'s
+              share of the prefill's device time.
 
 Phases 14-16 run after phase 11 and before 12 and 13, which read them.
 Launch counts are reset just before phase 4 and read just after phase 5
@@ -973,8 +980,18 @@ def phase_lm_prefill(cfg, dev, batch=LM_PREFILL["batch"],
     assert logits.dtype == torch.bfloat16
     finite = all(bool(torch.isfinite(logits[:, s0:s0 + 4096]).all())
                  for s0 in range(0, seq, 4096))
+    del logits
+    # the same forward again: the first call also pays one-time set-up
+    # (library handles, the kernels' first launches, the allocator)
+    sync()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits, _ = forward_train(params, {"tokens": toks}, cfg)
+    sync()
+    warm = time.perf_counter() - t0
     log("14 lm_prefill", batch=batch, seq=seq, wall_s=wall,
-        tokens_per_s=batch * seq / wall, peak_mem_bytes=peak,
+        tokens_per_s=batch * seq / wall, warm_wall_s=warm,
+        warm_tokens_per_s=batch * seq / warm, peak_mem_bytes=peak,
         finite=finite)
     assert finite, "non-finite prefill logits"
     plain = dataclasses.replace(cfg, attn_impl="torch")
@@ -1232,6 +1249,52 @@ def phase_lm_cpu(cfg, dev, requests=LM_SERVE["requests"],
     assert all(near_ties), "the card's tokens differ from the CPU's"
 
 
+def live_pairs(sq, skv, causal, window, q_offset) -> int:
+    """The (query, key) pairs attention computes: keys below ``skv``, at
+    or before the query under ``causal``, within ``window`` of it."""
+    import numpy as np
+    qpos = q_offset + np.arange(sq, dtype=np.int64)
+    hi = np.minimum(qpos + 1, skv) if causal else np.full(sq, skv)
+    lo = (np.maximum(qpos - window + 1, 0) if window is not None
+          else np.zeros(sq, np.int64))
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def sdpa_call(q, k, v, causal, window, cap, q_offset):
+    """One ``scaled_dot_product_attention`` call that computes what the
+    kernel computes on these inputs (a boolean mask for a window or a
+    query offset), or None: SDPA has no soft cap. Timed as the yardstick;
+    the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    if cap is not None:
+        return None
+    sq, skv = q.shape[2], k.shape[2]
+    if window is None and (not causal or (q_offset == 0 and sq == skv)):
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True)
+    qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(skv, device=q.device)[None]
+    mask = torch.ones(sq, skv, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True)
+
+
+def kernel_design(fn) -> str:
+    """Which ``flash_attention`` kernel one ``fn()`` ran, read from the
+    profiler's kernel names: ``wgmma`` (the bf16 tensor-core kernel),
+    ``simt`` (the float32 kernel), or ``not measured`` where the trace
+    holds neither."""
+    by_name = device_busy_ms(fn, by_kernel=True)[3]
+    if "fa_wgmma_kernel" in by_name:
+        return "wgmma"
+    return "simt" if "flash_attention_kernel" in by_name else "not measured"
+
+
 def flash_attention_row(launches, cfg, dev, batch=LM_PREFILL["batch"],
                         seq=LM_PREFILL["seq"]):
     """``flash_attention`` at the slice's shape (``cfg``'s heads at S =
@@ -1240,7 +1303,10 @@ def flash_attention_row(launches, cfg, dev, batch=LM_PREFILL["batch"],
     Frobenius error over all rows and over the last eighth within
     ``ATTN_REL``, a gate two planted faults must fail); then the kernel
     against ``attention_ref`` at S = 4,096 on the three ``FA_CHECKS``
-    shapes, whose first gives the plain ms."""
+    shapes, whose first gives the plain ms, each timed beside SDPA where
+    one SDPA call computes the same function. SDPA's own reading at 32k
+    under the same gate is logged as information. The bf16 calls must run
+    the tensor-core kernel, the float32 call the SIMT one."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -1276,12 +1342,21 @@ def flash_attention_row(launches, cfg, dev, batch=LM_PREFILL["batch"],
             rel_frobenius_last_eighth=ctl[1], limit=lim,
             caught=max(ctl) > lim, caught_by_max_abs=ctl_abs > 2e-2)
         assert max(ctl) > lim, f"the 32k gate misses a planted fault ({what})"
+    sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
+        q, k, v, is_causal=True, enable_gqa=True)
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        sdpa_rel = rel_rows(sdpa(), plain32k, dim=2)
+    log("12 flash_attention_32k_sdpa", rel_frobenius=sdpa_rel[0],
+        rel_frobenius_last_eighth=sdpa_rel[1], limit=lim,
+        within=max(sdpa_rel) <= lim,
+        note="information: SDPA (FlashAttention-2 backend) under the same "
+        "gate; the port never calls it")
     del plain32k
     ms, reps = time_ms_auto(kern)
     with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
-        sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
-            q, k, v, is_causal=True, enable_gqa=True)
         lib_ms, lib_reps = time_ms_auto(sdpa)
+    design = kernel_design(kern)
+    assert design in ("wgmma", "not measured"), design
     pairs = S * (S + 1) // 2
     flops = 4 * B * Hq * pairs * D
     nbytes = 2 * (2 * B * Hq * S * D + 2 * B * Hkv * S * D)
@@ -1299,11 +1374,23 @@ def flash_attention_row(launches, cfg, dev, batch=LM_PREFILL["batch"],
         err = float((got.float() - want.float()).abs().max())
         rel = rel_rows(got, want, dim=2)
         ok = err <= tol and max(rel) <= ATTN_REL[dt]
+        del want
+        call = lambda: ops.attention(qq, kk, vv, soft_cap=cap,  # noqa: E731
+                                     impl="cuda", **kw)
+        c_ms, c_reps = time_ms_auto(call)
+        lib = sdpa_call(qq, kk, vv, causal, window, cap, qo)
+        c_design = kernel_design(call)
+        assert c_design in ("wgmma" if dt == "bfloat16" else "simt",
+                            "not measured"), (what, c_design)
+        c_flop = 4 * b * hq * live_pairs(sq, skv, causal, window, qo) * d
         log("12 flash_attention_check", shape=what, dtype=dt, Sq=sq,
             Skv=skv, D=d, window=window, causal=causal, soft_cap=cap,
             q_offset=qo, max_abs_err=err, tolerance=tol,
             rel_frobenius=rel[0], rel_frobenius_last_eighth=rel[1],
-            rel_limit=ATTN_REL[dt], ok=ok)
+            rel_limit=ATTN_REL[dt], ok=ok, design=c_design, ms=c_ms,
+            reps=c_reps, tflop_per_s=c_flop / c_ms / 1e9,
+            sdpa_ms=time_ms_auto(lib)[0] if lib else
+            "none (SDPA has no soft cap)")
         assert ok, f"flash_attention strays from attention_ref ({what})"
         errs.append(err)
         if plain_ms is None:
@@ -1317,6 +1404,7 @@ def flash_attention_row(launches, cfg, dev, batch=LM_PREFILL["batch"],
              library_ms=lib_ms)
     log("12 kernel", **{k: v for k, v in r.items()
                         if k not in ("source", "replaces", "route")},
+        design=design, tflop_per_s=flops / ms / 1e9,
         reps=reps, library_reps=lib_reps, plain_reps=plain_reps,
         max_abs_err_32k_vs_chunked=err32k,
         plain="attention_ref at S=4096 (llama heads); at 32k it would "
@@ -1339,17 +1427,44 @@ def phase_lm_profile(params, cfg, toks, state, cur):
     for what, fn in (("lm_prefill_32k", prefill_fwd),
                      ("lm_serve_step", lambda: serve_step(params, state, cur,
                                                           cfg))):
-        wall, busy, kernels = device_busy_ms(fn)
+        wall, busy, kernels, by_name = device_busy_ms(fn, by_kernel=True)
+        attn_ms = sum(by_name.get(k, (0, 0.0))[1]
+                      for k in ("fa_wgmma_kernel", "flash_attention_kernel"))
         log("13 profile", what=what, wall_ms=wall,
             device_busy_ms=busy if kernels else "not measured",
             idle_share=1 - busy / wall if kernels else "not measured",
-            kernels=kernels)
+            kernels=kernels, port_kernels_launches_ms=json.dumps(by_name),
+            flash_attention_share=attn_ms / busy if kernels else
+            "not measured")
 
 
-def device_busy_ms(fn) -> tuple:
+# the port's CUDA kernels by their function names in a trace
+PORT_KERNELS = ("fa_wgmma_kernel", "flash_attention_kernel",
+                "frog_step_stream_kernel", "frog_step_kernel",
+                "frog_count_kernel", "stitch_gather_local_kernel",
+                "stitch_step_local_kernel", "stitch_gather_kernel",
+                "stitch_step_kernel", "spmv_ell_kernel")
+
+
+def port_kernel_times(events) -> dict:
+    """``{kernel: [launches, device ms]}`` of the port's kernels among a
+    trace's kernel events (the first name of ``PORT_KERNELS`` that a
+    traced name contains)."""
+    out = {}
+    for e in events:
+        name = next((k for k in PORT_KERNELS if k in e.get("name", "")),
+                    None)
+        if name is not None:
+            n, ms = out.get(name, (0, 0.0))
+            out[name] = [n + 1, ms + float(e.get("dur", 0)) / 1e3]
+    return out
+
+
+def device_busy_ms(fn, by_kernel: bool = False) -> tuple:
     """``(wall ms, device-busy ms, kernels)`` of one ``fn()``: the union of
     the kernel intervals ``torch.profiler`` traced (CUPTI sees the ctypes
-    launches too), against the host's clock."""
+    launches too), against the host's clock; with ``by_kernel``, also
+    :func:`port_kernel_times` of the trace."""
     import tempfile
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1365,13 +1480,16 @@ def device_busy_ms(fn) -> tuple:
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
     spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
-                   for e in events if e.get("cat") == "kernel")
+                   for e in kernels)
     busy, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:
             busy += b - max(a, end)
             end = b
+    if by_kernel:
+        return wall, busy / 1e3, len(spans), port_kernel_times(kernels)
     return wall, busy / 1e3, len(spans)
 
 
@@ -1391,11 +1509,11 @@ def phase_profile(svc, stream_svc, loop_svc, erasure_svc, g):
             ("power_iteration_ell", lambda: power_iteration(
                 g, num_iters=50, spmv="ell")),
             ("erasure_quickstart", lambda: erasure_svc.pagerank(seed=0))):
-        wall, busy, kernels = device_busy_ms(fn)
+        wall, busy, kernels, by_name = device_busy_ms(fn, by_kernel=True)
         log("13 profile", what=what, wall_ms=wall,
             device_busy_ms=busy if kernels else "not measured",
             idle_share=1 - busy / wall if kernels else "not measured",
-            kernels=kernels)
+            kernels=kernels, port_kernels_launches_ms=json.dumps(by_name))
 
 
 def main() -> int:

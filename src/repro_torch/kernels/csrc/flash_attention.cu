@@ -4,48 +4,85 @@
 // ``flash_attention`` (pallas_call at :138, body ``_flash_kernel`` at :37).
 //
 //   out[b, h, i] = softmax_j(s_ij) . v[b, h / G, j]
-//   s_ij = cap * tanh((q_i * scale) . k_j / cap)      (cap optional)
+//   s_ij = cap * tanh(scale * (q_i . k_j) / cap)      (cap optional)
 //
 // over the keys j < Skv with j <= q_offset + i (causal) and
 // j > q_offset + i - window (sliding window); G = Hq / Hkv, so query head h
 // reads KV head h / G by index and K and V are never repeated in memory.
-// Scale 1/sqrt(D) is applied to q before the dot, as the Pallas body does.
 // A fully-masked row gives 0. Running max, denominator and accumulator are
 // float32; q, k and v are float32 or bfloat16 and the output takes their
 // type. Its answer is ``ref.attention_ref``'s (kernels/ref.py), within
-// float tolerance.
+// float tolerance. Inputs are read through their batch, head and sequence
+// strides (the last dimension contiguous), so the projections' transposed
+// views need no copy; the output is contiguous [B, Hq, Sq, D].
 //
-// Bound (operations): 4 * B * Hq * (causal pairs) * D flops, the two
-// products. For llama3.2-1b's 32k prefill (B 1, Hq 32, Hkv 8, D 64, bf16):
-// 4.40 TFLOP, 4.45 ms at 989 TFLOP/s bf16; the 335 MB of q, k, v and o
-// take 0.10 ms at 3.35 TB/s.
+// Bound (operations): 4 * B * Hq * (live pairs) * D flops, the two
+// products. For llama3.2-1b's 32k prefill (B 1, Hq 32, Hkv 8, D 64, bf16,
+// causal): 4.40 TFLOP, 4.45 ms at 989 TFLOP/s bf16; the 335 MB of q, k, v
+// and o take 0.10 ms at 3.35 TB/s.
 //
-// Design. A simple SIMT kernel, float32 FMA, no tensor cores (mma / wgmma
-// and TMA are later work). One CTA of 256 threads per (b, h, 64-query
-// tile); the q tile (pre-scaled) and each 64-key K and V tile are staged
-// in shared memory as float32, rows padded by 4 floats so the 16-byte
-// reads of 8 neighbouring rows fall in distinct banks. Thread (ty, tx) of
-// the 16 x 16 grid computes the scores of rows ty + 16i and keys tx + 16j
-// (i, j < 4) as a 4 x 4 register tile (two 16-byte shared loads per 16
-// FMAs), reduces each row's max and sum over its 16 lanes with shuffles,
-// stages the probabilities in shared memory, and accumulates the same four
-// rows of the output over the columns 64m + 4tx + e (D_PAD / 16 columns a
-// thread), so the rescale by exp(m_old - m_new) stays in registers. Only
-// live key tiles are visited: the loop runs from the window's first
-// visible key to the causal limit, so windowed work is O(S * W), as the
-// Pallas kernel's ``live`` test makes it. Query tiles run heaviest first
-// (the causal diagonal's long rows) for load balance. head_dim is padded
-// to D_PAD in {64, 128, 256} with zeros; D <= 256. Inputs are read
-// through their batch, head and sequence strides (the last dimension must
-// be contiguous), so the projections' transposed views need no copy; the
-// output is contiguous [B, Hq, Sq, D]. Shared memory: 69,632 bytes at
-// D_PAD 64 and 217,088 at 256, set with cudaFuncSetAttribute.
+// Two kernels, one per input type (a rule by type, not a fallback: a bf16
+// call that cannot launch its kernel returns the CUDA error).
 //
-// Left on the table: tensor cores (the bound assumes them), cp.async or TMA
-// staging overlapped with compute, and 16-byte global loads.
+// bfloat16: fa_hopper.cuh, on the tensor cores. One CTA per (b, h, query
+// tile), heaviest (diagonal) tiles first, the Hq / Hkv query heads of one
+// KV head side by side in the grid so their K and V tiles meet in L2.
+// Producer and consumers: one thread of a producer warpgroup issues TMA
+// loads (128-byte swizzle, 64 columns a box) of the q tile once and of the
+// K and V tiles through a ring of stages, completion on mbarriers;
+// setmaxnreg moves the producer's registers to the consumer warpgroups,
+// which own 64 query rows each. S = q . k^T is wgmma with both operands in
+// shared memory and a float32 sum; the scale multiplies S after the
+// product (pre-scaling q in bf16 would round it at D 120 or 128), log2(e)
+// folded in for ex2. Soft cap, causal and window masks and Skv act on S
+// in registers, and only on the tiles that cross the diagonal, the
+// window's edge or Skv; a warpgroup skips the tiles wholly outside its
+// rows' reach. P . V is wgmma with P from registers (the S accumulator's
+// fragment is the A operand's, pair by pair) and V from shared memory,
+// MN-major (the transpose bit), 64 columns of V at a time into a fresh
+// float32 sum that is added to O in registers: the tensor cores' own
+// float32 sum, carried over the 2,000 key steps of a 32k row, drifted to
+// 6.0e-4 over the last eighth of the rows against 1.5e-4 this way. O is
+// divided by the denominator at the end. head_dim pads to D_PAD in {64,
+// 128, 256} (TMA fills columns past D and rows past Sq or Skv with zeros;
+// stores are masked). Tiles, chosen on the card (PERF.md): at D_PAD 64,
+// three consumer warpgroups (192 query rows, 160 registers a thread), 128
+// keys a tile, 4 stages; at 128 and 256, two warpgroups (128 rows, 240
+// registers), 64 keys, 3 and 2 stages.
+//
+// Split P. P rounded once to bf16 (the textbook tensor-core kernel) puts
+// a relative Frobenius error of 2.15e-3 (2.46e-3 over the last eighth of
+// the rows) on llama's head shape at S = 2,048 against the float32
+// softmax, over the 1e-3 gate. So P enters the second product as two bf16
+// parts: P_hi, P with its low 16 bits cleared (one byte permute a pair),
+// and P_lo = bf16(P - P_hi) (rounded), both multiplied by V. At S = 1,024
+// on llama's, gemma3-4b's and danube's heads the split reads 1.2e-4 and
+// one rounding 2.1e-3 (tests/test_torch_attention.py replays both). The
+// second product costs 1.5x the algorithm's tensor-core operations: the
+// kernel's own floor is 6.7 ms at the 32k shape.
+//
+// float32: the SIMT kernel below (float32 FMA, no tensor cores: they
+// would take float32 as TF32, about three decimal digits, and float32 is
+// the gates' type, held at 1e-5). One CTA of 256 threads per (b, h,
+// 64-query tile); the q tile (pre-scaled in float32) and each 64-key K and
+// V tile are staged in shared memory, rows padded by 4 floats. Thread
+// (ty, tx) of the 16 x 16 grid computes the scores of rows ty + 16i and
+// keys tx + 16j (i, j < 4) as a 4 x 4 register tile, reduces each row's
+// max and sum over its 16 lanes with shuffles, stages the probabilities
+// in shared memory, and accumulates the same four rows of the output, so
+// the rescale stays in registers. Only live key tiles are visited (from
+// the window's first visible key to the causal limit), heaviest query
+// tiles first.
+//
+// Left on the table (bf16): overlap of a warpgroup's softmax with its
+// own next S product (registers: the split P doubles P's, and D_PAD 64
+// and 256 still spill a few), explicit ping-pong of the warpgroups'
+// products, TMA stores of O, a persistent grid, and wider key tiles at
+// D_PAD 128 and 256.
 #include <cuda_bf16.h>
 
 #include "common.cuh"
+#include "fa_hopper.cuh"
 
 #define FA_BQ 64
 #define FA_BK 64
@@ -54,13 +91,7 @@
 #define FA_NEG_INF (-1e30f)
 
 __device__ __forceinline__ float fa_load(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float fa_load(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void fa_store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void fa_store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // Stages rows [r0, r0 + 64) of one head's [S, D] slice (row stride ss) as
 // float32 times mul in a [64][DS] shared tile, zeros past S and D.
@@ -288,7 +319,11 @@ static int fa_dispatch(const void* q, const void* k, const void* v, void* o,
 }
 
 // Strides are in elements: q's, k's and v's (batch, head, sequence), the
-// last dimension contiguous. is_bf16 picks bfloat16 (else float32).
+// last dimension contiguous; for bfloat16 each a multiple of 8 and each
+// base 16-byte aligned (TMA's rule). is_bf16 picks bfloat16 (the tensor-core
+// kernel) or float32 (the SIMT kernel). Returns a CUDA error, or
+// fa_hopper::kEncodeError + the CUresult where cuTensorMapEncodeTiled
+// refuses a tensor map.
 extern "C" int fw_flash_attention(
     const void* q, const void* k, const void* v, void* o, int64_t q_sb,
     int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss,
@@ -304,9 +339,9 @@ extern "C" int fw_flash_attention(
                          v_sb, v_sh, v_ss};
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
-    return fa_dispatch<__nv_bfloat16>(q, k, v, o, st, B, Hq, Hkv, Sq, Skv, D,
-                                      causal, has_window, window, q_offset,
-                                      scale, has_cap, cap, s);
+    return fa_hopper::launch(q, k, v, o, st, B, Hq, Hkv, Sq, Skv, D, causal,
+                             has_window, window, q_offset, scale, has_cap,
+                             cap, s);
   return fa_dispatch<float>(q, k, v, o, st, B, Hq, Hkv, Sq, Skv, D, causal,
                             has_window, window, q_offset, scale, has_cap, cap,
                             s);

@@ -403,6 +403,28 @@ ATTN_DTYPES = (torch.float32, torch.bfloat16)
 ATTN_MAX_HEAD_DIM = 256
 
 
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether the bf16 kernel's TMA loads can read ``t [B, H, S, D]`` as
+    it lies: a 16-byte-aligned base, the last dimension contiguous, and
+    the batch, head and sequence strides 16-byte multiples (a dimension of
+    size 1 is never stepped)."""
+    size = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and
+            all(st * size % 16 == 0
+                for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1))
+
+
+def _tma_copy(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` that :func:`tma_ready` accepts: new (so aligned)
+    contiguous storage, its head_dim zero-padded to a multiple of 8 (the
+    zero columns add nothing to a dot product, and the kernel stores only
+    the first D)."""
+    pad = -t.shape[-1] % 8
+    if pad:
+        return torch.nn.functional.pad(t, (0, pad))
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, window: Optional[int] = None,
               q_offset: int = 0, soft_cap: Optional[float] = None,
@@ -413,8 +435,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``flash_attention`` kernel on CUDA tensors, ``"torch"`` (and
     ``"auto"`` on CPU tensors) the plain chunked version, ``"ref"`` the
     oracle. The kernel reads q, k and v through their strides (the last
-    dimension contiguous; any other layout is copied with
-    ``.contiguous()``) and takes ``Skv`` as it is: keys at or past it are
+    dimension contiguous and, in bf16, :func:`tma_ready`'s alignment; an
+    operand that fails it is copied, the same kernel on the copy) and
+    takes ``Skv`` as it is: keys at or past it are
     masked, so nothing is padded (the reference's wrapper pads K/V with
     zero keys that only its causal mask hides)."""
     name = "flash_attention"
@@ -449,7 +472,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{Skv} out of the kernel's int32 range")
     # a window wider than every query's reach masks nothing
     has_window = window is not None and window <= q_offset + Sq - 1
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    if q.dtype == torch.bfloat16:
+        q, k, v = (t if tma_ready(t) else _tma_copy(t) for t in (q, k, v))
+    else:
+        q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
+                   for t in (q, k, v))
     out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
     if out.numel():
         _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
