@@ -68,8 +68,15 @@ answer against its guarantee:
               relative Frobenius error over all rows and the last eighth,
               a gate two planted faults must fail at 32k), with its time,
               bound and launches, the 8 shards' ``stitch_step_local``
-              summed against ``stitch_step`` and the slab product at
-              K = 40; ``flash_attention`` also with the design its bf16
+              summed against ``stitch_step``; ``stitch_gather``'s wrapper
+              step by step (host µs per call over 1,000 calls);
+              ``stitch_gather_rounds`` (the wave's rounds in one launch)
+              against its plain version without a mask and with shard 3
+              of 8 lost, beside the same rounds as ``torch.take`` +
+              ``torch.where`` and at CTAs of 64, 128 and 256 threads;
+              ``spmv_ell_slab`` over the live lanes (``row_len``), its
+              every-lane mode, and K = 40 with and without ``row_len``;
+              ``flash_attention`` also with the design its bf16
               calls ran (``wgmma``; float32 runs the SIMT kernel), its
               TFLOP/s, SDPA timed beside it at 32k and at the three
               check shapes, and SDPA's own reading under the 32k gate
@@ -79,7 +86,8 @@ answer against its guarantee:
               quickstart's erasure run, one 32k prefill forward and one
               ``serve_step`` under torch.profiler: wall time against
               device-busy time (the idle share), the port's kernels'
-              launches and device time by name, and ``flash_attention``'s
+              launches and device time by name, the ELL iteration's five
+              costliest device operations, and ``flash_attention``'s
               share of the prefill's device time.
 
 Phases 14-16 run after phase 11 and before 12 and 13, which read them.
@@ -179,6 +187,41 @@ def sectors(idx) -> int:
 
 def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def rounds_sectors(pos, q, s0, slab, q_max, lost=None, S=1, sz=0) -> int:
+    """Distinct 32-byte slab sectors each of a wave's stitch rounds
+    gathers, summed over the rounds: round ``j`` reads at the positions
+    the plain version leaves after ``j`` rounds, for the walks with ``j <
+    q`` it leaves alive."""
+    import torch
+    from repro_torch.kernels import ref as kref
+    R = slab.shape[1]
+    total = 0
+    for j in range(q_max):
+        p, alive = kref.stitch_gather_rounds_ref(pos, q, s0, slab, j, lost,
+                                                 S, sz)
+        move = (j < q) if alive is None else (j < q) & alive
+        at = p.long() * R + torch.remainder(torch.abs(s0 + j), R).long()
+        total += sectors(at[move])
+    return total
+
+
+LAUNCH_PATH_CALLS = 1000
+
+
+def host_us(fn) -> float:
+    """Host µs per call of ``fn`` (``time.perf_counter`` over 1,000 calls,
+    after 10 warm-ups)."""
+    for _ in range(10):
+        fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(LAUNCH_PATH_CALLS):
+        fn()
+    us = (time.perf_counter() - t0) / LAUNCH_PATH_CALLS * 1e6
+    sync()
+    return us
 
 
 def phase_device():
@@ -641,6 +684,7 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
     g, sc = svc.graph, svc.config.serving
     n = g.n
     rows = []
+    want_of = {}
 
     def row(name, source, replaces, kern, plain, nbytes, library=None):
         a, b = kern(), plain()
@@ -651,6 +695,7 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
                   int((x.long() - y.long()).abs().max()) if x.numel() else 0
                   for x, y in zip(a, b))
         assert all(torch.equal(x, y) for x, y in zip(a, b)), name
+        want_of[name] = b[0]
         r = dict(name=name, route="cuda", source=source, replaces=replaces,
                  launches=launches[name], max_abs_err=err,
                  ms=time_ms(kern), plain_ms=time_ms(plain),
@@ -693,6 +738,62 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
         lambda: kref.stitch_gather_ref(wpos, s0, slab),
         12 * W + 32 * sectors(sidx),
         library=lambda: torch.take(flat, sidx))
+    log("12 launch_path", calls=LAUNCH_PATH_CALLS,
+        stitch_gather_host_us=host_us(
+            lambda: ops.stitch_gather(wpos, s0, slab, impl="cuda")),
+        torch_take_host_us=host_us(lambda: torch.take(flat, sidx)))
+
+    # the wave's q_max stitch rounds in one launch, at the dense wave's
+    # shape over the dense slab; its yardstick is the same rounds as
+    # torch.take + torch.where (the slots and masks made beforehand)
+    q_max = svc.scheduler._q_max
+    slots = [torch.remainder(torch.abs(s0 + j), R).long()
+             for j in range(q_max)]
+    moves = [j < q for j in range(q_max)]
+
+    def take_rounds():
+        p = wpos
+        for j in range(q_max):
+            p = torch.where(moves[j], torch.take(flat, torch.add(
+                slots[j], p, alpha=R)), p)
+        return p
+
+    def rounds(lost=None, S=1, sz=0, slab_=slab):
+        return ops.stitch_gather_rounds(wpos, q, s0, slab_, q_max, lost, S,
+                                        sz, impl="cuda")
+
+    assert torch.equal(take_rounds(), rounds()[0]), "torch.take rounds"
+    row("stitch_gather_rounds", "src/repro_torch/kernels/csrc/stitch.cu",
+        "src/repro/kernels/stitch.py:161",
+        lambda: rounds()[0],
+        lambda: kref.stitch_gather_rounds_ref(wpos, q, s0, slab, q_max)[0],
+        16 * W + 32 * rounds_sectors(wpos, q, s0, slab, q_max),
+        library=take_rounds)
+    # an event-timed call is host-bound: the device time of a launch from
+    # a trace of 20 launches
+    n_k, dev_ms = device_busy_ms(lambda: [rounds() for _ in range(20)],
+                                 by_kernel=True)[3].get(
+        "stitch_gather_rounds_kernel", (0, 0.0))
+    log("12 stitch_gather_rounds_device", walks=W, q_max=q_max,
+        launches=n_k, device_ms_per_launch=dev_ms / n_k if n_k else
+        "not measured")
+    # the fused sharded wave's: the stacked S = 8 blocks, shard 3 lost
+    S8, sz8, _ = sharded.blocks.shape
+    stacked = sharded.blocks.view(S8 * sz8, R)
+    lost = torch.zeros(S8, dtype=torch.bool, device=dev)
+    lost[3] = True
+    got = rounds(lost, S8, sz8, stacked)
+    want = kref.stitch_gather_rounds_ref(wpos, q, s0, stacked, q_max, lost,
+                                         S8, sz8)
+    equal = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    log("12 stitch_gather_rounds_lost", shards=S8, lost_shard=3,
+        byte_equal=equal, dead=int((~got[1]).sum()),
+        ms=time_ms(lambda: rounds(lost, S8, sz8, stacked)),
+        bound_ms=bound_ms(17 * W + S8 + 32 * rounds_sectors(
+            wpos, q, s0, stacked, q_max, lost, S8, sz8)))
+    assert equal and not bool(got[1].all()), \
+        "stitch_gather_rounds differs from its plain version, shard 3 lost"
+
     stop = (q == 0).to(torch.int32)
     row("stitch_step", "src/repro_torch/kernels/csrc/stitch.cu",
         "src/repro/kernels/stitch.py:99",
@@ -779,10 +880,14 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
     log("12 stitch_step_local_sum", shards=S, equal_stitch_step=composed)
     assert composed, "per-shard stitch rounds do not sum to stitch_step"
 
-    # the ELL slab product of one power iteration: int32/f32[rows, 32]
-    # read once, x (n floats) read once, y written once; the library
-    # yardstick is cuSPARSE's CSR SpMV over the slab's valid lanes
+    # the ELL slab product of one power iteration over its live lanes: 8 B
+    # a live lane, row_len, x (n floats) read once, y written once; the
+    # library yardstick is cuSPARSE's CSR SpMV over the slab's valid lanes
     rows_, K = ell.idx.shape
+    live = int(ell.row_len.sum())
+    # the live prefixes in whole 32-byte sectors (each row starts a
+    # 128-byte line), idx and weight
+    sector_bytes = 2 * 32 * int(((ell.row_len.long() * 4 + 31) // 32).sum())
     valid = ell.valid
     with warnings.catch_warnings():      # "beta", "invariant checks off"
         warnings.simplefilter("ignore", UserWarning)
@@ -793,20 +898,46 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
     x = pi.contiguous()
     row("spmv_ell_slab", "src/repro_torch/kernels/csrc/spmv_ell.cu",
         "src/repro/kernels/spmv_ell.py:49",
-        lambda: ops.spmv_ell_slab(ell.idx, ell.weight, x, impl="cuda"),
+        lambda: ops.spmv_ell_slab(ell.idx, ell.weight, x,
+                                  row_len=ell.row_len, impl="cuda"),
         lambda: kref.spmv_ref(ell.idx, ell.weight, x),
-        8 * rows_ * K + 4 * n + 4 * rows_,
+        8 * live + 4 * rows_ + 4 * n + 4 * rows_,
         library=lambda: torch.mv(csr, x))
-    # a K = 40 slab (160-byte rows) over the n rows, not a multiple of 8
+    idx0 = torch.zeros_like(ell.idx)
+    every = torch.equal(ops.spmv_ell_slab(ell.idx, ell.weight, x,
+                                          impl="cuda"),
+                        want_of["spmv_ell_slab"])
+    log("12 spmv_ell_slab_lanes", live_lanes=live, lanes=rows_ * K,
+        sector_bytes=sector_bytes,
+        sector_bound_ms=bound_ms(sector_bytes + 8 * rows_ + 4 * n),
+        every_lane_ms=time_ms(lambda: ops.spmv_ell_slab(
+            ell.idx, ell.weight, x, impl="cuda")),
+        every_lane_bound_ms=bound_ms(8 * rows_ * K + 4 * n + 4 * rows_),
+        every_lane_byte_equal=every,
+        # the same lanes with every id 0: the x gathers become cache hits
+        # and the slab's reads are what is left
+        x_cached_ms=time_ms(lambda: ops.spmv_ell_slab(
+            idx0, ell.weight, x, row_len=ell.row_len, impl="cuda")))
+    del idx0
+    assert every, "spmv_ell_slab without row_len differs from spmv_ref"
+    # a K = 40 slab (160-byte rows) over the n rows, not a multiple of 8,
+    # with and without row_len
     from repro_torch.graph import to_ell
     e40 = to_ell(g, K=40)
-    idx40, w40 = e40.idx[:n], e40.weight[:n]
+    idx40, w40, len40 = e40.idx[:n], e40.weight[:n], e40.row_len[:n]
+    want40 = kref.spmv_ref(idx40, w40, x)
     eq40 = torch.equal(ops.spmv_ell_slab(idx40, w40, x, impl="cuda"),
-                       kref.spmv_ref(idx40, w40, x))
+                       want40)
+    eq40_live = torch.equal(ops.spmv_ell_slab(idx40, w40, x, row_len=len40,
+                                              impl="cuda"), want40)
     log("12 spmv_ell_slab_k40", rows=n, K=40, byte_equal=eq40,
+        byte_equal_row_len=eq40_live,
         ms=time_ms(lambda: ops.spmv_ell_slab(idx40, w40, x, impl="cuda")),
-        bound_ms=bound_ms(8 * n * 40 + 8 * n))
-    assert eq40, "spmv_ell_slab differs from spmv_ref at K = 40"
+        bound_ms=bound_ms(8 * n * 40 + 8 * n),
+        ms_row_len=time_ms(lambda: ops.spmv_ell_slab(
+            idx40, w40, x, row_len=len40, impl="cuda")),
+        bound_ms_row_len=bound_ms(8 * int(len40.sum()) + 12 * n))
+    assert eq40 and eq40_live, "spmv_ell_slab differs from spmv_ref at K = 40"
     return rows
 
 
@@ -1427,7 +1558,7 @@ def phase_lm_profile(params, cfg, toks, state, cur):
     for what, fn in (("lm_prefill_32k", prefill_fwd),
                      ("lm_serve_step", lambda: serve_step(params, state, cur,
                                                           cfg))):
-        wall, busy, kernels, by_name = device_busy_ms(fn, by_kernel=True)
+        wall, busy, kernels, by_name, _ = device_busy_ms(fn, by_kernel=True)
         attn_ms = sum(by_name.get(k, (0, 0.0))[1]
                       for k in ("fa_wgmma_kernel", "flash_attention_kernel"))
         log("13 profile", what=what, wall_ms=wall,
@@ -1442,7 +1573,8 @@ def phase_lm_profile(params, cfg, toks, state, cur):
 PORT_KERNELS = ("fa_wgmma_kernel", "flash_attention_kernel",
                 "frog_step_stream_kernel", "frog_step_kernel",
                 "frog_count_kernel", "stitch_gather_local_kernel",
-                "stitch_step_local_kernel", "stitch_gather_kernel",
+                "stitch_step_local_kernel", "stitch_gather_rounds_kernel",
+                "stitch_gather_kernel",
                 "stitch_step_kernel", "spmv_ell_kernel")
 
 
@@ -1460,11 +1592,22 @@ def port_kernel_times(events) -> dict:
     return out
 
 
+def top_kernels(events, k: int = 5) -> list:
+    """The ``k`` kernels of a trace with the most device time:
+    ``[name (cut to 90 characters), launches, device ms]``."""
+    by = {}
+    for e in events:
+        n, ms = by.get(e.get("name", ""), (0, 0.0))
+        by[e.get("name", "")] = (n + 1, ms + float(e.get("dur", 0)) / 1e3)
+    top = sorted(by.items(), key=lambda kv: -kv[1][1])[:k]
+    return [[name[:90], n, ms] for name, (n, ms) in top]
+
+
 def device_busy_ms(fn, by_kernel: bool = False) -> tuple:
     """``(wall ms, device-busy ms, kernels)`` of one ``fn()``: the union of
     the kernel intervals ``torch.profiler`` traced (CUPTI sees the ctypes
     launches too), against the host's clock; with ``by_kernel``, also
-    :func:`port_kernel_times` of the trace."""
+    :func:`port_kernel_times` and :func:`top_kernels` of the trace."""
     import tempfile
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1489,7 +1632,8 @@ def device_busy_ms(fn, by_kernel: bool = False) -> tuple:
             busy += b - max(a, end)
             end = b
     if by_kernel:
-        return wall, busy / 1e3, len(spans), port_kernel_times(kernels)
+        return (wall, busy / 1e3, len(spans), port_kernel_times(kernels),
+                top_kernels(kernels))
     return wall, busy / 1e3, len(spans)
 
 
@@ -1509,11 +1653,15 @@ def phase_profile(svc, stream_svc, loop_svc, erasure_svc, g):
             ("power_iteration_ell", lambda: power_iteration(
                 g, num_iters=50, spmv="ell")),
             ("erasure_quickstart", lambda: erasure_svc.pagerank(seed=0))):
-        wall, busy, kernels, by_name = device_busy_ms(fn, by_kernel=True)
+        wall, busy, kernels, by_name, top = device_busy_ms(fn,
+                                                           by_kernel=True)
         log("13 profile", what=what, wall_ms=wall,
             device_busy_ms=busy if kernels else "not measured",
             idle_share=1 - busy / wall if kernels else "not measured",
             kernels=kernels, port_kernels_launches_ms=json.dumps(by_name))
+        if what == "power_iteration_ell":
+            log("13 profile_top", what=what,
+                top5_name_launches_ms=json.dumps(top))
 
 
 def main() -> int:
@@ -1550,7 +1698,7 @@ def main() -> int:
     index, hubs, results = phase_serving(svc, pi, dev)
     launches = ops.launch_counts()
     log("launches", path="dense", **launches)
-    missing = [k for k in ("frog_step", "frog_count", "stitch_gather",
+    missing = [k for k in ("frog_step", "frog_count", "stitch_gather_rounds",
                            "stitch_step") if launches[k] < 1]
     assert not missing, f"kernels never launched on the main path: {missing}"
     phase_plain(svc, res, index, hubs, dev)
@@ -1561,7 +1709,7 @@ def main() -> int:
     launches2 = ops.launch_counts()
     log("launches", path="stream_sharded", **launches2)
     missing = [k for k in ("frog_step_stream_sorted", "stitch_gather_local",
-                           "stitch_gather", "frog_count")
+                           "stitch_gather_rounds", "frog_count")
                if launches2[k] < 1]
     assert not missing, f"kernels never launched on the path: {missing}"
     phase_lost_wave(sharded, hubs, dev)

@@ -56,6 +56,11 @@ class EllGraph:
       weight: f32  [n_rows, K] — ``1/d_out(src)``; 0 on padded lanes.
       spill_src / spill_dst / spill_w: the COO tail of rows with more than
         ``K`` in-edges (their edges beyond the first ``K``).
+      row_len: int32[n_rows] — live lanes per row, ``valid.sum(1)``
+        (``min(in_deg, K)`` under ``to_ell``; 0 on padding rows). Derived
+        from ``valid`` when the graph is made, not one of the reference's
+        fields. The slab kernel reads only each row's first ``row_len``
+        lanes.
     """
 
     n_rows: int
@@ -66,6 +71,11 @@ class EllGraph:
     spill_src: torch.Tensor
     spill_dst: torch.Tensor
     spill_w: torch.Tensor
+    row_len: torch.Tensor = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "row_len",
+                           self.valid.sum(1, dtype=torch.int32))
 
     @property
     def spill_nnz(self) -> int:
@@ -73,6 +83,7 @@ class EllGraph:
 
     @property
     def nbytes(self) -> int:
+        """Bytes of the reference's fields (``row_len`` not counted)."""
         return sum(t.numel() * t.element_size() for t in (
             self.idx, self.valid, self.weight, self.spill_src,
             self.spill_dst, self.spill_w))

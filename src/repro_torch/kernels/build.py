@@ -38,13 +38,15 @@ SIGNATURES = {
     "fw_frog_count": [_c_void_p] * 2 + [_c_int64, _c_int64, _c_void_p],
     "fw_stitch_gather": [_c_void_p] * 4 + [_c_int64, _c_int32, _c_void_p],
     "fw_stitch_step": [_c_void_p] * 6 + [_c_int64, _c_int32, _c_void_p],
+    "fw_stitch_gather_rounds": [_c_void_p] * 7 + [_c_int64] + [_c_int32] * 4
+    + [_c_void_p],
     "fw_stitch_gather_local": [_c_void_p] * 4 + [_c_int64] * 3
     + [_c_int32, _c_void_p],
     "fw_stitch_step_local": [_c_void_p] * 6 + [_c_int64] * 3
     + [_c_int32, _c_void_p],
     "fw_frog_step_stream_sorted": [_c_void_p] * 11 + [_c_int64]
     + [_c_int32] * 5 + [_c_void_p],
-    "fw_spmv_ell_slab": [_c_void_p] * 4 + [_c_int64, _c_int32, _c_void_p],
+    "fw_spmv_ell_slab": [_c_void_p] * 5 + [_c_int64, _c_int32, _c_void_p],
     "fw_flash_attention": [_c_void_p] * 4 + [_c_int64] * 9 + [_c_int32] * 10
     + [_c_float, _c_int32, _c_float, _c_int32, _c_void_p],
 }

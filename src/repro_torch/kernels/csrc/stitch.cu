@@ -1,5 +1,5 @@
-// stitch_gather and stitch_step: one query stitch round against the walk
-// index slab endpoints[n, R] (flat, int32).
+// stitch_gather, stitch_step and stitch_gather_rounds: query stitch rounds
+// against the walk index slab endpoints[n, R] (flat, int32).
 //
 // stitch_gather replaces the TPU kernel src/repro/kernels/stitch.py:161
 // ``stitch_gather`` (pallas_call at :188, body ``_stitch_gather_kernel`` at
@@ -11,6 +11,21 @@
 // (pallas_call at :124, body ``_stitch_kernel`` at :64): the same gather,
 // plus counts[pos[w]] += stop[w].
 //
+// stitch_gather_rounds is the same TPU kernel's redesign for a whole
+// wave: the reference calls stitch_gather once per round of the wave's
+// ``lax.scan`` (src/repro/query/engine.py:291-310); here one launch runs
+// all q_max rounds, each walk looping over its rounds in registers:
+//
+//   for j < q_max:
+//     alive &= !(lost[clamp(p / sz, 0, S-1)] && j < q)      (with a mask)
+//     if (j < q && alive) p = endpoints[p * R + abs(s0 + j) % R]
+//   alive &= !lost[clamp(p / sz, 0, S-1)]                   (with a mask)
+//
+// pos, q and s0 are read once and pos (plus alive, one byte a walk, when a
+// mask is passed) written once. s0 + j wraps as torch's int32 add does (it
+// is done in uint32). A walk stops looping at j = min(q, q_max), or when
+// it dies: every later round leaves it as it is.
+//
 // Design: one thread per walk; the slab index is int64 (pos · R nears
 // 2^31 at Twitter scale); the stop tally is an int32 atomicAdd, which the
 // TPU replaced by a one-hot compare-and-reduce for want of HBM atomics.
@@ -19,13 +34,20 @@
 // Bound (bytes only, 3.35 TB/s): 12 B per walk streamed for the gather
 // (pos, bits, next; stitch_step adds 4 B of stop), one 32-byte sector per
 // distinct slab sector read, plus stitch_step's 4n-byte counts output
-// written once.
+// written once. stitch_gather_rounds: 16 B per walk (pos, q, s0, next;
+// alive adds 1 B and the mask S B) plus one sector per distinct slab
+// sector each round reads.
 //
-// Left on the table: W is 8192 walks per wave, so a round is ~32 blocks on
-// 132 SMs and launch latency dominates; fusing all q_max rounds of a wave
-// into one launch (each walk loops over its rounds in registers) would
-// remove q_max − 1 launches and the pos round trips.
+// A wave is W = 8,192 walks: at 256 threads a round is 32 CTAs on 132
+// SMs. stitch_gather_rounds runs 64-thread CTAs (FW_ROUNDS_THREADS: 128
+// CTAs, about one per SM, so every SM holds walks). The size barely
+// matters: 64, 128 and 256 threads were tried on one H100 and read about
+// the same device time; a walk's chain of up to 8 dependent gathers, not
+// the spread over SMs, sets it (chip_smoke.py phase 12 traces the device
+// time of a launch), and the launch path sets the call's.
 #include "common.cuh"
+
+#define FW_ROUNDS_THREADS 64
 
 __global__ void stitch_gather_kernel(const int32_t* __restrict__ pos,
                                      const int32_t* __restrict__ bits,
@@ -52,6 +74,42 @@ __global__ void stitch_step_kernel(const int32_t* __restrict__ pos,
   if (s != 0) atomicAdd(&counts[p], s);
 }
 
+// Whether vertex p lies in a lost shard: lost[clamp(p / sz, 0, S - 1)].
+// C's division truncates where torch's floors, which differs only for
+// p < 0, and there both clamp to shard 0.
+__device__ __forceinline__ bool fw_in_lost(const uint8_t* lost, int32_t p,
+                                           int32_t S, int32_t sz) {
+  int32_t shard = p / sz;
+  shard = shard < 0 ? 0 : (shard > S - 1 ? S - 1 : shard);
+  return lost[shard] != 0;
+}
+
+__global__ void stitch_gather_rounds_kernel(
+    const int32_t* __restrict__ pos, const int32_t* __restrict__ q,
+    const int32_t* __restrict__ s0, const int32_t* __restrict__ endpoints,
+    const uint8_t* __restrict__ lost, int32_t* __restrict__ next,
+    uint8_t* __restrict__ alive_out, int64_t W, int32_t R, int32_t q_max,
+    int32_t S, int32_t sz) {
+  int64_t w = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= W) return;
+  int32_t p = pos[w];
+  const int32_t qw = q[w];
+  const uint32_t s = (uint32_t)s0[w];
+  const int32_t rounds = qw < q_max ? qw : q_max;
+  bool alive = true;
+  for (int32_t j = 0; j < rounds; ++j) {
+    if (lost != nullptr && fw_in_lost(lost, p, S, sz)) {
+      alive = false;
+      break;
+    }
+    p = endpoints[(int64_t)p * R + fw_slot((int32_t)(s + (uint32_t)j), R)];
+  }
+  if (lost != nullptr) {
+    alive_out[w] = alive && !fw_in_lost(lost, p, S, sz) ? 1 : 0;
+  }
+  next[w] = p;
+}
+
 extern "C" int fw_stitch_gather(const void* pos, const void* bits,
                                 const void* endpoints, void* next, int64_t W,
                                 int32_t R, void* stream) {
@@ -73,6 +131,24 @@ extern "C" int fw_stitch_step(const void* pos, const void* stop,
                          (cudaStream_t)stream>>>(
         (const int32_t*)pos, (const int32_t*)stop, (const int32_t*)bits,
         (const int32_t*)endpoints, (int32_t*)next, (int32_t*)counts, W, R);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fw_stitch_gather_rounds(const void* pos, const void* q,
+                                       const void* s0, const void* endpoints,
+                                       const void* lost, void* next,
+                                       void* alive, int64_t W, int32_t R,
+                                       int32_t q_max, int32_t S, int32_t sz,
+                                       void* stream) {
+  if (W > 0) {
+    const unsigned int blocks =
+        (unsigned int)((W + FW_ROUNDS_THREADS - 1) / FW_ROUNDS_THREADS);
+    stitch_gather_rounds_kernel<<<blocks, FW_ROUNDS_THREADS, 0,
+                                  (cudaStream_t)stream>>>(
+        (const int32_t*)pos, (const int32_t*)q, (const int32_t*)s0,
+        (const int32_t*)endpoints, (const uint8_t*)lost, (int32_t*)next,
+        (uint8_t*)alive, W, R, q_max, S, sz);
   }
   return (int)cudaGetLastError();
 }

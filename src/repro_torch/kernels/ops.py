@@ -5,7 +5,9 @@ Same signatures and semantics as the reference: natural shapes, int32 slot
 bits taken as ``abs(bits)`` (inside the kernel, so no extra pass),
 ``die`` / ``stop`` cast to int32, and ``frog_count`` ignoring bins outside
 ``[0, n)``; ``spmv`` is the hybrid ELL product, the slab through its
-kernel and the COO spill tail added with ``index_add_``. ``impl`` picks
+kernel and the COO spill tail added with ``index_add_``.
+``stitch_gather_rounds`` is ``stitch_gather``'s kernel redesigned for a
+whole wave: every stitch round of the wave in one launch. ``impl`` picks
 the backend:
 
 * ``"auto"``  — the CUDA kernel for CUDA tensors, the plain version
@@ -42,6 +44,7 @@ from repro_torch.kernels.frog_step_stream import BlockedCSR, block_csr
 
 LAUNCHES: Dict[str, int] = {"frog_step": 0, "frog_count": 0,
                             "stitch_gather": 0, "stitch_step": 0,
+                            "stitch_gather_rounds": 0,
                             "stitch_gather_local": 0, "stitch_step_local": 0,
                             "frog_step_stream_sorted": 0,
                             "spmv_ell_slab": 0, "flash_attention": 0}
@@ -98,10 +101,17 @@ def _check_i32(name: str, arg: str, t: torch.Tensor, ndim: int = 1,
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
-    lib = build.library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, "fw_" + name)(*args, stream)
+    """Calls ``fw_<name>`` on the device's current stream. The device is
+    made current only when it is not already: the runtime launches on the
+    current device, and switching it costs more than the launch."""
+    fn = getattr(build.library(), "fw_" + name)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    if index == torch.cuda.current_device():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{rc}")
@@ -176,6 +186,54 @@ def stitch_gather(pos: torch.Tensor, bits: torch.Tensor,
                 endpoints.data_ptr(), nxt.data_ptr(), pos.numel(),
                 endpoints.shape[1])
     return nxt
+
+
+def stitch_gather_rounds(pos: torch.Tensor, q: torch.Tensor,
+                         s0: torch.Tensor, slab: torch.Tensor, q_max: int,
+                         lost: Optional[torch.Tensor] = None, S: int = 1,
+                         sz: int = 0, impl: str = "auto"
+                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A wave's ``q_max`` stitch rounds in one launch → ``(pos int32[W],
+    alive bool[W] or None)``.
+
+    Round ``j`` moves the walks with ``j < q`` to ``slab[pos, abs(s0 + j)
+    % R]`` (``s0 + j`` wrapping as an int32 add does) against the ``int32[
+    rows, R]`` slab. With ``lost`` (bool[S]), a walk that still needs a
+    gather while sitting in a lost shard's rows (shard ``clip(pos // sz,
+    0, S − 1)``), or whose final vertex lies in one, dies and keeps its
+    position; ``alive`` marks the others. Without it every walk lives and
+    ``alive`` is ``None``. The same bytes as ``q_max`` rounds of
+    :func:`stitch_gather` and ``torch.where``."""
+    name = "stitch_gather_rounds"
+    masked = lost is not None
+    use = _use_kernel(name, impl, pos, q, s0, slab,
+                      *((lost,) if masked else ()))
+    W = pos.shape[0]
+    _check_i32(name, "pos", pos)
+    _check_i32(name, "q", q, numel=W)
+    _check_i32(name, "s0", s0, numel=W)
+    _check_i32(name, "slab", slab, ndim=2)
+    if not 0 <= q_max < 2 ** 31:
+        raise ValueError(f"{name}: q_max must be in [0, 2**31), got {q_max}")
+    if masked and (lost.dtype != torch.bool or lost.dim() != 1
+                   or not lost.is_contiguous() or lost.numel() != S
+                   or not 1 <= sz < 2 ** 31):
+        raise ValueError(f"{name}: lost must be a contiguous bool[S = {S}] "
+                         f"and sz ≥ 1, got {lost.dtype} "
+                         f"{list(lost.shape)} and sz = {sz}")
+    if not use:
+        return kref.stitch_gather_rounds_ref(pos, q, s0, slab, q_max, lost,
+                                             S, sz)
+    nxt = torch.empty_like(pos)
+    alive = torch.empty(W, dtype=torch.bool, device=pos.device) \
+        if masked else None
+    if W:
+        _launch(name, pos.device, pos.data_ptr(), q.data_ptr(),
+                s0.data_ptr(), slab.data_ptr(),
+                lost.data_ptr() if masked else None, nxt.data_ptr(),
+                alive.data_ptr() if masked else None, W, slab.shape[1],
+                int(q_max), int(S), int(sz))
+    return nxt, alive
 
 
 def stitch_step(pos: torch.Tensor, stop: torch.Tensor, bits: torch.Tensor,
@@ -362,14 +420,27 @@ def stitch_step_local(pos: torch.Tensor, stop: torch.Tensor,
 
 
 def spmv_ell_slab(idx: torch.Tensor, weight: torch.Tensor, x: torch.Tensor,
+                  row_len: Optional[torch.Tensor] = None,
                   impl: str = "auto") -> torch.Tensor:
     """The ELL slab product ``y[r] = Σ_k weight[r, k] · x[idx[r, k]]``
     (float32[rows]) over an ``int32[rows, K]`` / ``float32[rows, K]``
     slab whose ids lie in ``[0, len(x))`` (``to_ell`` makes them so, padded
-    lanes included); ragged row counts need no padding."""
+    lanes included); ragged row counts need no padding.
+
+    ``row_len`` (int32[rows], ``EllGraph.row_len``) says that only the
+    first ``row_len[r]`` lanes of row ``r`` are live and the rest carry
+    weight 0, as ``to_ell`` lays them out: the kernel then reads the live
+    lanes only. The plain version (``spmv_ref``, CPU tensors) reads every
+    lane. The two are byte-equal whenever ``x`` is finite at the padded
+    lanes' ids (``x[0]`` for ``to_ell``): a padded lane adds ``0 · x[0]``,
+    which leaves a sum that starts from +0 as it is. A non-finite ``x[0]``
+    makes ``spmv_ref``'s padded rows NaN and not the kernel's."""
     name = "spmv_ell_slab"
-    use = _use_kernel(name, impl, idx, weight, x)
+    tensors = (idx, weight, x) + (() if row_len is None else (row_len,))
+    use = _use_kernel(name, impl, *tensors)
     _check_i32(name, "idx", idx, ndim=2)
+    if row_len is not None:
+        _check_i32(name, "row_len", row_len, numel=idx.shape[0])
     for arg, t in (("weight", weight), ("x", x)):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise TypeError(f"{name}: {arg} must be contiguous float32")
@@ -382,17 +453,20 @@ def spmv_ell_slab(idx: torch.Tensor, weight: torch.Tensor, x: torch.Tensor,
     y = torch.empty(rows, dtype=torch.float32, device=x.device)
     if rows:
         _launch(name, x.device, idx.data_ptr(), weight.data_ptr(),
-                x.data_ptr(), y.data_ptr(), rows, K)
+                x.data_ptr(),
+                None if row_len is None else row_len.data_ptr(),
+                y.data_ptr(), rows, K)
     return y
 
 
 def spmv(ell: EllGraph, x: torch.Tensor, impl: str = "auto"
          ) -> torch.Tensor:
     """Hybrid-ELL SpMV ``y = P @ x`` (float32[ell.n_rows]): the slab
-    through :func:`spmv_ell_slab`, plus the COO spill tail. ``x`` covers
-    every vertex id the layout names; callers slice ``y`` to the true
-    ``n``."""
-    y = spmv_ell_slab(ell.idx, ell.weight, x, impl=impl)
+    through :func:`spmv_ell_slab` over its live lanes (``ell.row_len``),
+    plus the COO spill tail. ``x`` covers every vertex id the layout
+    names; callers slice ``y`` to the true ``n``."""
+    y = spmv_ell_slab(ell.idx, ell.weight, x, row_len=ell.row_len,
+                      impl=impl)
     if ell.spill_nnz:
         y = y + kref.spill_ref(ell.spill_src, ell.spill_dst, ell.spill_w, x,
                                ell.n_rows)

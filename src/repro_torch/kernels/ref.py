@@ -49,6 +49,31 @@ def stitch_gather_ref(pos, bits, endpoints):
     return endpoints.reshape(-1)[idx].to(torch.int32)
 
 
+def stitch_gather_rounds_ref(pos, q, s0, slab, q_max: int, lost=None,
+                             S: int = 1, sz: int = 0):
+    """A wave's ``q_max`` stitch rounds: ``(pos int32[W], alive bool[W] or
+    None)``. Round ``j`` gathers with bits ``abs(s0 + j)`` (an int32 add,
+    wrapping) and moves the walks with ``j < q``; with ``lost`` a walk in a
+    lost shard's rows (``lost[clip(pos // sz, 0, S − 1)]``) dies before a
+    gather it still needs, or after its last, and keeps its position."""
+    def in_lost(p):
+        shard = torch.clamp(torch.div(p, sz, rounding_mode="floor"), 0,
+                            S - 1)
+        return lost[shard.long()]
+
+    alive = None if lost is None else torch.ones_like(pos, dtype=torch.bool)
+    for j in range(q_max):
+        move = j < q
+        if alive is not None:
+            alive &= ~(in_lost(pos) & move)
+            move = move & alive
+        pos = torch.where(move, stitch_gather_ref(pos, torch.abs(s0 + j),
+                                                  slab), pos)
+    if alive is not None:
+        alive &= ~in_lost(pos)
+    return pos, alive
+
+
 def stitch_step_ref(pos, stop, bits, endpoints, n: int):
     """The fused stitch round: ``(next int32[W], stop_counts int32[n])``;
     the counts tally ``stop`` at each walk's current vertex."""

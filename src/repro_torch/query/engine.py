@@ -9,9 +9,10 @@ vertex (an exact sample of ``P^L``). Round ``j`` reads slot ``(s0 + j) mod
 R`` (per-walk random ``s0``), so a walk never rereads a slab cell while
 ``q ≤ R``. Per-query planning inverts Theorem 1 at ``p_s = 1``.
 
-The stitch rounds run through ``ops.stitch_gather`` (waves, over a dense
-slab or a sharded index's stacked blocks) or ``ops.stitch_step``
-(``walk_wave`` / ``query_counts``) and the wave's per-query histogram
+The stitch rounds run through ``ops.stitch_gather_rounds`` (waves, all
+rounds in one launch over a dense slab or a sharded index's stacked
+blocks) or ``ops.stitch_step`` (``walk_wave`` / ``query_counts``, one
+launch a round) and the wave's per-query histogram
 through ``ops.frog_count``. Key streams are the
 reference's, so positions and counts are byte-equal to ``repro.query``.
 """
@@ -234,15 +235,9 @@ def build_wave_program(spec: WaveSpec) -> Callable[..., torch.Tensor]:
         pos, q, s0 = wave_prep(row_ptr, col_idx, deg, start, uniform,
                                t_cap, key, n=n, L=L, p_T=spec.p_T)
 
-        def round_fn(pos, j):
-            # gather-only stitch kernel: the wave histograms once, below.
-            nxt, _ = ops.stitch_step(pos, (q == j), s0 + j, slab, n,
-                                     impl=spec.impl, tally=False)
-            return nxt
-
-        pos, alive = stitch_rounds(
-            pos, q, spec.q_max, round_fn,
-            None if lost is None else lambda p: lost_of(lost, p, S, sz))
+        # every stitch round in one launch; the wave histograms once, below
+        pos, alive = ops.stitch_gather_rounds(pos, q, s0, slab, spec.q_max,
+                                              lost, S, sz, impl=spec.impl)
         if alive is not None:
             qid = torch.where(alive, qid, Q)     # dead walks → discard row
         counts = ops.frog_count(pos + qid * n, (Q + 1) * n,

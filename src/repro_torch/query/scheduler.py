@@ -21,7 +21,8 @@ sharded (:class:`ShardedWalkIndex`), and a sharded one is served in one of
 two ways, as the reference serves it on one device:
 
 * ``"fused"`` — the gathered wave over the stacked blocks viewed as the
-  row-padded ``[S·sz, R]`` slab (no copy): one ``stitch_gather`` per round;
+  row-padded ``[S·sz, R]`` slab (no copy): every stitch round in one
+  ``stitch_gather_rounds`` launch;
 * ``"loop"`` — per round, one ``stitch_gather_local`` per shard against
   its own block, the contributions summed; per wave, one shard-local
   histogram per shard. The reference keeps it as the structural twin the

@@ -194,6 +194,46 @@ def test_cuda_stitch_matches_plain(cuda, W, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("W,q_max,R,S,lost_shards", [
+    (1, 8, 16, 1, None), (8192, 8, 16, 1, None), (8192, 8, 16, 8, (3,)),
+    (8192, 8, 16, 8, ()), (100_003, 5, 7, 4, (0, 2)), (777, 0, 16, 1, None),
+    (1000, 16, 3, 3, (2,))])
+def test_cuda_stitch_gather_rounds_matches_plain(cuda, W, q_max, R, S,
+                                                 lost_shards):
+    """The wave's rounds in one launch against the plain round loop, byte
+    for byte: ``q`` past ``q_max`` and 0, slot offsets over the whole int32
+    range (``s0 + j`` wrapping, INT32_MIN and INT32_MAX), a stacked slab
+    with padding rows, no mask, an all-False mask and lost shards."""
+    n = 4099
+    g = torch.Generator().manual_seed(W + q_max + S)
+    sz = -(-n // S)
+    slab = torch.randint(0, n, (S * sz, R), generator=g, dtype=torch.int32)
+    pos = torch.randint(0, n, (W,), generator=g, dtype=torch.int32)
+    q = torch.randint(0, q_max + 2, (W,), generator=g, dtype=torch.int32)
+    s0 = torch.randint(-2 ** 31, 2 ** 31, (W,), generator=g,
+                       dtype=torch.int64).to(torch.int32)
+    s0[0] = 2 ** 31 - 1
+    s0[-1] = -2 ** 31
+    lost = None
+    if lost_shards is not None:
+        lost = torch.zeros(S, dtype=torch.bool)
+        lost[list(lost_shards)] = True
+        lost = lost.to(cuda)
+    pos, q, s0, slab = (t.to(cuda) for t in (pos, q, s0, slab))
+    before = ops.launch_counts()["stitch_gather_rounds"]
+    got = ops.stitch_gather_rounds(pos, q, s0, slab, q_max, lost, S, sz)
+    assert ops.launch_counts()["stitch_gather_rounds"] == before + 1
+    want = kref.stitch_gather_rounds_ref(pos, q, s0, slab, q_max, lost, S,
+                                         sz)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    if lost is None:
+        assert got[1] is None and want[1] is None
+    else:
+        assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
 def test_cuda_walk_lengths_equal_cpu_for_every_uniform(cuda):
     """All 2**23 float32 values ``uniform`` can return give the same walk
     length on the card as on the CPU (and so as in the reference)."""
@@ -397,6 +437,35 @@ def test_cuda_spmv_ell_slab_matches_plain(cuda, K, rows):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("K", [8, 32, 40])
+@pytest.mark.parametrize("rows", [1, 1003, 300_001])
+def test_cuda_spmv_ell_slab_live_lanes_match_plain(cuda, K, rows):
+    """With ``row_len`` the kernel reads each row's live prefix only and
+    is byte-equal to the plain version, which reads every lane: rows of
+    length 0 and K, padded lanes of weight 0 and id 0 as ``to_ell`` lays
+    them out, x ~ N(0, 1) with a finite x[0], ragged row counts."""
+    g = torch.Generator().manual_seed(rows * K + 1)
+    n = 4099
+    row_len = torch.randint(0, K + 1, (rows,), generator=g,
+                            dtype=torch.int32)
+    row_len[::7] = 0
+    row_len[1::5] = K
+    idx = torch.randint(0, n, (rows, K), generator=g, dtype=torch.int32)
+    w = torch.randn(rows, K, generator=g)
+    padded = torch.arange(K)[None, :] >= row_len[:, None]
+    idx[padded], w[padded] = 0, 0.0
+    x = torch.randn(n, generator=g)
+    idx, w, x, row_len = (t.to(cuda) for t in (idx, w, x, row_len))
+    before = ops.launch_counts()["spmv_ell_slab"]
+    got = ops.spmv_ell_slab(idx, w, x, row_len=row_len)
+    every = ops.spmv_ell_slab(idx, w, x)
+    assert ops.launch_counts()["spmv_ell_slab"] == before + 2
+    torch.cuda.synchronize()
+    want = kref.spmv_ref(idx, w, x)
+    assert torch.equal(got, want) and torch.equal(every, want)
+
+
+@pytest.mark.cuda
 def test_cuda_spmv_with_large_spill_close_to_plain(cuda):
     """A hub row that spills 19,980 in-edges: the layout and the slab are
     byte-equal to the CPU's. The spill's float atomics add the hub's terms
@@ -414,11 +483,15 @@ def test_cuda_spmv_with_large_spill_close_to_plain(cuda):
     ell_cpu = to_ell(g, K=32)
     ell = to_ell(g.to(cuda), K=32)
     assert ell.spill_nnz == ell_cpu.spill_nnz > n - 32
-    for f in ("idx", "valid", "weight", "spill_src", "spill_dst", "spill_w"):
+    for f in ("idx", "valid", "weight", "spill_src", "spill_dst", "spill_w",
+              "row_len"):
         assert torch.equal(getattr(ell, f).cpu(), getattr(ell_cpu, f)), f
     x = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    want = kref.spmv_ref(ell_cpu.idx, ell_cpu.weight, x)
     assert torch.equal(ops.spmv_ell_slab(ell.idx, ell.weight, x.to(cuda))
-                       .cpu(), kref.spmv_ref(ell_cpu.idx, ell_cpu.weight, x))
+                       .cpu(), want)
+    assert torch.equal(ops.spmv_ell_slab(ell.idx, ell.weight, x.to(cuda),
+                                         row_len=ell.row_len).cpu(), want)
     np.testing.assert_allclose(ops.spmv(ell, x.to(cuda)).cpu().numpy(),
                                ops.spmv(ell_cpu, x).numpy(), rtol=1e-5,
                                atol=2e-4)
@@ -434,10 +507,11 @@ def test_cuda_spmv_with_large_spill_close_to_plain(cuda):
 def test_cuda_refused_launch_raises(cuda):
     """A launch the card refuses (a grid of 2**31 blocks, one more than
     the limit) raises from the wrapper's launch; the kernel never runs, so
-    its null operands are never read."""
-    with pytest.raises(RuntimeError, match="spmv_ell_slab: kernel launch "
+    its null operands are never read. (``stitch_gather`` one block per 256
+    walks; the slab product's grid is persistent and never that large.)"""
+    with pytest.raises(RuntimeError, match="stitch_gather: kernel launch "
                                            "failed with CUDA error"):
-        ops._launch("spmv_ell_slab", cuda, 0, 0, 0, 0, 1 << 39, 32)
+        ops._launch("stitch_gather", cuda, 0, 0, 0, 0, 1 << 39, 16)
 
 
 @pytest.mark.cuda

@@ -88,6 +88,25 @@ def test_to_ell_equal(n, deg, K):
                              for f in ELL_FIELDS)
 
 
+@pytest.mark.parametrize("n,deg,K", [(301, 6.0, 32), (500, 20.0, 8),
+                                     (64, 3.0, 5), (1000, 14.2, 40)])
+def test_to_ell_row_len(n, deg, K):
+    """``row_len`` is each row's live lanes: the reference's
+    ``valid.sum(1)``, ``min(in_deg, K)`` and 0 on the padding rows; an
+    ``EllGraph`` made from the reference's arrays derives the same."""
+    gj, gt = _graphs(n, deg)
+    ej, et = jpartition.to_ell(gj, K=K), tpartition.to_ell(gt, K=K)
+    assert et.row_len.dtype == torch.int32
+    assert et.row_len.shape == (et.n_rows,)
+    assert (et.row_len.numpy() == np.asarray(ej.valid).sum(1)).all()
+    in_deg = np.bincount(gt.col_idx.numpy(), minlength=n)
+    assert (et.row_len.numpy()[:n] == np.minimum(in_deg, et.K)).all()
+    assert not et.row_len[n:].any()
+    back = convert.ell_from_numpy(ej.n_rows, ej.K, *(
+        np.asarray(getattr(ej, f)) for f in ELL_FIELDS))
+    assert torch.equal(back.row_len, et.row_len)
+
+
 def test_to_ell_hub_spill_and_row_pad():
     gj, gt = _hub_graphs()
     for K, row_pad in ((8, 8), (16, 128)):
@@ -143,41 +162,110 @@ def test_spmv_slab_plain_sums_in_kernel_order():
         *map(torch.from_numpy, (idx, w, x)))[3])
 
 
-def _kernel_replay(idx, w, x):
-    """``csrc/spmv_ell.cu``'s schedule in numpy: each warp's 32 rows in
-    chunks of at most 32 lanes, chunk element ``q`` at row ``q // kc``,
-    lane ``k0 + q % kc``, products staged, then each row's products added
-    in order."""
+def _kernel_replay(idx, w, x, row_len=None):
+    """``csrc/spmv_ell.cu``'s schedule in numpy → ``(y, reads)``, ``reads``
+    counting the loads of each lane. Each warp owns 32 rows and walks
+    them in windows of 32 lanes; a scan of the rows' live lengths in the
+    window lays their live lanes end to end; compacted lane ``e`` finds
+    its row by the kernel's binary search over the scan and stages its
+    rounded product at ``e + e // 32``; then row ``r`` adds its staged
+    products in order, from +0."""
     rows, K = idx.shape
     y = np.zeros(rows, np.float32)
+    reads = np.zeros((rows, K), np.int64)
     for row0 in range(0, rows, 32):
         nrow = min(32, rows - row0)
-        acc = np.zeros(nrow, np.float32)
-        for k0 in range(0, K, 32):
-            kc = min(32, K - k0)
-            prod = np.full((32, kc), np.nan, np.float32)
-            for lane in range(32):
-                for q in range(lane, 32 * kc, 32):
-                    r, j = divmod(q, kc)
-                    if r < nrow:
-                        at = (row0 + r, k0 + j)
-                        prod[r, j] = w[at] * x[idx[at]]
-            for j in range(kc):
-                acc = (acc + prod[:nrow, j]).astype(np.float32)
-        y[row0:row0 + nrow] = acc
-    return y
+        lens = np.zeros(32, np.int64)
+        lens[:nrow] = K if row_len is None else np.clip(
+            row_len[row0:row0 + nrow], 0, K)
+        acc = np.zeros(32, np.float32)
+        k0 = 0
+        while True:
+            lw = np.clip(lens - k0, 0, 32)
+            inc = np.cumsum(lw)
+            off = inc - lw
+            prod = np.full(32 * 32 + 32, np.nan, np.float32)
+            for e in range(int(inc[-1])):
+                r = 0
+                for step in (16, 8, 4, 2, 1):
+                    if off[r + step] <= e:
+                        r += step
+                at = (row0 + r, k0 + e - off[r])
+                reads[at] += 1
+                prod[e + (e >> 5)] = w[at] * x[idx[at]]
+            for r in range(32):
+                for j in range(lw[r]):
+                    e = off[r] + j
+                    acc[r] = acc[r] + prod[e + (e >> 5)]
+            k0 += 32
+            if k0 >= lens.max():
+                break
+        y[row0:row0 + nrow] = acc[:nrow]
+    return y, reads
 
 
-@pytest.mark.parametrize("rows,K", [(70, 8), (33, 32), (45, 40), (40, 70)])
-def test_spmv_kernel_schedule_replay(rows, K):
-    """The kernel's warp and chunk schedule covers every lane of every row
-    once and adds in the plain version's order (byte-equal)."""
-    rng = np.random.default_rng(rows + K)
+def _ragged_slab(rows, K, seed):
+    """A slab laid out as ``to_ell`` lays it: row ``r``'s first
+    ``row_len[r]`` lanes live, the rest weight 0 and id 0; rows of length
+    0 and K; mixed signs and zeros in ``w`` and ``x``; row 2's live
+    products all −0.0."""
+    rng = np.random.default_rng(seed)
+    row_len = rng.integers(0, K + 1, rows).astype(np.int32)
+    row_len[[0, 3]] = 0
+    row_len[[1, rows - 1]] = K
+    row_len[2] = max(1, row_len[2])
     idx = rng.integers(0, 97, (rows, K)).astype(np.int32)
     w = rng.standard_normal((rows, K)).astype(np.float32)
+    w[rng.random((rows, K)) < 0.2] = 0.0
     x = rng.standard_normal(97).astype(np.float32)
+    x[rng.random(97) < 0.1] = 0.0
+    x[5] = 1.5
+    idx[2], w[2] = 5, -0.0
+    padded = np.arange(K)[None, :] >= row_len[:, None]
+    idx[padded], w[padded] = 0, 0.0
+    return idx, w, x, row_len, ~padded
+
+
+@pytest.mark.parametrize("live", ["row_len", "every_lane"])
+@pytest.mark.parametrize("rows,K", [(70, 8), (33, 32), (45, 40), (40, 70)])
+def test_spmv_kernel_schedule_replay(rows, K, live):
+    """The kernel's compacted schedule reads each live lane once and no
+    padded lane (every lane without ``row_len``), and adds in the plain
+    version's order: byte-equal to ``spmv_ref`` on finite ``x``."""
+    idx, w, x, row_len, mask = _ragged_slab(rows, K, rows + K)
     want = kref.spmv_ref(*map(torch.from_numpy, (idx, w, x))).numpy()
-    assert _kernel_replay(idx, w, x).tobytes() == want.tobytes()
+    got, reads = _kernel_replay(idx, w, x,
+                                row_len if live == "row_len" else None)
+    assert got.tobytes() == want.tobytes()
+    assert (reads == (mask if live == "row_len" else 1)).all()
+    assert want[2] == 0.0 and not np.signbit(want[2])   # −0.0 terms: +0
+
+
+def test_spmv_live_lanes_differ_from_plain_only_on_non_finite_x0():
+    """``x[0] = inf`` (the id of every padded lane): the plain version's
+    rows with a padded lane read ``0 · inf`` and turn NaN; the kernel's
+    schedule never reads a padded lane. Rows with no padding agree byte for
+    byte, and a finite ``x[0]`` makes every row agree."""
+    _, gt = _graphs(301, 6.0)
+    ell = tpartition.to_ell(gt, K=8)
+    idx, w, row_len = ell.idx.numpy(), ell.weight.numpy(), ell.row_len
+    x = np.random.default_rng(1).standard_normal(ell.n_rows).astype(
+        np.float32)
+    x[0] = np.inf
+    plain = ops.spmv_ell_slab(ell.idx, ell.weight, torch.from_numpy(x),
+                              row_len=row_len).numpy()
+    kernel, _ = _kernel_replay(idx, w, x, row_len.numpy())
+    padded = (row_len < ell.K).numpy()
+    reads_0 = ((idx == 0) & ell.valid.numpy()).any(1)
+    assert padded.any() and (~padded).any()
+    assert np.isnan(plain[padded]).all()
+    assert np.isfinite(kernel[padded & ~reads_0]).all()
+    assert kernel[~padded].tobytes() == plain[~padded].tobytes()
+    x[0] = 2.0
+    plain = ops.spmv_ell_slab(ell.idx, ell.weight, torch.from_numpy(x),
+                              row_len=row_len).numpy()
+    assert _kernel_replay(idx, w, x, row_len.numpy())[0].tobytes() == \
+        plain.tobytes()
 
 
 def test_spmv_wrapper_refuses_bad_operands():
@@ -197,6 +285,11 @@ def test_spmv_wrapper_refuses_bad_operands():
         ops.spmv_ell_slab(idx, w, x[::2])
     with pytest.raises(ValueError, match="idx's shape"):
         ops.spmv_ell_slab(idx, w[:, :4].contiguous(), x)
+    with pytest.raises(TypeError, match="row_len must be int32"):
+        ops.spmv_ell_slab(idx, w, x, row_len=torch.zeros(4))
+    with pytest.raises(ValueError, match="row_len has 3 elements"):
+        ops.spmv_ell_slab(idx, w, x,
+                          row_len=torch.zeros(3, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("iters", [1, 50])
