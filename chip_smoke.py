@@ -10,16 +10,20 @@ stack's dense serving path at llama3.2-1b's full width. It checks every
 answer against its guarantee:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
-2. build    — the nine CUDA kernels, compiled from ``csrc/`` with nvcc
+2. build    — the CUDA kernels, compiled from ``csrc/`` with nvcc
               (one nvcc per source, all at once);
 3. data     — the graph, generated on the host and moved to the card;
 4. batch    — ``FrogWildService.pagerank(ε=0.1, δ=0.1, k=100)``, held to
-              its Theorem 1 bound against 50 power iterations;
-5. serving  — the walk index, 6 top-k and 2 PPR queries through
+              its Theorem 1 bound against 50 power iterations; each of its
+              32 supersteps one ``frog_superstep`` launch that draws the
+              reference's threefry streams itself;
+5. serving  — the walk index (each hop of each of the 8 build shards one
+              ``frog_hop`` launch), 6 top-k and 2 PPR queries through
               ``QueryHandle.result()`` and one ``query_counts``, each held
               to its bound;
 6. plain    — the batch run and one wave again through the plain PyTorch
-              versions, byte-equal to the kernel path;
+              versions (the batch run's draws through ``prng``),
+              byte-equal to the kernel path;
 7. stream   — ``pagerank`` again with ``step_impl="stream"``: the slab
               layout's build time, ``E_blk`` and bytes; counts byte-equal
               to phase 4's and within the same bound;
@@ -67,13 +71,21 @@ answer against its guarantee:
               the chunked version at 32k, and within ``ATTN_REL``'s
               relative Frobenius error over all rows and the last eighth,
               a gate two planted faults must fail at 32k), with its time,
-              bound and launches, the 8 shards' ``stitch_step_local``
-              summed against ``stitch_step``; ``stitch_gather``'s wrapper
-              step by step (host µs per call over 1,000 calls);
-              ``stitch_gather_rounds`` (the wave's rounds in one launch)
-              against its plain version without a mask and with shard 3
-              of 8 lost, beside the same rounds as ``torch.take`` +
-              ``torch.where`` and at CTAs of 64, 128 and 256 threads;
+              bound and launches; the draw kernels (``frog_superstep`` and
+              its streamed twin over the batch walk's 32 supersteps of
+              400,000 frogs, ``frog_hop`` and its twin at one build
+              shard's 9.7 M walks) byte-equal to their plain versions at
+              every step, with byte and operation bounds from the run's
+              states, planted wrong streams (``k_die`` and ``k_move``
+              swapped, the sorted index as counter) that the gate must
+              see, and the same walk with the caller's draws
+              (``prng`` outside, the caller-bits ``frog_step``); the 8
+              shards' ``stitch_step_local`` summed against
+              ``stitch_step``; ``stitch_gather``'s whole call on the host
+              clock; ``stitch_gather_rounds`` (the wave's rounds in one
+              launch) against its plain version without a mask and with
+              shard 3 of 8 lost, beside the same rounds as
+              ``torch.take`` + ``torch.where``;
               ``spmv_ell_slab`` over the live lanes (``row_len``), its
               every-lane mode, and K = 40 with and without ``row_len``;
               ``flash_attention`` also with the design its bf16
@@ -81,7 +93,8 @@ answer against its guarantee:
               TFLOP/s, SDPA timed beside it at 32k and at the three
               check shapes, and SDPA's own reading under the 32k gate
               (information);
-13. profile — a batch run (resident and streamed), a serving wave (dense),
+13. profile — a batch run (resident and streamed), an index build (resident
+              and streamed), a serving wave (dense),
               a loop wave (8 shards), the ELL power iteration, the
               quickstart's erasure run, one 32k prefill forward and one
               ``serve_step`` under torch.profiler: wall time against
@@ -120,6 +133,11 @@ LJ = dict(n=4_847_571, avg_out_deg=14.2, theta=2.2, seed=0)
 QUICKSTART = dict(num_frogs=400_000, p_s=0.7, shards=16, k=20)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM published memory rate
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor-core peak
+# integer issue rate: 132 SMs x 64 INT32 lanes x the SM clock that
+# nvidia-smi reads (phase 1); a threefry-2x32 block is about 75 of them
+INT32_LANES = 132 * 64
+THREEFRY_OPS = 75
+INT32_OPS_PER_S = [None]
 REPS = 50
 SHARDS = 8
 # the LM stack: llama3.2-1b at full width and depth
@@ -189,6 +207,12 @@ def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def ops_bound_ms(blocks: int) -> float:
+    """The least time ``blocks`` threefry blocks take at the card's integer
+    issue rate."""
+    return blocks * THREEFRY_OPS / INT32_OPS_PER_S[0] * 1e3
+
+
 def rounds_sectors(pos, q, s0, slab, q_max, lost=None, S=1, sz=0) -> int:
     """Distinct 32-byte slab sectors each of a wave's stitch rounds
     gathers, summed over the rounds: round ``j`` reads at the positions
@@ -231,9 +255,15 @@ def phase_device():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    INT32_OPS_PER_S[0] = INT32_LANES * mhz * 1e6
     name = torch.cuda.get_device_name(0)
     log("1 device", name=repr(name), count=torch.cuda.device_count(),
-        torch=torch.__version__, cuda=torch.version.cuda)
+        torch=torch.__version__, cuda=torch.version.cuda, sm_max_mhz=mhz,
+        int32_ops_per_s=INT32_OPS_PER_S[0])
     return name, smi
 
 
@@ -398,6 +428,7 @@ def phase_plain(svc, res, index, hubs, dev):
             index.endpoints, g.row_ptr, g.col_idx, g.out_deg,
             *wave_inputs(g.n, hubs, W, Q, dev), prng.PRNGKey(11, dev))
     wave_eq = torch.equal(outs["cuda"], outs["torch"])
+    # the batch run drew its bits in the kernel; the plain one through prng
     log("6 plain", batch_counts_equal=batch_eq, wave_counts_equal=wave_eq,
         wave_walks=int(outs["cuda"].sum()))
     assert batch_eq and wave_eq
@@ -686,7 +717,8 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
     rows = []
     want_of = {}
 
-    def row(name, source, replaces, kern, plain, nbytes, library=None):
+    def row(name, source, replaces, kern, plain, nbytes, library=None,
+            blocks=0):
         a, b = kern(), plain()
         a = a if isinstance(a, tuple) else (a,)
         b = b if isinstance(b, tuple) else (b,)
@@ -696,13 +728,17 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
                   for x, y in zip(a, b))
         assert all(torch.equal(x, y) for x, y in zip(a, b)), name
         want_of[name] = b[0]
+        by_ops = ops_bound_ms(blocks) if blocks else 0.0
         r = dict(name=name, route="cuda", source=source, replaces=replaces,
                  launches=launches[name], max_abs_err=err,
                  ms=time_ms(kern), plain_ms=time_ms(plain),
-                 bound_ms=bound_ms(nbytes), bound_by="bytes",
+                 bound_ms=max(bound_ms(nbytes), by_ops),
+                 bound_by="operations" if by_ops > bound_ms(nbytes)
+                 else "bytes",
                  library_ms=time_ms(library) if library else None)
         log("12 kernel", **{k: v for k, v in r.items()
-                           if k not in ("source", "replaces", "route")})
+                           if k not in ("source", "replaces", "route")},
+            bytes_bound_ms=bound_ms(nbytes), ops_bound_ms=by_ops)
         rows.append(r)
 
     # frog_step at the batch superstep's shape (N = 400,000 frogs)
@@ -852,6 +888,8 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
                  reps=10)
     log("12 frog_step_stream_index_shape", frogs=C, ms=ms)
 
+    draw_rows(svc, g, blocked, row, dev)
+
     # the per-shard kernels at one wave's walks against shard 3's block
     S, sz, _ = sharded.blocks.shape
     base = 3 * sz
@@ -939,6 +977,218 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
         bound_ms_row_len=bound_ms(8 * int(len40.sum()) + 12 * n))
     assert eq40 and eq40_live, "spmv_ell_slab differs from spmv_ref at K = 40"
     return rows
+
+
+def walk_state(pos0, n, dev):
+    """Fresh buffers for a batch walk from ``pos0``, and a reset to it."""
+    import torch
+    state = [pos0.clone(), torch.ones(pos0.shape[0], dtype=torch.bool,
+                                      device=dev),
+             torch.zeros(n, dtype=torch.int32, device=dev)]
+
+    def reset():
+        state[0].copy_(pos0)
+        state[1].fill_(True)
+        state[2].zero_()
+        return state
+    return reset
+
+
+def draw_rows(svc, g, blocked, row, dev):
+    """The walker step with its own draws at the main path's shapes: the
+    batch walk's t = 32 supersteps of 400,000 frogs from ``pagerank``'s
+    key (one row is the whole walk, reset included), and one build
+    shard's hop (R = 16 walks of each of the shard's rows), resident and
+    streamed, each byte-equal to its plain version at every step. Bounds:
+    the bytes each step must move and the threefry blocks the design
+    computes, from this run's states. The planted wrong streams (``k_die``
+    and ``k_move`` swapped; the sorted index as the counter) must differ
+    from the kernels."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.query.engine import plan_query
+    rc, sc = svc.config, svc.config.serving
+    n, p_T = g.n, rc.p_T
+    T = plan_query(100, 0.1, 0.1, p_T=p_T, max_steps=sc.max_steps).num_steps
+    N = 400_000
+    k_init, k_loop = prng.split(prng.PRNGKey(rc.runtime.seed, dev))
+    pos0 = prng.randint(k_init, (N,), 0, n)
+    step_keys = prng.split(k_loop, T)
+    graph = (g.row_ptr, g.col_idx, g.out_deg, n)
+    bv = blocked.vertex_block
+
+    def sorted_runs(pos):
+        return ops._sorted_runs("smoke", pos, *graph, blocked)[1:]
+
+    def superstep_plain(state, s, stream):
+        if not stream:
+            return ops.frog_superstep(*state, step_keys[s], p_T, *graph,
+                                      impl="torch")
+        pos_s, order, seg_off, sched = sorted_runs(state[0])
+        ops.frog_superstep_stream_sorted(pos_s, order, *state, step_keys[s],
+                                         p_T, seg_off, sched, blocked,
+                                         impl="torch")
+
+    def superstep_kernel(state, s, stream):
+        ops.frog_superstep(*state, step_keys[s], p_T, *graph,
+                           impl="stream" if stream else "cuda",
+                           blocked=blocked)
+
+    def walk(step, stream, reset):
+        def fn():
+            state = reset()
+            for s in range(T):
+                step(state, s, stream)
+            return tuple(state)
+        return fn
+
+    # every step byte-equal, and what each step had to move and draw
+    stats = {"bytes": 0, "stream_bytes": 0, "blocks": 0, "stream_blocks": 0}
+    kern, plain = walk_state(pos0, n, dev)(), walk_state(pos0, n, dev)()
+    ctas = -(-N // 256)
+    for s in range(T):
+        pos, alive = plain[0].clone(), plain[1].clone()
+        die, bits = kref.superstep_draws(step_keys[s], p_T, N)
+        dying, surv = alive & die, alive & ~die
+        p = pos[surv].long()
+        d = g.out_deg[p]
+        e = g.row_ptr[p[d > 0]].long() + torch.remainder(bits[surv][d > 0],
+                                                         d[d > 0]).long()
+        live, moved = int(alive.sum()), int(surv.sum())
+        # alive read, pos read and written, alive written for the dying;
+        # scattered: the survivors' deg, row_ptr and col_idx sectors and
+        # the dying frogs' counts sectors
+        stats["bytes"] += (N + 4 * live + 4 * moved + int(dying.sum())
+                           + 32 * (2 * sectors(p) + sectors(e)
+                                   + sectors(pos[dying])))
+        # streamed: the sort (pos read, pos_s and order written), the
+        # kernel's pos_s, order and alive, pos written for the survivors,
+        # each visited block's row_off/deg slabs, the col and counts
+        # sectors
+        touched = int(torch.unique(pos.long() // bv).numel())
+        stats["stream_bytes"] += (29 * N + 4 * moved + int(dying.sum())
+                                  + 8 * bv * touched
+                                  + 32 * (sectors(e) + sectors(pos[dying])))
+        # the frogs' coins and slots, and the step keys once per CTA
+        items = int((sorted_runs(pos)[3][1] < blocked.num_blocks).sum())
+        stats["blocks"] += live + moved + 3 * ctas
+        stats["stream_blocks"] += live + moved + 3 * items
+        superstep_plain(plain, s, False)
+        superstep_kernel(kern, s, False)
+        assert all(torch.equal(a, b) for a, b in zip(kern, plain)), \
+            f"frog_superstep differs from its plain version at step {s}"
+    log("12 superstep_walk", frogs=N, steps=T, alive_at_t=int(plain[1].sum()),
+        byte_equal_every_step=True)
+    for name, stream in (("frog_superstep", False),
+                         ("frog_superstep_stream_sorted", True)):
+        reset_k, reset_p = walk_state(pos0, n, dev), walk_state(pos0, n, dev)
+        key = "stream_" if stream else ""
+        row(name, f"src/repro_torch/kernels/csrc/"
+            f"{'frog_step_stream' if stream else 'frog_step'}.cu",
+            "src/repro/kernels/frog_step_stream.py:215" if stream
+            else "src/repro/kernels/frog_step.py:84",
+            walk(superstep_kernel, stream, reset_k),
+            walk(superstep_plain, stream, reset_p),
+            # the reset: pos0 read, pos, alive and counts written
+            stats[key + "bytes"] + 9 * N + 4 * n,
+            blocks=stats[key + "blocks"])
+    # the same walk as the caller draws it: prng's draws outside, then the
+    # caller-bits frog_step (resident or streamed) on them
+    def caller_step(state, s, stream):
+        pos, alive, counts = state
+        die, bits = kref.superstep_draws(step_keys[s], p_T, N)
+        die &= alive
+        nxt, dead = ops.frog_step(pos, die, bits, *graph,
+                                  impl="stream" if stream else "cuda",
+                                  blocked=blocked)
+        counts += dead
+        alive &= ~die
+        pos.copy_(torch.where(alive, nxt, pos))
+
+    caller = walk(caller_step, False, walk_state(pos0, n, dev))
+    stream_caller = walk(caller_step, True, walk_state(pos0, n, dev))
+    assert torch.equal(caller()[2], plain[2])
+    log("12 superstep_walk_caller_draws", steps=T, ms=time_ms(caller, 10),
+        stream_ms=time_ms(stream_caller, 10))
+
+    # the planted wrong streams: k_die and k_move swapped, and the sorted
+    # index as the streamed kernel's counter, each against one kernel step
+    one = walk_state(pos0, n, dev)()
+    superstep_kernel(one, 0, False)
+    k_die, k_move = prng.split(step_keys[0])
+    swapped = kref.frog_step_ref(pos0, prng.bernoulli(k_move, p_T, (N,)),
+                                 prng.randint(k_die, (N,), 0, 1 << 30),
+                                 *graph)[1]
+    pos_s, order, seg_off, sched = sorted_runs(pos0)
+    one_s = walk_state(pos0, n, dev)()
+    ops.frog_superstep_stream_sorted(pos_s, order, *one_s, step_keys[0], p_T,
+                                     seg_off, sched, blocked)
+    die, bits = kref.superstep_draws(step_keys[0], p_T, N)
+    at_sorted = kref.frog_step_stream_sorted_ref(
+        pos_s, die.to(torch.int32), bits, seg_off, blocked.row_off,
+        blocked.deg, blocked.col)[1][:n]
+    caught = (not torch.equal(one[2], swapped),
+              not torch.equal(one_s[2], at_sorted))
+    log("12 superstep_wrong_stream", swapped_keys_caught=caught[0],
+        sorted_counter_caught=caught[1])
+    assert all(caught), "the gate does not see a wrong draw stream"
+
+    # one build shard's hops: R walks of each of the shard's rows
+    R, L = sc.segments_per_vertex, sc.segment_len
+    C = -(-n // sc.build_shards)
+    vertices = torch.arange(C, dtype=torch.int32, device=dev)
+    row_keys = prng.fold_in(prng.PRNGKey(rc.runtime.seed, dev), vertices)
+    start = torch.repeat_interleave(vertices, R)
+    W = start.shape[0]
+    f0 = torch.arange(0, W, 256, device=dev)
+    cta_rows = ((f0 - f0 // R * R + torch.clamp_max(W - f0, 256) - 1) // R
+                + 1)
+    hop = {"bytes": 8 * W + 16 * C, "blocks": W + 2 * int(cta_rows.sum())}
+    hop["stream_bytes"] = 32 * W + 16 * C
+    kern, plain = start.clone(), start.clone()
+    for step in range(L):
+        if step == L - 1:       # the last hop's state is the timed one
+            b = kref.hop_bits(row_keys, step, R)
+            p = plain.long()
+            d = g.out_deg[p]
+            e = g.row_ptr[p[d > 0]].long() + torch.remainder(
+                b[d > 0], d[d > 0]).long()
+            hop["bytes"] += 32 * (sectors(p) + sectors(p[d > 0])
+                                  + sectors(e))
+            hop["stream_bytes"] += 32 * sectors(e) + 8 * bv * int(
+                torch.unique(p // bv).numel())
+            last = plain.clone()
+        ops.frog_hop(kern, row_keys, step, R, *graph, impl="cuda")
+        plain = kref.frog_hop_ref(plain, row_keys, step, R, *graph[:3])
+        assert torch.equal(kern, plain), f"frog_hop differs at hop {step}"
+    streamed = start.clone()
+    for step in range(L):
+        ops.frog_hop(streamed, row_keys, step, R, *graph, impl="stream",
+                     blocked=blocked)
+    assert torch.equal(streamed, plain), "frog_hop_stream_sorted differs"
+    log("12 hop", rows=C, R=R, walks=W, hops=L, byte_equal_every_hop=True)
+    # each timed call hops from the last hop's state: the copy into the
+    # work buffer (W int32 read and written) is timed and bounded with it
+    work = torch.empty_like(last)
+
+    def hop_from_last(impl):
+        work.copy_(last)
+        ops.frog_hop(work, row_keys, L - 1, R, *graph, impl=impl,
+                     blocked=blocked)
+        return work
+
+    for name, impl, key in (("frog_hop", "cuda", ""),
+                            ("frog_hop_stream_sorted", "stream", "stream_")):
+        row(name, f"src/repro_torch/kernels/csrc/"
+            f"{'frog_step_stream' if key else 'frog_step'}.cu",
+            "src/repro/kernels/frog_step_stream.py:215" if key
+            else "src/repro/kernels/frog_step.py:84",
+            lambda impl=impl: hop_from_last(impl),
+            lambda: kref.frog_hop_ref(last, row_keys, L - 1, R, *graph[:3]),
+            hop[key + "bytes"] + 8 * W,
+            blocks=3 * W if key else hop["blocks"])
 
 
 # ---------------------------------------------------------------------------
@@ -1572,6 +1822,8 @@ def phase_lm_profile(params, cfg, toks, state, cur):
 # the port's CUDA kernels by their function names in a trace
 PORT_KERNELS = ("fa_wgmma_kernel", "flash_attention_kernel",
                 "frog_step_stream_kernel", "frog_step_kernel",
+                "frog_superstep_stream_kernel", "frog_superstep_kernel",
+                "frog_hop_stream_kernel", "frog_hop_kernel",
                 "frog_count_kernel", "stitch_gather_local_kernel",
                 "stitch_step_local_kernel", "stitch_gather_rounds_kernel",
                 "stitch_gather_kernel",
@@ -1638,15 +1890,22 @@ def device_busy_ms(fn, by_kernel: bool = False) -> tuple:
 
 
 def phase_profile(svc, stream_svc, loop_svc, erasure_svc, g):
-    """Where a batch run (resident and streamed), a dense serving wave, a
-    loop wave over 8 shards, the ELL power iteration and the quickstart's
-    erasure run spend their time."""
+    """Where a batch run (resident and streamed), an index build (resident
+    and streamed, 8 build shards), a dense serving wave, a loop wave over 8
+    shards, the ELL power iteration and the quickstart's erasure run spend
+    their time."""
     from repro_torch.core import power_iteration
+    from repro_torch.query.index import _build_walk_index
     for what, fn in (
             ("pagerank", lambda: svc.pagerank(epsilon=0.1, delta=0.1,
                                               k=100)),
             ("pagerank_stream", lambda: stream_svc.pagerank(
                 epsilon=0.1, delta=0.1, k=100)),
+            ("index_build", lambda: _build_walk_index(
+                g, svc.config.walk_index())),
+            ("index_build_stream", lambda: _build_walk_index(
+                g, stream_svc.config.walk_index(),
+                blocked=stream_svc.blocked_csr())),
             ("wave", lambda: (svc.topk(k=10, epsilon=0.3), svc.step())),
             ("loop_wave", lambda: (loop_svc.topk(k=10, epsilon=0.3),
                                    loop_svc.step())),
@@ -1698,9 +1957,14 @@ def main() -> int:
     index, hubs, results = phase_serving(svc, pi, dev)
     launches = ops.launch_counts()
     log("launches", path="dense", **launches)
-    missing = [k for k in ("frog_step", "frog_count", "stitch_gather_rounds",
-                           "stitch_step") if launches[k] < 1]
+    missing = [k for k in ("frog_superstep", "frog_hop", "frog_count",
+                           "stitch_gather_rounds", "stitch_step")
+               if launches[k] < 1]
     assert not missing, f"kernels never launched on the main path: {missing}"
+    # one launch a superstep (t = 32) and a hop of each build shard
+    sc = svc.config.serving
+    assert launches["frog_superstep"] == 32, launches
+    assert launches["frog_hop"] == sc.build_shards * sc.segment_len, launches
     phase_plain(svc, res, index, hubs, dev)
     # the streamed batch estimate and sharded serving
     ops.reset_launch_counts()
@@ -1708,12 +1972,19 @@ def main() -> int:
     sharded = phase_sharded(g, index, results, hubs, dev)
     launches2 = ops.launch_counts()
     log("launches", path="stream_sharded", **launches2)
-    missing = [k for k in ("frog_step_stream_sorted", "stitch_gather_local",
+    missing = [k for k in ("frog_superstep_stream_sorted",
+                           "frog_hop_stream_sorted", "stitch_gather_local",
                            "stitch_gather_rounds", "frog_count")
                if launches2[k] < 1]
     assert not missing, f"kernels never launched on the path: {missing}"
+    # one launch a streamed superstep (t = 32) and a hop of each build shard
+    ssc = sharded["fused"].config.serving
+    assert launches2["frog_superstep_stream_sorted"] == 32, launches2
+    assert launches2["frog_hop_stream_sorted"] == \
+        ssc.build_shards * ssc.segment_len, launches2
     phase_lost_wave(sharded, hubs, dev)
-    for k in ("frog_step_stream_sorted", "stitch_gather_local",
+    for k in ("frog_step_stream_sorted", "frog_superstep_stream_sorted",
+              "frog_hop_stream_sorted", "stitch_gather_local",
               "stitch_step_local"):
         launches[k] = launches2[k]
     peak = torch.cuda.max_memory_allocated()

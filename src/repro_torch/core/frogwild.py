@@ -5,10 +5,11 @@ with probability ``p_T`` at each apply() and are tallied where they stop;
 π̂ = c/N (Definition 5). The key stream is the reference's, so counts and
 ``pi_hat`` are byte-equal to ``repro.core.frogwild`` for the same key.
 
-* p_s = 1 (or ``erasure="none"``): every superstep runs through
-  ``ops.frog_step`` (the fused CUDA kernel on the card, or with
+* p_s = 1 (or ``erasure="none"``): every superstep, its death coins and
+  slot bits included, runs through ``ops.frog_superstep``: one CUDA
+  launch that draws the reference's threefry streams itself, or with
   ``step_impl="stream"`` the streamed kernel over the graph's
-  :class:`BlockedCSR` slabs, built once per run or passed in).
+  :class:`BlockedCSR` slabs (built once per run or passed in).
 * p_s < 1, partial synchronization as edge erasures (Definition 8, the
   blocking walk of Process 19): ``"independent"`` (Example 9, one coin per
   edge) or ``"channel"`` (one coin per (vertex, destination shard), the
@@ -153,20 +154,19 @@ def _frogwild_walks(g: CSRGraph, cfg: FrogWildConfig, key: torch.Tensor,
     alive = torch.ones(N, dtype=torch.bool, device=pos.device)
     counts = torch.zeros(n, dtype=torch.int32, device=pos.device)
     for step_key in prng.split(k_loop, t):
+        if not use_erasure:
+            # the whole superstep, its draws included, in place
+            ops.frog_superstep(pos, alive, counts, step_key, cfg.p_T,
+                               g.row_ptr, g.col_idx, g.out_deg, n,
+                               impl=cfg.step_impl, blocked=blocked)
+            continue
         k_die, k_move = prng.split(step_key)
         # apply(): each arriving frog dies w.p. p_T and is tallied here.
         die = prng.bernoulli(k_die, cfg.p_T, (N,)) & alive
-        if use_erasure:
-            counts += ops.frog_count(torch.where(die, pos, -1), n,
-                                     impl=cfg.tally_impl)
-            # scatter(): survivors traverse one non-erased out-edge.
-            nxt = draw_next(g, cfg, k_move, pos)
-        else:
-            slot_bits = prng.randint(k_move, (N,), 0, 1 << 30)
-            nxt, death_counts = ops.frog_step(
-                pos, die, slot_bits, g.row_ptr, g.col_idx, g.out_deg, n,
-                impl=cfg.step_impl, blocked=blocked)
-            counts += death_counts
+        counts += ops.frog_count(torch.where(die, pos, -1), n,
+                                 impl=cfg.tally_impl)
+        # scatter(): survivors traverse one non-erased out-edge.
+        nxt = draw_next(g, cfg, k_move, pos)
         alive &= ~die
         pos = torch.where(alive, nxt, pos)
     # cut-off at t: all surviving frogs halt and are tallied (Process 15).

@@ -24,6 +24,12 @@ __device__ __forceinline__ int32_t fw_slot(int32_t b, int32_t m) {
   return (int32_t)r;
 }
 
+// f / R for a non-negative f: 32-bit division while f fits (the 64-bit one
+// is a long software routine)
+__device__ __forceinline__ int64_t fw_div(int64_t f, int32_t R) {
+  return f <= 0xFFFFFFFFll ? (int64_t)((uint32_t)f / (uint32_t)R) : f / R;
+}
+
 static inline unsigned int fw_blocks(int64_t n) {
   return (unsigned int)((n + FW_THREADS - 1) / FW_THREADS);
 }

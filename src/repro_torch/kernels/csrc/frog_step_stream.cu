@@ -37,6 +37,19 @@
 // next), one 32-byte sector per distinct sector of row_off, deg and col the
 // frogs touch, and the 4·n_pad-byte counts output written once.
 #include "common.cuh"
+#include "threefry.cuh"
+
+// Sets *smem to a streamed launch's dynamic shared memory (row_off, deg,
+// the histogram and the staged col slab) and raises the kernel's limit
+// when that exceeds 48 KB; returns the error of raising it.
+template <typename Kernel>
+static cudaError_t fw_stream_smem(Kernel kernel, int32_t BV, int32_t E_blk,
+                                  int32_t stage_col, size_t* smem) {
+  *smem = sizeof(int32_t) * ((size_t)3 * BV + (stage_col ? (size_t)E_blk : 0));
+  if (*smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+}
 
 __global__ void frog_step_stream_kernel(
     const int32_t* __restrict__ pos, const int32_t* __restrict__ die,
@@ -95,14 +108,10 @@ extern "C" int fw_frog_step_stream_sorted(
     int64_t num_cta, int32_t num_vb, int32_t BV, int32_t E_blk, int32_t FB,
     int32_t stage_col, void* stream) {
   if (num_cta <= 0) return (int)cudaGetLastError();
-  const size_t smem =
-      sizeof(int32_t) * ((size_t)3 * BV + (stage_col ? (size_t)E_blk : 0));
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        frog_step_stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  size_t smem;
+  cudaError_t err =
+      fw_stream_smem(frog_step_stream_kernel, BV, E_blk, stage_col, &smem);
+  if (err != cudaSuccess) return (int)err;
   frog_step_stream_kernel<<<(unsigned int)num_cta, FW_THREADS, smem,
                             (cudaStream_t)stream>>>(
       (const int32_t*)pos, (const int32_t*)die, (const int32_t*)bits,
@@ -110,5 +119,183 @@ extern "C" int fw_frog_step_stream_sorted(
       (const int32_t*)seg_off, (const int32_t*)row_off, (const int32_t*)deg,
       (const int32_t*)col, (int32_t*)next, (int32_t*)counts, num_vb, BV,
       E_blk, FB, stage_col);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The streamed walk with its own draws: rng="device" of
+// frog_step_stream.py:215, the reference's threefry streams drawn in the
+// kernel (plain versions: kernels/ref.py:frog_superstep_stream_sorted_ref,
+// frog_hop_stream_sorted_ref).
+//
+// Frogs arrive sorted by vertex (pos_s) with order[f], the original index
+// of sorted frog f from the wrapper's sort. The draws are keyed by that
+// original index, so they equal the resident kernels' (frog_step.cu), and
+// the results go back to it: pos[order[f]] (and alive[order[f]]) are
+// written in place, which replaces the unsort and the gathers of the
+// caller's die and bits into the sorted order.
+//
+//   superstep: o = order[f]; skip unless alive[o]; bernoulli(k_die, p_T,
+//              ctr = o) tallies into the shared histogram and clears
+//              alive[o]; else pos[o] = the successor with randint(k_move,
+//              0, 2**30, ctr = o). Thread 0 derives the step's keys once
+//              per CTA while the slabs stage (keys per thread read the same
+//              43 us a launch on one H100).
+//   hop:       o = order[f] is slot o % R of row o / R; pos[o] = the
+//              successor with randint(fold_in(row_keys[o / R], step), 0,
+//              2**30, ctr = o % R). Sorted walks of one row are scattered,
+//              so each thread derives its row's key (three blocks a walk).
+//
+// The shared row_off/deg staging, the col slab staged where it pays and
+// the shared death histogram are the caller-bits kernel's above.
+//
+// Bound: a superstep reads pos_s and order for every sorted frog (12 B) and
+// alive at order (1 B), writes pos (4 B) for each survivor and alive for
+// each dying frog, reads each touched block's row_off/deg slabs and the
+// survivors' col sectors; two threefry blocks per live frog (about 75
+// integer instructions each). A hop: 16 B a walk plus the row keys and the
+// col sectors, three blocks a walk.
+//
+// Left on the table (ROADMAP R5): every sorted frog is visited, dead ones
+// included, and every visited block stages its 4 KB of row_off/deg; at the
+// batch shape (400,000 frogs over 9,468 blocks, about 42 a block) a
+// superstep launch takes 43 us on one H100 against its 16 us bound
+// (chip_smoke.py phase 12 and 13).
+
+template <bool kHop>
+__device__ __forceinline__ void stream_walk(
+    const int32_t* __restrict__ pos_s, const int64_t* __restrict__ order,
+    int32_t* __restrict__ pos, uint8_t* __restrict__ alive,
+    int32_t* __restrict__ counts, const int64_t* __restrict__ keys,
+    float p_T, uint32_t step, int32_t R, const int32_t* __restrict__ cta_vid,
+    const int32_t* __restrict__ cta_lo, const int32_t* __restrict__ seg_off,
+    const int32_t* __restrict__ row_off, const int32_t* __restrict__ deg,
+    const int32_t* __restrict__ col, int32_t num_vb, int32_t BV,
+    int32_t E_blk, int32_t FB, int32_t stage_col) {
+  extern __shared__ int32_t smem[];
+  __shared__ FwStepKeys s_keys;
+  const int32_t v = cta_vid[blockIdx.x];
+  if (v >= num_vb) return;                 // spare work item
+  int32_t* s_row_off = smem;
+  int32_t* s_deg = smem + BV;
+  int32_t* s_hist = smem + 2 * BV;
+  int32_t* s_col = smem + 3 * BV;
+  const int64_t vbase = (int64_t)v * BV;
+  for (int32_t i = threadIdx.x; i < BV; i += blockDim.x) {
+    s_row_off[i] = row_off[vbase + i];
+    s_deg[i] = deg[vbase + i];
+    if (!kHop) s_hist[i] = 0;
+  }
+  if (!kHop && threadIdx.x == 0) {
+    s_keys = fw_step_keys(fw_key_at(keys, 0));
+  }
+  const int64_t lo = cta_lo[blockIdx.x];
+  const int64_t end = seg_off[v + 1];
+  const int64_t hi = lo + FB < end ? lo + FB : end;
+  const bool stage = stage_col && (hi - lo) * 8 >= E_blk;
+  const int32_t* gcol = col + (int64_t)v * E_blk;
+  if (stage) {
+    for (int32_t i = threadIdx.x; i < E_blk; i += blockDim.x) {
+      s_col[i] = gcol[i];
+    }
+  }
+  __syncthreads();
+  const int32_t* cols = stage ? s_col : gcol;
+  for (int64_t f = lo + threadIdx.x; f < hi; f += blockDim.x) {
+    const int64_t o = order[f];
+    int32_t bits;
+    if (kHop) {
+      const int64_t c = fw_div(o, R);
+      const FwKey k = fw_hop_key(fw_key_at(keys, c), step);
+      bits = fw_randint30(k, (uint64_t)(o - c * R));
+    } else {
+      if (!alive[o]) continue;
+      const FwStepKeys k = s_keys;
+      if (fw_bernoulli(k.die, p_T, (uint64_t)o)) {
+        atomicAdd(&s_hist[pos_s[f] - vbase], 1);
+        alive[o] = 0;
+        continue;
+      }
+      bits = fw_randint30(k.move_lo, (uint64_t)o);
+    }
+    const int32_t p = pos_s[f];
+    const int32_t local = (int32_t)((int64_t)p - vbase);
+    const int32_t d = s_deg[local];
+    pos[o] = d > 0 ? cols[s_row_off[local] + fw_slot(bits, d)] : p;
+  }
+  if (kHop) return;
+  __syncthreads();
+  for (int32_t i = threadIdx.x; i < BV; i += blockDim.x) {
+    const int32_t h = s_hist[i];
+    if (h != 0) atomicAdd(&counts[vbase + i], h);
+  }
+}
+
+__global__ void frog_superstep_stream_kernel(
+    const int32_t* __restrict__ pos_s, const int64_t* __restrict__ order,
+    int32_t* __restrict__ pos, uint8_t* __restrict__ alive,
+    int32_t* __restrict__ counts, const int64_t* __restrict__ step_key,
+    float p_T, const int32_t* __restrict__ cta_vid,
+    const int32_t* __restrict__ cta_lo, const int32_t* __restrict__ seg_off,
+    const int32_t* __restrict__ row_off, const int32_t* __restrict__ deg,
+    const int32_t* __restrict__ col, int32_t num_vb, int32_t BV,
+    int32_t E_blk, int32_t FB, int32_t stage_col) {
+  stream_walk<false>(pos_s, order, pos, alive, counts, step_key, p_T, 0u, 1,
+                     cta_vid, cta_lo, seg_off, row_off, deg, col, num_vb, BV,
+                     E_blk, FB, stage_col);
+}
+
+__global__ void frog_hop_stream_kernel(
+    const int32_t* __restrict__ pos_s, const int64_t* __restrict__ order,
+    int32_t* __restrict__ pos, const int64_t* __restrict__ row_keys,
+    uint32_t step, int32_t R, const int32_t* __restrict__ cta_vid,
+    const int32_t* __restrict__ cta_lo, const int32_t* __restrict__ seg_off,
+    const int32_t* __restrict__ row_off, const int32_t* __restrict__ deg,
+    const int32_t* __restrict__ col, int32_t num_vb, int32_t BV,
+    int32_t E_blk, int32_t FB, int32_t stage_col) {
+  stream_walk<true>(pos_s, order, pos, nullptr, nullptr, row_keys, 0.0f,
+                    step, R, cta_vid, cta_lo, seg_off, row_off, deg, col,
+                    num_vb, BV, E_blk, FB, stage_col);
+}
+
+extern "C" int fw_frog_superstep_stream_sorted(
+    const void* pos_s, const void* order, void* pos, void* alive,
+    void* counts, const void* step_key, float p_T, const void* cta_vid,
+    const void* cta_lo, const void* seg_off, const void* row_off,
+    const void* deg, const void* col, int64_t num_cta, int32_t num_vb,
+    int32_t BV, int32_t E_blk, int32_t FB, int32_t stage_col, void* stream) {
+  if (num_cta <= 0) return (int)cudaGetLastError();
+  size_t smem;
+  cudaError_t err = fw_stream_smem(frog_superstep_stream_kernel, BV, E_blk,
+                                   stage_col, &smem);
+  if (err != cudaSuccess) return (int)err;
+  frog_superstep_stream_kernel<<<(unsigned int)num_cta, FW_THREADS, smem,
+                                 (cudaStream_t)stream>>>(
+      (const int32_t*)pos_s, (const int64_t*)order, (int32_t*)pos,
+      (uint8_t*)alive, (int32_t*)counts, (const int64_t*)step_key, p_T,
+      (const int32_t*)cta_vid, (const int32_t*)cta_lo,
+      (const int32_t*)seg_off, (const int32_t*)row_off, (const int32_t*)deg,
+      (const int32_t*)col, num_vb, BV, E_blk, FB, stage_col);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fw_frog_hop_stream_sorted(
+    const void* pos_s, const void* order, void* pos, const void* row_keys,
+    int32_t step, int32_t R, const void* cta_vid, const void* cta_lo,
+    const void* seg_off, const void* row_off, const void* deg,
+    const void* col, int64_t num_cta, int32_t num_vb, int32_t BV,
+    int32_t E_blk, int32_t FB, int32_t stage_col, void* stream) {
+  if (num_cta <= 0) return (int)cudaGetLastError();
+  size_t smem;
+  cudaError_t err =
+      fw_stream_smem(frog_hop_stream_kernel, BV, E_blk, stage_col, &smem);
+  if (err != cudaSuccess) return (int)err;
+  frog_hop_stream_kernel<<<(unsigned int)num_cta, FW_THREADS, smem,
+                           (cudaStream_t)stream>>>(
+      (const int32_t*)pos_s, (const int64_t*)order, (int32_t*)pos,
+      (const int64_t*)row_keys, (uint32_t)step, R, (const int32_t*)cta_vid,
+      (const int32_t*)cta_lo, (const int32_t*)seg_off,
+      (const int32_t*)row_off, (const int32_t*)deg, (const int32_t*)col,
+      num_vb, BV, E_blk, FB, stage_col);
   return (int)cudaGetLastError();
 }

@@ -22,6 +22,13 @@ for CPU tensors. The reference switches to it when the graph outgrows the
 TPU core's VMEM; the card has no such budget, so ``"auto"`` stays on the
 resident kernel and ``"stream"`` is asked for by name.
 
+``frog_superstep`` and ``frog_hop`` are the walker step with its draws:
+a whole superstep of the batch walk and a hop of the index build, in
+place. They are the reference's ``frog_step`` under ``rng="device"``,
+drawing the reference's own threefry streams inside the kernel (one
+launch a superstep or hop, and the sort before it under ``"stream"``);
+``frog_step`` stays its ``rng="caller"`` contract, bits from the caller.
+
 ``attention`` also takes ``"ref"`` (the O(S²)-memory oracle); its
 ``"torch"`` is the plain chunked version.
 
@@ -47,6 +54,9 @@ LAUNCHES: Dict[str, int] = {"frog_step": 0, "frog_count": 0,
                             "stitch_gather_rounds": 0,
                             "stitch_gather_local": 0, "stitch_step_local": 0,
                             "frog_step_stream_sorted": 0,
+                            "frog_superstep": 0, "frog_hop": 0,
+                            "frog_superstep_stream_sorted": 0,
+                            "frog_hop_stream_sorted": 0,
                             "spmv_ell_slab": 0, "flash_attention": 0}
 
 # Frogs per CTA work item of the streamed superstep.
@@ -137,9 +147,7 @@ def frog_step(pos: torch.Tensor, die: torch.Tensor, bits: torch.Tensor,
     _check_i32(name, "pos", pos)
     _check_i32(name, "die", die, numel=N)
     _check_i32(name, "bits", bits, numel=N)
-    _check_i32(name, "row_ptr", row_ptr, numel=n + 1)
-    _check_i32(name, "deg", deg, numel=n)
-    _check_i32(name, "col_idx", col_idx)
+    _check_graph(name, row_ptr, col_idx, deg, n)
     if not use:
         return kref.frog_step_ref(pos, die, torch.abs(bits), row_ptr,
                                   col_idx, deg, n)
@@ -266,29 +274,48 @@ def stitch_step(pos: torch.Tensor, stop: torch.Tensor, bits: torch.Tensor,
     return nxt, counts
 
 
-def _frog_step_stream(pos, die, bits, row_ptr, col_idx, deg, n: int,
-                      blocked: Optional[BlockedCSR]):
-    """Stream-path prologue and epilogue: a stable sort of the frogs by
-    vertex, each vertex block's run of sorted frogs (``seg_off``), the
-    sorted kernel, and the unsort. Runs are not padded; blocks no frog
-    visits keep zero counts."""
+def _sorted_runs(name: str, pos, row_ptr, col_idx, deg, n: int,
+                 blocked: Optional[BlockedCSR]):
+    """Stream-path prologue: ``(blocked, pos_s, order, seg_off,
+    schedule)``, a stable sort of the frogs by vertex, each vertex block's
+    run of sorted frogs (``seg_off``) and the kernel's work items. Runs are
+    not padded; blocks no frog visits keep zero counts. ``blocked`` is
+    built from the CSR when not given."""
     if blocked is None:
         blocked = block_csr(row_ptr, col_idx, deg, n)
     if blocked.n_pad < n:
-        raise ValueError(f"frog_step: the BlockedCSR covers {blocked.n_pad} "
+        raise ValueError(f"{name}: the BlockedCSR covers {blocked.n_pad} "
                          f"vertices, the graph has {n}")
-    _check_i32("frog_step", "pos", pos)
+    _check_i32(name, "pos", pos)
     bv, num_vb = blocked.vertex_block, blocked.num_blocks
     pos_s, order = torch.sort(pos, stable=True)
     edges = torch.arange(num_vb + 1, dtype=torch.int32,
                          device=pos.device) * bv
     seg_off = torch.searchsorted(pos_s, edges, out_int32=True)
+    return (blocked, pos_s, order, seg_off,
+            stream_schedule(seg_off, pos.shape[0]))
+
+
+def _frog_step_stream(pos, die, bits, row_ptr, col_idx, deg, n: int,
+                      blocked: Optional[BlockedCSR]):
+    """The streamed superstep: the sort (:func:`_sorted_runs`), the sorted
+    kernel, and the unsort."""
+    blocked, pos_s, order, seg_off, sched = _sorted_runs(
+        "frog_step", pos, row_ptr, col_idx, deg, n, blocked)
     nxt_s, counts = frog_step_stream_sorted(
-        pos_s, die.to(torch.int32)[order], bits[order], seg_off,
-        stream_schedule(seg_off, pos.shape[0]), blocked)
+        pos_s, die.to(torch.int32)[order], bits[order], seg_off, sched,
+        blocked)
     nxt = torch.empty_like(pos)
     nxt[order] = nxt_s
     return nxt, counts[:n]
+
+
+def _stage_col(blocked: BlockedCSR, N: int) -> int:
+    """Whether a streamed launch may stage its col slab in shared memory:
+    the slab fits, and the frogs average at least ``E_blk / 8`` a block."""
+    e_blk = blocked.e_blk
+    return int(4 * e_blk <= STREAM_SMEM_COL_BYTES
+               and 8 * N >= e_blk * blocked.num_blocks)
 
 
 def frog_step_stream_sorted(pos: torch.Tensor, die: torch.Tensor,
@@ -329,9 +356,7 @@ def frog_step_stream_sorted(pos: torch.Tensor, die: torch.Tensor,
                 seg_off.data_ptr(), blocked.row_off.data_ptr(),
                 blocked.deg.data_ptr(), blocked.col.data_ptr(),
                 nxt.data_ptr(), counts.data_ptr(), num_cta, num_vb, bv,
-                e_blk, STREAM_FROG_BLOCK,
-                int(4 * e_blk <= STREAM_SMEM_COL_BYTES
-                    and 8 * N >= e_blk * num_vb))
+                e_blk, STREAM_FROG_BLOCK, _stage_col(blocked, N))
     return nxt, counts
 
 
@@ -355,6 +380,198 @@ def stream_schedule(seg_off: torch.Tensor, N: int,
     v = torch.clamp_max(vid, num_vb - 1)
     lo = seg_off[v].long() + (c - (ends[v] - items[v])) * fb
     return num_cta, vid.to(torch.int32), lo.to(torch.int32)
+
+
+def _check_keys(name: str, arg: str, t: torch.Tensor, shape) -> None:
+    if t.dtype != torch.int64 or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        raise ValueError(f"{name}: {arg} must be a contiguous "
+                         f"int64{list(shape)} of key words, got "
+                         f"{t.dtype}{list(t.shape)}")
+
+
+def _check_walk_state(name: str, pos, alive, counts, step_key, n: int):
+    N = pos.shape[0]
+    _check_i32(name, "pos", pos)
+    if alive.dtype != torch.bool or alive.shape != (N,) \
+            or not alive.is_contiguous():
+        raise ValueError(f"{name}: alive must be a contiguous bool[{N}], got "
+                         f"{alive.dtype}{list(alive.shape)}")
+    _check_i32(name, "counts", counts, numel=n)
+    _check_keys(name, "step_key", step_key, (2,))
+
+
+def _check_graph(name: str, row_ptr, col_idx, deg, n: int) -> None:
+    _check_i32(name, "row_ptr", row_ptr, numel=n + 1)
+    _check_i32(name, "deg", deg, numel=n)
+    _check_i32(name, "col_idx", col_idx)
+
+
+def _check_hop(name: str, pos, row_keys, step: int, R: int) -> None:
+    _check_i32(name, "pos", pos)
+    N = pos.shape[0]
+    if R < 1 or N % R:
+        raise ValueError(f"{name}: {N} walks are not whole rows of R = {R}")
+    if not 0 <= step < 2 ** 31:
+        raise ValueError(f"{name}: step must be in [0, 2**31), got {step}")
+    _check_keys(name, "row_keys", row_keys, (N // R, 2))
+
+
+def frog_superstep(pos: torch.Tensor, alive: torch.Tensor,
+                   counts: torch.Tensor, step_key: torch.Tensor, p_T: float,
+                   row_ptr: torch.Tensor, col_idx: torch.Tensor,
+                   deg: torch.Tensor, n: int, impl: str = "auto",
+                   blocked: Optional[BlockedCSR] = None) -> None:
+    """One whole superstep of the batch walk, in place on ``pos``
+    (int32[N]), ``alive`` (bool[N]) and the run's ``counts`` (int32[n]).
+
+    With ``(k_die, k_move) = split(step_key)`` (an int64[2] key): a live
+    frog ``f`` whose coin ``bernoulli(k_die, p_T)`` at counter ``f`` comes
+    up dies and is tallied at its vertex; every other live frog moves along
+    out-edge ``randint(k_move, 0, 2**30) % d_out`` (counter ``f``); dead
+    frogs stay. The kernel draws: one launch (the resident kernel, or
+    under ``impl="stream"`` the sort, its runs and the sorted kernel),
+    byte-equal to the plain version (``ref.frog_superstep_ref``), which
+    CPU tensors and ``impl="torch"`` run."""
+    name = "frog_superstep"
+    N = pos.shape[0]
+    _check_walk_state(name, pos, alive, counts, step_key, n)
+    _check_graph(name, row_ptr, col_idx, deg, n)
+    if impl == "stream":
+        blocked, pos_s, order, seg_off, sched = _sorted_runs(
+            name, pos, row_ptr, col_idx, deg, n, blocked)
+        frog_superstep_stream_sorted(pos_s, order, pos, alive, counts,
+                                     step_key, p_T, seg_off, sched, blocked)
+        return
+    use = _use_kernel(name, impl, pos, alive, counts, step_key, row_ptr,
+                      col_idx, deg)
+    if not use:
+        for t, new in zip((pos, alive, counts), kref.frog_superstep_ref(
+                pos, alive, counts, step_key, p_T, row_ptr, col_idx, deg,
+                n)):
+            t.copy_(new)
+        return
+    if N:
+        _launch(name, pos.device, pos.data_ptr(), alive.data_ptr(),
+                counts.data_ptr(), step_key.data_ptr(), float(p_T),
+                row_ptr.data_ptr(), col_idx.data_ptr(), deg.data_ptr(), N)
+
+
+def frog_hop(pos: torch.Tensor, row_keys: torch.Tensor, step: int, R: int,
+             row_ptr: torch.Tensor, col_idx: torch.Tensor, deg: torch.Tensor,
+             n: int, impl: str = "auto", blocked: Optional[BlockedCSR] = None
+             ) -> None:
+    """One hop of the walk-index build, in place on ``pos`` (int32[C ·
+    R]): walk ``c · R + r`` (slot ``r`` of row ``c``) moves along out-edge
+    ``randint(fold_in(row_keys[c], step), (R,), 0, 2**30)[r] % d_out``;
+    ``row_keys`` is the int64[C, 2] table of the rows' keys. ``impl`` as
+    for :func:`frog_superstep`; the plain version is
+    ``ref.frog_hop_ref``."""
+    name = "frog_hop"
+    _check_hop(name, pos, row_keys, step, R)
+    _check_graph(name, row_ptr, col_idx, deg, n)
+    N = pos.shape[0]
+    if impl == "stream":
+        blocked, pos_s, order, seg_off, sched = _sorted_runs(
+            name, pos, row_ptr, col_idx, deg, n, blocked)
+        frog_hop_stream_sorted(pos_s, order, pos, row_keys, step, R, seg_off,
+                               sched, blocked)
+        return
+    use = _use_kernel(name, impl, pos, row_keys, row_ptr, col_idx, deg)
+    if not use:
+        pos.copy_(kref.frog_hop_ref(pos, row_keys, step, R, row_ptr, col_idx,
+                                    deg))
+        return
+    if N:
+        _launch(name, pos.device, pos.data_ptr(), row_keys.data_ptr(),
+                int(step), int(R), row_ptr.data_ptr(), col_idx.data_ptr(),
+                deg.data_ptr(), N)
+
+
+def _check_sorted(name: str, pos_s, order, pos, seg_off, schedule,
+                  blocked: BlockedCSR) -> None:
+    N = pos.shape[0]
+    _check_i32(name, "pos", pos)
+    _check_i32(name, "pos_s", pos_s, numel=N)
+    if order.dtype != torch.int64 or order.shape != (N,) \
+            or not order.is_contiguous():
+        raise ValueError(f"{name}: order must be a contiguous int64[{N}]")
+    _check_i32(name, "seg_off", seg_off, numel=blocked.num_blocks + 1)
+    for arg in ("row_off", "deg", "col"):
+        _check_i32(name, arg, getattr(blocked, arg), ndim=2)
+    num_cta, cta_vid, cta_lo = schedule
+    _check_i32(name, "cta_vid", cta_vid, numel=num_cta)
+    _check_i32(name, "cta_lo", cta_lo, numel=num_cta)
+
+
+def _sorted_operands(pos_s, order, seg_off, schedule, blocked):
+    num_cta, cta_vid, cta_lo = schedule
+    return ((pos_s.data_ptr(), order.data_ptr()),
+            (cta_vid.data_ptr(), cta_lo.data_ptr(), seg_off.data_ptr(),
+             blocked.row_off.data_ptr(), blocked.deg.data_ptr(),
+             blocked.col.data_ptr(), num_cta, blocked.num_blocks,
+             blocked.vertex_block, blocked.e_blk, STREAM_FROG_BLOCK,
+             _stage_col(blocked, pos_s.shape[0])))
+
+
+def frog_superstep_stream_sorted(pos_s: torch.Tensor, order: torch.Tensor,
+                                 pos: torch.Tensor, alive: torch.Tensor,
+                                 counts: torch.Tensor,
+                                 step_key: torch.Tensor, p_T: float,
+                                 seg_off: torch.Tensor,
+                                 schedule: Tuple[int, torch.Tensor,
+                                                 torch.Tensor],
+                                 blocked: BlockedCSR, impl: str = "auto"
+                                 ) -> None:
+    """:func:`frog_superstep`'s streamed kernel: the frogs sorted by vertex
+    (``pos_s``; block ``v``'s run ``seg_off[v] .. seg_off[v + 1]``),
+    ``order[f]`` (int64) the original index of sorted frog ``f``. Frog
+    ``order[f]`` draws at that counter, and its ``pos``, ``alive`` and the
+    ``counts`` are updated in place in the original order. ``schedule`` is
+    :func:`stream_schedule` of ``seg_off``."""
+    name = "frog_superstep_stream_sorted"
+    _check_sorted(name, pos_s, order, pos, seg_off, schedule, blocked)
+    _check_walk_state(name, pos, alive, counts, step_key, counts.shape[0])
+    use = _use_kernel(name, impl, pos_s, order, pos, alive, counts,
+                      step_key, seg_off, *schedule[1:], blocked.row_off,
+                      blocked.deg, blocked.col)
+    if not use:
+        for t, new in zip((pos, alive, counts),
+                          kref.frog_superstep_stream_sorted_ref(
+                              pos_s, order, alive, counts, step_key, p_T,
+                              seg_off, blocked.row_off, blocked.deg,
+                              blocked.col)):
+            t.copy_(new)
+        return
+    frogs, work = _sorted_operands(pos_s, order, seg_off, schedule, blocked)
+    if pos.shape[0]:
+        _launch(name, pos.device, *frogs, pos.data_ptr(), alive.data_ptr(),
+                counts.data_ptr(), step_key.data_ptr(), float(p_T), *work)
+
+
+def frog_hop_stream_sorted(pos_s: torch.Tensor, order: torch.Tensor,
+                           pos: torch.Tensor, row_keys: torch.Tensor,
+                           step: int, R: int, seg_off: torch.Tensor,
+                           schedule: Tuple[int, torch.Tensor, torch.Tensor],
+                           blocked: BlockedCSR, impl: str = "auto") -> None:
+    """:func:`frog_hop`'s streamed kernel on walks sorted by vertex (as
+    :func:`frog_superstep_stream_sorted`): walk ``order[f]`` moves, in
+    place in ``pos``."""
+    name = "frog_hop_stream_sorted"
+    _check_sorted(name, pos_s, order, pos, seg_off, schedule, blocked)
+    _check_hop(name, pos, row_keys, step, R)
+    use = _use_kernel(name, impl, pos_s, order, pos, row_keys, seg_off,
+                      *schedule[1:], blocked.row_off, blocked.deg,
+                      blocked.col)
+    if not use:
+        pos.copy_(kref.frog_hop_stream_sorted_ref(
+            pos_s, order, row_keys, step, R, seg_off, blocked.row_off,
+            blocked.deg, blocked.col))
+        return
+    frogs, work = _sorted_operands(pos_s, order, seg_off, schedule, blocked)
+    if pos.shape[0]:
+        _launch(name, pos.device, *frogs, pos.data_ptr(),
+                row_keys.data_ptr(), int(step), int(R), *work)
 
 
 def _check_block(name: str, block: torch.Tensor, base: int) -> None:

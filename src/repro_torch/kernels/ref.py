@@ -18,6 +18,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.graph.csr import uniform_successor
 
 
@@ -133,6 +134,82 @@ def frog_step_stream_sorted_ref(pos, die, bits, seg_off, row_off, deg, col):
     counts = torch.zeros(num_vb * bv, dtype=torch.int32, device=pos.device)
     counts.index_add_(0, pos.long(), die.to(torch.int32))
     return nxt, counts
+
+
+# ---------------------------------------------------------------------------
+# the walk with its own draws (rng="device"): the reference's threefry
+# streams drawn through ``prng``, then the caller-bits step above
+# ---------------------------------------------------------------------------
+
+def superstep_draws(step_key, p_T: float, N: int):
+    """One superstep of the batch walk's draws, as ``core/frogwild.py``
+    takes them: ``(k_die, k_move) = split(step_key)``, the death coins
+    ``bernoulli(k_die, p_T, (N,))`` and the slot bits ``randint(k_move,
+    (N,), 0, 2**30)``; frog ``f`` draws at counter ``f``."""
+    k_die, k_move = prng.split(step_key)
+    return (prng.bernoulli(k_die, p_T, (N,)),
+            prng.randint(k_move, (N,), 0, 1 << 30))
+
+
+def hop_bits(row_keys, step: int, R: int):
+    """One hop of the index build's slot bits (int32[C · R]): row ``c``'s
+    ``R`` walks draw ``randint(fold_in(row_keys[c], step), (R,), 0,
+    2**30)``, walk ``c · R + r`` at counter ``r``."""
+    return prng.randint(prng.fold_in(row_keys, step), (R,), 0,
+                        1 << 30).reshape(-1)
+
+
+def frog_superstep_ref(pos, alive, counts, step_key, p_T: float, row_ptr,
+                       col_idx, deg, n: int):
+    """A whole superstep of the batch walk → new ``(pos int32[N], alive
+    bool[N], counts int32[n])``: a live frog that draws death is tallied
+    at its vertex and dies; every other live frog moves; dead frogs stay.
+    """
+    die, bits = superstep_draws(step_key, p_T, pos.shape[0])
+    die &= alive
+    nxt, dead = frog_step_ref(pos, die, bits, row_ptr, col_idx, deg, n)
+    alive = alive & ~die
+    return torch.where(alive, nxt, pos), alive, counts + dead
+
+
+def frog_hop_ref(pos, row_keys, step: int, R: int, row_ptr, col_idx, deg):
+    """One hop of the index build's walks (int32[C · R], row-major: walk
+    ``c · R + r`` is slot ``r`` of row ``c``) → the new positions."""
+    return uniform_successor(row_ptr, col_idx, deg, pos,
+                             hop_bits(row_keys, step, R))
+
+
+def _unsort(order, values_s):
+    out = torch.empty_like(values_s)
+    out[order] = values_s
+    return out
+
+
+def frog_superstep_stream_sorted_ref(pos_s, order, alive, counts, step_key,
+                                     p_T: float, seg_off, row_off, deg, col):
+    """:func:`frog_superstep_ref` through the streamed superstep: frogs
+    sorted by vertex (``pos_s``), ``order[f]`` the original index of sorted
+    frog ``f``, whose draws are at counter ``order[f]``. Returns new
+    ``(pos, alive, counts)`` in the original order."""
+    die, bits = superstep_draws(step_key, p_T, pos_s.shape[0])
+    o = order.long()
+    die_s = (die & alive)[o]
+    nxt_s, dead = frog_step_stream_sorted_ref(pos_s, die_s, bits[o], seg_off,
+                                              row_off, deg, col)
+    live_s = alive[o] & ~die_s
+    return (_unsort(o, torch.where(live_s, nxt_s, pos_s)), _unsort(o, live_s),
+            counts + dead[: counts.shape[0]])
+
+
+def frog_hop_stream_sorted_ref(pos_s, order, row_keys, step: int, R: int,
+                               seg_off, row_off, deg, col):
+    """:func:`frog_hop_ref` through the streamed superstep, on walks sorted
+    by vertex: the new positions in the original order."""
+    o = order.long()
+    bits = hop_bits(row_keys, step, R)[o]
+    nxt_s, _ = frog_step_stream_sorted_ref(pos_s, torch.zeros_like(pos_s),
+                                           bits, seg_off, row_off, deg, col)
+    return _unsort(o, nxt_s)
 
 
 def spmv_ref(idx, weight, x):

@@ -17,12 +17,13 @@ row's ``R`` slot bits at shape ``(R,)``, so a row's endpoints do not depend
 on the batch it is walked in, and the slab is byte-equal to the
 reference's. The build walks one range shard of ``build_shards`` at a time,
 which bounds the walkers (and the key streams) alive per step to
-``R · n / build_shards``. Every hop runs through ``ops.frog_step``; with
-``step_impl="stream"`` through the streamed kernel over the graph's
-:class:`BlockedCSR` (the service's cached one). (The reference documents
-``"stream"`` for its build but its jitted row walker passes the graph as
-traced operands, which ``ops.frog_step`` refuses; the port's slab equals
-the reference's slab built with any other step backend.)
+``R · n / build_shards``. Every hop runs through ``ops.frog_hop``, one
+launch that draws the rows' bits itself; with ``step_impl="stream"``
+through the streamed kernel over the graph's :class:`BlockedCSR` (the
+service's cached one). (The reference documents ``"stream"`` for its
+build but its jitted row walker passes the graph as traced operands, which
+its ``ops.frog_step`` refuses; the port's slab equals the reference's slab
+built with any other step backend.)
 
 Not yet ported: the per-segment ``visited_blocks`` masks (dynamic-graph
 invalidation; ``None`` here, which the reference allows for indexes loaded
@@ -138,26 +139,16 @@ def shard_walk_index(index: WalkIndex, num_shards: int) -> ShardedWalkIndex:
         mutation_offset=index.mutation_offset)
 
 
-def _segment_step(row_ptr, col_idx, deg, n, step_impl, pos, bits,
-                  blocked=None):
-    """One no-death plain walker move for a batch of segment walks (the
-    death tally of ``frog_step`` is all zeros and discarded)."""
-    nxt, _ = ops.frog_step(pos, torch.zeros_like(pos), bits, row_ptr,
-                           col_idx, deg, n, impl=step_impl, blocked=blocked)
-    return nxt
-
-
 def _segment_walk_rows(row_ptr, col_idx, deg, n, step_impl, R, L, vertices,
                        key, blocked=None):
     """Walks the L-step segments of ``vertices`` (all ``R`` slots per row)
-    with the per-vertex key streams → ``endpoints int32[C, R]``."""
+    with the per-vertex key streams → ``endpoints int32[C, R]``; each hop
+    is one ``ops.frog_hop``, which draws the row's bits itself."""
     row_keys = prng.fold_in(key, vertices)
     pos = torch.repeat_interleave(vertices.to(torch.int32), R)
     for step in range(L):
-        ks = prng.fold_in(row_keys, step)
-        bits = prng.randint(ks, (R,), 0, 1 << 30)
-        pos = _segment_step(row_ptr, col_idx, deg, n, step_impl, pos,
-                            bits.reshape(-1), blocked)
+        ops.frog_hop(pos, row_keys, step, R, row_ptr, col_idx, deg, n,
+                     impl=step_impl, blocked=blocked)
     return pos.reshape(-1, R)
 
 

@@ -533,3 +533,170 @@ def test_cuda_erasure_walk_equals_cpu(cuda, model, draw):
     want = FrogWildService.open(g, rc, device="cpu").pagerank(seed=3)
     assert torch.equal(got.counts.cpu(), want.counts)
     assert torch.equal(got.pi_hat.cpu(), want.pi_hat)
+
+
+# --- the walker step that draws its own bits (rng="device") -----------------
+
+DRAW_ENTRY = {("superstep", "auto"): "frog_superstep",
+              ("superstep", "stream"): "frog_superstep_stream_sorted",
+              ("hop", "auto"): "frog_hop",
+              ("hop", "stream"): "frog_hop_stream_sorted"}
+
+
+def _draw_graph(cuda, hub_deg=None):
+    """``_graph(4099)`` (degree-0 vertices), or ``_hub_csr`` with vertex
+    700 of ``hub_deg`` edges, on the card with its slab layout."""
+    from repro_torch.kernels.frog_step_stream import block_csr
+    arrays = _graph(4099) if hub_deg is None else _hub_csr(4099, 700,
+                                                           hub_deg)
+    row_ptr, col_idx, deg = [t.to(cuda) for t in _t(*arrays)]
+    n = deg.shape[0]
+    return row_ptr, col_idx, deg, n, block_csr(row_ptr, col_idx, deg, n)
+
+
+def _set_col_staging(monkeypatch, stage):
+    if not stage:       # no slab fits: every CTA reads col from memory
+        monkeypatch.setattr(ops, "STREAM_SMEM_COL_BYTES", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [0, 1, 1537, 300_001])
+@pytest.mark.parametrize("impl,stage", [
+    ("auto", True), ("stream", True), ("stream", False)])
+def test_cuda_frog_superstep_matches_plain(cuda, monkeypatch, N, impl,
+                                           stage):
+    """Eight supersteps in place (p_T = 0.3, a third of the frogs dead at
+    the start), each one launch, against the plain version on the same CUDA
+    tensors: pos, alive and counts byte for byte; the streamed kernel with
+    its col slab staged and not."""
+    from repro_torch import prng
+    _set_col_staging(monkeypatch, stage)
+    row_ptr, col_idx, deg, n, blocked = _draw_graph(cuda)
+    rng = np.random.default_rng(N)
+    pos = torch.from_numpy(rng.integers(0, n, N).astype(np.int32)).to(cuda)
+    alive = torch.from_numpy(rng.random(N) < 0.67).to(cuda)
+    counts = torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)).to(
+        cuda)
+    got = [pos.clone(), alive.clone(), counts.clone()]
+    want = (pos, alive, counts)
+    name = DRAW_ENTRY[("superstep", impl)]
+    for step_key in prng.split(prng.PRNGKey(N, cuda), 8):
+        before = ops.launch_counts()[name]
+        ops.frog_superstep(*got, step_key, 0.3, row_ptr, col_idx, deg, n,
+                           impl=impl, blocked=blocked)
+        assert ops.launch_counts()[name] == before + (N > 0)
+        want = kref.frog_superstep_ref(*want, step_key, 0.3, row_ptr,
+                                       col_idx, deg, n)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int(got[2].sum() - counts.sum()) + int(got[1].sum()) == \
+        int(alive.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,R", [(0, 16), (1, 16), (606, 16),
+                                    (20_011, 7), (300, 300)])
+@pytest.mark.parametrize("impl,stage", [
+    ("auto", True), ("stream", True), ("stream", False)])
+def test_cuda_frog_hop_matches_plain(cuda, monkeypatch, rows, R, impl, stage):
+    """Four hops of ``rows`` index rows of ``R`` walks in place, each one
+    launch, against the plain version: walk counts that are not multiples
+    of 256, R not dividing 256 and R above 256, row keys with words past
+    2**31."""
+    from repro_torch import prng
+    _set_col_staging(monkeypatch, stage)
+    row_ptr, col_idx, deg, n, blocked = _draw_graph(cuda)
+    vertices = torch.arange(rows, dtype=torch.int32, device=cuda) * 7 % n
+    row_keys = prng.fold_in(prng.PRNGKey(rows + R, cuda), vertices)
+    got = torch.repeat_interleave(vertices, R)
+    want = got.clone()
+    name = DRAW_ENTRY[("hop", impl)]
+    for step in range(4):
+        before = ops.launch_counts()[name]
+        ops.frog_hop(got, row_keys, step, R, row_ptr, col_idx, deg, n,
+                     impl=impl, blocked=blocked)
+        assert ops.launch_counts()[name] == before + (rows > 0)
+        want = kref.frog_hop_ref(want, row_keys, step, R, row_ptr, col_idx,
+                                 deg)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hub_deg", [20_000, 40_000])
+def test_cuda_draw_stream_hub_block(cuda, hub_deg):
+    """The streamed draw kernels on a hub block whose slab needs more than
+    48 KB of shared memory (staged after raising each kernel's limit) or
+    more than a launch stages."""
+    from repro_torch import prng
+    row_ptr, col_idx, deg, n, blocked = _draw_graph(cuda, hub_deg)
+    N = 70_000
+    pos = torch.full((N,), 700, dtype=torch.int32, device=cuda)
+    pos[N // 2:] = torch.arange(N - N // 2, device=cuda) % n
+    alive = torch.ones(N, dtype=torch.bool, device=cuda)
+    counts = torch.zeros(n, dtype=torch.int32, device=cuda)
+    key = prng.PRNGKey(hub_deg, cuda)
+    got = [pos.clone(), alive.clone(), counts.clone()]
+    ops.frog_superstep(*got, key, 0.15, row_ptr, col_idx, deg, n,
+                       impl="stream", blocked=blocked)
+    want = kref.frog_superstep_ref(pos, alive, counts, key, 0.15, row_ptr,
+                                   col_idx, deg, n)
+    R = 10
+    row_keys = prng.fold_in(key, torch.arange(N // R, device=cuda))
+    hop = pos.clone()
+    ops.frog_hop(hop, row_keys, 2, R, row_ptr, col_idx, deg, n,
+                 impl="stream", blocked=blocked)
+    want_hop = kref.frog_hop_ref(pos, row_keys, 2, R, row_ptr, col_idx, deg)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(hop, want_hop)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step_impl", ["auto", "stream"])
+def test_cuda_walks_one_launch_per_superstep_and_hop(cuda, step_impl):
+    """The batch walk launches its step kernel once a superstep and the
+    index build once a hop of each build shard, and nothing else of the
+    walker's; both answers equal the CPU's byte for byte."""
+    from repro_torch import (FrogWildService, KernelConfig, RuntimeConfig,
+                             ServingConfig)
+    from repro_torch.graph import chung_lu_powerlaw
+    from repro_torch.query.engine import plan_query
+    g = chung_lu_powerlaw(3000, 8.0, seed=4)
+    rc = RuntimeConfig(kernel=KernelConfig(step_impl=step_impl),
+                       serving=ServingConfig(segments_per_vertex=8,
+                                             segment_len=3, build_shards=3))
+    t = plan_query(10, 0.3, 0.1, p_T=rc.p_T,
+                   max_steps=rc.serving.max_steps).num_steps
+    out = {}
+    for dev in (cuda, "cpu"):
+        svc = FrogWildService.open(g, rc, device=dev)
+        if step_impl == "stream":
+            svc.blocked_csr()
+        ops.reset_launch_counts()
+        res = svc.pagerank(epsilon=0.3, k=10)
+        walk = ops.launch_counts()
+        ops.reset_launch_counts()
+        slab = svc.ensure_index().endpoints
+        build = ops.launch_counts()
+        out[str(dev)] = (res.counts.cpu(), slab.cpu(), walk, build)
+    counts, slab, walk, build = out[str(cuda)]
+    step = DRAW_ENTRY[("superstep", step_impl)]
+    hop = DRAW_ENTRY[("hop", step_impl)]
+    assert walk == {**{k: 0 for k in walk}, step: t, "frog_count": 1}
+    assert build == {**{k: 0 for k in build}, hop: 3 * 3}
+    assert torch.equal(counts, out["cpu"][0])
+    assert torch.equal(slab, out["cpu"][1])
+    assert sum(out["cpu"][2].values()) == sum(out["cpu"][3].values()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,args", [
+    ("frog_superstep", (0, 0, 0, 0, 0.15, 0, 0, 0, 1 << 39)),
+    ("frog_hop", (0, 0, 0, 16, 0, 0, 0, 1 << 39))])
+def test_cuda_refused_draw_launch_raises(cuda, name, args):
+    """A draw kernel's launch the card refuses (a grid of 2**31 blocks)
+    raises from the wrapper's launch; the kernel never runs."""
+    with pytest.raises(RuntimeError, match=f"{name}: kernel launch failed "
+                                           f"with CUDA error"):
+        ops._launch(name, cuda, *args)
