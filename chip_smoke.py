@@ -19,8 +19,9 @@ answer against its guarantee:
               reference's threefry streams itself;
 5. serving  — the walk index (each hop of each of the 8 build shards one
               ``frog_hop`` launch), 6 top-k and 2 PPR queries through
-              ``QueryHandle.result()`` and one ``query_counts``, each held
-              to its bound;
+              ``QueryHandle.result()`` and one ``query_counts`` (its 9
+              rounds and their tally one ``stitch_step_rounds`` launch),
+              each held to its bound;
 6. plain    — the batch run and one wave again through the plain PyTorch
               versions (the batch run's draws through ``prng``),
               byte-equal to the kernel path;
@@ -30,8 +31,10 @@ answer against its guarantee:
 8. sharded  — ``num_shards=8`` with ``step_impl="stream"``: the index built
               through the streamed kernel equals phase 5's slab row-padded;
               phase 5's 8 queries under ``sharded_dispatch="fused"`` and
-              ``"loop"`` give phase 5's answers byte for byte; one wave
-              with shard 3 lost is byte-equal between the two dispatches;
+              ``"loop"`` give phase 5's answers byte for byte, the loop
+              wave's rounds one ``stitch_gather_local_rounds`` launch a
+              wave; one wave with shard 3 lost is byte-equal between the
+              two dispatches;
 9. erasure  — the quickstart's partial-synchronization walk
               (``examples/quickstart.py``: 400,000 frogs, t =
               ``suggested_steps(μ_20(π))``, p_s = 0.7, channel erasure over
@@ -85,7 +88,15 @@ answer against its guarantee:
               clock; ``stitch_gather_rounds`` (the wave's rounds in one
               launch) against its plain version without a mask and with
               shard 3 of 8 lost, beside the same rounds as
-              ``torch.take`` + ``torch.where``;
+              ``torch.take`` + ``torch.where``; the loop wave's rounds over
+              the 8 shard blocks in one launch (``stitch_gather_local_
+              rounds``), also over 7 blocks each allocated apart and
+              shard 3's table entry null, against its plain version and
+              the fused wave's; ``query_counts``' rounds with their tally
+              in one launch (``stitch_step_rounds``) beside the same
+              rounds as ``torch.take`` + ``torch.where`` + ``index_add_``;
+              the device time a launch of these and of ``stitch_step``
+              from a trace;
               ``spmv_ell_slab`` over the live lanes (``row_len``), its
               every-lane mode, and K = 40 with and without ``row_len``;
               ``flash_attention`` also with the design its bf16
@@ -95,7 +106,10 @@ answer against its guarantee:
               (information);
 13. profile — a batch run (resident and streamed), an index build (resident
               and streamed), a serving wave (dense),
-              a loop wave (8 shards), the ELL power iteration, the
+              a loop wave (8 shards; one ``stitch_gather_local_rounds``
+              launch, asserted), a ``query_counts`` (one
+              ``stitch_step_rounds`` launch, asserted), the ELL power
+              iteration, the
               quickstart's erasure run, one 32k prefill forward and one
               ``serve_step`` under torch.profiler: wall time against
               device-busy time (the idle share), the port's kernels'
@@ -229,6 +243,15 @@ def rounds_sectors(pos, q, s0, slab, q_max, lost=None, S=1, sz=0) -> int:
         at = p.long() * R + torch.remainder(torch.abs(s0 + j), R).long()
         total += sectors(at[move])
     return total
+
+
+def device_ms_per_launch(fn, kernel: str, calls: int = 20) -> tuple:
+    """``(launches, device ms a launch)`` of ``kernel`` in a trace of
+    ``calls`` calls of ``fn``: an event-timed call of a short kernel reads
+    its launch path, the trace the kernel alone."""
+    n_k, ms = device_busy_ms(lambda: [fn() for _ in range(calls)],
+                             by_kernel=True)[3].get(kernel, (0, 0.0))
+    return n_k, ms / n_k if n_k else "not measured"
 
 
 LAUNCH_PATH_CALLS = 1000
@@ -711,7 +734,7 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
     from repro_torch import prng
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref as kref
-    from repro_torch.query.engine import wave_prep
+    from repro_torch.query.engine import plan_query, wave_prep
     g, sc = svc.graph, svc.config.serving
     n = g.n
     rows = []
@@ -787,10 +810,10 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
              for j in range(q_max)]
     moves = [j < q for j in range(q_max)]
 
-    def take_rounds():
+    def take_rounds(flat_=flat):
         p = wpos
         for j in range(q_max):
-            p = torch.where(moves[j], torch.take(flat, torch.add(
+            p = torch.where(moves[j], torch.take(flat_, torch.add(
                 slots[j], p, alpha=R)), p)
         return p
 
@@ -807,12 +830,9 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
         library=take_rounds)
     # an event-timed call is host-bound: the device time of a launch from
     # a trace of 20 launches
-    n_k, dev_ms = device_busy_ms(lambda: [rounds() for _ in range(20)],
-                                 by_kernel=True)[3].get(
-        "stitch_gather_rounds_kernel", (0, 0.0))
+    n_k, dev_ms = device_ms_per_launch(rounds, "stitch_gather_rounds_kernel")
     log("12 stitch_gather_rounds_device", walks=W, q_max=q_max,
-        launches=n_k, device_ms_per_launch=dev_ms / n_k if n_k else
-        "not measured")
+        launches=n_k, device_ms_per_launch=dev_ms)
     # the fused sharded wave's: the stacked S = 8 blocks, shard 3 lost
     S8, sz8, _ = sharded.blocks.shape
     stacked = sharded.blocks.view(S8 * sz8, R)
@@ -830,12 +850,102 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
     assert equal and not bool(got[1].all()), \
         "stitch_gather_rounds differs from its plain version, shard 3 lost"
 
+    # the loop wave's q_max rounds over the 8 shard blocks in one launch,
+    # each block read as a tensor of its own through the pointer table; its
+    # yardstick is the same rounds as torch.take + torch.where
+    table = ops.block_table(list(sharded.blocks))
+
+    def local_rounds(lost=None, table_=table):
+        return ops.stitch_gather_local_rounds(wpos, q, s0, table_, q_max,
+                                              lost, impl="cuda")
+
+    row("stitch_gather_local_rounds",
+        "src/repro_torch/kernels/csrc/stitch_local.cu",
+        "src/repro/kernels/stitch.py:252",
+        lambda: local_rounds()[0],
+        lambda: kref.stitch_gather_local_rounds_ref(wpos, q, s0,
+                                                    table.blocks, q_max)[0],
+        16 * W + 8 * S8 + 32 * rounds_sectors(wpos, q, s0, stacked, q_max),
+        library=lambda: take_rounds(stacked.reshape(-1)))
+    n_k, dev_ms = device_ms_per_launch(local_rounds,
+                                       "stitch_gather_local_rounds_kernel")
+    log("12 stitch_gather_local_rounds_device", walks=W, q_max=q_max,
+        shards=S8, launches=n_k, device_ms_per_launch=dev_ms)
+    # shard 3 lost, the other 7 blocks each allocated apart and shard 3's
+    # table entry a null pointer: equal to the plain version and to the
+    # fused wave's rounds over the stacked blocks
+    own = [None if s == 3 else sharded.blocks[s].clone() for s in range(S8)]
+    own_table = ops.block_table(own)
+    got = local_rounds(lost, own_table)
+    want = kref.stitch_gather_local_rounds_ref(wpos, q, s0, own, q_max, lost)
+    fused = rounds(lost, S8, sz8, stacked)
+    equal = all(torch.equal(a, b) and torch.equal(a, c)
+                for a, b, c in zip(got, want, fused))
+    log("12 stitch_gather_local_rounds_lost", shards=S8, lost_shard=3,
+        separate_blocks=S8 - 1, null_entry=int(own_table.ptrs[3]) == 0,
+        byte_equal_plain_and_fused=equal, dead=int((~got[1]).sum()),
+        ms=time_ms(lambda: local_rounds(lost, own_table)),
+        bound_ms=bound_ms(17 * W + S8 + 8 * S8 + 32 * rounds_sectors(
+            wpos, q, s0, stacked, q_max, lost, S8, sz8)))
+    assert equal and not bool(got[1].all()), \
+        "stitch_gather_local_rounds differs, shard 3 lost"
+    del own, own_table
+
     stop = (q == 0).to(torch.int32)
     row("stitch_step", "src/repro_torch/kernels/csrc/stitch.cu",
         "src/repro/kernels/stitch.py:99",
         lambda: ops.stitch_step(wpos, stop, s0, slab, n, impl="cuda"),
         lambda: kref.stitch_step_ref(wpos, stop, s0, slab, n),
         16 * W + 4 * n + 32 * sectors(sidx))
+    n_k, dev_ms = device_ms_per_launch(
+        lambda: ops.stitch_step(wpos, stop, s0, slab, n, impl="cuda"),
+        "stitch_step_kernel")
+    log("12 stitch_step_device", walks=W, launches=n_k,
+        device_ms_per_launch=dev_ms)
+
+    # walk_wave's rounds and their stop tally in one launch, at phase 5's
+    # query_counts plan (its walks after the residual steps); the yardstick
+    # is the same rounds as torch.take + torch.where and one index_add_
+    plan = plan_query(10, 0.3, 0.1, p_T=svc.config.p_T,
+                      max_steps=sc.max_steps, segments_per_vertex=R,
+                      segment_len=index.segment_len)
+    Wq, nr = plan.num_walks, plan.num_rounds(index.segment_len)
+    qpos, qq, qs0 = wave_prep(
+        g.row_ptr, g.col_idx, g.out_deg,
+        torch.zeros(Wq, dtype=torch.int32, device=dev),
+        torch.ones(Wq, dtype=torch.bool, device=dev),
+        torch.full((Wq,), plan.num_steps, dtype=torch.int32, device=dev),
+        prng.PRNGKey(7, dev), n=n, L=index.segment_len, p_T=svc.config.p_T)
+    qslots = [torch.remainder(torch.abs(qs0 + j), R).long()
+              for j in range(nr + 1)]
+    qmoves = [j < qq for j in range(nr + 1)]
+    tallied = (qq <= nr).to(torch.int32)
+
+    def take_step_rounds():
+        p = qpos
+        for j in range(nr + 1):
+            p = torch.where(qmoves[j], torch.take(flat, torch.add(
+                qslots[j], p, alpha=R)), p)
+        return p, torch.zeros(n, dtype=torch.int32, device=dev).index_add_(
+            0, p.long(), tallied)
+
+    def step_rounds():
+        return ops.stitch_step_rounds(qpos, qq, qs0, slab, n, nr,
+                                      impl="cuda")
+
+    assert all(torch.equal(a, b) for a, b in zip(take_step_rounds(),
+                                                  step_rounds())), \
+        "torch.take step rounds"
+    row("stitch_step_rounds", "src/repro_torch/kernels/csrc/stitch.cu",
+        "src/repro/kernels/stitch.py:99", step_rounds,
+        lambda: kref.stitch_step_rounds_ref(qpos, qq, qs0, slab, n, nr),
+        16 * Wq + 4 * n + 32 * rounds_sectors(qpos, qq, qs0, slab, nr + 1),
+        library=take_step_rounds)
+    n_k, dev_ms = device_ms_per_launch(step_rounds,
+                                       "stitch_step_rounds_kernel")
+    log("12 stitch_step_rounds_device", walks=Wq, rounds=nr + 1,
+        tallied=int(tallied.sum()), launches=n_k,
+        device_ms_per_launch=dev_ms)
     bins = (Q + 1) * n
     dest = wpos + qid * n
     dest_l = dest.long()
@@ -1826,7 +1936,8 @@ PORT_KERNELS = ("fa_wgmma_kernel", "flash_attention_kernel",
                 "frog_hop_stream_kernel", "frog_hop_kernel",
                 "frog_count_kernel", "stitch_gather_local_kernel",
                 "stitch_step_local_kernel", "stitch_gather_rounds_kernel",
-                "stitch_gather_kernel",
+                "stitch_gather_local_rounds_kernel",
+                "stitch_step_rounds_kernel", "stitch_gather_kernel",
                 "stitch_step_kernel", "spmv_ell_kernel")
 
 
@@ -1892,10 +2003,22 @@ def device_busy_ms(fn, by_kernel: bool = False) -> tuple:
 def phase_profile(svc, stream_svc, loop_svc, erasure_svc, g):
     """Where a batch run (resident and streamed), an index build (resident
     and streamed, 8 build shards), a dense serving wave, a loop wave over 8
-    shards, the ELL power iteration and the quickstart's erasure run spend
-    their time."""
+    shards, one ``query_counts``, the ELL power iteration and the
+    quickstart's erasure run spend their time."""
+    from repro_torch import prng
     from repro_torch.core import power_iteration
+    from repro_torch.query.engine import plan_query, query_counts
     from repro_torch.query.index import _build_walk_index
+    index, sc = svc.ensure_index(), svc.config.serving
+    plan = plan_query(10, 0.3, 0.1, p_T=svc.config.p_T,
+                      max_steps=sc.max_steps,
+                      segments_per_vertex=index.segments_per_vertex,
+                      segment_len=index.segment_len)
+    # one launch of each path's rounds kernel, and no per-round kernel
+    rounds_kernel = {"loop_wave": ("stitch_gather_local_rounds_kernel",
+                                   "stitch_gather_local_kernel"),
+                     "query_counts": ("stitch_step_rounds_kernel",
+                                      "stitch_step_kernel")}
     for what, fn in (
             ("pagerank", lambda: svc.pagerank(epsilon=0.1, delta=0.1,
                                               k=100)),
@@ -1909,6 +2032,9 @@ def phase_profile(svc, stream_svc, loop_svc, erasure_svc, g):
             ("wave", lambda: (svc.topk(k=10, epsilon=0.3), svc.step())),
             ("loop_wave", lambda: (loop_svc.topk(k=10, epsilon=0.3),
                                    loop_svc.step())),
+            ("query_counts", lambda: query_counts(
+                g, index, plan, prng.PRNGKey(7, g.device),
+                p_T=svc.config.p_T)),
             ("power_iteration_ell", lambda: power_iteration(
                 g, num_iters=50, spmv="ell")),
             ("erasure_quickstart", lambda: erasure_svc.pagerank(seed=0))):
@@ -1921,6 +2047,10 @@ def phase_profile(svc, stream_svc, loop_svc, erasure_svc, g):
         if what == "power_iteration_ell":
             log("13 profile_top", what=what,
                 top5_name_launches_ms=json.dumps(top))
+        if what in rounds_kernel:
+            one, per_round = rounds_kernel[what]
+            assert by_name.get(one, (0,))[0] == 1 and per_round not in \
+                by_name, (what, by_name)
 
 
 def main() -> int:
@@ -1958,9 +2088,12 @@ def main() -> int:
     launches = ops.launch_counts()
     log("launches", path="dense", **launches)
     missing = [k for k in ("frog_superstep", "frog_hop", "frog_count",
-                           "stitch_gather_rounds", "stitch_step")
+                           "stitch_gather_rounds", "stitch_step_rounds")
                if launches[k] < 1]
     assert not missing, f"kernels never launched on the main path: {missing}"
+    # query_counts' rounds and their tally in one launch, none a round
+    assert launches["stitch_step_rounds"] == 1, launches
+    assert launches["stitch_step"] == 0, launches
     # one launch a superstep (t = 32) and a hop of each build shard
     sc = svc.config.serving
     assert launches["frog_superstep"] == 32, launches
@@ -1973,10 +2106,15 @@ def main() -> int:
     launches2 = ops.launch_counts()
     log("launches", path="stream_sharded", **launches2)
     missing = [k for k in ("frog_superstep_stream_sorted",
-                           "frog_hop_stream_sorted", "stitch_gather_local",
+                           "frog_hop_stream_sorted",
+                           "stitch_gather_local_rounds",
                            "stitch_gather_rounds", "frog_count")
                if launches2[k] < 1]
     assert not missing, f"kernels never launched on the path: {missing}"
+    # the loop wave's rounds in one launch a wave, none a shard and round
+    assert launches2["stitch_gather_local_rounds"] == \
+        sharded["loop"].scheduler.stats().waves_run, launches2
+    assert launches2["stitch_gather_local"] == 0, launches2
     # one launch a streamed superstep (t = 32) and a hop of each build shard
     ssc = sharded["fused"].config.serving
     assert launches2["frog_superstep_stream_sorted"] == 32, launches2
@@ -1985,7 +2123,7 @@ def main() -> int:
     phase_lost_wave(sharded, hubs, dev)
     for k in ("frog_step_stream_sorted", "frog_superstep_stream_sorted",
               "frog_hop_stream_sorted", "stitch_gather_local",
-              "stitch_step_local"):
+              "stitch_gather_local_rounds", "stitch_step_local"):
         launches[k] = launches2[k]
     peak = torch.cuda.max_memory_allocated()
     # the quickstart's erasure walks and the GraphLab-PR baseline

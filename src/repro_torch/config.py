@@ -54,8 +54,9 @@ class KernelConfig:
     draw (``core/frogwild.py:draw_next``), ``step_impl`` runs the walker
     superstep (``frog_step``, or ``frog_step_stream_sorted`` under
     ``"stream"``) of the batch walk and the index build, ``stitch_impl``
-    the serving wave's stitch rounds (``stitch_gather_rounds``, one launch
-    a wave; per shard ``stitch_gather_local``), ``tally_impl`` the endpoint
+    the serving wave's stitch rounds (one launch a wave:
+    ``stitch_gather_rounds``, or ``stitch_gather_local_rounds`` on the loop
+    dispatch), ``tally_impl`` the endpoint
     histogram (``frog_count``: the batch walk's tallies and the wave
     tally)."""
 

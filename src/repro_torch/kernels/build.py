@@ -48,6 +48,10 @@ SIGNATURES = {
     "fw_stitch_step": [_c_void_p] * 6 + [_c_int64, _c_int32, _c_void_p],
     "fw_stitch_gather_rounds": [_c_void_p] * 7 + [_c_int64] + [_c_int32] * 4
     + [_c_void_p],
+    "fw_stitch_step_rounds": [_c_void_p] * 6 + [_c_int64] + [_c_int32] * 3
+    + [_c_void_p],
+    "fw_stitch_gather_local_rounds": [_c_void_p] * 7 + [_c_int64]
+    + [_c_int32] * 4 + [_c_void_p],
     "fw_stitch_gather_local": [_c_void_p] * 4 + [_c_int64] * 3
     + [_c_int32, _c_void_p],
     "fw_stitch_step_local": [_c_void_p] * 6 + [_c_int64] * 3

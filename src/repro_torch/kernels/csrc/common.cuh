@@ -10,6 +10,9 @@
 #include <stdint.h>
 
 #define FW_THREADS 256
+// CTA size of the kernels that run a wave's stitch rounds (stitch.cu and
+// stitch_local.cu)
+#define FW_ROUNDS_THREADS 64
 
 // The reference's slot draw for m > 0: ``abs(bits) % m`` on int32, where
 // ``jnp.abs`` wraps INT32_MIN to itself and ``%`` is a floor modulo. Done
@@ -30,6 +33,19 @@ __device__ __forceinline__ int64_t fw_div(int64_t f, int32_t R) {
   return f <= 0xFFFFFFFFll ? (int64_t)((uint32_t)f / (uint32_t)R) : f / R;
 }
 
+// The shard that owns row p of a slab cut into S blocks of sz rows:
+// clamp(p / sz, 0, S - 1). C's division truncates where torch's floors,
+// which differs only for p < 0, and there both clamp to shard 0.
+__device__ __forceinline__ int32_t fw_shard(int32_t p, int32_t S,
+                                            int32_t sz) {
+  int32_t shard = p / sz;
+  return shard < 0 ? 0 : (shard > S - 1 ? S - 1 : shard);
+}
+
 static inline unsigned int fw_blocks(int64_t n) {
   return (unsigned int)((n + FW_THREADS - 1) / FW_THREADS);
+}
+
+static inline unsigned int fw_round_blocks(int64_t n) {
+  return (unsigned int)((n + FW_ROUNDS_THREADS - 1) / FW_ROUNDS_THREADS);
 }

@@ -1,5 +1,6 @@
-// stitch_gather, stitch_step and stitch_gather_rounds: query stitch rounds
-// against the walk index slab endpoints[n, R] (flat, int32).
+// stitch_gather, stitch_step, stitch_gather_rounds and stitch_step_rounds:
+// query stitch rounds against the walk index slab endpoints[n, R] (flat,
+// int32).
 //
 // stitch_gather replaces the TPU kernel src/repro/kernels/stitch.py:161
 // ``stitch_gather`` (pallas_call at :188, body ``_stitch_gather_kernel`` at
@@ -21,6 +22,17 @@
 //     if (j < q && alive) p = endpoints[p * R + abs(s0 + j) % R]
 //   alive &= !lost[clamp(p / sz, 0, S-1)]                   (with a mask)
 //
+// stitch_step_rounds is stitch_step's redesign for walk_wave, which the
+// reference runs as num_rounds + 1 stitch_step calls (src/repro/query/
+// engine.py:375-380): one launch runs all of them and their stop tally,
+//
+//   for j < min(q, num_rounds + 1): p = endpoints[p * R + abs(s0 + j) % R]
+//   if 0 <= q <= num_rounds: counts[p] += 1
+//
+// a walk being tallied at round j == q, where it stops, so at its final
+// position; a walk with q > num_rounds takes num_rounds + 1 gathers and is
+// never tallied, as in the round loop.
+//
 // pos, q and s0 are read once and pos (plus alive, one byte a walk, when a
 // mask is passed) written once. s0 + j wraps as torch's int32 add does (it
 // is done in uint32). A walk stops looping at j = min(q, q_max), or when
@@ -36,18 +48,20 @@
 // distinct slab sector read, plus stitch_step's 4n-byte counts output
 // written once. stitch_gather_rounds: 16 B per walk (pos, q, s0, next;
 // alive adds 1 B and the mask S B) plus one sector per distinct slab
-// sector each round reads.
+// sector each round reads. stitch_step_rounds: the same 16 B a walk and
+// sectors, plus the 4n-byte counts written once, which set the bound at
+// n = 4,847,571 (19.4 MB against ~0.5 MB of walks and sectors).
 //
 // A wave is W = 8,192 walks: at 256 threads a round is 32 CTAs on 132
-// SMs. stitch_gather_rounds runs 64-thread CTAs (FW_ROUNDS_THREADS: 128
-// CTAs, about one per SM, so every SM holds walks). The size barely
+// SMs. The round kernels (stitch_gather_rounds and stitch_step_rounds
+// here, stitch_gather_local_rounds in stitch_local.cu) run 64-thread CTAs
+// (FW_ROUNDS_THREADS: 128 CTAs, about one per SM, so every SM holds
+// walks). The size barely
 // matters: 64, 128 and 256 threads were tried on one H100 and read about
 // the same device time; a walk's chain of up to 8 dependent gathers, not
 // the spread over SMs, sets it (chip_smoke.py phase 12 traces the device
 // time of a launch), and the launch path sets the call's.
 #include "common.cuh"
-
-#define FW_ROUNDS_THREADS 64
 
 __global__ void stitch_gather_kernel(const int32_t* __restrict__ pos,
                                      const int32_t* __restrict__ bits,
@@ -74,14 +88,10 @@ __global__ void stitch_step_kernel(const int32_t* __restrict__ pos,
   if (s != 0) atomicAdd(&counts[p], s);
 }
 
-// Whether vertex p lies in a lost shard: lost[clamp(p / sz, 0, S - 1)].
-// C's division truncates where torch's floors, which differs only for
-// p < 0, and there both clamp to shard 0.
+// Whether vertex p lies in a lost shard: lost[fw_shard(p, S, sz)].
 __device__ __forceinline__ bool fw_in_lost(const uint8_t* lost, int32_t p,
                                            int32_t S, int32_t sz) {
-  int32_t shard = p / sz;
-  shard = shard < 0 ? 0 : (shard > S - 1 ? S - 1 : shard);
-  return lost[shard] != 0;
+  return lost[fw_shard(p, S, sz)] != 0;
 }
 
 __global__ void stitch_gather_rounds_kernel(
@@ -106,6 +116,27 @@ __global__ void stitch_gather_rounds_kernel(
   }
   if (lost != nullptr) {
     alive_out[w] = alive && !fw_in_lost(lost, p, S, sz) ? 1 : 0;
+  }
+  next[w] = p;
+}
+
+__global__ void stitch_step_rounds_kernel(
+    const int32_t* __restrict__ pos, const int32_t* __restrict__ q,
+    const int32_t* __restrict__ s0, const int32_t* __restrict__ endpoints,
+    int32_t* __restrict__ next, int32_t* __restrict__ counts, int64_t W,
+    int32_t R, int32_t num_rounds, int32_t n) {
+  int64_t w = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= W) return;
+  int32_t p = pos[w];
+  const int32_t qw = q[w];
+  const uint32_t s = (uint32_t)s0[w];
+  // num_rounds < 2**31 - 1 (the wrapper checks), so the + 1 never wraps
+  const int32_t rounds = qw <= num_rounds ? qw : num_rounds + 1;
+  for (int32_t j = 0; j < rounds; ++j) {
+    p = endpoints[(int64_t)p * R + fw_slot((int32_t)(s + (uint32_t)j), R)];
+  }
+  if (qw >= 0 && qw <= num_rounds && (uint32_t)p < (uint32_t)n) {
+    atomicAdd(&counts[p], 1);
   }
   next[w] = p;
 }
@@ -142,13 +173,26 @@ extern "C" int fw_stitch_gather_rounds(const void* pos, const void* q,
                                        int32_t q_max, int32_t S, int32_t sz,
                                        void* stream) {
   if (W > 0) {
-    const unsigned int blocks =
-        (unsigned int)((W + FW_ROUNDS_THREADS - 1) / FW_ROUNDS_THREADS);
-    stitch_gather_rounds_kernel<<<blocks, FW_ROUNDS_THREADS, 0,
+    stitch_gather_rounds_kernel<<<fw_round_blocks(W), FW_ROUNDS_THREADS, 0,
                                   (cudaStream_t)stream>>>(
         (const int32_t*)pos, (const int32_t*)q, (const int32_t*)s0,
         (const int32_t*)endpoints, (const uint8_t*)lost, (int32_t*)next,
         (uint8_t*)alive, W, R, q_max, S, sz);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fw_stitch_step_rounds(const void* pos, const void* q,
+                                     const void* s0, const void* endpoints,
+                                     void* next, void* counts, int64_t W,
+                                     int32_t R, int32_t num_rounds,
+                                     int32_t n, void* stream) {
+  if (W > 0) {
+    stitch_step_rounds_kernel<<<fw_round_blocks(W), FW_ROUNDS_THREADS, 0,
+                                (cudaStream_t)stream>>>(
+        (const int32_t*)pos, (const int32_t*)q, (const int32_t*)s0,
+        (const int32_t*)endpoints, (int32_t*)next, (int32_t*)counts, W, R,
+        num_rounds, n);
   }
   return (int)cudaGetLastError();
 }

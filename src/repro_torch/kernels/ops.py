@@ -7,8 +7,11 @@ bits taken as ``abs(bits)`` (inside the kernel, so no extra pass),
 ``[0, n)``; ``spmv`` is the hybrid ELL product, the slab through its
 kernel and the COO spill tail added with ``index_add_``.
 ``stitch_gather_rounds`` is ``stitch_gather``'s kernel redesigned for a
-whole wave: every stitch round of the wave in one launch. ``impl`` picks
-the backend:
+whole wave: every stitch round of the wave in one launch;
+``stitch_gather_local_rounds`` is ``stitch_gather_local``'s, the loop
+wave's rounds over every shard's block (read through a
+:class:`BlockTable`), and ``stitch_step_rounds`` is ``stitch_step``'s,
+``walk_wave``'s rounds and their stop tally. ``impl`` picks the backend:
 
 * ``"auto"``  — the CUDA kernel for CUDA tensors, the plain version
   (``ref.py``) for CPU tensors;
@@ -39,7 +42,8 @@ path went through (:func:`reset_launch_counts`, :func:`launch_counts`).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -52,7 +56,9 @@ from repro_torch.kernels.frog_step_stream import BlockedCSR, block_csr
 LAUNCHES: Dict[str, int] = {"frog_step": 0, "frog_count": 0,
                             "stitch_gather": 0, "stitch_step": 0,
                             "stitch_gather_rounds": 0,
+                            "stitch_step_rounds": 0,
                             "stitch_gather_local": 0, "stitch_step_local": 0,
+                            "stitch_gather_local_rounds": 0,
                             "frog_step_stream_sorted": 0,
                             "frog_superstep": 0, "frog_hop": 0,
                             "frog_superstep_stream_sorted": 0,
@@ -271,6 +277,42 @@ def stitch_step(pos: torch.Tensor, stop: torch.Tensor, bits: torch.Tensor,
         _launch(name, pos.device, pos.data_ptr(), stop.data_ptr(),
                 bits.data_ptr(), endpoints.data_ptr(), nxt.data_ptr(),
                 counts.data_ptr(), W, endpoints.shape[1])
+    return nxt, counts
+
+
+def stitch_step_rounds(pos: torch.Tensor, q: torch.Tensor, s0: torch.Tensor,
+                       endpoints: torch.Tensor, n: int, num_rounds: int,
+                       impl: str = "auto"
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``walk_wave``'s ``num_rounds + 1`` stitch rounds and their stop
+    tally in one launch → ``(pos int32[W], stop_counts int32[n])``.
+
+    Round ``j`` tallies the walks with ``q == j`` at their current vertex
+    and moves the walks with ``j < q`` to ``endpoints[pos, abs(s0 + j) %
+    R]`` (``s0 + j`` wrapping as an int32 add does), so a walk is tallied
+    once, at its final vertex; one with ``q > num_rounds`` takes
+    ``num_rounds + 1`` gathers and is never tallied. The same bytes as
+    ``num_rounds + 1`` rounds of :func:`stitch_step` and ``torch.where``."""
+    name = "stitch_step_rounds"
+    use = _use_kernel(name, impl, pos, q, s0, endpoints)
+    W = pos.shape[0]
+    _check_i32(name, "pos", pos)
+    _check_i32(name, "q", q, numel=W)
+    _check_i32(name, "s0", s0, numel=W)
+    _check_i32(name, "endpoints", endpoints, ndim=2)
+    if not (0 <= num_rounds < 2 ** 31 - 1 and 0 <= n < 2 ** 31):
+        raise ValueError(f"{name}: num_rounds must be in [0, 2**31 - 1) and "
+                         f"n in [0, 2**31), got {num_rounds} and {n}")
+    if not use:
+        return kref.stitch_step_rounds_ref(pos, q, s0, endpoints, n,
+                                           num_rounds)
+    nxt = torch.empty_like(pos)
+    counts = torch.zeros(n, dtype=torch.int32, device=pos.device)
+    if W:
+        _launch(name, pos.device, pos.data_ptr(), q.data_ptr(),
+                s0.data_ptr(), endpoints.data_ptr(), nxt.data_ptr(),
+                counts.data_ptr(), W, endpoints.shape[1], int(num_rounds),
+                int(n))
     return nxt, counts
 
 
@@ -634,6 +676,99 @@ def stitch_step_local(pos: torch.Tensor, stop: torch.Tensor,
                 bits.data_ptr(), block.data_ptr(), nxt.data_ptr(),
                 counts.data_ptr(), W, int(base), sz, R)
     return nxt, counts
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockTable:
+    """``S`` shard blocks (``int32[sz, R]`` each, ``None`` for a lost
+    shard's) and the device table of their addresses that
+    :func:`stitch_gather_local_rounds`' kernel reads (``ptrs``, int64[S] on
+    the blocks' device, 0 for a ``None`` block). It holds the blocks, so
+    the addresses stay valid while the table lives. Built once per set of
+    blocks by :func:`block_table`."""
+
+    blocks: Tuple[Optional[torch.Tensor], ...]
+    ptrs: torch.Tensor
+    sz: int
+    R: int
+
+
+def block_table(blocks: Sequence[Optional[torch.Tensor]]) -> BlockTable:
+    """The :class:`BlockTable` of ``blocks``: contiguous ``int32[sz, R]``
+    tensors of one shape on one device, each its own allocation or not;
+    ``None`` stands for a lost shard's block, which is never read."""
+    name = "block_table"
+    blocks = tuple(blocks)
+    given = [b for b in blocks if b is not None]
+    if not given:
+        raise ValueError(f"{name}: needs at least one block")
+    for b in given:
+        _check_i32(name, "block", b, ndim=2)
+        if b.shape != given[0].shape or b.device != given[0].device:
+            raise ValueError(f"{name}: blocks of shapes {list(b.shape)} and "
+                             f"{list(given[0].shape)} on {b.device} and "
+                             f"{given[0].device}; they must match")
+    sz, R = given[0].shape
+    if sz < 1 or R < 1 or sz >= 2 ** 31:
+        raise ValueError(f"{name}: blocks must be [sz, R] with 1 ≤ sz < "
+                         f"2**31 and R ≥ 1, got {[sz, R]}")
+    ptrs = torch.tensor([0 if b is None else b.data_ptr() for b in blocks],
+                        dtype=torch.int64, device=given[0].device)
+    return BlockTable(blocks, ptrs, int(sz), int(R))
+
+
+def stitch_gather_local_rounds(
+        pos: torch.Tensor, q: torch.Tensor, s0: torch.Tensor,
+        table: BlockTable, q_max: int, lost: Optional[torch.Tensor] = None,
+        impl: str = "auto"
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A loop wave's ``q_max`` stitch rounds over ``S`` shard blocks in one
+    launch → ``(pos int32[W], alive bool[W] or None)``.
+
+    ``table`` is the blocks' :class:`BlockTable` (:func:`block_table`,
+    built once for many waves): block ``s`` holds rows ``[s·sz,
+    (s+1)·sz)``, each block is read as a tensor of its own, never as one
+    slab, and a ``None`` block (a lost shard's) is never read. Round ``j``
+    moves the walks with ``j < q`` to ``block_s[pos − s·sz, abs(s0 + j) %
+    R]`` of the shard ``s`` that owns their row (0 for a row no shard
+    owns). With ``lost`` (bool[S]), a walk that still needs a gather while
+    in a lost shard's rows (shard ``clip(pos // sz, 0, S − 1)``), or whose
+    final vertex lies in one, dies and keeps its position; ``alive`` marks
+    the others. The same bytes as ``q_max`` rounds of
+    :func:`stitch_gather_local` summed over the shards that are not lost,
+    and as :func:`stitch_gather_rounds` over the blocks stacked."""
+    name = "stitch_gather_local_rounds"
+    S = len(table.blocks)
+    masked = lost is not None
+    use = _use_kernel(name, impl, pos, q, s0, table.ptrs,
+                      *((lost,) if masked else ()))
+    W = pos.shape[0]
+    _check_i32(name, "pos", pos)
+    _check_i32(name, "q", q, numel=W)
+    _check_i32(name, "s0", s0, numel=W)
+    if not 0 <= q_max < 2 ** 31:
+        raise ValueError(f"{name}: q_max must be in [0, 2**31), got {q_max}")
+    if masked and (lost.dtype != torch.bool or lost.dim() != 1
+                   or not lost.is_contiguous() or lost.numel() != S):
+        raise ValueError(f"{name}: lost must be a contiguous bool[S = {S}], "
+                         f"got {lost.dtype} {list(lost.shape)}")
+    missing = [s for s, b in enumerate(table.blocks) if b is None]
+    if missing and (not masked or not bool(lost[missing].all())):
+        raise ValueError(f"{name}: shards {missing} have no block; only a "
+                         f"lost shard's block may be missing")
+    if not use:
+        return kref.stitch_gather_local_rounds_ref(pos, q, s0, table.blocks,
+                                                   q_max, lost)
+    nxt = torch.empty_like(pos)
+    alive = torch.empty(W, dtype=torch.bool, device=pos.device) \
+        if masked else None
+    if W:
+        _launch(name, pos.device, pos.data_ptr(), q.data_ptr(),
+                s0.data_ptr(), table.ptrs.data_ptr(),
+                lost.data_ptr() if masked else None, nxt.data_ptr(),
+                alive.data_ptr() if masked else None, W, table.R,
+                int(q_max), S, table.sz)
+    return nxt, alive
 
 
 def spmv_ell_slab(idx: torch.Tensor, weight: torch.Tensor, x: torch.Tensor,

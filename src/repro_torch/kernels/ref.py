@@ -84,6 +84,47 @@ def stitch_step_ref(pos, stop, bits, endpoints, n: int):
     return nxt, counts
 
 
+def stitch_step_rounds_ref(pos, q, s0, endpoints, n: int, num_rounds: int):
+    """``walk_wave``'s ``num_rounds + 1`` stitch rounds: ``(pos int32[W],
+    stop_counts int32[n])``. Round ``j`` tallies the walks with ``q == j``
+    at their current vertex and moves the walks with ``j < q`` to
+    ``endpoints[pos, abs(s0 + j) % R]`` (``s0 + j`` wrapping as an int32
+    add does)."""
+    counts = torch.zeros(n, dtype=torch.int32, device=pos.device)
+    for j in range(num_rounds + 1):
+        nxt, c = stitch_step_ref(pos, q == j, torch.abs(s0 + j), endpoints,
+                                 n)
+        counts += c
+        pos = torch.where(j < q, nxt, pos)
+    return pos, counts
+
+
+def lost_of(lost, pos, S: int, sz: int):
+    """``lost[clip(pos // sz, 0, S − 1)]``: bool[W], True for walks sitting
+    in an evicted shard's rows."""
+    shard = torch.clamp(torch.div(pos, sz, rounding_mode="floor"), 0, S - 1)
+    return lost[shard.long()]
+
+
+def stitch_rounds(pos, q, q_max: int, round_fn, lost_fn=None):
+    """``q_max`` stitch rounds: ``round_fn(pos, j)`` is round ``j``'s next
+    position for every walk, taken by the walks with ``j < q``. With
+    ``lost_fn(pos)`` marking walks in an evicted shard's rows, a walk that
+    still needs a gather there, or whose final vertex lies there, dies and
+    keeps its position. Returns ``(pos, alive)``, ``alive`` bool[W] or
+    ``None`` when no ``lost_fn`` is given (every walk lives)."""
+    if lost_fn is None:
+        for j in range(q_max):
+            pos = torch.where(j < q, round_fn(pos, j), pos)
+        return pos, None
+    alive = torch.ones_like(pos, dtype=torch.bool)
+    for j in range(q_max):
+        alive &= ~(lost_fn(pos) & (j < q))
+        pos = torch.where((j < q) & alive, round_fn(pos, j), pos)
+    alive &= ~lost_fn(pos)
+    return pos, alive
+
+
 def _local(pos, base: int, sz: int):
     """``(owned bool[W], clamped local row int64[W])`` of walks against the
     shard that owns rows ``[base, base + sz)``."""
@@ -110,6 +151,30 @@ def stitch_step_local_ref(pos, stop, bits, block, base: int):
     counts = torch.zeros(sz + 1, dtype=torch.int32, device=pos.device)
     counts.index_add_(0, torch.where(owned, li, sz), stop.to(torch.int32))
     return stitch_gather_local_ref(pos, bits, block, base), counts[:sz]
+
+
+def stitch_gather_local_rounds_ref(pos, q, s0, blocks, q_max: int,
+                                   lost=None):
+    """The loop wave's ``q_max`` stitch rounds over ``S`` shard blocks
+    (``blocks[s]`` int32[sz, R], rows ``[s·sz, (s+1)·sz)``; ``None`` for a
+    lost shard's): ``(pos int32[W], alive bool[W] or None)``. Each round
+    sums :func:`stitch_gather_local_ref` over the shards that are not lost
+    (bits ``abs(s0 + j)``), under :func:`stitch_rounds`' lost-shard rule;
+    the same bytes as :func:`stitch_gather_rounds_ref` over the blocks
+    stacked."""
+    S = len(blocks)
+    sz = next(b for b in blocks if b is not None).shape[0]
+    lost_host = [False] * S if lost is None else lost.tolist()
+    live = [s for s in range(S) if not lost_host[s]]
+
+    def round_fn(pos, j):
+        bits = torch.abs(s0 + j)
+        return sum((stitch_gather_local_ref(pos, bits, blocks[s], s * sz)
+                    for s in live), torch.zeros_like(pos))
+
+    return stitch_rounds(pos, q, q_max, round_fn,
+                         None if lost is None
+                         else lambda p: lost_of(lost, p, S, sz))
 
 
 def frog_step_stream_sorted_ref(pos, die, bits, seg_off, row_off, deg, col):

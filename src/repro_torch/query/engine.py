@@ -9,10 +9,10 @@ vertex (an exact sample of ``P^L``). Round ``j`` reads slot ``(s0 + j) mod
 R`` (per-walk random ``s0``), so a walk never rereads a slab cell while
 ``q ≤ R``. Per-query planning inverts Theorem 1 at ``p_s = 1``.
 
-The stitch rounds run through ``ops.stitch_gather_rounds`` (waves, all
-rounds in one launch over a dense slab or a sharded index's stacked
-blocks) or ``ops.stitch_step`` (``walk_wave`` / ``query_counts``, one
-launch a round) and the wave's per-query histogram
+The stitch rounds run in one launch: ``ops.stitch_gather_rounds`` for a
+wave (over a dense slab or a sharded index's stacked blocks),
+``ops.stitch_step_rounds`` for ``walk_wave`` / ``query_counts`` (the
+rounds with their stop tally), and the wave's per-query histogram
 through ``ops.frog_count``. Key streams are the
 reference's, so positions and counts are byte-equal to ``repro.query``.
 """
@@ -157,36 +157,6 @@ class WaveSpec:
     sz: int = 0          # shard size (0: n, a dense slab)
 
 
-def lost_of(lost: torch.Tensor, pos: torch.Tensor, S: int, sz: int
-            ) -> torch.Tensor:
-    """``lost[clip(pos // sz, 0, S − 1)]``: bool[W], True for walks sitting
-    in an evicted shard's rows."""
-    shard = torch.clamp(torch.div(pos, sz, rounding_mode="floor"), 0, S - 1)
-    return lost[shard.long()]
-
-
-def stitch_rounds(pos: torch.Tensor, q: torch.Tensor, q_max: int,
-                  round_fn: Callable[[torch.Tensor, int], torch.Tensor],
-                  lost_fn: Optional[Callable[[torch.Tensor], torch.Tensor]]
-                  = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """``q_max`` stitch rounds: ``round_fn(pos, j)`` is round ``j``'s next
-    position for every walk, taken by the walks with ``j < q``. With
-    ``lost_fn(pos)`` marking walks in an evicted shard's rows, a walk that
-    still needs a gather there, or whose final vertex lies there, dies and
-    keeps its position. Returns ``(pos, alive)``, ``alive`` bool[W] or
-    ``None`` when no ``lost_fn`` is given (every walk lives)."""
-    if lost_fn is None:
-        for j in range(q_max):
-            pos = torch.where(j < q, round_fn(pos, j), pos)
-        return pos, None
-    alive = torch.ones_like(pos, dtype=torch.bool)
-    for j in range(q_max):
-        alive &= ~(lost_fn(pos) & (j < q))
-        pos = torch.where((j < q) & alive, round_fn(pos, j), pos)
-    alive &= ~lost_fn(pos)
-    return pos, alive
-
-
 def wave_prep(row_ptr: torch.Tensor, col_idx: torch.Tensor,
               deg: torch.Tensor, start: torch.Tensor, uniform: torch.Tensor,
               t_cap: torch.Tensor, key: torch.Tensor, *, n: int, L: int,
@@ -254,21 +224,17 @@ def walk_wave(row_ptr: torch.Tensor, col_idx: torch.Tensor,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Advances ``W`` walks by ``τ`` moves each via residual + stitching →
     ``(final_pos int32[W], stop_counts int32[n])``. Round ``j`` tallies the
-    walks with ``q == j`` while gathering the next segment for the rest
-    (``ops.stitch_step``); round ``num_rounds`` only tallies."""
+    walks with ``q == j`` while gathering the next segment for the rest;
+    round ``num_rounds`` only tallies. All ``num_rounds + 1`` rounds run in
+    one ``ops.stitch_step_rounds`` call."""
     L = segment_len
     n = deg.shape[0]
     k_res, k_slot = prng.split(key)
     q = tau // L
     pos = _plain_steps(row_ptr, col_idx, deg, pos0, tau % L, k_res, L)
     s0 = prng.randint(k_slot, pos.shape, 0, 1 << 30)
-    counts = torch.zeros(n, dtype=torch.int32, device=pos.device)
-    for j in range(num_rounds + 1):
-        nxt, c = ops.stitch_step(pos, (q == j), s0 + j, endpoints, n,
-                                 impl=impl)
-        counts += c
-        pos = torch.where(j < q, nxt, pos)
-    return pos, counts
+    return ops.stitch_step_rounds(pos, q, s0, endpoints, n, num_rounds,
+                                  impl=impl)
 
 
 def query_counts(g: CSRGraph, index: WalkIndex, plan: QueryPlan,

@@ -23,10 +23,12 @@ two ways, as the reference serves it on one device:
 * ``"fused"`` — the gathered wave over the stacked blocks viewed as the
   row-padded ``[S·sz, R]`` slab (no copy): every stitch round in one
   ``stitch_gather_rounds`` launch;
-* ``"loop"`` — per round, one ``stitch_gather_local`` per shard against
-  its own block, the contributions summed; per wave, one shard-local
-  histogram per shard. The reference keeps it as the structural twin the
-  fused wave is byte-compared against.
+* ``"loop"`` — every stitch round in one ``stitch_gather_local_rounds``
+  launch that reads each shard's block as a tensor of its own, through a
+  table of block pointers; per wave, one shard-local histogram per shard.
+  The reference keeps it as the structural twin the fused wave is
+  byte-compared against (there one ``stitch_gather_local`` call per shard
+  per round, the contributions summed).
 
 Every wave takes the bool[S] eviction mask ``lost``, ``None`` while no
 shard is lost; the eviction that sets it needs the fault supervisor, which
@@ -52,8 +54,7 @@ from repro_torch.distributed.runtime import ShardRuntime
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.kernels import ops
 from repro_torch.query.engine import (QueryPlan, WaveSpec, build_wave_program,
-                                      lost_of, plan_query, stitch_rounds,
-                                      wave_prep)
+                                      plan_query, wave_prep)
 from repro_torch.query.index import ShardedWalkIndex, WalkIndex
 
 # A "clean" wave more than this factor above the EMA is clamped before the
@@ -342,16 +343,6 @@ class QueryScheduler:
 
         return wave
 
-    def _shard_round(self, block: torch.Tensor, base: int,
-                     pos: torch.Tensor, q: torch.Tensor, s0: torch.Tensor,
-                     j: int) -> torch.Tensor:
-        """One stitch round against one shard's block: owned walks that
-        still move gather their next endpoint, every other walk contributes
-        0, so the contributions sum across shards."""
-        nxt, _ = ops.stitch_step_local(pos, (q == j), s0 + j, block, base,
-                                       impl=self.impl, tally=False)
-        return torch.where(j < q, nxt, 0)
-
     def _shard_tally(self, pos: torch.Tensor, qid: torch.Tensor, base: int,
                      Q: int) -> torch.Tensor:
         """Shard-local histogram ``int32[Q, sz]``: walks whose final vertex
@@ -367,13 +358,14 @@ class QueryScheduler:
         return counts[: (Q + 1) * sz].reshape(Q + 1, sz)[:Q]
 
     def _build_loop_wave(self, W_b: int, Q_b: int):
-        """The per-shard wave on one device: ``S × q_max`` gather launches
-        and ``S`` shard-local histograms per wave, the sums across shards
-        on the device. Lost shards' blocks are never read: the walks that
-        would need them are dead."""
+        """The per-shard wave on one device: one gather launch over the
+        ``S`` blocks, each read as its own tensor through a table of block
+        pointers built here once, and ``S`` shard-local histograms per
+        wave. Lost shards' blocks are never read: the walks that would
+        need them are dead."""
         rt, g, index = self.runtime, self.g, self.index
         Q, S, sz = Q_b, self._S, self._sz
-        blocks = index.blocks
+        table = ops.block_table(list(index.blocks))
 
         def wave(start, uniform, qid, t_cap, key, lost):
             pos, q, s0 = wave_prep(g.row_ptr, g.col_idx, g.out_deg, start,
@@ -381,16 +373,8 @@ class QueryScheduler:
                                    L=index.segment_len, p_T=self.p_T)
             lost_host = (np.zeros(S, bool) if lost is None
                          else lost.cpu().numpy())
-
-            def round_fn(pos, j):
-                parts = rt.map_shards(
-                    lambda s: None if lost_host[s] else self._shard_round(
-                        blocks[s], s * sz, pos, q, s0, j))
-                return sum(p for p in parts if p is not None)
-
-            pos, alive = stitch_rounds(
-                pos, q, self._q_max, round_fn,
-                None if lost is None else lambda p: lost_of(lost, p, S, sz))
+            pos, alive = ops.stitch_gather_local_rounds(
+                pos, q, s0, table, self._q_max, lost, impl=self.impl)
             if alive is not None:
                 qid = torch.where(alive, qid, Q)  # dead walks → discard bin
             parts = rt.map_shards(

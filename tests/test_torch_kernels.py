@@ -234,6 +234,129 @@ def test_cuda_stitch_gather_rounds_matches_plain(cuda, W, q_max, R, S,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("W,q_max,R,S,lost_shards", [
+    (1, 8, 16, 1, None), (8192, 8, 16, 8, None), (8192, 8, 16, 8, (3,)),
+    (8192, 8, 16, 8, ()), (100_003, 5, 7, 4, (0, 2)), (777, 0, 16, 3, None),
+    (1000, 16, 3, 3, (2,))])
+def test_cuda_stitch_gather_local_rounds_matches_plain(cuda, W, q_max, R, S,
+                                                       lost_shards):
+    """The loop wave's rounds over S blocks in one launch against the plain
+    per-round, per-shard sum, byte for byte: each block a separate
+    allocation and a lost shard's table entry a null pointer (never read),
+    walks in the last shard and walks no shard owns, ``q`` past ``q_max``
+    and 0, slot offsets over the whole int32 range."""
+    n = 4099
+    g = torch.Generator().manual_seed(W + q_max + S)
+    sz = -(-n // S)
+    blocks = [torch.randint(0, n, (sz, R), generator=g,
+                            dtype=torch.int32).to(cuda) for _ in range(S)]
+    pos = torch.randint(0, n, (W,), generator=g, dtype=torch.int32)
+    pos[::7] = -3                                  # owned by no shard
+    pos[1::11] = S * sz + 5
+    pos[2::13] = n - 1                             # the last shard
+    q = torch.randint(0, q_max + 2, (W,), generator=g, dtype=torch.int32)
+    s0 = torch.randint(-2 ** 31, 2 ** 31, (W,), generator=g,
+                       dtype=torch.int64).to(torch.int32)
+    s0[0] = 2 ** 31 - 1
+    s0[-1] = -2 ** 31
+    lost = None
+    if lost_shards is not None:
+        lost = torch.zeros(S, dtype=torch.bool)
+        lost[list(lost_shards)] = True
+        lost = lost.to(cuda)
+        for s in lost_shards:
+            blocks[s] = None
+    table = ops.block_table(blocks)
+    assert all((int(p) == 0) == (b is None)
+               for p, b in zip(table.ptrs.cpu(), blocks))
+    pos, q, s0 = (t.to(cuda) for t in (pos, q, s0))
+    before = ops.launch_counts()["stitch_gather_local_rounds"]
+    got = ops.stitch_gather_local_rounds(pos, q, s0, table, q_max, lost)
+    assert ops.launch_counts()["stitch_gather_local_rounds"] == before + 1
+    want = kref.stitch_gather_local_rounds_ref(pos, q, s0, blocks, q_max,
+                                               lost)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    if lost is None:
+        assert got[1] is None and want[1] is None
+    else:
+        assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,num_rounds,R", [
+    (1, 8, 16), (4445, 8, 16), (8192, 0, 16), (100_003, 5, 7),
+    (1000, 16, 3)])
+def test_cuda_stitch_step_rounds_matches_plain(cuda, W, num_rounds, R):
+    """``walk_wave``'s rounds and their stop tally in one launch against
+    the plain round loop, byte for byte: ``q`` from 0 past
+    ``num_rounds``, slot offsets over the whole int32 range."""
+    n = 4099
+    g = torch.Generator().manual_seed(W + num_rounds)
+    endpoints = torch.randint(0, n, (n, R), generator=g, dtype=torch.int32)
+    pos = torch.randint(0, n, (W,), generator=g, dtype=torch.int32)
+    q = torch.randint(0, num_rounds + 3, (W,), generator=g,
+                      dtype=torch.int32)
+    s0 = torch.randint(-2 ** 31, 2 ** 31, (W,), generator=g,
+                       dtype=torch.int64).to(torch.int32)
+    s0[0] = 2 ** 31 - 1
+    s0[-1] = -2 ** 31
+    pos, q, s0, endpoints = (t.to(cuda) for t in (pos, q, s0, endpoints))
+    before = ops.launch_counts()["stitch_step_rounds"]
+    got = ops.stitch_step_rounds(pos, q, s0, endpoints, n, num_rounds)
+    assert ops.launch_counts()["stitch_step_rounds"] == before + 1
+    want = kref.stitch_step_rounds_ref(pos, q, s0, endpoints, n, num_rounds)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[1].sum()) == int((q <= num_rounds).sum())
+
+
+@pytest.mark.cuda
+def test_cuda_loop_wave_and_query_counts_one_launch(cuda):
+    """The loop wave launches ``stitch_gather_local_rounds`` once a wave
+    (and ``stitch_gather_local`` never), ``query_counts`` launches
+    ``stitch_step_rounds`` once (and ``stitch_step`` never); both answers
+    equal the CPU's byte for byte."""
+    from repro_torch import (FrogWildService, RuntimeConfig, ServingConfig,
+                             ShardConfig, prng)
+    from repro_torch.graph import chung_lu_powerlaw
+    from repro_torch.query.engine import plan_query, query_counts
+    g = chung_lu_powerlaw(3000, 8.0, seed=1)
+    S = 4
+    rc = RuntimeConfig(runtime=ShardConfig(num_shards=S),
+                       serving=ServingConfig(
+                           sharded_dispatch="loop", segments_per_vertex=8,
+                           segment_len=3, build_shards=3, max_walks=1024,
+                           max_queries=4, max_steps=16))
+    out = {}
+    for dev in (cuda, "cpu"):
+        svc = FrogWildService.open(g, rc, device=dev)
+        dense = svc.ensure_index().reassemble()
+        ops.reset_launch_counts()
+        handles = [svc.topk(k=10), svc.ppr(5, k=5)]
+        answers = [(h.result().vertices, h.result().scores)
+                   for h in handles]
+        serve = ops.launch_counts()
+        waves = svc.scheduler.stats().waves_run
+        plan = plan_query(10, 0.3, 0.1, p_T=rc.p_T, max_steps=16,
+                          segments_per_vertex=8, segment_len=3)
+        ops.reset_launch_counts()
+        counts = query_counts(svc.graph, dense, plan,
+                              prng.PRNGKey(7, svc.graph.device))
+        single = ops.launch_counts()
+        out[str(dev)] = (answers, counts.cpu(), serve, single, waves)
+    answers, counts, serve, single, waves = out[str(cuda)]
+    assert waves >= 1
+    assert serve == {**{k: 0 for k in serve},
+                     "stitch_gather_local_rounds": waves,
+                     "frog_count": S * waves}
+    assert single == {**{k: 0 for k in single}, "stitch_step_rounds": 1}
+    assert torch.equal(counts, out["cpu"][1])
+    for (va, sa), (vb, sb) in zip(answers, out["cpu"][0]):
+        assert (va == vb).all() and (sa == sb).all()
+
+
+@pytest.mark.cuda
 def test_cuda_walk_lengths_equal_cpu_for_every_uniform(cuda):
     """All 2**23 float32 values ``uniform`` can return give the same walk
     length on the card as on the CPU (and so as in the reference)."""

@@ -2,7 +2,7 @@
 
 On the CPU the wrapper runs its plain version (``kref.
 stitch_gather_rounds_ref``). It is held byte for byte to the rounds as
-the wave ran them before: ``engine.stitch_rounds`` over one gather-only
+the wave ran them before: ``kref.stitch_rounds`` over one gather-only
 ``ops.stitch_step`` per round, with and without the eviction mask, at
 ragged walk counts, ``q`` all 0 and all ``q_max``, and slot offsets whose
 ``s0 + j`` wraps past 2**31 − 1. The port's wave (``build_wave_program``,
@@ -55,9 +55,9 @@ def _rounds_before(pos, q, s0, slab, q_max, lost, S, sz, n):
                                  impl="torch", tally=False)
         return nxt
 
-    return tengine.stitch_rounds(
+    return kref.stitch_rounds(
         pos, q, q_max, round_fn,
-        None if lost is None else lambda p: tengine.lost_of(lost, p, S, sz))
+        None if lost is None else lambda p: kref.lost_of(lost, p, S, sz))
 
 
 @pytest.mark.parametrize("lost_mode", ["none", "all_false", "one_lost"])
