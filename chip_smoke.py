@@ -35,6 +35,25 @@ answer against its guarantee:
               wave's rounds one ``stitch_gather_local_rounds`` launch a
               wave; one wave with shard 3 lost is byte-equal between the
               two dispatches;
+17. faults  — (runs after phase 8, which it reads) checkpoints and the
+              wave supervisor: a service with ``checkpoint_dir`` builds
+              and persists the dense index (time, bytes), a second loads
+              it and answers phase 5's queries byte for byte; phase 8's
+              blocks persisted one dir a shard, shards 2 and 5 corrupted
+              and truncated by a ``FaultPlan``, quarantined and rebuilt
+              through ``frog_hop`` (2 × L launches, the blocks byte-equal
+              to the originals; the repair's and a full build's times);
+              phase 8's queries under a transient fault and an injected
+              timeout (byte-equal, two retries logged), under the loss of
+              shard 3 at wave 1 through the fused and the loop wave
+              (equal degraded answers, each bound Theorem 1's at the
+              executed walks) and with supervision armed and no fault;
+              the degraded loop wave under the profiler; its rounds' call
+              over a table with shard 3's entry null under
+              ``torch.cuda.set_sync_debug_mode("error")`` (no host sync),
+              against its plain version, event-timed with the mask's host
+              copy and without it. The checkpoints live in a temporary
+              directory, removed at the end;
 9. erasure  — the quickstart's partial-synchronization walk
               (``examples/quickstart.py``: 400,000 frogs, t =
               ``suggested_steps(μ_20(π))``, p_s = 0.7, channel erasure over
@@ -123,10 +142,11 @@ Launch counts are reset just before phase 4 and read just after phase 5
 queries of phase 8 (the streamed and sharded paths), reset just before
 phase 9 and read just after phase 10's ELL power iteration (the erasure
 walks and the GraphLab-PR baseline), reset just before the 32k forward of
-phase 14 and read just after it, and reset just before phase 15's
-scheduler run and read just after it. The last line is
-``{"ok": true, "device": {...}}``; any failed check or launch raises and
-exits non-zero, as does a machine without CUDA.
+phase 14 and read just after it, reset just before phase 15's
+scheduler run and read just after it, and in phase 17 reset just before
+the repair and each degraded service's queries and read just after each.
+The last line is ``{"ok": true, "device": {...}}``; any failed check or
+launch raises and exits non-zero, as does a machine without CUDA.
 """
 from __future__ import annotations
 
@@ -523,11 +543,7 @@ def phase_sharded(g, dense_index, dense_results, hubs, dev):
         t0 = time.perf_counter()
         results = [h.result() for h in submit_queries(svc, hubs)]
         t_serve = time.perf_counter() - t0
-        same = all(
-            (a.vertices.tobytes(), a.scores.tobytes(), a.num_walks, a.waves,
-             a.epsilon_bound) == (b.vertices.tobytes(), b.scores.tobytes(),
-                                  b.num_walks, b.waves, b.epsilon_bound)
-            for a, b in zip(dense_results, results))
+        same = answers_equal(dense_results, results)
         log("8 sharded", dispatch=dispatch, serve_s=t_serve,
             waves=svc.scheduler.stats().waves_run,
             query_latency_s=json.dumps([r.latency_s for r in results]),
@@ -536,6 +552,15 @@ def phase_sharded(g, dense_index, dense_results, hubs, dev):
         assert same, f"{dispatch} answers differ from the dense service's"
         services[dispatch] = svc
     return services
+
+
+def answers_equal(a, b) -> bool:
+    """Two runs of the 8 queries gave the same answers, byte for byte."""
+    def key(r):
+        return (r.vertices.tobytes(), r.scores.tobytes(), r.num_walks,
+                r.waves, r.epsilon_bound, r.degraded, r.shards_lost,
+                r.walks_lost)
+    return len(a) == len(b) and all(key(x) == key(y) for x, y in zip(a, b))
 
 
 def phase_lost_wave(services, hubs, dev):
@@ -555,6 +580,224 @@ def phase_lost_wave(services, hubs, dev):
     landed = int(out["fused"].sum())
     log("8 lost_wave", lost_shard=3, walks=W, landed=landed, equal=equal)
     assert equal and landed < W, "lost-shard waves differ between dispatches"
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def fault_log_of(svc) -> list:
+    return [(e.kind, e.wave, e.attempt, e.shard) for e in svc.fault_log]
+
+
+def phase_faults(g, sharded, dense_results, hubs, dev):
+    """Checkpoints and faults at LiveJournal scale: the dense index
+    persisted and loaded; the per-shard layout persisted, two shards
+    mangled and repaired through ``frog_hop``; phase 8's queries under a
+    transient fault and a timeout, under a shard loss (fused and loop), and
+    with supervision armed and no fault; the degraded loop wave under the
+    profiler and its rounds' call under the host-sync guard. The
+    checkpoints go to a temporary directory, removed at the end."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import (FrogWildService, RuntimeConfig, ServingConfig,
+                             ShardConfig)
+    from repro_torch.distributed.faults import FaultPlan
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.query import index as qindex
+    tmp = tempfile.mkdtemp(prefix="frogwild_ckpt_")
+    try:
+        # 1. the dense layout: build and persist, load, serve
+        d = os.path.join(tmp, "dense")
+        rc = RuntimeConfig(serving=ServingConfig(checkpoint_dir=d))
+        sync()
+        t0 = time.perf_counter()
+        built = FrogWildService.open(g, rc).ensure_index()
+        sync()
+        t_persist = time.perf_counter() - t0
+        written = dir_bytes(d)
+        t0 = time.perf_counter()
+        qindex.save_walk_index(d, built)            # replaces step 0
+        t_save = time.perf_counter() - t0
+        svc = FrogWildService.open(g, rc)
+        sync()
+        t0 = time.perf_counter()
+        loaded = svc.ensure_index()
+        sync()
+        t_load = time.perf_counter() - t0
+        index_eq = torch.equal(loaded.endpoints, built.endpoints)
+        same = answers_equal(dense_results, [
+            h.result() for h in submit_queries(svc, hubs)])
+        svc.close()
+        log("17 checkpoint_dense", build_and_persist_s=t_persist,
+            save_s=t_save, bytes_written=written, load_s=t_load,
+            index_equal=index_eq, answers_equal_phase5=same)
+        assert index_eq and same, "the loaded dense index serves otherwise"
+
+        # 2. the per-shard layout: persist, mangle two shards, repair
+        ds = os.path.join(tmp, "shards")
+        orig = sharded["fused"].ensure_index()
+        sync()
+        t0 = time.perf_counter()
+        for s in range(SHARDS):
+            qindex.save_walk_index_shard(ds, s, SHARDS, orig.n,
+                                         orig.blocks[s], orig.segment_len,
+                                         orig.seed)
+        t_shards = time.perf_counter() - t0
+        written = dir_bytes(ds)
+        svc = FrogWildService.open(g, RuntimeConfig(
+            runtime=ShardConfig(num_shards=SHARDS),
+            serving=ServingConfig(checkpoint_dir=ds),
+            faults=FaultPlan(corrupt_ckpt_shards=(2,),
+                             truncate_ckpt_shards=(5,))))
+        ops.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        repaired = svc.ensure_index()
+        sync()
+        t_repair = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        log("launches", path="faults_repair", **launches)
+        L = svc.config.serving.segment_len
+        blocks_eq = torch.equal(repaired.blocks, orig.blocks)
+        quarantined = sorted(x for x in os.listdir(ds)
+                             if x.startswith("quarantine"))
+        cfg = svc.config.walk_index()
+        sync()
+        t0 = time.perf_counter()
+        qindex.rebuild_shard_blocks(
+            g, dataclasses.replace(cfg, num_shards=SHARDS), [2, 5])
+        sync()
+        t_rebuild = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        qindex._build_walk_index(g, cfg)
+        sync()
+        t_full = time.perf_counter() - t0
+        svc.close()
+        log("17 checkpoint_shards", shards=SHARDS, save_s=t_shards,
+            bytes_written=written, repair_s=t_repair, rebuild_2_shards_s=
+            t_rebuild, full_build_s=t_full, frog_hop=launches["frog_hop"],
+            blocks_equal=blocks_eq, quarantined=json.dumps(quarantined))
+        assert launches["frog_hop"] == 2 * L, launches
+        assert launches["frog_hop_stream_sorted"] == 0, launches
+        assert blocks_eq, "repaired blocks differ from the originals"
+        assert quarantined == ["quarantine.shard_0002",
+                               "quarantine.shard_0005"], quarantined
+
+        # 3. supervised waves over phase 8's blocks
+        base = sharded["fused"].config
+
+        def serve(plan, dispatch="fused", **serving):
+            svc = FrogWildService.open(g, dataclasses.replace(
+                base, faults=plan, serving=dataclasses.replace(
+                    base.serving, sharded_dispatch=dispatch, **serving)),
+                index=orig)
+            return svc, [h.result() for h in submit_queries(svc, hubs)]
+
+        svc, out = serve(FaultPlan(transient_faults=((0, 1),),
+                                   wave_timeouts=((2, 1),)),
+                         backoff_base_s=0.001, backoff_max_s=0.002)
+        fl = fault_log_of(svc)
+        same = answers_equal(dense_results, out)
+        svc.close()
+        log("17 retried", fault_log=json.dumps(fl),
+            answers_equal_phase8=same)
+        assert fl == [("retry", 0, 1, None), ("retry", 2, 1, None)], fl
+        assert same, "a retried wave changed phase 8's answers"
+
+        degraded = {}
+        for dispatch in ("fused", "loop"):
+            ops.reset_launch_counts()
+            svc, out = serve(FaultPlan(shard_losses=((1, 3),)), dispatch)
+            launches = ops.launch_counts()
+            waves = svc.scheduler.stats().waves_run
+            log("launches", path=f"faults_degraded_{dispatch}", **launches)
+            sched = svc.scheduler
+            bounds_ok = all(
+                r.epsilon_bound == sched.anytime_bound(
+                    r.num_steps, 10, 0.1, r.num_walks)   # k, δ of the 8
+                for r in out)
+            log("17 degraded", dispatch=dispatch, waves=waves,
+                lost_shards=json.dumps(sorted(svc.lost_shards)),
+                walks_lost=json.dumps([r.walks_lost for r in out]),
+                epsilon_bound=json.dumps([r.epsilon_bound for r in out]),
+                bounds_at_executed=bounds_ok,
+                fault_log=json.dumps(fault_log_of(svc)))
+            for r, want in zip(out, dense_results):
+                assert r.degraded and r.shards_lost == (3,), r
+                assert r.walks_lost > 0, r
+                assert r.num_walks + r.walks_lost == want.num_walks, r
+            assert bounds_ok, "a degraded bound is not Theorem 1's"
+            rounds = ("stitch_gather_rounds" if dispatch == "fused"
+                      else "stitch_gather_local_rounds")
+            assert launches[rounds] == waves, launches
+            assert launches["frog_count"] == (
+                waves if dispatch == "fused"
+                else SHARDS + (SHARDS - 1) * (waves - 1)), launches
+            degraded[dispatch] = (svc, out)
+        same = answers_equal(degraded["fused"][1], degraded["loop"][1])
+        log("17 degraded_equal", fused_equal_loop=same)
+        assert same, "the degraded dispatches differ"
+        degraded["fused"][0].close()
+
+        svc, out = serve(FaultPlan(), wave_timeout_s=60.0)
+        same = answers_equal(dense_results, out) and not svc.fault_log
+        svc.close()
+        log("17 armed_no_fault", answers_equal_phase8=same)
+        assert same, "supervision with no fault changed phase 8's answers"
+
+        # 4. the degraded loop wave: its kernels and device time, and its
+        # rounds' call with no host sync
+        loop = degraded["loop"][0]
+        wall, busy, kernels, by_name, _ = device_busy_ms(
+            lambda: (loop.topk(k=10, epsilon=0.3), loop.step()),
+            by_kernel=True)
+        log("17 profile", what="degraded_loop_wave", wall_ms=wall,
+            device_busy_ms=busy if kernels else "not measured",
+            idle_share=1 - busy / wall if kernels else "not measured",
+            kernels=kernels, port_kernels_launches_ms=json.dumps(by_name))
+        assert by_name.get("stitch_gather_local_rounds_kernel",
+                           (0,))[0] == 1, by_name
+        sched = loop.scheduler
+        table = sched._block_table()
+        W, n = loop.config.serving.max_walks, g.n
+        gen = torch.Generator(device=dev).manual_seed(17)
+        pos = torch.randint(0, n, (W,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        q = torch.randint(0, sched._q_max + 1, (W,), generator=gen,
+                          device=dev, dtype=torch.int32)
+        s0 = torch.randint(0, 2 ** 30, (W,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        sync()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = ops.stitch_gather_local_rounds(
+                pos, q, s0, table, sched._q_max, sched._lost_dev,
+                lost_host=sched._lost)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        want = kref.stitch_gather_local_rounds_ref(
+            pos, q, s0, table.blocks, sched._q_max, sched._lost_dev)
+        equal = torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                            want[1])
+        # the call event-timed with the mask's host copy, and without it
+        # (the check then reads the mask back from the card)
+        ms = {how: time_ms(lambda kw=kw: ops.stitch_gather_local_rounds(
+            pos, q, s0, table, sched._q_max, sched._lost_dev, **kw))
+            for how, kw in (("host_copy", {"lost_host": sched._lost}),
+                            ("read_back", {}))}
+        log("17 local_rounds_no_sync", null_entries=json.dumps(
+            [s for s, b in enumerate(table.blocks) if b is None]),
+            host_sync=False, equal_plain=equal, walks=W,
+            ms_host_copy=ms["host_copy"], ms_read_back=ms["read_back"])
+        assert table.blocks[3] is None and equal
+        loop.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def erasure_config(model, draw, N, t, p_s=QUICKSTART["p_s"]):
@@ -2121,6 +2364,7 @@ def main() -> int:
     assert launches2["frog_hop_stream_sorted"] == \
         ssc.build_shards * ssc.segment_len, launches2
     phase_lost_wave(sharded, hubs, dev)
+    phase_faults(g, sharded, results, hubs, dev)
     for k in ("frog_step_stream_sorted", "frog_superstep_stream_sorted",
               "frog_hop_stream_sorted", "stitch_gather_local",
               "stitch_gather_local_rounds", "stitch_step_local"):

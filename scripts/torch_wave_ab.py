@@ -12,8 +12,11 @@ LiveJournal-scale graph (generated once, before the turns, and handed on
 through a file), the dense service and the 8-shard service under
 ``sharded_dispatch="loop"``, and reads each path three times under
 torch.profiler after one warm-up: one dense wave, one loop wave (a top-k
-query and one ``step``, as ``chip_smoke.py`` phase 13) and one
-``query_counts`` at phase 5's plan. Each read gives wall ms, device-busy
+query and one ``step``, as ``chip_smoke.py`` phase 13), one degraded loop
+wave and one degraded fused wave (8 shards, shard 3 evicted: through the
+scheduler's ``_evict_shard`` where the tree has one, else by adding 3 to
+its ``lost_shards``, which its waves read) and one ``query_counts`` at
+phase 5's plan. Each read gives wall ms, device-busy
 ms, kernels launched and the port's kernels by name (``chip_smoke.py``'s
 ``device_busy_ms``). Each turn prints one JSON line; the last line holds
 every turn. A turn that fails fails the script. Needs one CUDA card.
@@ -45,6 +48,16 @@ def turn(src: str, graph_file: str) -> dict:
     loop = FrogWildService.open(g, RuntimeConfig(
         runtime=ShardConfig(num_shards=cs.SHARDS),
         serving=ServingConfig(sharded_dispatch="loop")))
+    degraded = {d: FrogWildService.open(g, RuntimeConfig(
+        runtime=ShardConfig(num_shards=cs.SHARDS),
+        serving=ServingConfig(sharded_dispatch=d)), index=loop.ensure_index())
+        for d in ("loop", "fused")}
+    for svc in degraded.values():
+        sched = svc.scheduler
+        if hasattr(sched, "_evict_shard"):
+            sched._evict_shard(3, 0)
+        else:
+            sched.lost_shards.add(3)
     index, rc = dense.ensure_index(), dense.config
     plan = plan_query(10, 0.3, 0.1, p_T=rc.p_T,
                       max_steps=rc.serving.max_steps,
@@ -53,6 +66,12 @@ def turn(src: str, graph_file: str) -> dict:
     paths = {
         "wave": lambda: (dense.topk(k=10, epsilon=0.3), dense.step()),
         "loop_wave": lambda: (loop.topk(k=10, epsilon=0.3), loop.step()),
+        "degraded_loop_wave": lambda: (
+            degraded["loop"].topk(k=10, epsilon=0.3),
+            degraded["loop"].step()),
+        "degraded_fused_wave": lambda: (
+            degraded["fused"].topk(k=10, epsilon=0.3),
+            degraded["fused"].step()),
         "query_counts": lambda: query_counts(g, index, plan,
                                              prng.PRNGKey(7, dev),
                                              p_T=rc.p_T)}
@@ -66,7 +85,7 @@ def turn(src: str, graph_file: str) -> dict:
                      "device_busy_ms": [r[1] for r in reads],
                      "kernels": [r[2] for r in reads],
                      "port_kernels": reads[-1][3]}
-    for s in (dense, loop):
+    for s in (dense, loop, *degraded.values()):
         s.close()
     return out
 

@@ -1,0 +1,294 @@
+"""Checkpointing: atomic, verified, async (port of
+``repro/checkpoint/checkpointer.py``).
+
+Layout: ``<dir>/step_<k:08d>/``
+  * ``tree.json``  — the tree's leaf paths, per-leaf dtype and shape, a
+    ``treedef`` string (written for the reader's eyes; neither package
+    parses it) and a per-leaf crc32 manifest;
+  * ``arrays.npz`` — leaf ``i`` as its raw bytes (``uint8``) under ``a{i}``.
+
+Leaves are numbered in JAX's flatten order — a dict's keys sorted, lists
+and tuples in order, recursively, ``None`` a node without leaves — so a
+checkpoint either package writes loads into the other with every leaf in
+its place. Leaves are torch tensors (on any device), numpy arrays or
+scalars; a scalar is stored with shape ``[]``. Storing bytes keeps every
+dtype, ``bfloat16`` included, without numpy knowing it: the bytes are
+reinterpreted as the torch dtype of the recorded name on restore.
+
+Fault-tolerance properties:
+  * **atomic** — written to ``step_<k>.tmp``, both files, the directory
+    and its parent fsynced, then renamed: a crash mid-write never leaves a
+    half-written ``step_<k>/`` visible to :func:`latest_step` (the
+    ``.tmp`` / ``.old`` suffixes are filtered);
+  * **verified** — :func:`restore_checkpoint` recomputes every leaf's
+    crc32 and raises :class:`CheckpointCorruptError` naming the step dir
+    and the leaf on a corrupt or truncated payload;
+  * **async** — :meth:`Checkpointer.save_async` copies the tree to host
+    memory synchronously and writes on a background thread; a write that
+    failed is re-raised at the next :meth:`~Checkpointer.wait` /
+    :meth:`~Checkpointer.save_async`.
+
+The reference's elastic restore (a target mesh and spec tree placing each
+leaf with a new sharding) comes with the mesh, ``ROADMAP.md`` Queue 1
+item 8; here a restore places every leaf on one ``torch.device``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+import zlib
+from typing import Any, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+
+class CheckpointCorruptError(RuntimeError):
+    """A checkpoint payload failed integrity verification (bad checksum,
+    truncated archive, missing member/metadata). The message names the
+    offending step dir so callers can quarantine and rebuild it."""
+
+
+def _flatten(tree, prefix: Tuple[str, ...] = ()):
+    """``(paths, leaves, treedef)`` in JAX's flatten order; ``treedef`` is
+    a printable description of the structure."""
+    if isinstance(tree, dict):
+        paths, leaves, parts = [], [], []
+        for k in sorted(tree):
+            p, l, d = _flatten(tree[k], prefix + (str(k),))
+            paths += p
+            leaves += l
+            parts.append(f"{k!r}: {d}")
+        return paths, leaves, "{" + ", ".join(parts) + "}"
+    if isinstance(tree, (list, tuple)):
+        paths, leaves, parts = [], [], []
+        for i, v in enumerate(tree):
+            p, l, d = _flatten(v, prefix + (str(i),))
+            paths += p
+            leaves += l
+            parts.append(d)
+        body = ", ".join(parts)
+        if isinstance(tree, tuple):
+            return paths, leaves, f"({body}{',' if len(parts) == 1 else ''})"
+        return paths, leaves, f"[{body}]"
+    if tree is None:
+        return [], [], "None"
+    return ["/".join(prefix)], [tree], "*"
+
+
+def _unflatten(tree, leaves: List[Any]):
+    """``tree``'s structure with its leaves replaced, in flatten order, by
+    ``leaves`` (consumed from the front)."""
+    if isinstance(tree, dict):
+        return {k: _unflatten(tree[k], leaves) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_unflatten(v, leaves) for v in tree)
+    if tree is None:
+        return None
+    return leaves.pop(0)
+
+
+def _host_bytes(leaf) -> Tuple[np.ndarray, str, List[int]]:
+    """``(raw uint8 bytes as the reference stores them, dtype name,
+    shape)`` of one leaf."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu().contiguous()
+        name = str(t.dtype).replace("torch.", "")
+        shape = list(t.shape)
+        if t.dtype == torch.bfloat16:     # numpy has no bfloat16
+            t = t.view(torch.int16)
+        arr = t.numpy()
+    else:
+        arr = np.asarray(leaf)
+        name, shape = str(arr.dtype), list(arr.shape)
+    # ascontiguousarray makes a scalar 1-D, so its bytes view as uint8
+    return np.ascontiguousarray(arr).view(np.uint8), name, shape
+
+
+def _fsync_path(path: str) -> None:
+    """fsyncs a file or directory so the atomic rename publishes durable
+    bytes, not page-cache promises."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def save_checkpoint(directory: str, step: int, tree: Any) -> str:
+    """Synchronous atomic save. Returns the final checkpoint path.
+
+    Payload and manifest land in ``step_<k>.tmp``, both files and the tmp
+    dir are fsynced, and only then is the dir renamed to ``step_<k>`` (and
+    the parent fsynced): a crash at any point leaves either the previous
+    complete checkpoint or a ``.tmp`` / ``.old`` dir that
+    :func:`latest_step` ignores, never a torn ``step_<k>/``.
+    """
+    os.makedirs(directory, exist_ok=True)
+    final = os.path.join(directory, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    os.makedirs(tmp, exist_ok=True)
+
+    paths, leaves, treedef = _flatten(tree)
+    stored = [_host_bytes(leaf) for leaf in leaves]
+    arrays = {f"a{i}": raw for i, (raw, _, _) in enumerate(stored)}
+    np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+    meta = {
+        "step": step,
+        "paths": paths,
+        "dtypes": [name for _, name, _ in stored],
+        "shapes": [shape for _, _, shape in stored],
+        "treedef": f"PyTreeDef({treedef})",
+        "crc32": [int(zlib.crc32(raw.tobytes())) for raw in arrays.values()],
+    }
+    with open(os.path.join(tmp, "tree.json"), "w") as f:
+        json.dump(meta, f)
+    for name in ("arrays.npz", "tree.json"):
+        _fsync_path(os.path.join(tmp, name))
+    _fsync_path(tmp)
+    if os.path.exists(final):
+        os.rename(final, final + ".old")
+    os.rename(tmp, final)
+    _fsync_path(directory)
+    old = final + ".old"
+    if os.path.exists(old):
+        shutil.rmtree(old)
+    return final
+
+
+def _steps(directory: str) -> List[int]:
+    return [int(d.split("_")[1]) for d in os.listdir(directory)
+            if d.startswith("step_") and not d.endswith((".tmp", ".old"))]
+
+
+def latest_step(directory: str) -> Optional[int]:
+    if not os.path.isdir(directory):
+        return None
+    steps = _steps(directory)
+    return max(steps) if steps else None
+
+
+def read_checkpoint(directory: str, step: int, device: DeviceLike = None
+                    ) -> Tuple[dict, List[torch.Tensor]]:
+    """``(tree.json's metadata, the verified leaves in stored order)``,
+    each leaf a tensor of its recorded dtype and shape on ``device``
+    (default: the card)."""
+    dev = resolve_device(device)
+    path = os.path.join(directory, f"step_{step:08d}")
+    if not os.path.isdir(path):
+        raise FileNotFoundError(f"no checkpoint step dir {path!r}")
+    meta_path = os.path.join(path, "tree.json")
+    if not os.path.isfile(meta_path):
+        raise CheckpointCorruptError(
+            f"checkpoint {path!r} has no tree.json — partial or torn write")
+    with open(meta_path) as f:
+        try:
+            meta = json.load(f)
+        except ValueError as e:
+            raise CheckpointCorruptError(
+                f"checkpoint {path!r} has unreadable tree.json: {e}") from e
+    raw = []
+    try:
+        with np.load(os.path.join(path, "arrays.npz")) as data:
+            for i in range(len(meta["paths"])):
+                raw.append(data[f"a{i}"])
+    except Exception as e:
+        raise CheckpointCorruptError(
+            f"checkpoint {path!r} payload arrays.npz is corrupt or "
+            f"truncated ({type(e).__name__}: {e})") from e
+    crcs = meta.get("crc32")
+    if crcs is not None:
+        for i, a in enumerate(raw):
+            got = int(zlib.crc32(np.ascontiguousarray(a).tobytes()))
+            if got != crcs[i]:
+                raise CheckpointCorruptError(
+                    f"checkpoint {path!r} leaf {meta['paths'][i]!r} failed "
+                    f"its crc32 check (stored {crcs[i]}, recomputed {got})"
+                    " — payload corrupted on disk")
+    leaves = [
+        torch.from_numpy(np.ascontiguousarray(a).reshape(-1))
+        .view(getattr(torch, name)).reshape(shape).to(dev)
+        for a, name, shape in zip(raw, meta["dtypes"], meta["shapes"])]
+    return meta, leaves
+
+
+def restore_checkpoint(directory: str, step: int, like: Any,
+                       device: DeviceLike = None) -> Any:
+    """Restores into the structure of ``like`` (its leaves' values are not
+    read), every leaf a tensor on ``device`` (default: the card).
+
+    Every leaf's bytes are checked against the crc32 manifest recorded at
+    save time (a checkpoint without one loads unverified); a truncated or
+    unreadable archive or a checksum mismatch raises
+    :class:`CheckpointCorruptError` naming the step dir.
+    """
+    _, like_leaves, _ = _flatten(like)
+    meta, leaves = read_checkpoint(directory, step, device)
+    if len(meta["paths"]) != len(like_leaves):
+        raise ValueError(
+            f"checkpoint has {len(meta['paths'])} leaves but the restore "
+            f"template has {len(like_leaves)} — tree structure mismatch")
+    return _unflatten(like, leaves)
+
+
+def _host_copy(tree):
+    """The tree with every tensor copied to host memory (the snapshot a
+    background write reads while the caller goes on)."""
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_copy(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return None if tree is None else np.array(tree)
+
+
+class Checkpointer:
+    """Async wrapper: snapshot now, write in the background.
+
+    A failed background write (disk full, permissions, torn filesystem) is
+    captured and re-raised at the next :meth:`wait` or :meth:`save_async`
+    — the failure surfaces at a call site instead of dying silently with
+    the daemon thread. The newest ``keep`` steps are kept.
+    """
+
+    def __init__(self, directory: str, keep: int = 3):
+        self.directory = directory
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError(
+                f"background checkpoint write to {self.directory!r} "
+                f"failed") from err
+
+    def save_async(self, step: int, tree: Any) -> None:
+        self.wait()
+        # the device→host snapshot happens here, synchronously
+        # (consistency); serialization and fsync happen on the thread.
+        host_tree = _host_copy(tree)
+
+        def _write():
+            try:
+                save_checkpoint(self.directory, step, host_tree)
+                self._gc()
+            except BaseException as e:   # surfaces at the next wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=_write, daemon=True)
+        self._thread.start()
+
+    def _gc(self) -> None:
+        for s in sorted(_steps(self.directory))[: -self.keep]:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"),
+                          ignore_errors=True)

@@ -18,18 +18,24 @@ defaults, except the kernel flags, whose values name the port's backends:
 ``"cumsum"``.
 
 A field exists here once the port reads it: the reference's
-engine-placement and wave-supervision fields arrive with the slices that
-port them, so passing one today is a ``TypeError``, not a setting silently
-ignored. ``num_shards > 1`` serves a sharded walk index on the service's
-one device (``ServingConfig.sharded_dispatch``: ``"fused"`` or
-``"loop"``) and sets the channel erasure's destination shards.
-Checkpoints and fault injection raise ``NotImplementedError`` naming the
-``ROADMAP.md`` Queue 1 item that ports them.
+engine-placement fields arrive with the mesh (``ROADMAP.md`` Queue 1 item
+8) and ``donate_wave_buffers`` / ``aot_warmup`` with the captured wave
+programs (Queue 2 R2), so passing one today is a ``TypeError``, not a
+setting silently ignored. ``num_shards > 1`` serves a sharded walk index
+on the service's one device (``ServingConfig.sharded_dispatch``:
+``"fused"`` or ``"loop"``) and sets the channel erasure's destination
+shards. ``ServingConfig.checkpoint_dir`` persists and reloads the walk
+index, and ``RuntimeConfig.faults`` (a :class:`~repro_torch.distributed.
+faults.FaultPlan`) drives the wave supervisor's fault injection, whose
+timeout, retry and backoff fields ``ServingConfig`` holds.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import TYPE_CHECKING, Optional, Tuple
+
+if TYPE_CHECKING:  # the faults module is stdlib-only, imported lazily
+    from repro_torch.distributed.faults import FaultPlan
 
 DEFAULT_NUM_FROGS = 100_000
 DEFAULT_NUM_STEPS = 4
@@ -40,12 +46,6 @@ KERNEL_IMPLS = ("auto", "cuda", "torch")
 STEP_IMPLS = KERNEL_IMPLS + ("stream",)
 SHARDED_DISPATCHES = ("fused", "loop")
 DRAWS = ("auto", "rejection", "cumsum")
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md Queue 1 "
-        f"item {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,7 +103,16 @@ class ServingConfig:
     its allocation; ``None`` = the cap and its halvings).
     ``sharded_dispatch`` picks the wave over a sharded index: ``"fused"``,
     one gather per round over the stacked blocks, or ``"loop"``, one
-    per-shard round per shard, byte-equal to it.
+    per-shard round per shard, byte-equal to it. ``checkpoint_dir`` makes
+    the service persist and reuse the index through ``checkpoint/``
+    atomic step dirs.
+
+    The supervision fields govern the scheduler's waves: a wave that
+    raises a transient fault or exceeds ``wave_timeout_s`` is retried up
+    to ``max_retries`` times from the same key, after a backoff of
+    ``backoff_base_s · 2^(attempt − 1)`` clamped to ``backoff_max_s``
+    (× a seeded jitter in [0.5, 1.5)), then fails with ``WaveFailedError``;
+    a permanent shard fault evicts the shard and serves degraded waves.
     """
 
     segments_per_vertex: int = 16    # R — endpoints stored per vertex
@@ -114,6 +123,10 @@ class ServingConfig:
     max_steps: int = 32              # walk-truncation cap for query plans
     checkpoint_dir: Optional[str] = None
     wave_time_estimate_s: Optional[float] = None  # seeds the admission EMA
+    wave_timeout_s: Optional[float] = None  # per-wave deadline (None = off)
+    max_retries: int = 2             # bounded retry of a faulted wave
+    backoff_base_s: float = 0.02     # exponential backoff: base · 2^(a−1)
+    backoff_max_s: float = 0.5       # … clamped here (± jitter)
     walk_buckets: Optional[Tuple[int, ...]] = None
     query_buckets: Optional[Tuple[int, ...]] = None
     sharded_dispatch: str = "fused"  # fused | loop
@@ -123,9 +136,6 @@ class ServingConfig:
             raise ValueError(
                 f"sharded_dispatch must be 'fused' or 'loop', got "
                 f"{self.sharded_dispatch!r}")
-        if self.checkpoint_dir is not None:
-            raise _not_ported("serving.checkpoint_dir",
-                              "10, checkpoints and faults")
 
 
 _KERNEL = KernelConfig()
@@ -145,11 +155,14 @@ class RuntimeConfig:
     kernel: KernelConfig = _KERNEL
     runtime: ShardConfig = _SHARD
     serving: ServingConfig = _SERVING
-    faults: Optional[object] = None
+    faults: Optional["FaultPlan"] = None
 
     def __post_init__(self):
-        if self.faults is not None:
-            raise _not_ported("fault injection", "10, checkpoints and faults")
+        from repro_torch.distributed.faults import FaultPlan
+        if self.faults is not None and not isinstance(self.faults,
+                                                      FaultPlan):
+            raise TypeError(f"faults must be a FaultPlan, got "
+                            f"{type(self.faults).__name__}")
 
     def frogwild(self) -> "FrogWildConfig":
         return FrogWildConfig(

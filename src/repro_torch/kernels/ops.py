@@ -720,7 +720,7 @@ def block_table(blocks: Sequence[Optional[torch.Tensor]]) -> BlockTable:
 def stitch_gather_local_rounds(
         pos: torch.Tensor, q: torch.Tensor, s0: torch.Tensor,
         table: BlockTable, q_max: int, lost: Optional[torch.Tensor] = None,
-        impl: str = "auto"
+        impl: str = "auto", lost_host: Optional[Sequence[bool]] = None
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """A loop wave's ``q_max`` stitch rounds over ``S`` shard blocks in one
     launch → ``(pos int32[W], alive bool[W] or None)``.
@@ -736,7 +736,12 @@ def stitch_gather_local_rounds(
     final vertex lies in one, dies and keeps its position; ``alive`` marks
     the others. The same bytes as ``q_max`` rounds of
     :func:`stitch_gather_local` summed over the shards that are not lost,
-    and as :func:`stitch_gather_rounds` over the blocks stacked."""
+    and as :func:`stitch_gather_rounds` over the blocks stacked.
+
+    Only a lost shard's block may be missing. ``lost_host``, ``lost``'s
+    values on the host (the caller's copy), is what that check reads, so
+    the call makes no device read; without it the check reads ``lost``
+    back when the table has a missing block."""
     name = "stitch_gather_local_rounds"
     S = len(table.blocks)
     masked = lost is not None
@@ -752,10 +757,16 @@ def stitch_gather_local_rounds(
                    or not lost.is_contiguous() or lost.numel() != S):
         raise ValueError(f"{name}: lost must be a contiguous bool[S = {S}], "
                          f"got {lost.dtype} {list(lost.shape)}")
+    if lost_host is not None and (not masked or len(lost_host) != S):
+        raise ValueError(f"{name}: lost_host needs lost and S = {S} "
+                         f"entries")
     missing = [s for s, b in enumerate(table.blocks) if b is None]
-    if missing and (not masked or not bool(lost[missing].all())):
-        raise ValueError(f"{name}: shards {missing} have no block; only a "
-                         f"lost shard's block may be missing")
+    if missing:
+        if masked and lost_host is None:
+            lost_host = lost.tolist()
+        if not masked or not all(lost_host[s] for s in missing):
+            raise ValueError(f"{name}: shards {missing} have no block; "
+                             f"only a lost shard's block may be missing")
     if not use:
         return kref.stitch_gather_local_rounds_ref(pos, q, s0, table.blocks,
                                                    q_max, lost)

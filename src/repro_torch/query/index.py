@@ -1,5 +1,5 @@
 """Offline walk-segment index (port of ``repro/query/index.py``,
-single-device build).
+single-device build and persistence).
 
 For every vertex ``v`` the index stores ``R`` endpoints of plain (p_s = 1,
 no-death) random walks of exactly ``L`` steps started at ``v``, each cell
@@ -15,32 +15,60 @@ an exact sample of ``P^L(· | v)``. The index exists in two forms:
 Randomness is per (vertex, step): ``fold_in(fold_in(key, v), l)`` draws the
 row's ``R`` slot bits at shape ``(R,)``, so a row's endpoints do not depend
 on the batch it is walked in, and the slab is byte-equal to the
-reference's. The build walks one range shard of ``build_shards`` at a time,
-which bounds the walkers (and the key streams) alive per step to
-``R · n / build_shards``. Every hop runs through ``ops.frog_hop``, one
-launch that draws the rows' bits itself; with ``step_impl="stream"``
-through the streamed kernel over the graph's :class:`BlockedCSR` (the
-service's cached one). (The reference documents ``"stream"`` for its
-build but its jitted row walker passes the graph as traced operands, which
-its ``ops.frog_step`` refuses; the port's slab equals the reference's slab
-built with any other step backend.)
+reference's. The build walks one range shard of ``build_shards`` at a time
+through :func:`_walk_shard_rows`, which bounds the walkers (and the key
+streams) alive per step to ``R · n / build_shards``;
+:func:`rebuild_shard_blocks` re-walks single shards through the same
+function. Every hop runs through ``ops.frog_hop``, one launch that draws
+the rows' bits itself; with ``step_impl="stream"`` through the streamed
+kernel over the graph's :class:`BlockedCSR` (the service's cached one).
+(The reference documents ``"stream"`` for its build but its jitted row
+walker passes the graph as traced operands, which its ``ops.frog_step``
+refuses; the port's slab equals the reference's slab built with any other
+step backend.)
 
-Not yet ported: the per-segment ``visited_blocks`` masks (dynamic-graph
-invalidation; ``None`` here, which the reference allows for indexes loaded
-from pre-epoch checkpoints), the ``shard_map`` build, and persistence.
+Persistence goes through ``checkpoint/`` atomic step directories in the
+reference's layout, so an index either package wrote loads into the
+other: a dense checkpoint (:func:`save_walk_index`) or one checkpoint dir
+per shard (:func:`save_walk_index_shard`, ``<dir>/shard_<s>/step_<k>/``).
+:func:`load_walk_index` reads both; :func:`load_or_repair_walk_index`
+quarantines a corrupt, torn or missing shard and rebuilds it byte-equal
+to the original build's block.
+
+The port's builds record no per-segment ``visited_blocks`` masks yet
+(dynamic-graph invalidation, ``ROADMAP.md`` Queue 1 item 11): their
+indexes carry ``None``, which the reference allows for indexes from
+pre-epoch checkpoints. Masks loaded from a reference-written checkpoint
+are carried through unchanged (uint32 tensors), by :meth:`ShardedWalkIndex.
+reassemble`, :func:`shard_walk_index` and the savers alike. A repaired
+shard has none, so an index served after a repair has none (every shard's
+masks or none, never a mix); the healthy shards keep theirs on disk. The
+``shard_map`` build comes with the mesh (item 8).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Optional
+import os
+from typing import Dict, List, Optional, Union
 
+import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.checkpoint import (CheckpointCorruptError, latest_step,
+                                    save_checkpoint)
 from repro_torch.config import WalkIndexConfig
+from repro_torch.device import DeviceLike
+from repro_torch.distributed.runtime import (list_shard_dirs,
+                                             load_checkpoint_tree,
+                                             load_shard_checkpoints,
+                                             quarantine_shard_dir,
+                                             save_shard_checkpoint, shard_dir)
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.kernels import ops
 from repro_torch.kernels.frog_step_stream import BlockedCSR, blocked_csr_of
+
 
 @dataclasses.dataclass(frozen=True)
 class WalkIndex:
@@ -50,8 +78,9 @@ class WalkIndex:
       endpoints:   int32[n, R] — ``endpoints[v, r] ~ P^L(· | v)``.
       segment_len: L, the number of steps each stored segment advanced.
       seed:        build seed (provenance; queries use their own keys).
-      visited_blocks: per-segment visited-block masks — ``None`` until the
-                   dynamic-graphs slice is ported.
+      visited_blocks: uint32[n, R, W] per-segment visited-block masks, as a
+                   reference-written checkpoint holds them; ``None`` for
+                   the port's builds (see the module docstring).
       graph_epoch / mutation_offset: provenance of the graph walked.
     """
 
@@ -83,11 +112,12 @@ class ShardedWalkIndex:
     Attributes:
       blocks:      int32[S, shard_size, R].
       n:           true vertex count (``S · shard_size ≥ n``; the padded
-                   rows are zero and never gathered, since walk positions
-                   are graph vertices).
+                   rows are never gathered, since walk positions are graph
+                   vertices).
       segment_len: L, steps per precomputed segment.
       seed:        build seed (provenance).
-      visited_blocks: ``None`` until the dynamic-graphs slice is ported.
+      visited_blocks: uint32[S, shard_size, R, W] masks, or ``None`` (see
+                   :class:`WalkIndex`).
       graph_epoch / mutation_offset: provenance of the graph walked.
     """
 
@@ -114,9 +144,12 @@ class ShardedWalkIndex:
     def reassemble(self) -> WalkIndex:
         """The dense ``int32[n, R]`` slab, a copy on the blocks' device."""
         S, sz, R = self.blocks.shape
+        vb = self.visited_blocks
+        if vb is not None:
+            vb = vb.reshape(S * sz, R, vb.shape[-1])[: self.n]
         return WalkIndex(
             endpoints=self.blocks.reshape(S * sz, R)[: self.n].clone(),
-            segment_len=self.segment_len, seed=self.seed,
+            segment_len=self.segment_len, seed=self.seed, visited_blocks=vb,
             graph_epoch=self.graph_epoch,
             mutation_offset=self.mutation_offset)
 
@@ -132,9 +165,15 @@ def shard_walk_index(index: WalkIndex, num_shards: int) -> ShardedWalkIndex:
     ep = torch.zeros(num_shards * sz, R, dtype=torch.int32,
                      device=index.endpoints.device)
     ep[:n] = index.endpoints
+    vb = index.visited_blocks
+    if vb is not None:
+        padded = torch.zeros(num_shards * sz, *vb.shape[1:], dtype=vb.dtype,
+                             device=vb.device)
+        padded[:n] = vb
+        vb = padded.reshape(num_shards, sz, *vb.shape[1:])
     return ShardedWalkIndex(
         blocks=ep.reshape(num_shards, sz, R), n=n,
-        segment_len=index.segment_len, seed=index.seed,
+        segment_len=index.segment_len, seed=index.seed, visited_blocks=vb,
         graph_epoch=index.graph_epoch,
         mutation_offset=index.mutation_offset)
 
@@ -152,37 +191,321 @@ def _segment_walk_rows(row_ptr, col_idx, deg, n, step_impl, R, L, vertices,
     return pos.reshape(-1, R)
 
 
+def _walk_shard_rows(g: CSRGraph, cfg: WalkIndexConfig, shard: int, sz: int,
+                     key: torch.Tensor, blocked: Optional[BlockedCSR]
+                     ) -> torch.Tensor:
+    """The one per-shard program under the build and the repair: the rows
+    of range shard ``shard`` (``[shard · sz, (shard + 1) · sz)``, cut at
+    ``n``) → ``int32[rows, R]`` on ``g``'s device.
+
+    The reference walks the rows of its graph padded to a multiple of
+    ``num_shards``; a padding vertex has no in-edge, so walks from the
+    real vertices never reach one and walking ``g`` itself gives the same
+    rows."""
+    lo = min(shard * sz, g.n)
+    vs = torch.arange(lo, min(lo + sz, g.n), dtype=torch.int32,
+                      device=g.device)
+    return _segment_walk_rows(
+        g.row_ptr, g.col_idx, g.out_deg, g.n, cfg.step_impl,
+        cfg.segments_per_vertex, cfg.segment_len, vs, key, blocked)
+
+
+def _check_build(g: CSRGraph, cfg: WalkIndexConfig,
+                 blocked: Optional[BlockedCSR]) -> Optional[BlockedCSR]:
+    if cfg.segment_len < 1:
+        raise ValueError(f"segment_len must be ≥ 1, got {cfg.segment_len}")
+    if cfg.step_impl == "stream" and blocked is None:
+        return blocked_csr_of(g)
+    return blocked
+
+
 def _build_walk_index(g: CSRGraph, cfg: WalkIndexConfig,
                       key: Optional[torch.Tensor] = None,
                       blocked: Optional[BlockedCSR] = None) -> WalkIndex:
     """Builds the ``int32[n, R]`` slab on ``g``'s device, one range shard at
     a time; ``key`` defaults to ``PRNGKey(cfg.seed)`` there. ``blocked``
     is ``g``'s slab layout for ``step_impl="stream"`` (built here when not
-    given).
-
-    The reference walks the rows of its graph padded to a multiple of
-    ``num_shards`` and drops the padding rows; a padding vertex has no
-    in-edge, so walks from the real vertices never reach one and walking
-    ``g`` itself gives the same rows."""
-    if cfg.segment_len < 1:
-        raise ValueError(f"segment_len must be ≥ 1, got {cfg.segment_len}")
+    given)."""
+    blocked = _check_build(g, cfg, blocked)
     if key is None:
         key = prng.PRNGKey(cfg.seed, g.device)
-    R, L = cfg.segments_per_vertex, cfg.segment_len
-    if cfg.step_impl == "stream" and blocked is None:
-        blocked = blocked_csr_of(g)
     sz = -(-g.n // cfg.num_shards)
-    blocks = []
-    for lo in range(0, g.n, sz):
-        vs = torch.arange(lo, min(lo + sz, g.n), dtype=torch.int32,
-                          device=g.device)
-        blocks.append(_segment_walk_rows(
-            g.row_ptr, g.col_idx, g.out_deg, g.n, cfg.step_impl, R, L, vs,
-            key, blocked))
+    endpoints = torch.cat([_walk_shard_rows(g, cfg, s, sz, key, blocked)
+                           for s in range(cfg.num_shards)])
     return WalkIndex(
-        endpoints=torch.cat(blocks),
+        endpoints=endpoints,
         segment_len=cfg.segment_len,
         seed=cfg.seed,
         graph_epoch=g.epoch,
         mutation_offset=g.mutation_offset,
     )
+
+
+# --- persistence (checkpoint/ atomic step directories) ----------------------
+
+
+def _i32(v: int) -> np.ndarray:
+    """A scalar leaf (``int32``, shape ``[]``), as the reference's
+    ``jnp.int32(v)``."""
+    return np.asarray(v, np.int32)
+
+
+def _index_tree(index: WalkIndex) -> dict:
+    tree = {
+        "endpoints": index.endpoints,
+        "segment_len": _i32(index.segment_len),
+        "seed": _i32(index.seed),
+        "graph_epoch": _i32(index.graph_epoch),
+        "mutation_offset": _i32(index.mutation_offset),
+    }
+    if index.visited_blocks is not None:
+        tree["visited_blocks"] = index.visited_blocks
+    return tree
+
+
+def save_walk_index_shard(
+    directory: str,
+    shard: int,
+    num_shards: int,
+    n: int,
+    block: torch.Tensor,          # int32[shard_size, R] — this shard's slab
+    segment_len: int,
+    seed: int,
+    step: int = 0,
+    *,
+    visited_blocks: Optional[torch.Tensor] = None,
+    graph_epoch: int = 0,
+    mutation_offset: int = 0,
+) -> str:
+    """Atomic save of one shard's slab block through the runtime's
+    per-shard checkpoint layout (``<directory>/shard_<s>/step_<k>/``): each
+    shard is an independent checkpoint dir, so a sharded index is
+    persisted (and repaired) one shard at a time without ever exposing a
+    torn slab. ``graph_epoch`` / ``mutation_offset`` stamp the graph's
+    mutation provenance; ``visited_blocks`` rides along when given."""
+    block = torch.as_tensor(block).to(torch.int32)
+    tree = {
+        "endpoints": block,
+        "segment_len": _i32(segment_len),
+        "seed": _i32(seed),
+        "shard": _i32(shard),
+        "num_shards": _i32(num_shards),
+        "n": _i32(n),
+        "segments_per_vertex": _i32(block.shape[1]),
+        "graph_epoch": _i32(graph_epoch),
+        "mutation_offset": _i32(mutation_offset),
+    }
+    if visited_blocks is not None:
+        tree["visited_blocks"] = visited_blocks
+    return save_shard_checkpoint(directory, shard, tree, step=step)
+
+
+def save_walk_index(directory: str, index: WalkIndex, step: int = 0) -> str:
+    """Atomic save under ``<directory>/step_<k>/`` (checkpoint layout)."""
+    return save_checkpoint(directory, step, _index_tree(index))
+
+
+def load_walk_index(directory: str, step: Optional[int] = None,
+                    reassemble: bool = True, device: DeviceLike = None
+                    ) -> Union[WalkIndex, ShardedWalkIndex]:
+    """Restores the latest (or given) index build from ``directory`` onto
+    ``device`` (default: the card).
+
+    Handles both layouts: a dense :func:`save_walk_index` checkpoint, and
+    the per-shard layout (``<directory>/shard_<s>/step_<k>/``), whose
+    blocks are validated (all shards present, consistent metadata).
+    ``reassemble=True`` returns the dense slab; ``reassemble=False`` a
+    :class:`ShardedWalkIndex` (a dense checkpoint as a single shard).
+    """
+    shard_dirs = list_shard_dirs(directory)
+    if not shard_dirs:
+        if step is None:
+            step = latest_step(directory)
+            if step is None:
+                raise FileNotFoundError(f"no walk index under {directory!r}")
+        tree = load_checkpoint_tree(directory, step, device)
+        index = WalkIndex(
+            endpoints=tree["endpoints"].to(torch.int32),
+            segment_len=int(tree["segment_len"]),
+            seed=int(tree["seed"]),
+            visited_blocks=tree.get("visited_blocks"),
+            graph_epoch=int(tree.get("graph_epoch", 0)),
+            mutation_offset=int(tree.get("mutation_offset", 0)),
+        )
+        return index if reassemble else shard_walk_index(index, 1)
+
+    trees = load_shard_checkpoints(directory, step, on_error="collect",
+                                   device=device)
+    good, bad = _split_shard_trees(directory, trees)
+    meta = _shard_meta_consensus(directory, good, bad)
+    if bad:
+        R, L = (meta.R, meta.L) if meta is not None else ("?", "?")
+        detail = "; ".join(f"{shard_dir(directory, s)}: {e}"
+                           for s, e in sorted(bad.items()))
+        raise CheckpointCorruptError(
+            f"walk index under {directory!r} has corrupt or partial shard "
+            f"checkpoints (expected int32[shard_size, R={R}] blocks of "
+            f"L={L}-step segments): {detail} — quarantine and rebuild "
+            f"them (load_or_repair_walk_index does both)")
+    missing = sorted(set(range(meta.num_shards)) - set(good))
+    if missing:
+        raise FileNotFoundError(
+            f"walk index under {directory!r} is missing shards {missing} "
+            f"(expected {meta.num_shards} shard dirs of "
+            f"int32[shard_size, R={meta.R}] blocks, L={meta.L})")
+    return _assemble_sharded(good, meta, reassemble)
+
+
+_ShardMeta = collections.namedtuple(
+    "_ShardMeta",
+    ["num_shards", "n", "L", "seed", "R", "graph_epoch", "mutation_offset"])
+
+
+def _split_shard_trees(directory, trees):
+    """Separates healthy shard trees from failed loads; a tree whose
+    payload shape contradicts its own metadata counts as corrupt."""
+    good: Dict[int, dict] = {}
+    bad: Dict[int, Exception] = {}
+    for s, tree in trees.items():
+        if isinstance(tree, Exception):
+            bad[s] = tree
+            continue
+        try:
+            R = int(tree["segments_per_vertex"])
+            ep = tree["endpoints"]
+            if ep.dim() != 2 or ep.shape[1] != R:
+                raise CheckpointCorruptError(
+                    f"shard block has shape {tuple(ep.shape)}, metadata "
+                    f"says R={R}")
+            good[s] = tree
+        except (KeyError, CheckpointCorruptError) as e:
+            bad[s] = e if isinstance(e, CheckpointCorruptError) else (
+                CheckpointCorruptError(
+                    f"shard checkpoint is missing leaf {e}"))
+    return good, bad
+
+
+def _shard_meta_consensus(directory, good, bad):
+    """Majority metadata across healthy shards; dissenting shards are
+    reclassified as corrupt (moved to ``bad``). None when no healthy
+    shard survives."""
+    metas = {
+        s: _ShardMeta(int(t["num_shards"]), int(t["n"]),
+                      int(t["segment_len"]), int(t["seed"]),
+                      int(t["segments_per_vertex"]),
+                      int(t.get("graph_epoch", 0)),
+                      int(t.get("mutation_offset", 0)))
+        for s, t in good.items()
+    }
+    if not metas:
+        return None
+    consensus, _ = collections.Counter(metas.values()).most_common(1)[0]
+    for s, m in metas.items():
+        if m != consensus:
+            bad[s] = CheckpointCorruptError(
+                f"shard metadata {tuple(m)} disagrees with the "
+                f"{tuple(consensus)} consensus under {directory!r}")
+            del good[s]
+    return consensus
+
+
+def _assemble_sharded(good, meta, reassemble):
+    shards = range(meta.num_shards)
+    vb = None
+    if all("visited_blocks" in good[s] for s in shards):
+        vb = torch.stack([good[s]["visited_blocks"] for s in shards])
+    sharded = ShardedWalkIndex(
+        blocks=torch.stack([good[s]["endpoints"].to(torch.int32)
+                            for s in shards]),
+        n=meta.n, segment_len=meta.L, seed=meta.seed, visited_blocks=vb,
+        graph_epoch=meta.graph_epoch, mutation_offset=meta.mutation_offset)
+    return sharded.reassemble() if reassemble else sharded
+
+
+def rebuild_shard_blocks(g: CSRGraph, cfg: WalkIndexConfig,
+                         shards: List[int],
+                         blocked: Optional[BlockedCSR] = None
+                         ) -> Dict[int, torch.Tensor]:
+    """Re-walks just the named shards' blocks of the ``cfg.num_shards``
+    range shards of ``g`` with the build's own per-shard program and key
+    streams (``fold_in(PRNGKey(cfg.seed), v)``), on ``g``'s device: each
+    hop one ``ops.frog_hop`` launch. Returns ``{shard: int32[sz, R]}``,
+    byte-equal to the reference's ``rebuild_shard_blocks``: rows past
+    ``n`` are the reference's padding vertices, whose self-loop walks end
+    where they start. (No masks: see the module docstring.)"""
+    blocked = _check_build(g, cfg, blocked)
+    sz = -(-g.n // cfg.num_shards)
+    key = prng.PRNGKey(cfg.seed, g.device)
+    out = {}
+    for s in shards:
+        rows = _walk_shard_rows(g, cfg, s, sz, key, blocked)
+        pad = torch.arange(s * sz + rows.shape[0], (s + 1) * sz,
+                           dtype=torch.int32, device=g.device)
+        out[s] = torch.cat([rows, pad[:, None].expand(-1, rows.shape[1])])
+    return out
+
+
+def load_or_repair_walk_index(
+    directory: str,
+    g: CSRGraph,
+    cfg: WalkIndexConfig,
+    step: Optional[int] = None,
+    reassemble: bool = True,
+    blocked: Optional[BlockedCSR] = None,
+) -> Union[WalkIndex, ShardedWalkIndex]:
+    """Like :func:`load_walk_index` onto ``g``'s device, but self-healing
+    for the per-shard layout: a corrupt, torn, or missing shard checkpoint
+    is quarantined (``quarantine.shard_<s>``, kept for forensics,
+    invisible to loaders) and its block rebuilt by
+    :func:`rebuild_shard_blocks` with the original build's key stream,
+    then persisted and served. Only the broken shards are re-walked.
+
+    The dense layout has no sub-unit to repair: corruption there raises
+    :class:`~repro_torch.checkpoint.CheckpointCorruptError` and the caller
+    rebuilds the whole index.
+    """
+    if not list_shard_dirs(directory):
+        return load_walk_index(directory, step, reassemble, g.device)
+
+    trees = load_shard_checkpoints(directory, step, on_error="collect",
+                                   device=g.device)
+    good, bad = _split_shard_trees(directory, trees)
+    meta = _shard_meta_consensus(directory, good, bad)
+    if meta is None:
+        # every shard is broken: fall back to the caller's config geometry
+        meta = _ShardMeta(cfg.num_shards, g.n, cfg.segment_len, cfg.seed,
+                          cfg.segments_per_vertex, g.epoch,
+                          g.mutation_offset)
+    if meta.n != g.n:
+        raise ValueError(
+            f"walk index under {directory!r} was built for n={meta.n} but "
+            f"the service graph has n={g.n}; refusing to repair across "
+            f"graphs — point checkpoint_dir elsewhere or rebuild")
+    if meta.graph_epoch != g.epoch:
+        raise ValueError(
+            f"walk index under {directory!r} was built at graph epoch "
+            f"{meta.graph_epoch} but the service graph is at epoch "
+            f"{g.epoch}; a repair would mix epochs — rebuild at the "
+            f"current epoch")
+    missing = sorted(set(range(meta.num_shards)) - set(good))
+    broken = sorted(set(bad) | set(missing))
+    if not broken:
+        return _assemble_sharded(good, meta, reassemble)
+
+    build_cfg = dataclasses.replace(
+        cfg, num_shards=meta.num_shards, segments_per_vertex=meta.R,
+        segment_len=meta.L, seed=meta.seed)
+    rebuilt = rebuild_shard_blocks(g, build_cfg, broken, blocked)
+    healthy_step = step
+    if healthy_step is None:
+        steps = [latest_step(shard_dir(directory, s)) for s in good]
+        healthy_step = next((s for s in steps if s is not None), 0)
+    for s in broken:
+        if os.path.isdir(shard_dir(directory, s)):
+            quarantine_shard_dir(directory, s)
+        save_walk_index_shard(
+            directory, s, meta.num_shards, g.n, rebuilt[s], meta.L,
+            meta.seed, step=healthy_step, graph_epoch=meta.graph_epoch,
+            mutation_offset=meta.mutation_offset)
+        good[s] = {"endpoints": rebuilt[s]}
+    return _assemble_sharded(good, meta, reassemble)

@@ -31,16 +31,43 @@ two ways, as the reference serves it on one device:
   per round, the contributions summed).
 
 Every wave takes the bool[S] eviction mask ``lost``, ``None`` while no
-shard is lost; the eviction that sets it needs the fault supervisor, which
-comes with a later slice, as do the mesh wave and the degraded bound. The key stream, bucket
-choice and allocation are the reference's, so results are byte-equal to
-``repro.query.scheduler`` for the same seed, on every dispatch.
+shard is lost. The key stream, bucket choice and allocation are the
+reference's, so results are byte-equal to ``repro.query.scheduler`` for
+the same seed, on every dispatch.
+
+**Supervision** (the reference's degradation contract, without its mesh):
+
+* a **transient** fault or a wave over ``wave_timeout_s`` is retried, at
+  most ``max_retries`` times after an exponential backoff with seeded
+  jitter, from the *same* wave key, so a retry that succeeds is
+  byte-equal to an unfaulted wave; a wave over its deadline is discarded,
+  never interrupted (its time ends with the host copy of the counts, so
+  it includes the device's work). Retries that run out raise
+  :class:`WaveFailedError` with nothing tallied (the reference's
+  behaviour off a mesh; its mesh → host-loop failover comes with the mesh,
+  ``ROADMAP.md`` Queue 1 item 8);
+* a **permanent** shard fault evicts the shard: later waves drop the walks
+  that need a gather from, or end in, its rows; scores renormalize by the
+  walks that completed, and ``epsilon_bound`` widens to exactly the ε
+  Theorem 1 certifies for them. Results carry ``degraded`` /
+  ``shards_lost`` / ``walks_lost``, and queued SLO work is re-admitted
+  against the shrunken capacity;
+* faulted, stalled, retried and degraded waves never feed the admission
+  wave-time EMA, and clean outliers are clamped.
+
+The eviction mask lives on the host (``_lost``); its device copy and the
+loop wave's block table (an evicted shard's entry null) are built once an
+eviction, not once a wave, and no wave reads the mask back from the
+device. With no shard lost the waves are those of an unsupervised
+scheduler, byte for byte. :class:`~repro_torch.distributed.faults.
+FaultPlan` drives all of it deterministically in-process.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
 import math
+import random
 import time
 from typing import Dict, List, Optional, Set, Tuple, Union
 
@@ -50,6 +77,9 @@ import torch
 from repro_torch import prng
 from repro_torch.config import SHARDED_DISPATCHES
 from repro_torch.core import theory
+from repro_torch.distributed.faults import (FaultEvent, FaultInjector,
+                                            ShardFault, WaveFailedError,
+                                            WaveTimeout)
 from repro_torch.distributed.runtime import ShardRuntime
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.kernels import ops
@@ -98,8 +128,8 @@ class QueryRequest:
 
 
 class RejectReason(str, enum.Enum):
-    """Why admission refused a request (``SHARD_LOSS`` is reserved for the
-    fault supervisor's re-check after an eviction, a later slice)."""
+    """Why admission refused a request (``SHARD_LOSS``: the re-check after
+    a shard eviction shrank capacity)."""
 
     NONE = "none"
     INFEASIBLE_SLO = "infeasible_slo"
@@ -136,9 +166,9 @@ class QueryResult:
     downgraded: bool = False
     met_slo: Optional[bool] = None   # None when no SLO was requested
     early_stopped: bool = False
-    degraded: bool = False           # walks died on an evicted shard (later)
-    shards_lost: Tuple[int, ...] = ()
-    walks_lost: int = 0
+    degraded: bool = False           # some walks died on evicted shards
+    shards_lost: Tuple[int, ...] = ()  # shards evicted while this query ran
+    walks_lost: int = 0              # allocated walks that never tallied
     epoch: int = 0
 
 
@@ -203,11 +233,15 @@ class _Active:
     deadline: float
     downgraded: bool
     executed: int = 0                # walks whose tallies have landed
+    lost: int = 0                    # allocated walks that died on lost shards
+    shards_lost: Tuple[int, ...] = ()  # evicted shards seen by this query
 
 
 class QueryScheduler:
     """Fixed-slot continuous batching over a dense :class:`WalkIndex` or a
-    :class:`ShardedWalkIndex` on the graph's device."""
+    :class:`ShardedWalkIndex` on the graph's device, each wave run under
+    the fault supervisor (``fault_injector`` and the timeout, retry and
+    backoff settings)."""
 
     def __init__(self, g: CSRGraph, index: Union[WalkIndex,
                                                  ShardedWalkIndex],
@@ -216,6 +250,10 @@ class QueryScheduler:
                  tally_impl: str = "auto", seed: int = 0,
                  runtime: Optional[ShardRuntime] = None,
                  wave_time_estimate_s: Optional[float] = None,
+                 fault_injector: Optional[FaultInjector] = None,
+                 wave_timeout_s: Optional[float] = None,
+                 max_retries: int = 2, backoff_base_s: float = 0.02,
+                 backoff_max_s: float = 0.5,
                  sharded_dispatch: str = "fused",
                  walk_buckets: Optional[Tuple[int, ...]] = None,
                  query_buckets: Optional[Tuple[int, ...]] = None):
@@ -256,9 +294,21 @@ class QueryScheduler:
             self._S, self._sz = 1, g.n
             self._slab = slab
             self.dispatch = "gathered"   # the fused wave at S = 1
-        # evicted shards, empty until the fault supervisor (a later slice)
-        # evicts one; a wave takes them as its bool[S] mask operand.
+        # --- fault supervision ---
+        self._injector = fault_injector
+        self.wave_timeout_s = wave_timeout_s
+        self.max_retries = max_retries
+        self.backoff_base_s = backoff_base_s
+        self.backoff_max_s = backoff_max_s
         self.lost_shards: Set[int] = set()
+        self.fault_log: List[FaultEvent] = []
+        self._backoff_rng = random.Random(seed)
+        # the bool[S] eviction mask on the host (a dense slab's is 1 wide
+        # and never flips), its device copy (None while no shard is lost)
+        # and the loop wave's block table, both rebuilt at an eviction
+        self._lost = np.zeros(self._S, bool)
+        self._lost_dev: Optional[torch.Tensor] = None
+        self._table: Optional[ops.BlockTable] = None
         self._walk_ladder = self._normalize_buckets(
             walk_buckets, max_walks, "walk_buckets",
             floor=max(1, max_walks // 8))
@@ -321,8 +371,10 @@ class QueryScheduler:
 
     def _wave_for(self, W_b: int, Q_b: int):
         """The wave for one ladder bucket, ``wave(start, uniform, qid,
-        t_cap, key, lost) -> int32[Q_b, n]`` on the host; ``lost`` is the
-        bool[S] eviction mask, or ``None`` when no shard is lost."""
+        t_cap, key, lost, lost_host=None) -> int32[Q_b, n]`` on the host;
+        ``lost`` is the bool[S] eviction mask on the device, or ``None``
+        when no shard is lost, and ``lost_host`` its values on the host
+        (the loop wave reads ``lost`` back without them)."""
         fn = self._wave_fns.get((W_b, Q_b))
         if fn is None:
             if self.dispatch == "loop":
@@ -337,7 +389,7 @@ class QueryScheduler:
         prog = build_wave_program(self._spec(W_b, Q_b))
         g, slab = self.g, self._slab
 
-        def wave(start, uniform, qid, t_cap, key, lost):
+        def wave(start, uniform, qid, t_cap, key, lost, lost_host=None):
             return prog(slab, g.row_ptr, g.col_idx, g.out_deg, start,
                         uniform, qid, t_cap, key, lost).cpu().numpy()
 
@@ -357,31 +409,42 @@ class QueryScheduler:
                                 impl=self.tally_impl)
         return counts[: (Q + 1) * sz].reshape(Q + 1, sz)[:Q]
 
+    def _block_table(self) -> ops.BlockTable:
+        """The loop wave's table of the shard blocks, an evicted shard's
+        entry null (never read); built at the first loop wave and again
+        after each eviction."""
+        if self._table is None:
+            self._table = ops.block_table(
+                [None if s in self.lost_shards else b
+                 for s, b in enumerate(self.index.blocks)])
+        return self._table
+
     def _build_loop_wave(self, W_b: int, Q_b: int):
         """The per-shard wave on one device: one gather launch over the
-        ``S`` blocks, each read as its own tensor through a table of block
-        pointers built here once, and ``S`` shard-local histograms per
-        wave. Lost shards' blocks are never read: the walks that would
-        need them are dead."""
+        ``S`` blocks, each read as its own tensor through the scheduler's
+        table of block pointers, and one shard-local histogram per shard
+        that is not lost. Lost shards' blocks are never read: the walks
+        that would need them are dead."""
         rt, g, index = self.runtime, self.g, self.index
-        Q, S, sz = Q_b, self._S, self._sz
-        table = ops.block_table(list(index.blocks))
+        Q, sz = Q_b, self._sz
 
-        def wave(start, uniform, qid, t_cap, key, lost):
+        def wave(start, uniform, qid, t_cap, key, lost, lost_host=None):
             pos, q, s0 = wave_prep(g.row_ptr, g.col_idx, g.out_deg, start,
                                    uniform, t_cap, key, n=g.n,
                                    L=index.segment_len, p_T=self.p_T)
-            lost_host = (np.zeros(S, bool) if lost is None
-                         else lost.cpu().numpy())
+            if lost is not None and lost_host is None:
+                lost_host = lost.tolist()
             pos, alive = ops.stitch_gather_local_rounds(
-                pos, q, s0, table, self._q_max, lost, impl=self.impl)
+                pos, q, s0, self._block_table(), self._q_max, lost,
+                impl=self.impl, lost_host=lost_host)
             if alive is not None:
                 qid = torch.where(alive, qid, Q)  # dead walks → discard bin
             parts = rt.map_shards(
                 lambda s: (torch.zeros(Q, sz, dtype=torch.int32,
-                                       device=pos.device) if lost_host[s]
+                                       device=pos.device)
+                           if lost_host is not None and lost_host[s]
                            else self._shard_tally(pos, qid, s * sz, Q)))
-            out = torch.stack(parts, dim=1).reshape(Q, S * sz)[:, : g.n]
+            out = torch.stack(parts, dim=1).reshape(Q, -1)[:, : g.n]
             return out.cpu().numpy()
 
         return wave
@@ -426,7 +489,7 @@ class QueryScheduler:
                        + sum(a.remaining for a in self.active.values()
                              if a.deadline <= deadline_new))
             feasible = int(req.slo_s / self._wave_time)
-            eff = self.max_walks
+            eff = self._effective_walks()
             needed = -(-(walks + backlog) // eff)
             if feasible < 1:
                 return self._reject(
@@ -532,16 +595,17 @@ class QueryScheduler:
             cursor += w
 
         self._key, k_wave = prng.split(self._key)
-        counts, dt = self._run_wave(start, uniform, qid, t_cap, k_wave,
-                                    W_b, Q_b)
+        counts, clean, dt = self._run_wave(start, uniform, qid, t_cap,
+                                           k_wave, W_b, Q_b)
         now = time.perf_counter()
         self._walks_allocated += sum(alloc.values())
         # EMA of measured wave time for admission. The first wave includes
-        # the kernel build and is never folded in; outliers are clamped.
+        # the kernel build and is never folded in, nor is a wave that saw a
+        # fault, stall, retry or eviction; clean outliers are clamped.
         self._waves_run += 1
         self._t_last_wave = time.monotonic()
         self._last_wave_s = dt
-        if self._waves_run > 1:
+        if self._waves_run > 1 and clean:
             if self._wave_time is not None:
                 dt = min(dt, _EMA_OUTLIER_CLAMP * self._wave_time)
             self._wave_time = (dt if self._wave_time is None
@@ -550,12 +614,17 @@ class QueryScheduler:
         for ci, (s, w) in enumerate(alloc.items()):
             a = self.active[s]
             row = counts[ci]
+            # every surviving walk lands in one bin, so the row sum is the
+            # slot's landed count; the rest died on a lost shard
             landed = int(row.sum())
             a.counts += row
             a.remaining -= w
             a.executed += landed
             self._walks_executed += landed
             a.waves += 1
+            if landed < w:
+                a.lost += w - landed
+                a.shards_lost = tuple(sorted(self.lost_shards))
             early = (a.remaining > 0 and a.req.early_stop
                      and self.anytime_bound(a.plan.num_steps, a.req.k,
                                             a.req.delta, a.executed)
@@ -565,19 +634,177 @@ class QueryScheduler:
                 del self.active[s]
         return True
 
+    # --- wave supervision (fault tolerance) -------------------------------
+
     def _run_wave(self, start, uniform, qid, t_cap, k_wave, W_b, Q_b):
-        """Runs one wave from host operands → ``(counts int[Q_b, n], wall
-        seconds)``; the host copy of the counts ends the timed region."""
+        """Runs one wave from host operands under supervision → ``(counts
+        int[Q_b, n], clean, wall seconds)``; the host copy of the counts
+        ends the timed region.
+
+        The injector's hooks fire first. A transient fault or a timeout is
+        retried from the same key (a retry that succeeds is byte-equal),
+        after a backoff; a permanent shard fault evicts the shard and
+        re-runs degraded (not a retry). ``clean`` is False for a wave that
+        saw a fault, stall, retry or eviction."""
+        wave_no = self._waves_run
+        attempt = 0
+        clean = True
+        if self._injector is not None:
+            for shard in self._injector.shard_losses_at(wave_no):
+                clean = False
+                self._evict_shard(shard, wave_no)
         dev = self.g.device
-        t0 = time.perf_counter()
-        lost = None                  # no shard lost: the wave skips the mask
-        if self.lost_shards:
-            lost = torch.zeros(self._S, dtype=torch.bool, device=dev)
-            lost[sorted(self.lost_shards)] = True
-        counts = self._wave_for(W_b, Q_b)(
-            *(torch.from_numpy(a).to(dev)
-              for a in (start, uniform, qid, t_cap)), k_wave, lost)
-        return counts, time.perf_counter() - t0
+        while True:
+            t0 = time.perf_counter()
+            try:
+                if self._injector is not None:
+                    stall = self._injector.stall_s(wave_no)
+                    if stall:
+                        clean = False
+                        time.sleep(stall)
+                    kind = self._injector.fail_attempt(wave_no, attempt)
+                    if kind == "timeout":
+                        raise WaveTimeout(
+                            f"injected hang (wave {wave_no}, attempt "
+                            f"{attempt})")
+                    if kind == "transient":
+                        raise ShardFault(
+                            f"injected transient fault (wave {wave_no}, "
+                            f"attempt {attempt})", transient=True)
+                counts = self._wave_for(W_b, Q_b)(
+                    *(torch.from_numpy(a).to(dev)
+                      for a in (start, uniform, qid, t_cap)), k_wave,
+                    self._lost_dev, self._lost if self.lost_shards else None)
+                dt = time.perf_counter() - t0
+                if (self.wave_timeout_s is not None
+                        and dt > self.wave_timeout_s):
+                    raise WaveTimeout(
+                        f"wave {wave_no} took {dt:.3g}s > wave_timeout_s="
+                        f"{self.wave_timeout_s:.3g}s — result discarded")
+                return counts, clean, dt
+            except ShardFault as e:
+                clean = False
+                if not e.transient:
+                    if e.shard is None:
+                        raise WaveFailedError(
+                            f"wave {wave_no}: permanent fault named no "
+                            f"shard to evict: {e}") from e
+                    self._evict_shard(e.shard, wave_no)
+                    continue        # degraded re-run, not a retry
+                attempt = self._count_retry(wave_no, attempt, e)
+            except WaveTimeout as e:
+                clean = False
+                attempt = self._count_retry(wave_no, attempt, e)
+
+    def _count_retry(self, wave_no: int, attempt: int,
+                     err: Exception) -> int:
+        """Charges one retry; past ``max_retries`` gives up with
+        :class:`WaveFailedError` (one device: no failover path)."""
+        attempt += 1
+        self.fault_log.append(FaultEvent(
+            kind="retry", wave=wave_no, attempt=attempt, detail=str(err)))
+        if attempt > self.max_retries:
+            raise WaveFailedError(
+                f"wave {wave_no} failed after {attempt} attempts "
+                f"(max_retries={self.max_retries}, no failover path left): "
+                f"{err}") from err
+        time.sleep(self._backoff_s(attempt))
+        return attempt
+
+    def _backoff_s(self, attempt: int) -> float:
+        """Exponential backoff with ×[0.5, 1.5) seeded jitter."""
+        base = min(self.backoff_max_s,
+                   self.backoff_base_s * (2 ** (attempt - 1)))
+        return base * (0.5 + self._backoff_rng.random())
+
+    def _evict_shard(self, shard: int, wave_no: int) -> None:
+        """Permanently removes a shard from serving: flips its bit of the
+        host mask, builds the mask's device copy and drops the loop wave's
+        block table (later waves drop walks touching its rows), and re-runs
+        admission for queued SLO work against the shrunken capacity.
+        Evicting the last shard is unservable and raises."""
+        if not isinstance(self.index, ShardedWalkIndex):
+            raise WaveFailedError(
+                f"shard {shard} reported lost but the slab is dense — "
+                f"gathered serving has no shard granularity to degrade to; "
+                f"rebuild the index")
+        S = self.index.num_shards
+        if not (0 <= shard < S):
+            raise ValueError(f"lost shard {shard} outside [0, {S})")
+        if shard in self.lost_shards:
+            return
+        if len(self.lost_shards) + 1 >= S:
+            raise WaveFailedError(
+                f"shard {shard} lost but shards "
+                f"{sorted(self.lost_shards)} are already evicted — no "
+                f"shard left to serve from; rebuild the index")
+        self.lost_shards.add(shard)
+        self._lost[shard] = True
+        self._lost_dev = torch.tensor(self._lost, device=self.g.device)
+        self._table = None
+        self.fault_log.append(FaultEvent(
+            kind="shard_loss", wave=wave_no, shard=shard))
+        self._readmit_queued(wave_no)
+
+    def _effective_walks(self) -> int:
+        """Walks the admission model charges per wave: losing shards kills
+        the walks that land in their ranges, so full-machine throughput
+        shrinks by the surviving-shard fraction (first-order — endpoint
+        mass is roughly balanced across range shards)."""
+        if isinstance(self.index, ShardedWalkIndex) and self.lost_shards:
+            S = self.index.num_shards
+            return max(1, int(self.max_walks * (S - len(self.lost_shards))
+                              / S))
+        return self.max_walks
+
+    def _readmit_queued(self, wave_no: int) -> None:
+        """Re-runs admission for queued SLO work after capacity shrank.
+
+        Every queued deadline entry is re-checked (EDF order) against the
+        post-eviction effective throughput: still-feasible work stays,
+        downgradable work is re-clamped, and the rest moves to
+        ``rejected`` — an honest late rejection instead of a silent SLO
+        miss discovered at the deadline. No-SLO work is untouched."""
+        if self._wave_time is None or not self.queue:
+            return
+        now = time.perf_counter()
+        eff = self._effective_walks()
+        keep: List[_Queued] = []
+        for e in sorted(self.queue,
+                        key=lambda e: (e.deadline, e.req.t_submit)):
+            if e.deadline == math.inf:
+                keep.append(e)
+                continue
+            feasible = int((e.deadline - now) / self._wave_time)
+            backlog = (sum(q.walks for q in keep
+                           if q.deadline <= e.deadline)
+                       + sum(a.remaining for a in self.active.values()
+                             if a.deadline <= e.deadline))
+            needed = -(-(e.walks + backlog) // eff)
+            if feasible >= needed:
+                keep.append(e)
+                continue
+            budget = feasible * eff - backlog
+            if e.req.allow_downgrade and budget >= 1:
+                e.walks = min(e.walks, budget)
+                e.downgraded = True
+                keep.append(e)
+                self.fault_log.append(FaultEvent(
+                    kind="readmit", wave=wave_no,
+                    detail=f"rid={e.req.rid} downgraded to {e.walks} walks"))
+            else:
+                self.rejected.append(AdmissionDecision(
+                    rid=e.req.rid, admitted=False,
+                    reason=(f"re-admission after shard loss (shards "
+                            f"{sorted(self.lost_shards)} evicted): plan "
+                            f"needs {needed} waves, {feasible} fit the "
+                            f"SLO at degraded throughput"),
+                    reason_code=RejectReason.SHARD_LOSS,
+                    plan=e.plan))
+                self.fault_log.append(FaultEvent(
+                    kind="readmit", wave=wave_no,
+                    detail=f"rid={e.req.rid} rejected"))
+        self.queue = keep
 
     # --- introspection ----------------------------------------------------
 
@@ -617,9 +844,14 @@ class QueryScheduler:
         top = _topk_stable(a.counts, k)
         scores_top = a.counts[top] / float(max(1, a.executed))
         latency = now - a.t_submit
+        # an early-stopped query carries the bound its executed walks
+        # certify, a degraded one (walks died on evicted shards) widens to
+        # exactly Theorem 1 at N = executed; a drained one keeps its plan's
+        degraded = a.lost > 0
         bound = (self.anytime_bound(a.plan.num_steps, a.req.k, a.req.delta,
                                     a.executed)
-                 if a.req.early_stop else a.plan.epsilon_bound)
+                 if (a.req.early_stop or degraded)
+                 else a.plan.epsilon_bound)
         return QueryResult(
             rid=a.req.rid, kind=a.req.kind, vertices=top,
             scores=scores_top, num_walks=a.executed,
@@ -627,7 +859,8 @@ class QueryScheduler:
             epsilon_bound=bound, downgraded=a.downgraded,
             met_slo=(None if a.req.slo_s is None
                      else bool(latency <= a.req.slo_s)),
-            early_stopped=early, epoch=self.epoch)
+            early_stopped=early, degraded=degraded,
+            shards_lost=a.shards_lost, walks_lost=a.lost, epoch=self.epoch)
 
     def query_state(self, rid: int) -> str:
         """``queued`` | ``active`` | ``finished`` | ``rejected`` |
@@ -659,7 +892,9 @@ class QueryScheduler:
                     rid=rid, kind=r.kind, k=len(r.vertices),
                     vertices=r.vertices, scores=r.scores,
                     walks_done=r.num_walks, waves=r.waves,
-                    epsilon_bound=r.epsilon_bound, done=True)
+                    epsilon_bound=r.epsilon_bound, done=True,
+                    degraded=r.degraded, shards_lost=r.shards_lost,
+                    walks_lost=r.walks_lost)
         for a in self.active.values():
             if a.req.rid != rid:
                 continue
@@ -675,7 +910,8 @@ class QueryScheduler:
                 scores=top_scores, walks_done=a.executed, waves=a.waves,
                 epsilon_bound=self.anytime_bound(
                     a.plan.num_steps, a.req.k, a.req.delta, a.executed),
-                done=False)
+                done=False, degraded=a.lost > 0, shards_lost=a.shards_lost,
+                walks_lost=a.lost)
         for e in self.queue:
             if e.req.rid == rid:
                 return QueryPartial(

@@ -2,7 +2,9 @@
 top-k / PPR serving (port of ``repro/service.py``, single device).
 
 * :class:`FrogWildService` — ``open(graph_or_path, config, device=)`` owns
-  the graph on its device and the walk-index lifecycle. ``pagerank(ε, δ)``
+  the graph on its device and the walk-index lifecycle (build, or load,
+  repair or build and persist through ``checkpoint/`` when
+  ``serving.checkpoint_dir`` is set). ``pagerank(ε, δ)``
   inverts Theorem 1 into ``(t, N)`` and runs the walker estimator;
   ``topk`` / ``ppr`` return :class:`QueryHandle` futures served by the
   continuous-batching scheduler.
@@ -25,9 +27,16 @@ The batch estimate also runs the partial-synchronization walks
 model's destination shards are ``runtime.num_shards``) with the blocking
 draw ``kernel.draw`` picks.
 
+``RuntimeConfig.faults`` (a :class:`~repro_torch.distributed.faults.
+FaultPlan`) gives the service one :class:`FaultInjector`: the scheduler's
+wave supervisor consults it each (wave, attempt), and the index loader lets
+it mangle the checkpoint payloads before their first read. Evicted shards
+and the supervisor's log are :attr:`FrogWildService.lost_shards` and
+:attr:`FrogWildService.fault_log`.
+
 ``device=None`` means the CUDA card everywhere; without one these raise,
-and ``device="cpu"`` runs the plain PyTorch path. Mesh runs, checkpoints,
-faults and epoch commits come with later slices.
+and ``device="cpu"`` runs the plain PyTorch path. Mesh runs come with
+``ROADMAP.md`` Queue 1 item 8, epoch commits with item 11.
 """
 from __future__ import annotations
 
@@ -38,17 +47,21 @@ from typing import List, Optional, Union
 import torch
 
 from repro_torch import prng
+from repro_torch.checkpoint import CheckpointCorruptError
 from repro_torch.config import (FrogWildConfig, KernelConfig, RuntimeConfig,
                                 ServingConfig, ShardConfig, WalkIndexConfig)
 from repro_torch.core.frogwild import (FrogWildResult, _frogwild_walks,
                                       compiled_estimate)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.faults import FaultInjector
 from repro_torch.distributed.runtime import ShardRuntime
 from repro_torch.graph.csr import CSRGraph, load_graph
 from repro_torch.kernels.frog_step_stream import BlockedCSR, blocked_csr_of
 from repro_torch.query.engine import plan_query
 from repro_torch.query.index import (ShardedWalkIndex, WalkIndex,
-                                     _build_walk_index, shard_walk_index)
+                                     _build_walk_index,
+                                     load_or_repair_walk_index,
+                                     save_walk_index, shard_walk_index)
 from repro_torch.query.scheduler import (QueryPartial, QueryRequest,
                                          QueryResult, QueryScheduler,
                                          SchedulerStats)
@@ -201,6 +214,8 @@ class FrogWildService:
         self._scheduler: Optional[QueryScheduler] = None
         self._next_rid = 0
         self._closed = False
+        self._injector = (FaultInjector(config.faults)
+                          if config.faults is not None else None)
 
     # --- lifecycle -------------------------------------------------------
 
@@ -263,20 +278,22 @@ class FrogWildService:
     # --- walk index ------------------------------------------------------
 
     def ensure_index(self) -> Union[WalkIndex, ShardedWalkIndex]:
-        """Builds the walk index on the service's device (idempotent).
+        """Builds, loads or reuses the walk index on the service's device
+        (idempotent).
 
+        With ``serving.checkpoint_dir`` set, an index there is loaded (a
+        corrupt, torn or missing shard of the per-shard layout quarantined
+        and rebuilt in place) and checked against the configured (R, L)
+        and the graph's epoch; otherwise, or when the dense checkpoint is
+        corrupt, the index is built and persisted there.
         ``runtime.num_shards = S > 1`` declares the serving layout: a dense
-        slab (built or passed in) is range-partitioned into ``S`` blocks and
-        dropped, and a sharded one laid out for another shard count is
-        re-split.
+        slab (built, loaded or passed in) is range-partitioned into ``S``
+        blocks and dropped, and a sharded one laid out for another shard
+        count is re-split.
         """
         self._check_open()
         if self._index is None:
-            cfg = self.config.walk_index()
-            self._index = _build_walk_index(
-                self.graph, cfg, blocked=(self.blocked_csr()
-                                          if cfg.step_impl == "stream"
-                                          else None))
+            self._index = self._load_or_build_index()
         S = self.config.runtime.num_shards
         if S > 1:
             if isinstance(self._index, WalkIndex):
@@ -284,6 +301,45 @@ class FrogWildService:
             elif self._index.num_shards != S:
                 self._index = shard_walk_index(self._index.reassemble(), S)
         return self._index
+
+    def _load_or_build_index(self) -> Union[WalkIndex, ShardedWalkIndex]:
+        icfg = self.config.walk_index()
+        blocked = self.blocked_csr() if icfg.step_impl == "stream" else None
+        directory = self.config.serving.checkpoint_dir
+        if directory is not None:
+            if self._injector is not None:
+                # mangle the on-disk payloads before the first read, so
+                # the repair below is what serves
+                self._injector.mangle_checkpoints(directory)
+            try:
+                idx = load_or_repair_walk_index(
+                    directory, self.graph, icfg,
+                    reassemble=self.config.runtime.num_shards <= 1,
+                    blocked=blocked)
+            except (FileNotFoundError, CheckpointCorruptError):
+                # nothing there, or a corrupt dense checkpoint (no shard
+                # to repair): build, and the atomic save replaces it
+                idx = None
+            if idx is not None:
+                if (idx.segments_per_vertex != icfg.segments_per_vertex
+                        or idx.segment_len != icfg.segment_len):
+                    raise ValueError(
+                        f"walk index under {directory!r} has (R, L) = "
+                        f"({idx.segments_per_vertex}, {idx.segment_len}) "
+                        f"but the config wants "
+                        f"({icfg.segments_per_vertex}, {icfg.segment_len});"
+                        f" rebuild or point checkpoint_dir elsewhere")
+                if idx.graph_epoch != self.graph.epoch:
+                    raise ValueError(
+                        f"walk index under {directory!r} was built at "
+                        f"graph epoch {idx.graph_epoch} but the service "
+                        f"graph is at epoch {self.graph.epoch} — a stale "
+                        f"slab would serve wrong answers silently; rebuild")
+                return idx
+        idx = _build_walk_index(self.graph, icfg, blocked=blocked)
+        if directory is not None:
+            save_walk_index(directory, idx)
+        return idx
 
     # --- batch -----------------------------------------------------------
 
@@ -336,10 +392,30 @@ class FrogWildService:
                 tally_impl=self.config.kernel.tally_impl,
                 seed=self.config.runtime.seed, runtime=self.runtime,
                 wave_time_estimate_s=scfg.wave_time_estimate_s,
+                fault_injector=self._injector,
+                wave_timeout_s=scfg.wave_timeout_s,
+                max_retries=scfg.max_retries,
+                backoff_base_s=scfg.backoff_base_s,
+                backoff_max_s=scfg.backoff_max_s,
                 sharded_dispatch=scfg.sharded_dispatch,
                 walk_buckets=scfg.walk_buckets,
                 query_buckets=scfg.query_buckets)
         return self._scheduler
+
+    @property
+    def lost_shards(self) -> frozenset:
+        """Shards evicted from serving so far (empty before any fault)."""
+        if self._scheduler is None:
+            return frozenset()
+        return frozenset(self._scheduler.lost_shards)
+
+    @property
+    def fault_log(self) -> list:
+        """The wave supervisor's fault log (chronological
+        :class:`~repro_torch.distributed.faults.FaultEvent` entries)."""
+        if self._scheduler is None:
+            return []
+        return list(self._scheduler.fault_log)
 
     def serving_stats(self) -> Optional[SchedulerStats]:
         """The scheduler's snapshot; ``None`` before the first query."""

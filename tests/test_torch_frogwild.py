@@ -187,9 +187,10 @@ def test_unported_features_raise():
     assert tconfig.ShardConfig(num_shards=4).num_shards == 4
     with pytest.raises(ValueError, match="num_shards"):
         tconfig.ShardConfig(num_shards=0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tconfig.ServingConfig(checkpoint_dir="/nonexistent")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    # checkpoints and fault injection are ported
+    assert tconfig.ServingConfig(checkpoint_dir="ckpt").checkpoint_dir \
+        == "ckpt"
+    with pytest.raises(TypeError, match="FaultPlan"):
         tconfig.RuntimeConfig(faults=object())
     with pytest.raises(ValueError, match="step_impl"):
         tconfig.KernelConfig(step_impl="pallas")

@@ -823,3 +823,83 @@ def test_cuda_refused_draw_launch_raises(cuda, name, args):
     with pytest.raises(RuntimeError, match=f"{name}: kernel launch failed "
                                            f"with CUDA error"):
         ops._launch(name, cuda, *args)
+
+
+@pytest.mark.cuda
+def test_cuda_rebuild_shard_blocks_equal_cpu(cuda):
+    """A repair's re-walk on the card: each hop of each named shard one
+    ``frog_hop`` launch, the blocks (the last shard's padding rows
+    included) byte-equal to the CPU's."""
+    from repro_torch.config import WalkIndexConfig
+    from repro_torch.graph import chung_lu_powerlaw
+    from repro_torch.query.index import rebuild_shard_blocks
+    g = chung_lu_powerlaw(3001, 8.0, seed=2)
+    cfg = WalkIndexConfig(segments_per_vertex=8, segment_len=3,
+                          num_shards=4, seed=9)
+    ops.reset_launch_counts()
+    got = rebuild_shard_blocks(g.to(cuda), cfg, [1, 3])
+    assert ops.launch_counts()["frog_hop"] == 2 * 3
+    want = rebuild_shard_blocks(g, cfg, [1, 3])
+    for s in (1, 3):
+        assert torch.equal(got[s].cpu(), want[s])
+    assert got[3][-3:].cpu().tolist() == [[3001 + i] * 8 for i in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dispatch", ["fused", "loop"])
+def test_cuda_degraded_waves_equal_cpu(cuda, dispatch):
+    """A service that loses shard 2 at wave 1: the degraded answers, their
+    provenance and bounds on the card equal the CPU's, and the fault log
+    too."""
+    from repro_torch import (FrogWildService, RuntimeConfig, ServingConfig,
+                             ShardConfig)
+    from repro_torch.distributed.faults import FaultPlan
+    from repro_torch.graph import chung_lu_powerlaw
+    g = chung_lu_powerlaw(3000, 8.0, seed=1)
+    rc = RuntimeConfig(runtime=ShardConfig(num_shards=4),
+                       serving=ServingConfig(
+                           sharded_dispatch=dispatch, segments_per_vertex=8,
+                           segment_len=3, build_shards=3, max_walks=1024,
+                           max_queries=4, max_steps=16),
+                       faults=FaultPlan(shard_losses=((1, 2),)))
+    out = {}
+    for dev in (cuda, "cpu"):
+        svc = FrogWildService.open(g, rc, device=dev)
+        rs = [h.result() for h in (svc.topk(k=10, num_walks=3000),
+                                   svc.ppr(5, k=5, num_walks=2000))]
+        out[str(dev)] = ([(r.vertices.tobytes(), r.scores.tobytes(),
+                           r.num_walks, r.walks_lost, r.shards_lost,
+                           r.epsilon_bound) for r in rs],
+                         [(e.kind, e.wave, e.shard) for e in svc.fault_log])
+        assert all(r.degraded and r.walks_lost > 0 for r in rs)
+    assert out[str(cuda)] == out["cpu"]
+
+
+@pytest.mark.cuda
+def test_cuda_degraded_local_rounds_make_no_host_sync(cuda):
+    """The loop wave's rounds over a table whose lost shard's entry is
+    null: with the mask's host copy the call reads nothing back from the
+    card (the sync guard raises on any read), and equals the plain
+    version."""
+    S, sz, R, W, q_max = 4, 500, 8, 4096, 6
+    gen = torch.Generator().manual_seed(3)
+    blocks = [torch.randint(0, S * sz, (sz, R), generator=gen,
+                            dtype=torch.int32).to(cuda) for _ in range(S)]
+    blocks[1] = None
+    lost_host = [False, True, False, False]
+    lost = torch.tensor(lost_host, device=cuda)
+    pos, q, s0 = (torch.randint(0, hi, (W,), generator=gen,
+                                dtype=torch.int32).to(cuda)
+                  for hi in (S * sz, q_max + 1, 2 ** 30))
+    table = ops.block_table(blocks)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ops.stitch_gather_local_rounds(pos, q, s0, table, q_max, lost,
+                                             lost_host=lost_host)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = kref.stitch_gather_local_rounds_ref(pos, q, s0, blocks, q_max,
+                                               lost)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not bool(got[1].all())

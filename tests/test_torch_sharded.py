@@ -30,6 +30,7 @@ from repro_torch import (FrogWildService, RuntimeConfig, ServingConfig,
                          ShardConfig, ShardRuntime, convert)
 from repro_torch import config as tconfig
 from repro_torch.config import WalkIndexConfig
+from repro_torch.distributed.faults import FaultPlan
 from repro_torch.graph import generators as tgen
 from repro_torch.kernels import ops
 from repro_torch.query import index as tindex
@@ -308,7 +309,11 @@ def test_sharded_config_runtime_and_unported_features():
                                erasure="channel", p_s=0.7)
     assert (rc.frogwild().erasure, rc.frogwild().num_shards) == ("channel",
                                                                 4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    # fault injection is ported: a FaultPlan is accepted, anything else not
+    plan = FaultPlan(shard_losses=((1, 2),))
+    assert tconfig.RuntimeConfig(runtime=tconfig.ShardConfig(num_shards=4),
+                                 faults=plan).faults is plan
+    with pytest.raises(TypeError, match="FaultPlan"):
         tconfig.RuntimeConfig(runtime=tconfig.ShardConfig(num_shards=4),
                               faults=object())
     with pytest.raises(TypeError, match="axis_name"):
