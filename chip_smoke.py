@@ -23,7 +23,8 @@ answer against its guarantee:
               rounds and their tally one ``stitch_step_rounds`` launch),
               each held to its bound;
 6. plain    — the batch run and one wave again through the plain PyTorch
-              versions (the batch run's draws through ``prng``),
+              versions, their draws through ``prng``'s plain version
+              (``prng.draw_impl("torch")``, no draw kernel launched),
               byte-equal to the kernel path;
 7. stream   — ``pagerank`` again with ``step_impl="stream"``: the slab
               layout's build time, ``E_blk`` and bytes; counts byte-equal
@@ -64,7 +65,9 @@ answer against its guarantee:
               and the Figure 1 rows (ms per iteration and per superstep,
               the wire-byte models);
 11. erasure_cpu — the six (model × draw) walks on a 100,000-vertex graph,
-              on the card and with ``device="cpu"``: byte-equal;
+              on the card and with ``device="cpu"``: byte-equal, the card's
+              draws the threefry kernels (one launch a draw, counted), the
+              CPU's ``prng``'s plain version;
 14. lm_prefill — llama3.2-1b at full width and depth (1.24 B parameters,
               random, ``torch.Generator`` seed 0): ``forward_train`` on
               1 × 32,768 tokens (``prefill_32k``'s length, batch cut from
@@ -115,7 +118,20 @@ answer against its guarantee:
               in one launch (``stitch_step_rounds``) beside the same
               rounds as ``torch.take`` + ``torch.where`` + ``index_add_``;
               the device time a launch of these and of ``stitch_step``
-              from a trace;
+              from a trace; the stitch kernels under ``rng="device"`` (the
+              wave's key as operand, ``s0`` drawn in the kernel; the rounds
+              kernels as rows, the four per-round kernels as checks)
+              against their caller mode on ``prng``'s ``s0``; the threefry
+              draw kernels (``csrc/threefry_draw.cu``) at the main path's
+              shapes — ``randint`` over the batch walk's 400,000 starts,
+              ``uniform`` over a wave's 8,192 lengths, ``bernoulli`` over
+              the channel coins (n, 16), ``fold_in`` over a build shard's
+              605,947 rows, ``split`` into 65 step keys, ``random_bits``
+              at 400,000 — byte-equal to ``prng``'s plain version, each
+              first run, and a wave prologue's draws (one launch each,
+              asserted), under ``torch.cuda.set_sync_debug_mode("error")``,
+              with planted wrong streams (randint's streams swapped, the
+              counter off by one) that must read ``caught=True``;
               ``spmv_ell_slab`` over the live lanes (``row_len``), its
               every-lane mode, and K = 40 with and without ``row_len``;
               ``flash_attention`` also with the design its bf16
@@ -127,7 +143,9 @@ answer against its guarantee:
               and streamed), a serving wave (dense),
               a loop wave (8 shards; one ``stitch_gather_local_rounds``
               launch, asserted), a ``query_counts`` (one
-              ``stitch_step_rounds`` launch, asserted), the ELL power
+              ``stitch_step_rounds`` launch, asserted; the dense wave, the
+              loop wave and ``query_counts`` one threefry launch a draw
+              and no ``s0`` draw, asserted), the ELL power
               iteration, the
               quickstart's erasure run, one 32k prefill forward and one
               ``serve_step`` under torch.profiler: wall time against
@@ -144,7 +162,9 @@ phase 9 and read just after phase 10's ELL power iteration (the erasure
 walks and the GraphLab-PR baseline), reset just before the 32k forward of
 phase 14 and read just after it, reset just before phase 15's
 scheduler run and read just after it, and in phase 17 reset just before
-the repair and each degraded service's queries and read just after each.
+the repair and each degraded service's queries and read just after each;
+phases 6, 11, 12 and 13 reset them around each run whose draw launches
+they count.
 The last line is ``{"ok": true, "device": {...}}``; any failed check or
 launch raises and exits non-zero, as does a machine without CUDA.
 """
@@ -451,29 +471,39 @@ def phase_plain(svc, res, index, hubs, dev):
     import dataclasses
     import torch
     from repro_torch import KernelConfig, prng
+    from repro_torch.kernels import ops
     from repro_torch.query.engine import WaveSpec, build_wave_program
     plain_rc = dataclasses.replace(
         svc.config, kernel=KernelConfig(step_impl="torch",
                                         stitch_impl="torch",
                                         tally_impl="torch"))
-    res_plain = svc.pagerank(epsilon=0.1, delta=0.1, k=100,
-                             config=plain_rc)
+    # the plain run draws through prng's plain version too
+    with prng.draw_impl("torch"):
+        res_plain = svc.pagerank(epsilon=0.1, delta=0.1, k=100,
+                                 config=plain_rc)
     batch_eq = torch.equal(res.counts, res_plain.counts)
     g, sc = svc.graph, svc.config.serving
     W, Q = sc.max_walks, sc.max_queries
-    outs = {}
+    outs, draws = {}, {}
     for impl in ("cuda", "torch"):
         spec = WaveSpec(n=g.n, R=index.segments_per_vertex,
                         L=index.segment_len,
                         q_max=sc.max_steps // index.segment_len, W=W, Q=Q,
                         p_T=svc.config.p_T, impl=impl, tally_impl=impl)
-        outs[impl] = build_wave_program(spec)(
-            index.endpoints, g.row_ptr, g.col_idx, g.out_deg,
-            *wave_inputs(g.n, hubs, W, Q, dev), prng.PRNGKey(11, dev))
+        ops.reset_launch_counts()
+        with prng.draw_impl("auto" if impl == "cuda" else "torch"):
+            outs[impl] = build_wave_program(spec)(
+                index.endpoints, g.row_ptr, g.col_idx, g.out_deg,
+                *wave_inputs(g.n, hubs, W, Q, dev), prng.PRNGKey(11, dev))
+        draws[impl] = sum(ops.launch_counts()[k] for k in ops.DRAW_KERNELS)
     wave_eq = torch.equal(outs["cuda"], outs["torch"])
-    # the batch run drew its bits in the kernel; the plain one through prng
+    # the kernel paths drew their bits in the kernels (the batch run's in
+    # frog_superstep, the wave's s0 in its rounds kernel, every other draw
+    # one threefry launch); the plain ones through prng's torch version
     log("6 plain", batch_counts_equal=batch_eq, wave_counts_equal=wave_eq,
-        wave_walks=int(outs["cuda"].sum()))
+        wave_walks=int(outs["cuda"].sum()),
+        wave_draw_launches=json.dumps(draws))
+    assert draws["torch"] == 0 and draws["cuda"] > 0, draws
     assert batch_eq and wave_eq
 
 
@@ -881,16 +911,20 @@ def phase_erasure_cpu():
     import torch
     from repro_torch import FrogWildService
     from repro_torch.graph import chung_lu_powerlaw
+    from repro_torch.kernels import ops
     g = chung_lu_powerlaw(100_000, avg_out_deg=LJ["avg_out_deg"],
                           theta=LJ["theta"], seed=1)
     N, t = 160_000, 8
     for model in ("channel", "independent"):
         for draw in ("auto", "rejection", "cumsum"):
             rc = erasure_config(model, draw, N, t)
+            ops.reset_launch_counts()
             t0 = time.perf_counter()
             card = FrogWildService.open(g, rc).pagerank(seed=0)
             sync()
             t_card = time.perf_counter() - t0
+            draws = {k: v for k, v in ops.launch_counts().items()
+                     if k in ops.DRAW_KERNELS and v}
             t0 = time.perf_counter()
             cpu = FrogWildService.open(g, rc, device="cpu").pagerank(seed=0)
             t_cpu = time.perf_counter() - t0
@@ -899,9 +933,13 @@ def phase_erasure_cpu():
             log("11 erasure_cpu", n=g.n, nnz=g.nnz, N=N, t=t, model=model,
                 draw=draw,
                 runs=picked_draw(model, draw, N, g.nnz, rc.p_s),
-                card_s=t_card, cpu_s=t_cpu, byte_equal=equal)
+                card_s=t_card, cpu_s=t_cpu, byte_equal=equal,
+                card_draw_launches=json.dumps(draws))
             assert equal, f"{model}/{draw}: the card's walk differs from " \
                 "the CPU's"
+            # the card's draws are the threefry kernels, the CPU's prng's
+            # plain version: one split a superstep at least
+            assert draws.get("threefry_split", 0) >= t, draws
 
 
 def phase_graphlab(g, pi):
@@ -1028,9 +1066,11 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
     # one wave's walks after its prologue, for the stitch rounds and tally
     W, Q, R = sc.max_walks, sc.max_queries, index.segments_per_vertex
     start, uniform, qid, t_cap = wave_inputs(n, hubs, W, Q, dev)
-    wpos, q, s0 = wave_prep(g.row_ptr, g.col_idx, g.out_deg, start, uniform,
-                            t_cap, prng.PRNGKey(5, dev), n=n,
-                            L=index.segment_len, p_T=svc.config.p_T)
+    wpos, q, k_slot = wave_prep(g.row_ptr, g.col_idx, g.out_deg, start,
+                                uniform, t_cap, prng.PRNGKey(5, dev), n=n,
+                                L=index.segment_len, p_T=svc.config.p_T)
+    # the caller mode's slot offsets, as the device mode draws them
+    s0 = prng.randint(k_slot, (W,), 0, 1 << 30)
     slab = index.endpoints
     flat = slab.reshape(-1)
     sidx = wpos.long() * R + torch.remainder(s0, R).long()
@@ -1060,9 +1100,25 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
                 slots[j], p, alpha=R)), p)
         return p
 
-    def rounds(lost=None, S=1, sz=0, slab_=slab):
-        return ops.stitch_gather_rounds(wpos, q, s0, slab_, q_max, lost, S,
-                                        sz, impl="cuda")
+    def rounds(lost=None, S=1, sz=0, slab_=slab, rng="caller"):
+        return ops.stitch_gather_rounds(
+            wpos, q, k_slot if rng == "device" else s0, slab_, q_max, lost,
+            S, sz, impl="cuda", rng=rng)
+
+    def device_row(name, source, replaces, kern, caller, plain, nbytes,
+                   walks=W):
+        """The rounds kernel as the service paths run it (``rng="device"``,
+        the key as operand): byte-equal to its caller mode on ``prng``'s
+        ``s0`` and to its plain version; bound by its bytes (the key read
+        once in place of 4 B of s0 a walk) or its two threefry blocks a
+        walk (``split(key, 1)`` and the bits)."""
+        a, b = kern(), caller()
+        a, b = (a if isinstance(a, tuple) else (a,),
+                b if isinstance(b, tuple) else (b,))
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), name
+        launches[name + ":device"] = launches[name]
+        row(name + ":device", source, replaces, kern, plain, nbytes,
+            blocks=2 * walks)
 
     assert torch.equal(take_rounds(), rounds()[0]), "torch.take rounds"
     row("stitch_gather_rounds", "src/repro_torch/kernels/csrc/stitch.cu",
@@ -1075,6 +1131,17 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
     # a trace of 20 launches
     n_k, dev_ms = device_ms_per_launch(rounds, "stitch_gather_rounds_kernel")
     log("12 stitch_gather_rounds_device", walks=W, q_max=q_max,
+        launches=n_k, device_ms_per_launch=dev_ms)
+    device_row("stitch_gather_rounds",
+               "src/repro_torch/kernels/csrc/stitch.cu",
+               "src/repro/kernels/stitch.py:47",
+               lambda: rounds(rng="device")[0], lambda: rounds()[0],
+               lambda: kref.stitch_gather_rounds_ref(
+                   wpos, q, kref.slot_bits(k_slot, W), slab, q_max)[0],
+               12 * W + 16 + 32 * rounds_sectors(wpos, q, s0, slab, q_max))
+    n_k, dev_ms = device_ms_per_launch(lambda: rounds(rng="device"),
+                                       "stitch_gather_rounds_kernel")
+    log("12 stitch_gather_rounds_device_rng", walks=W, q_max=q_max,
         launches=n_k, device_ms_per_launch=dev_ms)
     # the fused sharded wave's: the stacked S = 8 blocks, shard 3 lost
     S8, sz8, _ = sharded.blocks.shape
@@ -1098,9 +1165,10 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
     # yardstick is the same rounds as torch.take + torch.where
     table = ops.block_table(list(sharded.blocks))
 
-    def local_rounds(lost=None, table_=table):
-        return ops.stitch_gather_local_rounds(wpos, q, s0, table_, q_max,
-                                              lost, impl="cuda")
+    def local_rounds(lost=None, table_=table, rng="caller"):
+        return ops.stitch_gather_local_rounds(
+            wpos, q, k_slot if rng == "device" else s0, table_, q_max, lost,
+            impl="cuda", rng=rng)
 
     row("stitch_gather_local_rounds",
         "src/repro_torch/kernels/csrc/stitch_local.cu",
@@ -1114,6 +1182,16 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
                                        "stitch_gather_local_rounds_kernel")
     log("12 stitch_gather_local_rounds_device", walks=W, q_max=q_max,
         shards=S8, launches=n_k, device_ms_per_launch=dev_ms)
+    device_row("stitch_gather_local_rounds",
+               "src/repro_torch/kernels/csrc/stitch_local.cu",
+               "src/repro/kernels/stitch.py:47",
+               lambda: local_rounds(rng="device")[0],
+               lambda: local_rounds()[0],
+               lambda: kref.stitch_gather_local_rounds_ref(
+                   wpos, q, kref.slot_bits(k_slot, W), table.blocks,
+                   q_max)[0],
+               12 * W + 16 + 8 * S8 + 32 * rounds_sectors(wpos, q, s0,
+                                                          stacked, q_max))
     # shard 3 lost, the other 7 blocks each allocated apart and shard 3's
     # table entry a null pointer: equal to the plain version and to the
     # fused wave's rounds over the stacked blocks
@@ -1122,8 +1200,11 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
     got = local_rounds(lost, own_table)
     want = kref.stitch_gather_local_rounds_ref(wpos, q, s0, own, q_max, lost)
     fused = rounds(lost, S8, sz8, stacked)
+    drawn = (local_rounds(lost, own_table, rng="device"),
+             rounds(lost, S8, sz8, stacked, rng="device"))
     equal = all(torch.equal(a, b) and torch.equal(a, c)
-                for a, b, c in zip(got, want, fused))
+                and torch.equal(a, d) and torch.equal(a, e)
+                for a, b, c, d, e in zip(got, want, fused, *drawn))
     log("12 stitch_gather_local_rounds_lost", shards=S8, lost_shard=3,
         separate_blocks=S8 - 1, null_entry=int(own_table.ptrs[3]) == 0,
         byte_equal_plain_and_fused=equal, dead=int((~got[1]).sum()),
@@ -1135,6 +1216,27 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
     del own, own_table
 
     stop = (q == 0).to(torch.int32)
+    # the four per-round kernels (the TPU kernels' direct counterparts)
+    # under rng="device" against their caller mode on prng's bits
+    block3, base3 = sharded.blocks[3], 3 * sharded.blocks.shape[1]
+    per_round = {
+        "stitch_gather": lambda b, m: ops.stitch_gather(
+            wpos, b, slab, impl="cuda", rng=m),
+        "stitch_step": lambda b, m: ops.stitch_step(
+            wpos, stop, b, slab, n, impl="cuda", rng=m),
+        "stitch_gather_local": lambda b, m: ops.stitch_gather_local(
+            wpos, b, block3, base3, impl="cuda", rng=m),
+        "stitch_step_local": lambda b, m: ops.stitch_step_local(
+            wpos, stop, b, block3, base3, impl="cuda", rng=m)}
+    for name, call in per_round.items():
+        a, b = call(k_slot, "device"), call(s0, "caller")
+        a, b = (a if isinstance(a, tuple) else (a,),
+                b if isinstance(b, tuple) else (b,))
+        equal = all(torch.equal(x, y) for x, y in zip(a, b))
+        log("12 device_rng", kernel=name, walks=W, byte_equal_caller=equal,
+            ms=time_ms(lambda: call(k_slot, "device")),
+            caller_ms=time_ms(lambda: call(s0, "caller")))
+        assert equal, f"{name}: rng='device' differs from the caller mode"
     row("stitch_step", "src/repro_torch/kernels/csrc/stitch.cu",
         "src/repro/kernels/stitch.py:99",
         lambda: ops.stitch_step(wpos, stop, s0, slab, n, impl="cuda"),
@@ -1153,12 +1255,13 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
                       max_steps=sc.max_steps, segments_per_vertex=R,
                       segment_len=index.segment_len)
     Wq, nr = plan.num_walks, plan.num_rounds(index.segment_len)
-    qpos, qq, qs0 = wave_prep(
+    qpos, qq, qk_slot = wave_prep(
         g.row_ptr, g.col_idx, g.out_deg,
         torch.zeros(Wq, dtype=torch.int32, device=dev),
         torch.ones(Wq, dtype=torch.bool, device=dev),
         torch.full((Wq,), plan.num_steps, dtype=torch.int32, device=dev),
         prng.PRNGKey(7, dev), n=n, L=index.segment_len, p_T=svc.config.p_T)
+    qs0 = prng.randint(qk_slot, (Wq,), 0, 1 << 30)
     qslots = [torch.remainder(torch.abs(qs0 + j), R).long()
               for j in range(nr + 1)]
     qmoves = [j < qq for j in range(nr + 1)]
@@ -1172,9 +1275,10 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
         return p, torch.zeros(n, dtype=torch.int32, device=dev).index_add_(
             0, p.long(), tallied)
 
-    def step_rounds():
-        return ops.stitch_step_rounds(qpos, qq, qs0, slab, n, nr,
-                                      impl="cuda")
+    def step_rounds(rng="caller"):
+        return ops.stitch_step_rounds(
+            qpos, qq, qk_slot if rng == "device" else qs0, slab, n, nr,
+            impl="cuda", rng=rng)
 
     assert all(torch.equal(a, b) for a, b in zip(take_step_rounds(),
                                                   step_rounds())), \
@@ -1188,6 +1292,18 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
                                        "stitch_step_rounds_kernel")
     log("12 stitch_step_rounds_device", walks=Wq, rounds=nr + 1,
         tallied=int(tallied.sum()), launches=n_k,
+        device_ms_per_launch=dev_ms)
+    device_row("stitch_step_rounds", "src/repro_torch/kernels/csrc/stitch.cu",
+               "src/repro/kernels/stitch.py:47",
+               lambda: step_rounds("device"), step_rounds,
+               lambda: kref.stitch_step_rounds_ref(
+                   qpos, qq, kref.slot_bits(qk_slot, Wq), slab, n, nr),
+               12 * Wq + 16 + 4 * n + 32 * rounds_sectors(qpos, qq, qs0,
+                                                          slab, nr + 1),
+               walks=Wq)
+    n_k, dev_ms = device_ms_per_launch(lambda: step_rounds("device"),
+                                       "stitch_step_rounds_kernel")
+    log("12 stitch_step_rounds_device_rng", walks=Wq, launches=n_k,
         device_ms_per_launch=dev_ms)
     bins = (Q + 1) * n
     dest = wpos + qid * n
@@ -1242,6 +1358,7 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
     log("12 frog_step_stream_index_shape", frogs=C, ms=ms)
 
     draw_rows(svc, g, blocked, row, dev)
+    threefry_rows(svc, g, row, dev)
 
     # the per-shard kernels at one wave's walks against shard 3's block
     S, sz, _ = sharded.blocks.shape
@@ -1542,6 +1659,130 @@ def draw_rows(svc, g, blocked, row, dev):
             lambda: kref.frog_hop_ref(last, row_keys, L - 1, R, *graph[:3]),
             hop[key + "bytes"] + 8 * W,
             blocks=3 * W if key else hop["blocks"])
+
+
+def no_host_sync(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``: any read
+    back to the host raises."""
+    import torch
+    sync()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+# what each draw kernel stands in for in the reference: its jax.random
+# call, which XLA fuses into one pass (no Pallas kernel)
+DRAW_REPLACES = {
+    "threefry_bits": "jax.random.bits (no call site in src/repro)",
+    "threefry_randint": "src/repro/core/frogwild.py:199",
+    "threefry_uniform": "src/repro/query/engine.py:158",
+    "threefry_bernoulli": "src/repro/core/frogwild.py:80",
+    "threefry_split": "src/repro/core/frogwild.py:230",
+    "threefry_fold_in": "src/repro/query/index.py:267",
+}
+
+
+def wave_draws(L: int, scheduled: bool = True) -> dict:
+    """The draw launches of one wave (``scheduled``: the scheduler's split
+    of its key, ``wave_prep``'s three splits, the start ``randint``, the
+    lengths' ``uniform`` and ``L`` residual ``randint``s; the slot offsets
+    are drawn in the rounds kernel) or, unscheduled, of one
+    ``query_counts`` (the same draws but the scheduler's split)."""
+    return {"threefry_split": 3 + int(scheduled), "threefry_randint": 1 + L,
+            "threefry_uniform": 1}
+
+
+def threefry_rows(svc, g, row, dev):
+    """The draw kernels at the main path's shapes, each byte-equal to
+    ``prng``'s plain version on the same key: ``randint`` as the batch
+    walk's 400,000 starts (and a wave's 8,192), ``uniform`` as a wave's
+    lengths, ``bernoulli`` as the channel model's coins over (n, 16),
+    ``fold_in`` over a build shard's 605,947 rows, ``split`` as the
+    erasure walk's 65 step keys, ``random_bits`` at 400,000; each first
+    run under the host-sync guard, as are a wave prologue's draws. Bounds:
+    the output's bytes (and fold_in's data) against the threefry blocks
+    the kernel computes. Planted wrong streams (randint's two streams
+    swapped, the bits' counter off by one) must differ."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.kernels import ops
+    sc, n = svc.config.serving, g.n
+    N, W, S = 400_000, sc.max_walks, QUICKSTART["shards"]
+    C = -(-n // sc.build_shards)
+    key = prng.PRNGKey(svc.config.runtime.seed, dev)
+    k1, k2, k3, k4, k5 = prng.split(key, 5)
+    rows_ = torch.arange(C, dtype=torch.int32, device=dev)
+    cta = -(-N // 256)
+    _, _, mult = prng.randint_span(0, n)
+    streams = 2 if mult else 1
+    # (kernel, draw, bytes, threefry blocks, the kernel's name in a trace)
+    cases = [
+        ("threefry_randint", lambda i: prng.randint(k1, (N,), 0, n, i),
+         4 * N + 16, streams * (N + cta), "threefry_randint_kernel"),
+        ("threefry_uniform", lambda i: prng.uniform(k2, (W,), i),
+         4 * W + 16, W, "threefry_draw_kernel"),
+        ("threefry_bernoulli", lambda i: prng.bernoulli(
+            k3, QUICKSTART["p_s"], (n, S), i), n * S + 16, n * S,
+         "threefry_draw_kernel"),
+        ("threefry_fold_in", lambda i: prng.fold_in(key, rows_, i),
+         20 * C + 16, C, "threefry_fold_in_kernel"),
+        ("threefry_split", lambda i: prng.split(k4, 65, i), 16 * 65 + 16, 65,
+         "threefry_split_kernel"),
+        ("threefry_bits", lambda i: prng.random_bits(k5, (N,), i),
+         8 * N + 16, N, "threefry_draw_kernel"),
+    ]
+    for name, draw, nbytes, blocks, traced in cases:
+        got = no_host_sync(lambda: draw("cuda"))
+        assert torch.equal(got, draw("torch")), name
+        row(name, "src/repro_torch/kernels/csrc/threefry_draw.cu",
+            DRAW_REPLACES[name], lambda draw=draw: draw("cuda"),
+            lambda draw=draw: draw("torch"), nbytes, blocks=blocks)
+        # an event-timed call of a short kernel reads its launch path: the
+        # device time of a launch from a trace, and the host µs of a call
+        n_k, dev_ms = device_ms_per_launch(lambda draw=draw: draw("cuda"),
+                                           traced)
+        log("12 threefry_device", kernel=name, launches=n_k,
+            device_ms_per_launch=dev_ms,
+            host_us=host_us(lambda draw=draw: draw("cuda")))
+    # a wave's start randint, W walks, beside the batch walk's N
+    log("12 threefry_randint_wave", walks=W,
+        ms=time_ms(lambda: prng.randint(k1, (W,), 0, n)),
+        plain_ms=time_ms(lambda: prng.randint(k1, (W,), 0, n,
+                                              impl="torch")))
+
+    # a wave prologue's draws in order, one launch each, no host read
+    def prologue():
+        k_sched, k_wave = prng.split(key)
+        k_start, k_tau, k_walk = prng.split(k_wave, 3)
+        out = [prng.randint(k_start, (W,), 0, n), prng.uniform(k_tau, (W,))]
+        k_res, _ = prng.split(k_walk)
+        out += [prng.randint(k, (W,), 0, 1 << 30)
+                for k in prng.split(k_res, sc.segment_len)]
+        return out
+
+    ops.reset_launch_counts()
+    no_host_sync(prologue)
+    got = {k: v for k, v in ops.launch_counts().items() if v}
+    log("12 wave_prologue_draws", host_sync=False, launches=json.dumps(got))
+    assert got == wave_draws(sc.segment_len), got
+
+    # planted wrong streams: randint's high and low streams swapped, and
+    # the bits one counter on
+    keys = prng.split(k1, impl="torch")
+    span = n
+    hi_b = prng.random_bits(keys[1], (N,), "torch")
+    lo_b = prng.random_bits(keys[0], (N,), "torch")
+    swapped = ((((hi_b % span) * mult) & 0xFFFFFFFF) + lo_b % span) \
+        % span
+    shifted = prng.random_bits(k5, (N + 1,), "torch")[1:]
+    caught = (not torch.equal(prng.randint(k1, (N,), 0, n).long(), swapped),
+              not torch.equal(prng.random_bits(k5, (N,)), shifted))
+    log("12 threefry_wrong_stream", swapped_streams_caught=caught[0],
+        counter_off_by_one_caught=caught[1])
+    assert all(caught), "the gate does not see a wrong draw stream"
 
 
 # ---------------------------------------------------------------------------
@@ -2181,7 +2422,9 @@ PORT_KERNELS = ("fa_wgmma_kernel", "flash_attention_kernel",
                 "stitch_step_local_kernel", "stitch_gather_rounds_kernel",
                 "stitch_gather_local_rounds_kernel",
                 "stitch_step_rounds_kernel", "stitch_gather_kernel",
-                "stitch_step_kernel", "spmv_ell_kernel")
+                "stitch_step_kernel", "spmv_ell_kernel",
+                "threefry_draw_kernel", "threefry_randint_kernel",
+                "threefry_split_kernel", "threefry_fold_in_kernel")
 
 
 def port_kernel_times(events) -> dict:
@@ -2250,6 +2493,7 @@ def phase_profile(svc, stream_svc, loop_svc, erasure_svc, g):
     quickstart's erasure run spend their time."""
     from repro_torch import prng
     from repro_torch.core import power_iteration
+    from repro_torch.kernels import ops
     from repro_torch.query.engine import plan_query, query_counts
     from repro_torch.query.index import _build_walk_index
     index, sc = svc.ensure_index(), svc.config.serving
@@ -2262,6 +2506,10 @@ def phase_profile(svc, stream_svc, loop_svc, erasure_svc, g):
                                    "stitch_gather_local_kernel"),
                      "query_counts": ("stitch_step_rounds_kernel",
                                       "stitch_step_kernel")}
+    # one launch a draw, and no draw of the slot offsets
+    L = index.segment_len
+    draws_of = {"wave": wave_draws(L), "loop_wave": wave_draws(L),
+                "query_counts": wave_draws(L, scheduled=False)}
     for what, fn in (
             ("pagerank", lambda: svc.pagerank(epsilon=0.1, delta=0.1,
                                               k=100)),
@@ -2281,12 +2529,18 @@ def phase_profile(svc, stream_svc, loop_svc, erasure_svc, g):
             ("power_iteration_ell", lambda: power_iteration(
                 g, num_iters=50, spmv="ell")),
             ("erasure_quickstart", lambda: erasure_svc.pagerank(seed=0))):
+        ops.reset_launch_counts()
         wall, busy, kernels, by_name, top = device_busy_ms(fn,
                                                            by_kernel=True)
+        draws = {k: v for k, v in ops.launch_counts().items()
+                 if k in ops.DRAW_KERNELS and v}
         log("13 profile", what=what, wall_ms=wall,
             device_busy_ms=busy if kernels else "not measured",
             idle_share=1 - busy / wall if kernels else "not measured",
-            kernels=kernels, port_kernels_launches_ms=json.dumps(by_name))
+            kernels=kernels, port_kernels_launches_ms=json.dumps(by_name),
+            draw_launches=json.dumps(draws))
+        if what in draws_of:
+            assert draws == draws_of[what], (what, draws)
         if what == "power_iteration_ell":
             log("13 profile_top", what=what,
                 top5_name_launches_ms=json.dumps(top))
@@ -2331,7 +2585,9 @@ def main() -> int:
     launches = ops.launch_counts()
     log("launches", path="dense", **launches)
     missing = [k for k in ("frog_superstep", "frog_hop", "frog_count",
-                           "stitch_gather_rounds", "stitch_step_rounds")
+                           "stitch_gather_rounds", "stitch_step_rounds",
+                           "threefry_randint", "threefry_uniform",
+                           "threefry_split", "threefry_fold_in")
                if launches[k] < 1]
     assert not missing, f"kernels never launched on the main path: {missing}"
     # query_counts' rounds and their tally in one launch, none a round
@@ -2378,7 +2634,11 @@ def main() -> int:
     log("launches", path="erasure_graphlab_pr", **launches3)
     assert launches3["spmv_ell_slab"] == 50, launches3
     assert launches3["frog_count"] >= 1, launches3
+    assert launches3["threefry_bernoulli"] >= 1, launches3
     launches["spmv_ell_slab"] = launches3["spmv_ell_slab"]
+    # a draw kernel's launches: its count over the three paths' runs
+    for k in ops.DRAW_KERNELS:
+        launches[k] += launches2[k] + launches3[k]
     phase_figure1(g, pi, ell, erasure_runs, t)
     phase_erasure_cpu()
     # the LM stack: llama3.2-1b's 32k prefill forward, its serving loop,

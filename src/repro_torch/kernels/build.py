@@ -30,7 +30,7 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 CFLAGS = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _c_void_p, _c_int64, _c_int32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
-_c_float = ctypes.c_float
+_c_float, _c_uint32 = ctypes.c_float, ctypes.c_uint32
 # C entry points and their argument types (every pointer and the stream as
 # c_void_p, so ctypes never truncates them to 32 bits).
 SIGNATURES = {
@@ -44,21 +44,31 @@ SIGNATURES = {
     "fw_frog_hop_stream_sorted": [_c_void_p] * 4 + [_c_int32] * 2
     + [_c_void_p] * 6 + [_c_int64] + [_c_int32] * 5 + [_c_void_p],
     "fw_frog_count": [_c_void_p] * 2 + [_c_int64, _c_int64, _c_void_p],
-    "fw_stitch_gather": [_c_void_p] * 4 + [_c_int64, _c_int32, _c_void_p],
-    "fw_stitch_step": [_c_void_p] * 6 + [_c_int64, _c_int32, _c_void_p],
-    "fw_stitch_gather_rounds": [_c_void_p] * 7 + [_c_int64] + [_c_int32] * 4
+    "fw_stitch_gather": [_c_void_p] * 5 + [_c_int64, _c_int32, _c_void_p],
+    "fw_stitch_step": [_c_void_p] * 7 + [_c_int64, _c_int32, _c_void_p],
+    "fw_stitch_gather_rounds": [_c_void_p] * 8 + [_c_int64] + [_c_int32] * 4
     + [_c_void_p],
-    "fw_stitch_step_rounds": [_c_void_p] * 6 + [_c_int64] + [_c_int32] * 3
+    "fw_stitch_step_rounds": [_c_void_p] * 7 + [_c_int64] + [_c_int32] * 3
     + [_c_void_p],
-    "fw_stitch_gather_local_rounds": [_c_void_p] * 7 + [_c_int64]
+    "fw_stitch_gather_local_rounds": [_c_void_p] * 8 + [_c_int64]
     + [_c_int32] * 4 + [_c_void_p],
-    "fw_stitch_gather_local": [_c_void_p] * 4 + [_c_int64] * 3
+    "fw_stitch_gather_local": [_c_void_p] * 5 + [_c_int64] * 3
     + [_c_int32, _c_void_p],
-    "fw_stitch_step_local": [_c_void_p] * 6 + [_c_int64] * 3
+    "fw_stitch_step_local": [_c_void_p] * 7 + [_c_int64] * 3
     + [_c_int32, _c_void_p],
     "fw_frog_step_stream_sorted": [_c_void_p] * 11 + [_c_int64]
     + [_c_int32] * 5 + [_c_void_p],
     "fw_spmv_ell_slab": [_c_void_p] * 5 + [_c_int64, _c_int32, _c_void_p],
+    "fw_threefry_bits": [_c_void_p] * 2 + [_c_int64] * 2 + [_c_void_p],
+    "fw_threefry_randint": [_c_void_p] * 2 + [_c_int64] * 2
+    + [_c_int32, _c_uint32, _c_uint32, _c_void_p],
+    "fw_threefry_uniform": [_c_void_p] * 2 + [_c_int64] * 2 + [_c_void_p],
+    "fw_threefry_bernoulli": [_c_void_p] * 2 + [_c_int64] * 2
+    + [_c_float, _c_void_p],
+    "fw_threefry_split": [_c_void_p] * 2 + [_c_int64] * 2 + [_c_void_p],
+    "fw_threefry_fold_in": [_c_void_p, _c_int64, _c_void_p, _c_int64,
+                            _c_int32, _c_uint32, _c_void_p, _c_int64,
+                            _c_void_p],
     "fw_flash_attention": [_c_void_p] * 4 + [_c_int64] * 9 + [_c_int32] * 10
     + [_c_float, _c_int32, _c_float, _c_int32, _c_void_p],
 }

@@ -61,21 +61,34 @@
 // the same device time; a walk's chain of up to 8 dependent gathers, not
 // the spread over SMs, sets it (chip_smoke.py phase 12 traces the device
 // time of a launch), and the launch path sets the call's.
+//
+// rng="device" (the TPU kernels' use_device_rng, src/repro/kernels/
+// stitch.py:47-61): each entry point takes a key (int64[2] in device
+// memory) where bits / s0 go, which are then null, and walk w's bits are
+// randint(key, (W,), 0, 2**30)[w], drawn in the kernel (threefry.cuh:
+// fw_walk_bits). Where the TPU drew pltpu.prng_random_bits, this is the
+// reference's own stream, so the device mode is byte-equal to the caller
+// mode fed prng.randint's bits; it takes the bits' 4 B a walk off the
+// memory path and their draw off the wave's launches.
 #include "common.cuh"
+#include "threefry.cuh"
 
 __global__ void stitch_gather_kernel(const int32_t* __restrict__ pos,
                                      const int32_t* __restrict__ bits,
+                                     const int64_t* __restrict__ key,
                                      const int32_t* __restrict__ endpoints,
                                      int32_t* __restrict__ next, int64_t W,
                                      int32_t R) {
   int64_t w = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (w >= W) return;
-  next[w] = endpoints[(int64_t)pos[w] * R + fw_slot(bits[w], R)];
+  next[w] = endpoints[(int64_t)pos[w] * R +
+                      fw_slot(fw_walk_bits(bits, key, w), R)];
 }
 
 __global__ void stitch_step_kernel(const int32_t* __restrict__ pos,
                                    const int32_t* __restrict__ stop,
                                    const int32_t* __restrict__ bits,
+                                   const int64_t* __restrict__ key,
                                    const int32_t* __restrict__ endpoints,
                                    int32_t* __restrict__ next,
                                    int32_t* __restrict__ counts, int64_t W,
@@ -83,7 +96,7 @@ __global__ void stitch_step_kernel(const int32_t* __restrict__ pos,
   int64_t w = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (w >= W) return;
   int32_t p = pos[w];
-  next[w] = endpoints[(int64_t)p * R + fw_slot(bits[w], R)];
+  next[w] = endpoints[(int64_t)p * R + fw_slot(fw_walk_bits(bits, key, w), R)];
   int32_t s = stop[w];
   if (s != 0) atomicAdd(&counts[p], s);
 }
@@ -96,15 +109,15 @@ __device__ __forceinline__ bool fw_in_lost(const uint8_t* lost, int32_t p,
 
 __global__ void stitch_gather_rounds_kernel(
     const int32_t* __restrict__ pos, const int32_t* __restrict__ q,
-    const int32_t* __restrict__ s0, const int32_t* __restrict__ endpoints,
-    const uint8_t* __restrict__ lost, int32_t* __restrict__ next,
-    uint8_t* __restrict__ alive_out, int64_t W, int32_t R, int32_t q_max,
-    int32_t S, int32_t sz) {
+    const int32_t* __restrict__ s0, const int64_t* __restrict__ key,
+    const int32_t* __restrict__ endpoints, const uint8_t* __restrict__ lost,
+    int32_t* __restrict__ next, uint8_t* __restrict__ alive_out, int64_t W,
+    int32_t R, int32_t q_max, int32_t S, int32_t sz) {
   int64_t w = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (w >= W) return;
   int32_t p = pos[w];
   const int32_t qw = q[w];
-  const uint32_t s = (uint32_t)s0[w];
+  const uint32_t s = (uint32_t)fw_walk_bits(s0, key, w);
   const int32_t rounds = qw < q_max ? qw : q_max;
   bool alive = true;
   for (int32_t j = 0; j < rounds; ++j) {
@@ -122,14 +135,15 @@ __global__ void stitch_gather_rounds_kernel(
 
 __global__ void stitch_step_rounds_kernel(
     const int32_t* __restrict__ pos, const int32_t* __restrict__ q,
-    const int32_t* __restrict__ s0, const int32_t* __restrict__ endpoints,
-    int32_t* __restrict__ next, int32_t* __restrict__ counts, int64_t W,
-    int32_t R, int32_t num_rounds, int32_t n) {
+    const int32_t* __restrict__ s0, const int64_t* __restrict__ key,
+    const int32_t* __restrict__ endpoints, int32_t* __restrict__ next,
+    int32_t* __restrict__ counts, int64_t W, int32_t R, int32_t num_rounds,
+    int32_t n) {
   int64_t w = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (w >= W) return;
   int32_t p = pos[w];
   const int32_t qw = q[w];
-  const uint32_t s = (uint32_t)s0[w];
+  const uint32_t s = (uint32_t)fw_walk_bits(s0, key, w);
   // num_rounds < 2**31 - 1 (the wrapper checks), so the + 1 never wraps
   const int32_t rounds = qw <= num_rounds ? qw : num_rounds + 1;
   for (int32_t j = 0; j < rounds; ++j) {
@@ -142,32 +156,36 @@ __global__ void stitch_step_rounds_kernel(
 }
 
 extern "C" int fw_stitch_gather(const void* pos, const void* bits,
-                                const void* endpoints, void* next, int64_t W,
-                                int32_t R, void* stream) {
+                                const void* key, const void* endpoints,
+                                void* next, int64_t W, int32_t R,
+                                void* stream) {
   if (W > 0) {
     stitch_gather_kernel<<<fw_blocks(W), FW_THREADS, 0,
                            (cudaStream_t)stream>>>(
-        (const int32_t*)pos, (const int32_t*)bits,
+        (const int32_t*)pos, (const int32_t*)bits, (const int64_t*)key,
         (const int32_t*)endpoints, (int32_t*)next, W, R);
   }
   return (int)cudaGetLastError();
 }
 
 extern "C" int fw_stitch_step(const void* pos, const void* stop,
-                              const void* bits, const void* endpoints,
-                              void* next, void* counts, int64_t W, int32_t R,
+                              const void* bits, const void* key,
+                              const void* endpoints, void* next,
+                              void* counts, int64_t W, int32_t R,
                               void* stream) {
   if (W > 0) {
     stitch_step_kernel<<<fw_blocks(W), FW_THREADS, 0,
                          (cudaStream_t)stream>>>(
         (const int32_t*)pos, (const int32_t*)stop, (const int32_t*)bits,
-        (const int32_t*)endpoints, (int32_t*)next, (int32_t*)counts, W, R);
+        (const int64_t*)key, (const int32_t*)endpoints, (int32_t*)next,
+        (int32_t*)counts, W, R);
   }
   return (int)cudaGetLastError();
 }
 
 extern "C" int fw_stitch_gather_rounds(const void* pos, const void* q,
-                                       const void* s0, const void* endpoints,
+                                       const void* s0, const void* key,
+                                       const void* endpoints,
                                        const void* lost, void* next,
                                        void* alive, int64_t W, int32_t R,
                                        int32_t q_max, int32_t S, int32_t sz,
@@ -176,23 +194,25 @@ extern "C" int fw_stitch_gather_rounds(const void* pos, const void* q,
     stitch_gather_rounds_kernel<<<fw_round_blocks(W), FW_ROUNDS_THREADS, 0,
                                   (cudaStream_t)stream>>>(
         (const int32_t*)pos, (const int32_t*)q, (const int32_t*)s0,
-        (const int32_t*)endpoints, (const uint8_t*)lost, (int32_t*)next,
-        (uint8_t*)alive, W, R, q_max, S, sz);
+        (const int64_t*)key, (const int32_t*)endpoints,
+        (const uint8_t*)lost, (int32_t*)next, (uint8_t*)alive, W, R, q_max,
+        S, sz);
   }
   return (int)cudaGetLastError();
 }
 
 extern "C" int fw_stitch_step_rounds(const void* pos, const void* q,
-                                     const void* s0, const void* endpoints,
-                                     void* next, void* counts, int64_t W,
-                                     int32_t R, int32_t num_rounds,
-                                     int32_t n, void* stream) {
+                                     const void* s0, const void* key,
+                                     const void* endpoints, void* next,
+                                     void* counts, int64_t W, int32_t R,
+                                     int32_t num_rounds, int32_t n,
+                                     void* stream) {
   if (W > 0) {
     stitch_step_rounds_kernel<<<fw_round_blocks(W), FW_ROUNDS_THREADS, 0,
                                 (cudaStream_t)stream>>>(
         (const int32_t*)pos, (const int32_t*)q, (const int32_t*)s0,
-        (const int32_t*)endpoints, (int32_t*)next, (int32_t*)counts, W, R,
-        num_rounds, n);
+        (const int64_t*)key, (const int32_t*)endpoints, (int32_t*)next,
+        (int32_t*)counts, W, R, num_rounds, n);
   }
   return (int)cudaGetLastError();
 }

@@ -58,10 +58,14 @@
 // Bound (bytes only, 3.35 TB/s): 16 B per walk streamed (pos, q, s0, next;
 // alive adds 1 B, the mask S B), the 8·S-byte table, plus one 32-byte
 // sector per distinct block sector each round reads.
+// rng="device": as in stitch.cu, a key (int64[2]) in place of bits / s0,
+// walk w's bits randint(key, (W,), 0, 2**30)[w] drawn in the kernel.
 #include "common.cuh"
+#include "threefry.cuh"
 
 __global__ void stitch_gather_local_kernel(const int32_t* __restrict__ pos,
                                            const int32_t* __restrict__ bits,
+                                           const int64_t* __restrict__ key,
                                            const int32_t* __restrict__ block,
                                            int32_t* __restrict__ next,
                                            int64_t W, int64_t base,
@@ -71,7 +75,7 @@ __global__ void stitch_gather_local_kernel(const int32_t* __restrict__ pos,
   int64_t local = (int64_t)pos[w] - base;
   int32_t out = 0;
   if (local >= 0 && local < sz) {
-    out = block[local * R + fw_slot(bits[w], R)];
+    out = block[local * R + fw_slot(fw_walk_bits(bits, key, w), R)];
   }
   next[w] = out;
 }
@@ -79,6 +83,7 @@ __global__ void stitch_gather_local_kernel(const int32_t* __restrict__ pos,
 __global__ void stitch_step_local_kernel(const int32_t* __restrict__ pos,
                                          const int32_t* __restrict__ stop,
                                          const int32_t* __restrict__ bits,
+                                         const int64_t* __restrict__ key,
                                          const int32_t* __restrict__ block,
                                          int32_t* __restrict__ next,
                                          int32_t* __restrict__ counts,
@@ -89,7 +94,7 @@ __global__ void stitch_step_local_kernel(const int32_t* __restrict__ pos,
   int64_t local = (int64_t)pos[w] - base;
   int32_t out = 0;
   if (local >= 0 && local < sz) {
-    out = block[local * R + fw_slot(bits[w], R)];
+    out = block[local * R + fw_slot(fw_walk_bits(bits, key, w), R)];
     int32_t s = stop[w];
     if (s != 0) atomicAdd(&counts[local], s);
   }
@@ -98,7 +103,7 @@ __global__ void stitch_step_local_kernel(const int32_t* __restrict__ pos,
 
 __global__ void stitch_gather_local_rounds_kernel(
     const int32_t* __restrict__ pos, const int32_t* __restrict__ q,
-    const int32_t* __restrict__ s0,
+    const int32_t* __restrict__ s0, const int64_t* __restrict__ key,
     const int32_t* const* __restrict__ blocks,
     const uint8_t* __restrict__ lost, int32_t* __restrict__ next,
     uint8_t* __restrict__ alive_out, int64_t W, int32_t R, int32_t q_max,
@@ -107,7 +112,7 @@ __global__ void stitch_gather_local_rounds_kernel(
   if (w >= W) return;
   int32_t p = pos[w];
   const int32_t qw = q[w];
-  const uint32_t s = (uint32_t)s0[w];
+  const uint32_t s = (uint32_t)fw_walk_bits(s0, key, w);
   const int32_t rounds = qw < q_max ? qw : q_max;
   bool alive = true;
   for (int32_t j = 0; j < rounds; ++j) {
@@ -129,44 +134,45 @@ __global__ void stitch_gather_local_rounds_kernel(
 }
 
 extern "C" int fw_stitch_gather_local(const void* pos, const void* bits,
-                                      const void* block, void* next,
-                                      int64_t W, int64_t base, int64_t sz,
-                                      int32_t R, void* stream) {
+                                      const void* key, const void* block,
+                                      void* next, int64_t W, int64_t base,
+                                      int64_t sz, int32_t R, void* stream) {
   if (W > 0) {
     stitch_gather_local_kernel<<<fw_blocks(W), FW_THREADS, 0,
                                  (cudaStream_t)stream>>>(
-        (const int32_t*)pos, (const int32_t*)bits, (const int32_t*)block,
-        (int32_t*)next, W, base, sz, R);
+        (const int32_t*)pos, (const int32_t*)bits, (const int64_t*)key,
+        (const int32_t*)block, (int32_t*)next, W, base, sz, R);
   }
   return (int)cudaGetLastError();
 }
 
 extern "C" int fw_stitch_step_local(const void* pos, const void* stop,
-                                    const void* bits, const void* block,
-                                    void* next, void* counts, int64_t W,
-                                    int64_t base, int64_t sz, int32_t R,
-                                    void* stream) {
+                                    const void* bits, const void* key,
+                                    const void* block, void* next,
+                                    void* counts, int64_t W, int64_t base,
+                                    int64_t sz, int32_t R, void* stream) {
   if (W > 0) {
     stitch_step_local_kernel<<<fw_blocks(W), FW_THREADS, 0,
                                (cudaStream_t)stream>>>(
         (const int32_t*)pos, (const int32_t*)stop, (const int32_t*)bits,
-        (const int32_t*)block, (int32_t*)next, (int32_t*)counts, W, base, sz,
-        R);
+        (const int64_t*)key, (const int32_t*)block, (int32_t*)next,
+        (int32_t*)counts, W, base, sz, R);
   }
   return (int)cudaGetLastError();
 }
 
 extern "C" int fw_stitch_gather_local_rounds(
-    const void* pos, const void* q, const void* s0, const void* blocks,
-    const void* lost, void* next, void* alive, int64_t W, int32_t R,
-    int32_t q_max, int32_t S, int32_t sz, void* stream) {
+    const void* pos, const void* q, const void* s0, const void* key,
+    const void* blocks, const void* lost, void* next, void* alive, int64_t W,
+    int32_t R, int32_t q_max, int32_t S, int32_t sz, void* stream) {
   if (W > 0) {
     stitch_gather_local_rounds_kernel<<<fw_round_blocks(W),
                                         FW_ROUNDS_THREADS, 0,
                                         (cudaStream_t)stream>>>(
         (const int32_t*)pos, (const int32_t*)q, (const int32_t*)s0,
-        (const int32_t* const*)blocks, (const uint8_t*)lost, (int32_t*)next,
-        (uint8_t*)alive, W, R, q_max, S, sz);
+        (const int64_t*)key, (const int32_t* const*)blocks,
+        (const uint8_t*)lost, (int32_t*)next, (uint8_t*)alive, W, R, q_max,
+        S, sz);
   }
   return (int)cudaGetLastError();
 }

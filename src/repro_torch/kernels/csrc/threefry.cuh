@@ -1,9 +1,11 @@
 // Threefry-2x32 on the device, bit for bit as repro_torch/prng.py (and
 // jax.random under jax_threefry_partitionable, jax 0.9.0) computes it.
 //
-// Not a kernel: the walker kernels (frog_step.cu, frog_step_stream.cu)
-// include it to draw the reference's own key streams in the kernel, so a
-// superstep's death coins and slot bits never pass through device memory.
+// Not a kernel: the walker kernels (frog_step.cu, frog_step_stream.cu) and
+// the stitch kernels (stitch.cu, stitch_local.cu) include it to draw the
+// reference's own key streams in the kernel, so a superstep's death coins
+// and a wave's slot bits never pass through device memory, and
+// threefry_draw.cu builds prng.py's draws on it.
 //
 //   threefry2x32(k, (x0, x1))  20 rounds, rotations (13, 15, 26, 6) and
 //                              (17, 29, 16, 24), key schedule
@@ -14,6 +16,9 @@
 //                              the span exceeds 2**16, so the high stream's
 //                              multiplier wraps to 0 (prng.py:152-158) and
 //                              only bits(split(k, 1), c) mod 2**30 is left
+//   walk_bits(bits, key, w)    a stitch round's slot bits of walk w: the
+//                              caller's bits[w], or under rng="device"
+//                              randint(key, (W,), 0, 2**30)[w] from the key
 //   bernoulli(k, p, c)         float32((bits >> 9) | 0x3F800000) - 1 < p,
 //                              the subtraction rounded to nearest
 //                              (__fsub_rn, so no contraction or fast-math
@@ -73,6 +78,18 @@ __device__ __forceinline__ uint32_t fw_bits(FwKey k, uint64_t ctr) {
 // randint(k, ., 0, 2**30) at counter ctr, given k_lo = fw_split(k, 1)
 __device__ __forceinline__ int32_t fw_randint30(FwKey k_lo, uint64_t ctr) {
   return (int32_t)(fw_bits(k_lo, ctr) & 0x3FFFFFFFu);
+}
+
+// The slot bits of walk w in a stitch kernel: bits[w], or with a key
+// (rng="device", bits null) randint(key, (W,), 0, 2**30)[w]. Each walk
+// derives split(key, 1) itself: the stitch kernels are bound by their
+// chains of dependent gathers, not by two threefry blocks a walk.
+__device__ __forceinline__ int32_t fw_walk_bits(
+    const int32_t* __restrict__ bits, const int64_t* __restrict__ key,
+    int64_t w) {
+  return key != nullptr
+             ? fw_randint30(fw_split(fw_key_at(key, 0), 1), (uint64_t)w)
+             : bits[w];
 }
 
 __device__ __forceinline__ bool fw_bernoulli(FwKey k, float p, uint64_t ctr) {

@@ -32,6 +32,14 @@ drawing the reference's own threefry streams inside the kernel (one
 launch a superstep or hop, and the sort before it under ``"stream"``);
 ``frog_step`` stays its ``rng="caller"`` contract, bits from the caller.
 
+The stitch wrappers take ``rng``, the reference's mode: ``"caller"``
+(default) passes the slot bits (``bits`` / ``s0``, int32[W]);
+``"device"`` passes the wave's key (an int64[2] key on the walks' device)
+in their place, and walk ``w``'s bits are ``randint(key, (W,), 0,
+2**30)[w]``, drawn in the kernel from the reference's own threefry
+stream, so the two modes give the same bytes. Their plain versions draw
+the bits through ``ref.slot_bits`` and run the caller-mode oracle.
+
 ``attention`` also takes ``"ref"`` (the O(S²)-memory oracle); its
 ``"torch"`` is the plain chunked version.
 
@@ -63,7 +71,13 @@ LAUNCHES: Dict[str, int] = {"frog_step": 0, "frog_count": 0,
                             "frog_superstep": 0, "frog_hop": 0,
                             "frog_superstep_stream_sorted": 0,
                             "frog_hop_stream_sorted": 0,
-                            "spmv_ell_slab": 0, "flash_attention": 0}
+                            "spmv_ell_slab": 0, "flash_attention": 0,
+                            "threefry_bits": 0, "threefry_randint": 0,
+                            "threefry_uniform": 0, "threefry_bernoulli": 0,
+                            "threefry_split": 0, "threefry_fold_in": 0}
+# the draw kernels (``kernels/draw.py``, called by ``prng``)
+DRAW_KERNELS = tuple(k for k in LAUNCHES if k.startswith("threefry_"))
+RNG_MODES = ("caller", "device")
 
 # Frogs per CTA work item of the streamed superstep.
 STREAM_FROG_BLOCK = 1024
@@ -114,6 +128,30 @@ def _check_i32(name: str, arg: str, t: torch.Tensor, ndim: int = 1,
     if numel is not None and t.numel() != numel:
         raise ValueError(f"{name}: {arg} has {t.numel()} elements, wanted "
                          f"{numel}")
+
+
+def _slot_operand(name: str, arg: str, t: torch.Tensor, W: int,
+                  rng: str) -> None:
+    """Checks a stitch wrapper's bits operand: int32[W] bits under
+    ``rng="caller"``, an int64[2] key under ``"device"``."""
+    if rng not in RNG_MODES:
+        raise ValueError(f"{name}: rng must be one of {RNG_MODES}, got "
+                         f"{rng!r}")
+    if rng == "device":
+        _check_keys(name, "key", t, (2,))
+    else:
+        _check_i32(name, arg, t, numel=W)
+
+
+def _plain_bits(t: torch.Tensor, W: int, rng: str) -> torch.Tensor:
+    """The plain version's slot bits: the caller's, or the key's."""
+    return kref.slot_bits(t, W) if rng == "device" else t
+
+
+def _bits_ptrs(t: torch.Tensor, rng: str) -> Tuple[Optional[int],
+                                                    Optional[int]]:
+    """``(bits pointer, key pointer)`` of a stitch kernel: one is null."""
+    return (None, t.data_ptr()) if rng == "device" else (t.data_ptr(), None)
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
@@ -183,29 +221,32 @@ def frog_count(dest: torch.Tensor, n: int, impl: str = "auto"
 
 
 def stitch_gather(pos: torch.Tensor, bits: torch.Tensor,
-                  endpoints: torch.Tensor, impl: str = "auto"
-                  ) -> torch.Tensor:
+                  endpoints: torch.Tensor, impl: str = "auto",
+                  rng: str = "caller") -> torch.Tensor:
     """Gather-only stitch round: ``next = endpoints[pos, abs(bits) % R]``
-    (int32[W]) against the ``int32[n, R]`` slab."""
+    (int32[W]) against the ``int32[n, R]`` slab; ``bits`` is the key under
+    ``rng="device"``."""
     name = "stitch_gather"
     use = _use_kernel(name, impl, pos, bits, endpoints)
+    W = pos.shape[0]
     _check_i32(name, "pos", pos)
-    _check_i32(name, "bits", bits, numel=pos.shape[0])
+    _slot_operand(name, "bits", bits, W, rng)
     _check_i32(name, "endpoints", endpoints, ndim=2)
     if not use:
-        return kref.stitch_gather_ref(pos, torch.abs(bits), endpoints)
+        return kref.stitch_gather_ref(
+            pos, torch.abs(_plain_bits(bits, W, rng)), endpoints)
     nxt = torch.empty_like(pos)
-    if pos.numel():
-        _launch(name, pos.device, pos.data_ptr(), bits.data_ptr(),
-                endpoints.data_ptr(), nxt.data_ptr(), pos.numel(),
-                endpoints.shape[1])
+    if W:
+        _launch(name, pos.device, pos.data_ptr(), *_bits_ptrs(bits, rng),
+                endpoints.data_ptr(), nxt.data_ptr(), W, endpoints.shape[1])
     return nxt
 
 
 def stitch_gather_rounds(pos: torch.Tensor, q: torch.Tensor,
                          s0: torch.Tensor, slab: torch.Tensor, q_max: int,
                          lost: Optional[torch.Tensor] = None, S: int = 1,
-                         sz: int = 0, impl: str = "auto"
+                         sz: int = 0, impl: str = "auto",
+                         rng: str = "caller"
                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """A wave's ``q_max`` stitch rounds in one launch → ``(pos int32[W],
     alive bool[W] or None)``.
@@ -217,7 +258,9 @@ def stitch_gather_rounds(pos: torch.Tensor, q: torch.Tensor,
     0, S − 1)``), or whose final vertex lies in one, dies and keeps its
     position; ``alive`` marks the others. Without it every walk lives and
     ``alive`` is ``None``. The same bytes as ``q_max`` rounds of
-    :func:`stitch_gather` and ``torch.where``."""
+    :func:`stitch_gather` and ``torch.where``. Under ``rng="device"``
+    ``s0`` is the wave's key and the kernel draws ``s0 = randint(key,
+    (W,), 0, 2**30)`` itself."""
     name = "stitch_gather_rounds"
     masked = lost is not None
     use = _use_kernel(name, impl, pos, q, s0, slab,
@@ -225,7 +268,7 @@ def stitch_gather_rounds(pos: torch.Tensor, q: torch.Tensor,
     W = pos.shape[0]
     _check_i32(name, "pos", pos)
     _check_i32(name, "q", q, numel=W)
-    _check_i32(name, "s0", s0, numel=W)
+    _slot_operand(name, "s0", s0, W, rng)
     _check_i32(name, "slab", slab, ndim=2)
     if not 0 <= q_max < 2 ** 31:
         raise ValueError(f"{name}: q_max must be in [0, 2**31), got {q_max}")
@@ -236,14 +279,14 @@ def stitch_gather_rounds(pos: torch.Tensor, q: torch.Tensor,
                          f"and sz ≥ 1, got {lost.dtype} "
                          f"{list(lost.shape)} and sz = {sz}")
     if not use:
-        return kref.stitch_gather_rounds_ref(pos, q, s0, slab, q_max, lost,
-                                             S, sz)
+        return kref.stitch_gather_rounds_ref(
+            pos, q, _plain_bits(s0, W, rng), slab, q_max, lost, S, sz)
     nxt = torch.empty_like(pos)
     alive = torch.empty(W, dtype=torch.bool, device=pos.device) \
         if masked else None
     if W:
         _launch(name, pos.device, pos.data_ptr(), q.data_ptr(),
-                s0.data_ptr(), slab.data_ptr(),
+                *_bits_ptrs(s0, rng), slab.data_ptr(),
                 lost.data_ptr() if masked else None, nxt.data_ptr(),
                 alive.data_ptr() if masked else None, W, slab.shape[1],
                 int(q_max), int(S), int(sz))
@@ -252,37 +295,39 @@ def stitch_gather_rounds(pos: torch.Tensor, q: torch.Tensor,
 
 def stitch_step(pos: torch.Tensor, stop: torch.Tensor, bits: torch.Tensor,
                 endpoints: torch.Tensor, n: int, impl: str = "auto",
-                tally: bool = True
+                tally: bool = True, rng: str = "caller"
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Fused stitch round → ``(next_pos int32[W], stop_counts int32[n])``.
+    """Fused stitch round → ``(next_pos int32[W], stop_counts int32[n])``;
+    ``bits`` is the key under ``rng="device"``.
 
     ``tally=False`` runs the gather-only kernel and returns
     ``(next_pos, None)``, byte-identical positions, as the reference does.
     """
     if not tally:
-        return stitch_gather(pos, bits, endpoints, impl=impl), None
+        return stitch_gather(pos, bits, endpoints, impl=impl, rng=rng), None
     name = "stitch_step"
     use = _use_kernel(name, impl, pos, stop, bits, endpoints)
     stop = stop.to(torch.int32).contiguous()
     W = pos.shape[0]
     _check_i32(name, "pos", pos)
     _check_i32(name, "stop", stop, numel=W)
-    _check_i32(name, "bits", bits, numel=W)
+    _slot_operand(name, "bits", bits, W, rng)
     _check_i32(name, "endpoints", endpoints, ndim=2)
     if not use:
-        return kref.stitch_step_ref(pos, stop, torch.abs(bits), endpoints, n)
+        return kref.stitch_step_ref(
+            pos, stop, torch.abs(_plain_bits(bits, W, rng)), endpoints, n)
     nxt = torch.empty_like(pos)
     counts = torch.zeros(n, dtype=torch.int32, device=pos.device)
     if W:
         _launch(name, pos.device, pos.data_ptr(), stop.data_ptr(),
-                bits.data_ptr(), endpoints.data_ptr(), nxt.data_ptr(),
+                *_bits_ptrs(bits, rng), endpoints.data_ptr(), nxt.data_ptr(),
                 counts.data_ptr(), W, endpoints.shape[1])
     return nxt, counts
 
 
 def stitch_step_rounds(pos: torch.Tensor, q: torch.Tensor, s0: torch.Tensor,
                        endpoints: torch.Tensor, n: int, num_rounds: int,
-                       impl: str = "auto"
+                       impl: str = "auto", rng: str = "caller"
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``walk_wave``'s ``num_rounds + 1`` stitch rounds and their stop
     tally in one launch → ``(pos int32[W], stop_counts int32[n])``.
@@ -292,25 +337,27 @@ def stitch_step_rounds(pos: torch.Tensor, q: torch.Tensor, s0: torch.Tensor,
     R]`` (``s0 + j`` wrapping as an int32 add does), so a walk is tallied
     once, at its final vertex; one with ``q > num_rounds`` takes
     ``num_rounds + 1`` gathers and is never tallied. The same bytes as
-    ``num_rounds + 1`` rounds of :func:`stitch_step` and ``torch.where``."""
+    ``num_rounds + 1`` rounds of :func:`stitch_step` and ``torch.where``.
+    Under ``rng="device"`` ``s0`` is the key, as for
+    :func:`stitch_gather_rounds`."""
     name = "stitch_step_rounds"
     use = _use_kernel(name, impl, pos, q, s0, endpoints)
     W = pos.shape[0]
     _check_i32(name, "pos", pos)
     _check_i32(name, "q", q, numel=W)
-    _check_i32(name, "s0", s0, numel=W)
+    _slot_operand(name, "s0", s0, W, rng)
     _check_i32(name, "endpoints", endpoints, ndim=2)
     if not (0 <= num_rounds < 2 ** 31 - 1 and 0 <= n < 2 ** 31):
         raise ValueError(f"{name}: num_rounds must be in [0, 2**31 - 1) and "
                          f"n in [0, 2**31), got {num_rounds} and {n}")
     if not use:
-        return kref.stitch_step_rounds_ref(pos, q, s0, endpoints, n,
-                                           num_rounds)
+        return kref.stitch_step_rounds_ref(
+            pos, q, _plain_bits(s0, W, rng), endpoints, n, num_rounds)
     nxt = torch.empty_like(pos)
     counts = torch.zeros(n, dtype=torch.int32, device=pos.device)
     if W:
         _launch(name, pos.device, pos.data_ptr(), q.data_ptr(),
-                s0.data_ptr(), endpoints.data_ptr(), nxt.data_ptr(),
+                *_bits_ptrs(s0, rng), endpoints.data_ptr(), nxt.data_ptr(),
                 counts.data_ptr(), W, endpoints.shape[1], int(num_rounds),
                 int(n))
     return nxt, counts
@@ -623,57 +670,63 @@ def _check_block(name: str, block: torch.Tensor, base: int) -> None:
 
 
 def stitch_gather_local(pos: torch.Tensor, bits: torch.Tensor,
-                        block: torch.Tensor, base: int, impl: str = "auto"
-                        ) -> torch.Tensor:
+                        block: torch.Tensor, base: int, impl: str = "auto",
+                        rng: str = "caller") -> torch.Tensor:
     """Per-shard gather-only stitch round against one shard's
     ``int32[sz, R]`` block: walks the shard owns (``0 ≤ pos − base < sz``)
-    get ``block[pos − base, abs(bits) % R]``, the rest 0."""
+    get ``block[pos − base, abs(bits) % R]``, the rest 0; ``bits`` is the
+    key under ``rng="device"``."""
     name = "stitch_gather_local"
     use = _use_kernel(name, impl, pos, bits, block)
+    W = pos.shape[0]
     _check_i32(name, "pos", pos)
-    _check_i32(name, "bits", bits, numel=pos.shape[0])
+    _slot_operand(name, "bits", bits, W, rng)
     _check_block(name, block, base)
     if not use:
-        return kref.stitch_gather_local_ref(pos, torch.abs(bits), block, base)
+        return kref.stitch_gather_local_ref(
+            pos, torch.abs(_plain_bits(bits, W, rng)), block, base)
     nxt = torch.empty_like(pos)
-    if pos.numel():
-        _launch(name, pos.device, pos.data_ptr(), bits.data_ptr(),
-                block.data_ptr(), nxt.data_ptr(), pos.numel(), int(base),
+    if W:
+        _launch(name, pos.device, pos.data_ptr(), *_bits_ptrs(bits, rng),
+                block.data_ptr(), nxt.data_ptr(), W, int(base),
                 block.shape[0], block.shape[1])
     return nxt
 
 
 def stitch_step_local(pos: torch.Tensor, stop: torch.Tensor,
                       bits: torch.Tensor, block: torch.Tensor, base: int,
-                      impl: str = "auto", tally: bool = True
+                      impl: str = "auto", tally: bool = True,
+                      rng: str = "caller"
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Per-shard stitch round → ``(next_contrib int32[W], stop_counts
     int32[sz])``: owned walks gather from the block and owned stopped walks
     are tallied into the shard's local bins; the rest contribute 0, so the
-    outputs summed over the shards equal :func:`stitch_step`'s.
+    outputs summed over the shards equal :func:`stitch_step`'s; ``bits``
+    is the key under ``rng="device"``.
 
     ``tally=False`` runs the gather-only kernel and returns
     ``(next_contrib, None)``, byte-identical contributions.
     """
     if not tally:
-        return stitch_gather_local(pos, bits, block, base, impl=impl), None
+        return stitch_gather_local(pos, bits, block, base, impl=impl,
+                                   rng=rng), None
     name = "stitch_step_local"
     use = _use_kernel(name, impl, pos, stop, bits, block)
     stop = stop.to(torch.int32).contiguous()
     W = pos.shape[0]
     _check_i32(name, "pos", pos)
     _check_i32(name, "stop", stop, numel=W)
-    _check_i32(name, "bits", bits, numel=W)
+    _slot_operand(name, "bits", bits, W, rng)
     _check_block(name, block, base)
     if not use:
-        return kref.stitch_step_local_ref(pos, stop, torch.abs(bits), block,
-                                          base)
+        return kref.stitch_step_local_ref(
+            pos, stop, torch.abs(_plain_bits(bits, W, rng)), block, base)
     sz, R = block.shape
     nxt = torch.empty_like(pos)
     counts = torch.zeros(sz, dtype=torch.int32, device=pos.device)
     if W:
         _launch(name, pos.device, pos.data_ptr(), stop.data_ptr(),
-                bits.data_ptr(), block.data_ptr(), nxt.data_ptr(),
+                *_bits_ptrs(bits, rng), block.data_ptr(), nxt.data_ptr(),
                 counts.data_ptr(), W, int(base), sz, R)
     return nxt, counts
 
@@ -720,8 +773,8 @@ def block_table(blocks: Sequence[Optional[torch.Tensor]]) -> BlockTable:
 def stitch_gather_local_rounds(
         pos: torch.Tensor, q: torch.Tensor, s0: torch.Tensor,
         table: BlockTable, q_max: int, lost: Optional[torch.Tensor] = None,
-        impl: str = "auto", lost_host: Optional[Sequence[bool]] = None
-) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        impl: str = "auto", lost_host: Optional[Sequence[bool]] = None,
+        rng: str = "caller") -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """A loop wave's ``q_max`` stitch rounds over ``S`` shard blocks in one
     launch → ``(pos int32[W], alive bool[W] or None)``.
 
@@ -736,7 +789,8 @@ def stitch_gather_local_rounds(
     final vertex lies in one, dies and keeps its position; ``alive`` marks
     the others. The same bytes as ``q_max`` rounds of
     :func:`stitch_gather_local` summed over the shards that are not lost,
-    and as :func:`stitch_gather_rounds` over the blocks stacked.
+    and as :func:`stitch_gather_rounds` over the blocks stacked. Under
+    ``rng="device"`` ``s0`` is the key, as for that function.
 
     Only a lost shard's block may be missing. ``lost_host``, ``lost``'s
     values on the host (the caller's copy), is what that check reads, so
@@ -750,7 +804,7 @@ def stitch_gather_local_rounds(
     W = pos.shape[0]
     _check_i32(name, "pos", pos)
     _check_i32(name, "q", q, numel=W)
-    _check_i32(name, "s0", s0, numel=W)
+    _slot_operand(name, "s0", s0, W, rng)
     if not 0 <= q_max < 2 ** 31:
         raise ValueError(f"{name}: q_max must be in [0, 2**31), got {q_max}")
     if masked and (lost.dtype != torch.bool or lost.dim() != 1
@@ -768,14 +822,14 @@ def stitch_gather_local_rounds(
             raise ValueError(f"{name}: shards {missing} have no block; "
                              f"only a lost shard's block may be missing")
     if not use:
-        return kref.stitch_gather_local_rounds_ref(pos, q, s0, table.blocks,
-                                                   q_max, lost)
+        return kref.stitch_gather_local_rounds_ref(
+            pos, q, _plain_bits(s0, W, rng), table.blocks, q_max, lost)
     nxt = torch.empty_like(pos)
     alive = torch.empty(W, dtype=torch.bool, device=pos.device) \
         if masked else None
     if W:
         _launch(name, pos.device, pos.data_ptr(), q.data_ptr(),
-                s0.data_ptr(), table.ptrs.data_ptr(),
+                *_bits_ptrs(s0, rng), table.ptrs.data_ptr(),
                 lost.data_ptr() if masked else None, nxt.data_ptr(),
                 alive.data_ptr() if masked else None, W, table.R,
                 int(q_max), S, table.sz)

@@ -1,10 +1,11 @@
 """Plain PyTorch versions of the port's kernels (port of the matching
 oracles in ``repro/kernels/ref.py``).
 
-Each computes exactly what its CUDA kernel computes, on any device; the
-wrappers in ``ops.py`` take them for CPU tensors, the tests hold them
-against the reference's Pallas kernels, and ``chip_smoke.py`` holds the
-kernels against them on the card. Every walker comparison is byte-equal:
+Each computes exactly what its CUDA kernel computes, on any device, its
+draws through ``prng``'s plain torch version; the wrappers in ``ops.py``
+take them for CPU tensors, the tests hold them against the reference's
+Pallas kernels, and ``chip_smoke.py`` holds the kernels against them on
+the card. Every walker comparison is byte-equal:
 the outputs are integers, except ``spmv_ref``'s float32, which sums in the
 kernel's own order with separately rounded products and sums. The
 attention versions (``attention_ref``, ``attention_chunked``,
@@ -202,26 +203,34 @@ def frog_step_stream_sorted_ref(pos, die, bits, seg_off, row_off, deg, col):
 
 
 # ---------------------------------------------------------------------------
-# the walk with its own draws (rng="device"): the reference's threefry
-# streams drawn through ``prng``, then the caller-bits step above
+# the kernels with their own draws (rng="device"): the reference's threefry
+# streams drawn through ``prng``'s plain version, then the caller-bits
+# oracles above
 # ---------------------------------------------------------------------------
+
+def slot_bits(key, W: int):
+    """A stitch kernel's slot bits under ``rng="device"`` (int32[W]): walk
+    ``w`` draws ``randint(key, (W,), 0, 2**30)[w]``, as the waves draw
+    their slot offsets ``s0``."""
+    return prng.randint(key, (W,), 0, 1 << 30, impl="torch")
+
 
 def superstep_draws(step_key, p_T: float, N: int):
     """One superstep of the batch walk's draws, as ``core/frogwild.py``
     takes them: ``(k_die, k_move) = split(step_key)``, the death coins
     ``bernoulli(k_die, p_T, (N,))`` and the slot bits ``randint(k_move,
     (N,), 0, 2**30)``; frog ``f`` draws at counter ``f``."""
-    k_die, k_move = prng.split(step_key)
-    return (prng.bernoulli(k_die, p_T, (N,)),
-            prng.randint(k_move, (N,), 0, 1 << 30))
+    k_die, k_move = prng.split(step_key, impl="torch")
+    return (prng.bernoulli(k_die, p_T, (N,), impl="torch"),
+            prng.randint(k_move, (N,), 0, 1 << 30, impl="torch"))
 
 
 def hop_bits(row_keys, step: int, R: int):
     """One hop of the index build's slot bits (int32[C · R]): row ``c``'s
     ``R`` walks draw ``randint(fold_in(row_keys[c], step), (R,), 0,
     2**30)``, walk ``c · R + r`` at counter ``r``."""
-    return prng.randint(prng.fold_in(row_keys, step), (R,), 0,
-                        1 << 30).reshape(-1)
+    return prng.randint(prng.fold_in(row_keys, step, impl="torch"), (R,), 0,
+                        1 << 30, impl="torch").reshape(-1)
 
 
 def frog_superstep_ref(pos, alive, counts, step_key, p_T: float, row_ptr,

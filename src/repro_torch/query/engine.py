@@ -13,7 +13,9 @@ The stitch rounds run in one launch: ``ops.stitch_gather_rounds`` for a
 wave (over a dense slab or a sharded index's stacked blocks),
 ``ops.stitch_step_rounds`` for ``walk_wave`` / ``query_counts`` (the
 rounds with their stop tally), and the wave's per-query histogram
-through ``ops.frog_count``. Key streams are the
+through ``ops.frog_count``. The rounds kernels draw the slot offsets
+``s0`` themselves from the wave's ``k_slot`` (``rng="device"``), and every
+other draw is one ``prng`` launch on the card. Key streams are the
 reference's, so positions and counts are byte-equal to ``repro.query``.
 """
 from __future__ import annotations
@@ -161,8 +163,10 @@ def wave_prep(row_ptr: torch.Tensor, col_idx: torch.Tensor,
               deg: torch.Tensor, start: torch.Tensor, uniform: torch.Tensor,
               t_cap: torch.Tensor, key: torch.Tensor, *, n: int, L: int,
               p_T: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Wave prologue: starts, lengths, residual steps and slot offsets →
-    ``(pos int32[W], q int32[W], s0 int32[W])``."""
+    """Wave prologue: starts, lengths and residual steps → ``(pos
+    int32[W], q int32[W], k_slot)``, ``k_slot`` the key of the slot
+    offsets ``s0 = randint(k_slot, (W,), 0, 2**30)``, which the rounds
+    kernel draws (``rng="device"``)."""
     W = start.shape[0]
     k_start, k_tau, k_walk = prng.split(key, 3)
     pos0 = torch.where(uniform, prng.randint(k_start, (W,), 0, n), start)
@@ -170,8 +174,7 @@ def wave_prep(row_ptr: torch.Tensor, col_idx: torch.Tensor,
     k_res, k_slot = prng.split(k_walk)
     q = tau // L
     pos = _plain_steps(row_ptr, col_idx, deg, pos0, tau % L, k_res, L)
-    s0 = prng.randint(k_slot, pos.shape, 0, 1 << 30)
-    return pos, q, s0
+    return pos, q, k_slot
 
 
 def build_wave_program(spec: WaveSpec) -> Callable[..., torch.Tensor]:
@@ -202,12 +205,14 @@ def build_wave_program(spec: WaveSpec) -> Callable[..., torch.Tensor]:
 
     def wave(slab, row_ptr, col_idx, deg, start, uniform, qid, t_cap, key,
              lost=None):
-        pos, q, s0 = wave_prep(row_ptr, col_idx, deg, start, uniform,
-                               t_cap, key, n=n, L=L, p_T=spec.p_T)
+        pos, q, k_slot = wave_prep(row_ptr, col_idx, deg, start, uniform,
+                                   t_cap, key, n=n, L=L, p_T=spec.p_T)
 
-        # every stitch round in one launch; the wave histograms once, below
-        pos, alive = ops.stitch_gather_rounds(pos, q, s0, slab, spec.q_max,
-                                              lost, S, sz, impl=spec.impl)
+        # every stitch round in one launch, s0 drawn in it; the wave
+        # histograms once, below
+        pos, alive = ops.stitch_gather_rounds(pos, q, k_slot, slab,
+                                              spec.q_max, lost, S, sz,
+                                              impl=spec.impl, rng="device")
         if alive is not None:
             qid = torch.where(alive, qid, Q)     # dead walks → discard row
         counts = ops.frog_count(pos + qid * n, (Q + 1) * n,
@@ -226,15 +231,15 @@ def walk_wave(row_ptr: torch.Tensor, col_idx: torch.Tensor,
     ``(final_pos int32[W], stop_counts int32[n])``. Round ``j`` tallies the
     walks with ``q == j`` while gathering the next segment for the rest;
     round ``num_rounds`` only tallies. All ``num_rounds + 1`` rounds run in
-    one ``ops.stitch_step_rounds`` call."""
+    one ``ops.stitch_step_rounds`` call, which draws the slot offsets from
+    ``k_slot`` itself."""
     L = segment_len
     n = deg.shape[0]
     k_res, k_slot = prng.split(key)
     q = tau // L
     pos = _plain_steps(row_ptr, col_idx, deg, pos0, tau % L, k_res, L)
-    s0 = prng.randint(k_slot, pos.shape, 0, 1 << 30)
-    return ops.stitch_step_rounds(pos, q, s0, endpoints, n, num_rounds,
-                                  impl=impl)
+    return ops.stitch_step_rounds(pos, q, k_slot, endpoints, n, num_rounds,
+                                  impl=impl, rng="device")
 
 
 def query_counts(g: CSRGraph, index: WalkIndex, plan: QueryPlan,

@@ -429,14 +429,14 @@ class QueryScheduler:
         Q, sz = Q_b, self._sz
 
         def wave(start, uniform, qid, t_cap, key, lost, lost_host=None):
-            pos, q, s0 = wave_prep(g.row_ptr, g.col_idx, g.out_deg, start,
-                                   uniform, t_cap, key, n=g.n,
-                                   L=index.segment_len, p_T=self.p_T)
+            pos, q, k_slot = wave_prep(g.row_ptr, g.col_idx, g.out_deg,
+                                       start, uniform, t_cap, key, n=g.n,
+                                       L=index.segment_len, p_T=self.p_T)
             if lost is not None and lost_host is None:
                 lost_host = lost.tolist()
             pos, alive = ops.stitch_gather_local_rounds(
-                pos, q, s0, self._block_table(), self._q_max, lost,
-                impl=self.impl, lost_host=lost_host)
+                pos, q, k_slot, self._block_table(), self._q_max, lost,
+                impl=self.impl, lost_host=lost_host, rng="device")
             if alive is not None:
                 qid = torch.where(alive, qid, Q)  # dead walks → discard bin
             parts = rt.map_shards(

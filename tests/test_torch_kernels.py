@@ -16,6 +16,8 @@ where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -347,10 +349,18 @@ def test_cuda_loop_wave_and_query_counts_one_launch(cuda):
         out[str(dev)] = (answers, counts.cpu(), serve, single, waves)
     answers, counts, serve, single, waves = out[str(cuda)]
     assert waves >= 1
+    # one launch a draw (the slot offsets drawn in the rounds kernels):
+    # the scheduler's split, wave_prep's three splits, start randint,
+    # length uniform and L = 3 residual randints; query_counts' the same
+    # but the scheduler's split
     assert serve == {**{k: 0 for k in serve},
                      "stitch_gather_local_rounds": waves,
-                     "frog_count": S * waves}
-    assert single == {**{k: 0 for k in single}, "stitch_step_rounds": 1}
+                     "frog_count": S * waves, "threefry_split": 4 * waves,
+                     "threefry_randint": 4 * waves,
+                     "threefry_uniform": waves}
+    assert single == {**{k: 0 for k in single}, "stitch_step_rounds": 1,
+                      "threefry_split": 3, "threefry_randint": 4,
+                      "threefry_uniform": 1}
     assert torch.equal(counts, out["cpu"][1])
     for (va, sa), (vb, sb) in zip(answers, out["cpu"][0]):
         assert (va == vb).all() and (sa == sb).all()
@@ -634,7 +644,7 @@ def test_cuda_refused_launch_raises(cuda):
     walks; the slab product's grid is persistent and never that large.)"""
     with pytest.raises(RuntimeError, match="stitch_gather: kernel launch "
                                            "failed with CUDA error"):
-        ops._launch("stitch_gather", cuda, 0, 0, 0, 0, 1 << 39, 16)
+        ops._launch("stitch_gather", cuda, 0, 0, 0, 0, 0, 1 << 39, 16)
 
 
 @pytest.mark.cuda
@@ -806,8 +816,12 @@ def test_cuda_walks_one_launch_per_superstep_and_hop(cuda, step_impl):
     counts, slab, walk, build = out[str(cuda)]
     step = DRAW_ENTRY[("superstep", step_impl)]
     hop = DRAW_ENTRY[("hop", step_impl)]
-    assert walk == {**{k: 0 for k in walk}, step: t, "frog_count": 1}
-    assert build == {**{k: 0 for k in build}, hop: 3 * 3}
+    # the walk's two splits and start randint, and one fold_in of the row
+    # keys a build shard, each one launch
+    assert walk == {**{k: 0 for k in walk}, step: t, "frog_count": 1,
+                    "threefry_split": 2, "threefry_randint": 1}
+    assert build == {**{k: 0 for k in build}, hop: 3 * 3,
+                     "threefry_fold_in": 3}
     assert torch.equal(counts, out["cpu"][0])
     assert torch.equal(slab, out["cpu"][1])
     assert sum(out["cpu"][2].values()) == sum(out["cpu"][3].values()) == 0
@@ -903,3 +917,223 @@ def test_cuda_degraded_local_rounds_make_no_host_sync(cuda):
                                                lost)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert not bool(got[1].all())
+
+
+# --- the threefry draws and the stitch kernels' rng="device" ----------------
+
+DRAW_SIZES = [0, 1, 1023, 1025, 2 ** 20 + 3]
+
+
+def _draw_cases(key, size):
+    """``(kernel name, draw(impl))`` of every ``prng`` draw at ``size``
+    elements a key."""
+    from repro_torch import prng
+    data = torch.arange(size, device=key.device) - size // 2
+    return [
+        ("threefry_bits", lambda impl: prng.random_bits(key, (size,), impl)),
+        ("threefry_randint", lambda impl: prng.randint(key, (size,), 0,
+                                                       1 << 30, impl)),
+        ("threefry_randint", lambda impl: prng.randint(key, (size,), 0,
+                                                       4_847_571, impl)),
+        ("threefry_uniform", lambda impl: prng.uniform(key, (size,), impl)),
+        ("threefry_bernoulli", lambda impl: prng.bernoulli(key, 0.15,
+                                                           (size,), impl)),
+        ("threefry_split", lambda impl: prng.split(key, size, impl)),
+        ("threefry_fold_in", lambda impl: prng.fold_in(key, data, impl)),
+    ]
+
+
+def _same(got, want):
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and torch.equal(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", DRAW_SIZES)
+def test_cuda_draws_match_plain(cuda, size):
+    """Each draw on a CUDA key is one launch of its kernel (none when
+    empty), byte-equal to the plain torch version on the same key, its
+    dtype and shape included."""
+    from repro_torch import prng
+    key = prng.PRNGKey(size + 17, cuda)
+    for name, draw in _draw_cases(key, size):
+        before = ops.launch_counts()[name]
+        got = draw("auto")
+        assert ops.launch_counts()[name] == before + (1 if size else 0)
+        assert _same(got, draw("torch")), (name, size)
+        assert ops.launch_counts()[name] == before + (1 if size else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [(5,), (3, 4)])
+def test_cuda_draws_batched_keys_match_plain(cuda, batch):
+    """Batched keys (``[5, 2]``, ``[3, 4, 2]``): every draw gains the batch
+    dimensions in front; ``fold_in`` with a scalar, with one datum a key
+    and with data broadcast against the batch."""
+    from repro_torch import prng
+    keys = prng.split(prng.PRNGKey(3, cuda), math.prod(batch)).reshape(
+        batch + (2,))
+    per_key = torch.arange(math.prod(batch), dtype=torch.int32,
+                           device=cuda).reshape(batch) - 7
+    wide = torch.arange(6, device=cuda).reshape((6,) + (1,) * len(batch))
+    for shape in [(7,), (3, 5), (0,)]:
+        for draw in (lambda i: prng.random_bits(keys, shape, i),
+                     lambda i: prng.randint(keys, shape, -3, 1000, i),
+                     lambda i: prng.randint(keys, shape, 0, 1 << 30, i),
+                     lambda i: prng.uniform(keys, shape, i),
+                     lambda i: prng.bernoulli(keys, 0.7, shape, i)):
+            got = draw("cuda")
+            assert got.shape == batch + shape
+            assert _same(got, draw("torch"))
+    for draw in (lambda i: prng.split(keys, 3, i),
+                 lambda i: prng.fold_in(keys, 11, i),
+                 lambda i: prng.fold_in(keys, per_key, i),
+                 lambda i: prng.fold_in(keys, wide, i)):
+        assert _same(draw("cuda"), draw("torch"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lo,hi", [
+    (0, 1), (0, 2), (0, 65_536), (0, 65_537), (0, 1 << 30), (0, 4_847_571),
+    (-5, 100), (-(1 << 31), (1 << 31) - 1), (10, 10), (10, 3)])
+def test_cuda_randint_spans_match_plain(cuda, lo, hi):
+    """``randint`` over spans that keep and drop the high stream (2**16 and
+    2**16 + 1), a negative ``minval``, the whole int32 range and ``maxval ≤
+    minval``."""
+    from repro_torch import prng
+    for seed in (0, 2 ** 32 - 1):
+        key = prng.PRNGKey(seed, cuda)
+        got = prng.randint(key, (4099,), lo, hi, impl="cuda")
+        assert _same(got, prng.randint(key, (4099,), lo, hi, impl="torch"))
+        if hi <= lo:
+            assert bool((got == lo).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [0.0, 0.15, 0.7, 1.0])
+def test_cuda_bernoulli_matches_plain(cuda, p):
+    from repro_torch import prng
+    key = prng.PRNGKey(5, cuda)
+    got = prng.bernoulli(key, p, (16, 1025), impl="cuda")
+    assert _same(got, prng.bernoulli(key, p, (16, 1025), impl="torch"))
+    if p in (0.0, 1.0):
+        assert bool((got == (p == 1.0)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_cuda_fold_in_data_types_match_plain(cuda, dtype):
+    """Per-element ``fold_in`` over int32 and int64 data, negatives and
+    values past 2**32 (taken mod 2**32) included."""
+    from repro_torch import prng
+    key = prng.PRNGKey(9, cuda)
+    info = torch.iinfo(dtype)
+    data = torch.tensor([0, 1, -1, info.min, info.max, -12345, 2 ** 31 - 1],
+                        dtype=dtype, device=cuda)
+    assert _same(prng.fold_in(key, data, "cuda"),
+                 prng.fold_in(key, data, "torch"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num", [1, 2, 3, 32])
+def test_cuda_split_and_categorical_match_plain(cuda, num):
+    from repro_torch import prng
+    key = prng.PRNGKey(num, cuda)
+    assert _same(prng.split(key, num, "cuda"), prng.split(key, num, "torch"))
+    logits = torch.randn(4, 128, generator=torch.Generator().manual_seed(
+        num)).to(cuda)
+    assert _same(prng.categorical(key, logits, "cuda"),
+                 prng.categorical(key, logits, "torch"))
+
+
+@pytest.mark.cuda
+def test_cuda_draws_make_no_host_sync(cuda):
+    """Every draw on a CUDA key, under ``set_sync_debug_mode("error")``:
+    the key is read on the card, nothing comes back to the host."""
+    from repro_torch import prng
+    key = prng.PRNGKey(1, cuda)
+    keys = prng.split(key, 6)
+    data = torch.arange(100, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [draw("auto") for _, draw in _draw_cases(key, 4096)]
+        outs += [prng.randint(keys, (16,), 0, 1 << 30),
+                 prng.fold_in(keys[:, None], data),
+                 prng.categorical(key, torch.zeros(4, 128, device=cuda))]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert all(o.is_cuda for o in outs)
+
+
+def _stitch_device_inputs(cuda, W, n=4099, R=16, S=4, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    sz = -(-n // S)
+    slab = torch.randint(0, n, (S * sz, R), generator=g, dtype=torch.int32)
+    pos = torch.randint(0, n, (W,), generator=g, dtype=torch.int32)
+    q = torch.randint(0, 10, (W,), generator=g, dtype=torch.int32)
+    stop = torch.randint(0, 2, (W,), generator=g, dtype=torch.int32)
+    return [t.to(cuda) for t in (slab, pos, q, stop)] + [sz]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 8192, 100_003])
+def test_cuda_stitch_device_rng_matches_caller(cuda, W):
+    """Every stitch kernel under ``rng="device"`` (the wave's key in place
+    of the bits) against its caller mode fed ``randint(key, (W,), 0,
+    2**30)``, byte for byte, one launch each: the per-round kernels, the
+    rounds kernels with and without a lost shard, and the loop wave's
+    rounds over a table with the lost shard's entry null."""
+    from repro_torch import prng
+    slab, pos, q, stop, sz = _stitch_device_inputs(cuda, W, seed=W)
+    n, S, q_max = 4099, 4, 8
+    key = prng.PRNGKey(W, cuda)
+    s0 = prng.randint(key, (W,), 0, 1 << 30, impl="torch")
+    lost = torch.tensor([False, False, True, False], device=cuda)
+    blocks = [slab[s * sz:(s + 1) * sz].clone() for s in range(S)]
+    table = ops.block_table(blocks)
+    holed = ops.block_table([None if s == 2 else b
+                             for s, b in enumerate(blocks)])
+    block, base = blocks[1], sz
+    cases = {
+        "stitch_gather": lambda b, m: ops.stitch_gather(pos, b, slab,
+                                                        rng=m),
+        "stitch_step": lambda b, m: ops.stitch_step(pos, stop, b, slab, n,
+                                                    rng=m),
+        "stitch_gather_local": lambda b, m: ops.stitch_gather_local(
+            pos, b, block, base, rng=m),
+        "stitch_step_local": lambda b, m: ops.stitch_step_local(
+            pos, stop, b, block, base, rng=m),
+        "stitch_gather_rounds": lambda b, m: ops.stitch_gather_rounds(
+            pos, q, b, slab, q_max, rng=m),
+        "stitch_step_rounds": lambda b, m: ops.stitch_step_rounds(
+            pos, q, b, slab[:n], n, q_max, rng=m),
+        "stitch_gather_local_rounds": lambda b, m:
+            ops.stitch_gather_local_rounds(pos, q, b, table, q_max, rng=m),
+    }
+    lost_cases = {
+        "stitch_gather_rounds": lambda b, m: ops.stitch_gather_rounds(
+            pos, q, b, slab, q_max, lost, S, sz, rng=m),
+        "stitch_gather_local_rounds": lambda b, m:
+            ops.stitch_gather_local_rounds(
+                pos, q, b, holed, q_max, lost,
+                lost_host=[False, False, True, False], rng=m),
+    }
+    for name, call in [*cases.items(), *lost_cases.items()]:
+        before = ops.launch_counts()
+        got = call(key, "device")
+        after = ops.launch_counts()
+        assert after[name] == before[name] + 1, name
+        assert all(after[k] == before[k] for k in ops.DRAW_KERNELS), name
+        want = call(s0, "caller")
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or torch.equal(a, b), name
+    # the plain version of the device mode draws s0 through prng's plain
+    # version
+    plain = ops.stitch_gather_rounds(pos, q, key, slab, q_max, impl="torch",
+                                     rng="device")
+    assert torch.equal(plain[0], cases["stitch_gather_rounds"](
+        key, "device")[0])
