@@ -5,7 +5,7 @@
 
 Drives the port's main paths once through the entry points a user calls:
 FrogWild! at LiveJournal scale (n = 4,847,571, avg out-degree 14.2,
-θ = 2.2, seed 0; ``src/repro/configs/frogwild_graphs.py``) and the LM
+θ = 2.2, seed 0; ``repro_torch.configs.LIVEJOURNAL_FULL``) and the LM
 stack's dense serving path at llama3.2-1b's full width. It checks every
 answer against its guarantee:
 
@@ -42,8 +42,10 @@ answer against its guarantee:
               it and answers phase 5's queries byte for byte; phase 8's
               blocks persisted one dir a shard, shards 2 and 5 corrupted
               and truncated by a ``FaultPlan``, quarantined and rebuilt
-              through ``frog_hop`` (2 × L launches, the blocks byte-equal
-              to the originals; the repair's and a full build's times);
+              through ``frog_hop`` (2 × L launches, the blocks and their
+              visited-block masks byte-equal to the originals; the
+              repair's and a full build's times; the checkpoints hold the
+              masks, so their bytes are logged beside the slab's);
               phase 8's queries under a transient fault and an injected
               timeout (byte-equal, two retries logged), under the loss of
               shard 3 at wave 1 through the fused and the loop wave
@@ -55,6 +57,22 @@ answer against its guarantee:
               against its plain version, event-timed with the mask's host
               copy and without it. The checkpoints live in a temporary
               directory, removed at the end;
+18. dynamic — (runs after phase 17) the reference benchmark's mutation
+              batch (``benchmarks/bench_query.py``: inserts ``(v, (v·7 +
+              13) mod n)`` over the block-aligned window of ``n // 100``
+              vertices with the fewest in-edges) compacted into epoch 1;
+              phase 5's index refreshed (``refresh_walk_index``, the stale
+              rows re-walked through ``frog_hop`` with their masks) and the
+              8-shard fused service's blocks refreshed through
+              ``frog_hop_stream_sorted``, each byte-equal (endpoints and
+              masks) to a full build at epoch 1, with the refresh's and the
+              full build's times and launches; phase 5's 8 queries on a
+              service of their own, one wave stepped, ``apply_mutations``,
+              then drained: each answer byte-equal to phase 5's and at
+              epoch 0, a fresh query at epoch 1; the refreshed index
+              through ``save_epoch_index`` / ``load_epoch_index`` (bytes,
+              seconds); and a 100,000-vertex build and refresh on the card
+              and on the CPU, resident and streamed, byte-equal masks;
 9. erasure  — the quickstart's partial-synchronization walk
               (``examples/quickstart.py``: 400,000 frogs, t =
               ``suggested_steps(μ_20(π))``, p_s = 0.7, channel erasure over
@@ -99,9 +117,11 @@ answer against its guarantee:
               bound and launches; the draw kernels (``frog_superstep`` and
               its streamed twin over the batch walk's 32 supersteps of
               400,000 frogs, ``frog_hop`` and its twin at one build
-              shard's 9.7 M walks) byte-equal to their plain versions at
-              every step, with byte and operation bounds from the run's
-              states, planted wrong streams (``k_die`` and ``k_move``
+              shard's 9.7 M walks, and the shard's whole segment walk
+              recording its visited-block masks, rows
+              ``frog_hop:masks`` and ``frog_hop_stream_sorted:masks``)
+              byte-equal to their plain versions at every step, with
+              byte and operation bounds from the run's states, planted wrong streams (``k_die`` and ``k_move``
               swapped, the sorted index as counter) that the gate must
               see, and the same walk with the caller's draws
               (``prng`` outside, the caller-bits ``frog_step``); the 8
@@ -161,8 +181,10 @@ queries of phase 8 (the streamed and sharded paths), reset just before
 phase 9 and read just after phase 10's ELL power iteration (the erasure
 walks and the GraphLab-PR baseline), reset just before the 32k forward of
 phase 14 and read just after it, reset just before phase 15's
-scheduler run and read just after it, and in phase 17 reset just before
-the repair and each degraded service's queries and read just after each;
+scheduler run and read just after it, in phase 17 reset just before
+the repair and each degraded service's queries and read just after each,
+and in phase 18 (this slice's path) reset just before each refresh and
+the pinned service's run and read just after each;
 phases 6, 11, 12 and 13 reset them around each run whose draw launches
 they count.
 The last line is ``{"ok": true, "device": {...}}``; any failed check or
@@ -181,7 +203,14 @@ import warnings
 REPO = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(REPO, "src")
 
-LJ = dict(n=4_847_571, avg_out_deg=14.2, theta=2.2, seed=0)
+
+def livejournal():
+    """The LiveJournal workload's config (``repro_torch.configs.
+    LIVEJOURNAL_FULL``), imported once the port is on the path."""
+    from repro_torch.configs import LIVEJOURNAL_FULL
+    return LIVEJOURNAL_FULL
+
+
 # examples/quickstart.py: N = 400,000 frogs, p_s = 0.7, channel erasure over
 # 16 destination shards, accuracy at k = 20
 QUICKSTART = dict(num_frogs=400_000, p_s=0.7, shards=16, k=20)
@@ -343,8 +372,9 @@ def phase_build():
 def phase_data(dev):
     from repro_torch.graph import chung_lu_powerlaw
     t0 = time.perf_counter()
-    g = chung_lu_powerlaw(LJ["n"], avg_out_deg=LJ["avg_out_deg"],
-                          theta=LJ["theta"], seed=LJ["seed"])
+    lj = livejournal()
+    g = chung_lu_powerlaw(lj.n, avg_out_deg=lj.avg_out_deg, theta=lj.theta,
+                          seed=lj.seed)
     t_gen = time.perf_counter() - t0
     g = g.to(dev)
     log("3 data", n=g.n, nnz=g.nnz, gen_s=t_gen,
@@ -659,12 +689,16 @@ def phase_faults(g, sharded, dense_results, hubs, dev):
         loaded = svc.ensure_index()
         sync()
         t_load = time.perf_counter() - t0
-        index_eq = torch.equal(loaded.endpoints, built.endpoints)
+        index_eq = (torch.equal(loaded.endpoints, built.endpoints)
+                    and torch.equal(loaded.visited_blocks.view(torch.int32),
+                                    built.visited_blocks.view(torch.int32)))
         same = answers_equal(dense_results, [
             h.result() for h in submit_queries(svc, hubs)])
         svc.close()
         log("17 checkpoint_dense", build_and_persist_s=t_persist,
-            save_s=t_save, bytes_written=written, load_s=t_load,
+            save_s=t_save, bytes_written=written,
+            endpoint_bytes=built.endpoints.numel() * 4,
+            mask_bytes=built.visited_blocks.numel() * 4, load_s=t_load,
             index_equal=index_eq, answers_equal_phase5=same)
         assert index_eq and same, "the loaded dense index serves otherwise"
 
@@ -674,9 +708,9 @@ def phase_faults(g, sharded, dense_results, hubs, dev):
         sync()
         t0 = time.perf_counter()
         for s in range(SHARDS):
-            qindex.save_walk_index_shard(ds, s, SHARDS, orig.n,
-                                         orig.blocks[s], orig.segment_len,
-                                         orig.seed)
+            qindex.save_walk_index_shard(
+                ds, s, SHARDS, orig.n, orig.blocks[s], orig.segment_len,
+                orig.seed, visited_blocks=orig.visited_blocks[s])
         t_shards = time.perf_counter() - t0
         written = dir_bytes(ds)
         svc = FrogWildService.open(g, RuntimeConfig(
@@ -694,6 +728,8 @@ def phase_faults(g, sharded, dense_results, hubs, dev):
         log("launches", path="faults_repair", **launches)
         L = svc.config.serving.segment_len
         blocks_eq = torch.equal(repaired.blocks, orig.blocks)
+        masks_eq = torch.equal(repaired.visited_blocks.view(torch.int32),
+                               orig.visited_blocks.view(torch.int32))
         quarantined = sorted(x for x in os.listdir(ds)
                              if x.startswith("quarantine"))
         cfg = svc.config.walk_index()
@@ -711,10 +747,12 @@ def phase_faults(g, sharded, dense_results, hubs, dev):
         log("17 checkpoint_shards", shards=SHARDS, save_s=t_shards,
             bytes_written=written, repair_s=t_repair, rebuild_2_shards_s=
             t_rebuild, full_build_s=t_full, frog_hop=launches["frog_hop"],
-            blocks_equal=blocks_eq, quarantined=json.dumps(quarantined))
+            blocks_equal=blocks_eq, masks_equal=masks_eq,
+            quarantined=json.dumps(quarantined))
         assert launches["frog_hop"] == 2 * L, launches
         assert launches["frog_hop_stream_sorted"] == 0, launches
         assert blocks_eq, "repaired blocks differ from the originals"
+        assert masks_eq, "repaired masks differ from the originals"
         assert quarantined == ["quarantine.shard_0002",
                                "quarantine.shard_0005"], quarantined
 
@@ -830,6 +868,194 @@ def phase_faults(g, sharded, dense_results, hubs, dev):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def mutation_window(g):
+    """The reference benchmark's mutation batch
+    (``benchmarks/bench_query.py``'s incremental-refresh row): inserts
+    ``(v, (v·7 + 13) mod n)`` over the block-aligned window of ``n // 100``
+    vertices with the fewest in-edges."""
+    import numpy as np
+    from repro_torch.dynamic import MutationBatch
+    from repro_torch.kernels.ref import segment_mask_block_size
+    n = g.n
+    indeg = np.bincount(g.col_idx.cpu().numpy(), minlength=n)
+    w = max(1, n // 100)
+    cs = np.concatenate([[0], np.cumsum(indeg)])
+    starts = np.arange(0, n - w + 1, segment_mask_block_size(n))
+    lo = int(starts[np.argmin((cs[w:] - cs[:-w])[starts])])
+    return lo, w, MutationBatch.edges(
+        insert=[(v, (v * 7 + 13) % n) for v in range(lo, lo + w)])
+
+
+def index_equal(a, b) -> bool:
+    """Two walk indexes (dense or sharded) equal in endpoints and masks."""
+    import torch
+    ep = ("blocks" if hasattr(a, "blocks") else "endpoints")
+    return (torch.equal(getattr(a, ep), getattr(b, ep))
+            and torch.equal(a.visited_blocks.view(torch.int32),
+                            b.visited_blocks.view(torch.int32)))
+
+
+def phase_dynamic(g, index, sharded, dense_results, hubs, dev):
+    """Dynamic graphs at LiveJournal scale (phase 18): the reference
+    benchmark's mutation batch applied; phase 5's index and the 8-shard
+    fused service's blocks refreshed, each against a full build at epoch
+    1 (endpoints and masks); phase 5's 8 queries pinned across
+    ``apply_mutations`` on a service of their own, against phase 5's
+    answers; the refreshed index through its epoch checkpoint; the masks
+    of a 100,000-vertex build and refresh on the card against the CPU's.
+    Returns the launch counts of the refreshes and the service run."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import FrogWildService, RuntimeConfig
+    from repro_torch.dynamic import (apply_mutations, load_epoch_index,
+                                     refresh_walk_index, save_epoch_index)
+    from repro_torch.graph import chung_lu_powerlaw
+    from repro_torch.kernels import ops
+    from repro_torch.query.index import _build_walk_index, shard_walk_index
+    lo, w, batch = mutation_window(g)
+    t0 = time.perf_counter()
+    g2, changed = apply_mutations(g, batch)
+    sync()
+    t_apply = time.perf_counter() - t0
+    log("18 mutations", window_lo=lo, window=w, inserts=batch.size,
+        changed=int(changed.size), nnz=g.nnz, nnz_new=g2.nnz,
+        epoch=g2.epoch, apply_s=t_apply)
+    assert g2.epoch == 1 and g2.nnz == g.nnz + w and changed.size == w
+
+    ops.reset_launch_counts()
+    cfg = RuntimeConfig().walk_index()
+    sync()
+    t0 = time.perf_counter()
+    full = _build_walk_index(g2, cfg)
+    sync()
+    t_full = time.perf_counter() - t0
+    build_hops = ops.launch_counts()["frog_hop"]
+    refreshed = {}
+    for what, chunk in (("refresh", 4096),
+                        ("refresh_shard_chunk", -(-g.n // cfg.num_shards))):
+        ops.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        new, report = refresh_walk_index(index, g2, changed, chunk=chunk)
+        sync()
+        t_refresh = time.perf_counter() - t0
+        hops = ops.launch_counts()["frog_hop"]
+        equal = index_equal(new, full)
+        log("18 " + what, chunk=chunk, **dataclasses.asdict(report),
+            stale_row_share=report.stale_rows / report.n,
+            stale_segment_share=report.stale_segments
+            / report.total_segments, refresh_s=t_refresh,
+            full_build_s=t_full, frog_hop=hops, full_build_frog_hop=
+            build_hops, equal_full_build=equal)
+        assert equal, "the refreshed index differs from a full build"
+        assert hops == cfg.segment_len * -(-report.stale_rows // chunk)
+        refreshed[what] = new
+    new = refreshed.pop("refresh")
+    del refreshed
+
+    # the 8-shard fused service's blocks, refreshed through the streamed
+    # hop kernel over the new graph's BlockedCSR
+    blocks = sharded["fused"].ensure_index()
+    ops.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    new_sh, report_sh = refresh_walk_index(blocks, g2, changed,
+                                           step_impl="stream")
+    sync()
+    t_sh = time.perf_counter() - t0
+    launches_sh = ops.launch_counts()
+    equal = index_equal(new_sh, shard_walk_index(full, SHARDS))
+    log("18 refresh_sharded", shards=new_sh.num_shards,
+        stale_rows=report_sh.stale_rows, refresh_s=t_sh,
+        frog_hop_stream_sorted=launches_sh["frog_hop_stream_sorted"],
+        equal_full_build=equal)
+    assert equal and new_sh.num_shards == SHARDS, \
+        "the refreshed blocks differ from a full build"
+    assert launches_sh["frog_hop_stream_sorted"] > 0, launches_sh
+    del new_sh, blocks
+
+    # phase 5's queries pinned across apply_mutations, on their own service
+    ops.reset_launch_counts()
+    svc = FrogWildService.open(g, RuntimeConfig(), index=index)
+    handles = submit_queries(svc, hubs)
+    svc.step()
+    sync()
+    t0 = time.perf_counter()
+    report_svc = svc.apply_mutations(batch)
+    sync()
+    t_commit = time.perf_counter() - t0
+    retiring = svc.retiring_epochs
+    svc.drain()
+    pinned = [h.result() for h in handles]
+    fresh = svc.topk(k=10, epsilon=0.3).result()
+    launches = ops.launch_counts()
+    log("launches", path="dynamic", **launches)
+    same = answers_equal(dense_results, pinned)
+    served = svc.ensure_index()
+    log("18 pinned", queries=len(pinned), apply_mutations_s=t_commit,
+        stale_rows=report_svc.stale_rows, retiring_at_commit=json.dumps(
+            retiring), epochs=json.dumps([r.epoch for r in pinned]),
+        equal_never_mutated=same, fresh_epoch=fresh.epoch,
+        retiring_after_drain=json.dumps(svc.retiring_epochs),
+        served_equal_full_build=index_equal(served, full))
+    assert same and all(r.epoch == 0 for r in pinned), \
+        "a pinned query changed across the epoch commit"
+    assert retiring == [0] and svc.retiring_epochs == []
+    assert fresh.epoch == 1 and svc.graph_epoch == 1
+    assert index_equal(served, full), "the committed slab is not epoch 1's"
+    assert launches["frog_hop"] > 0, launches
+    svc.close()
+    del served
+
+    # the epoch checkpoint of the refreshed index
+    tmp = tempfile.mkdtemp(prefix="frogwild_epochs_")
+    try:
+        sync()
+        t0 = time.perf_counter()
+        d = save_epoch_index(tmp, new)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = load_epoch_index(tmp, 1, device=dev)
+        sync()
+        t_load = time.perf_counter() - t0
+        equal = index_equal(back, new) and back.graph_epoch == 1
+        log("18 epoch_checkpoint", bytes_written=dir_bytes(d), save_s=t_save,
+            load_s=t_load, round_trip_equal=equal)
+        assert equal, "the epoch checkpoint does not round-trip"
+        del back
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del new, full
+
+    # the masks of a 100,000-vertex build and refresh: card against CPU
+    lj = livejournal()
+    small = chung_lu_powerlaw(100_000, avg_out_deg=lj.avg_out_deg,
+                              theta=lj.theta, seed=2)
+    _, _, sbatch = mutation_window(small)
+    for step_impl in ("auto", "stream"):
+        scfg = dataclasses.replace(cfg, step_impl=step_impl)
+        out = {}
+        for where in (dev, "cpu"):
+            gs = small.to(where)
+            idx = _build_walk_index(gs, scfg)
+            gs2, ch = apply_mutations(gs, sbatch)
+            out[str(where)] = (idx, refresh_walk_index(
+                idx, gs2, ch, step_impl=step_impl)[0])
+        card, cpu = out[str(dev)], out["cpu"]
+        equal = all(torch.equal(a.endpoints.cpu(), b.endpoints) and
+                    torch.equal(a.visited_blocks.view(torch.int32).cpu(),
+                                b.visited_blocks.view(torch.int32))
+                    for a, b in zip(card, cpu))
+        log("18 masks_cpu", n=small.n, step_impl=step_impl,
+            nonzero_words=int((cpu[0].visited_blocks.view(torch.int32)
+                               != 0).sum()), byte_equal=equal)
+        assert equal, f"{step_impl}: the card's masks differ from the CPU's"
+    return {"frog_hop": launches["frog_hop"],
+            "frog_hop_stream_sorted": launches_sh["frog_hop_stream_sorted"]}
+
+
 def erasure_config(model, draw, N, t, p_s=QUICKSTART["p_s"]):
     from repro_torch import KernelConfig, RuntimeConfig, ShardConfig
     return RuntimeConfig(num_frogs=N, num_steps=t, p_s=p_s, erasure=model,
@@ -912,8 +1138,9 @@ def phase_erasure_cpu():
     from repro_torch import FrogWildService
     from repro_torch.graph import chung_lu_powerlaw
     from repro_torch.kernels import ops
-    g = chung_lu_powerlaw(100_000, avg_out_deg=LJ["avg_out_deg"],
-                          theta=LJ["theta"], seed=1)
+    lj = livejournal()
+    g = chung_lu_powerlaw(100_000, avg_out_deg=lj.avg_out_deg,
+                          theta=lj.theta, seed=1)
     N, t = 160_000, 8
     for model in ("channel", "independent"):
         for draw in ("auto", "rejection", "cumsum"):
@@ -1659,6 +1886,61 @@ def draw_rows(svc, g, blocked, row, dev):
             lambda: kref.frog_hop_ref(last, row_keys, L - 1, R, *graph[:3]),
             hop[key + "bytes"] + 8 * W,
             blocks=3 * W if key else hop["blocks"])
+
+    # the segment walk with its masks, as the build, the repair and the
+    # refresh run it: the shard's L hops from the start, hops 0 … L − 2
+    # recording the visited-block masks, byte-equal at every hop. Bound:
+    # the start copied, each hop's 8 B a walk, row keys and scattered
+    # sectors, and the masks written once (32 B a walk)
+    bs = kref.segment_mask_block_size(n)
+    seg = {"bytes": 40 * W, "stream_bytes": 40 * W}
+    bufs = {impl: (torch.empty_like(start), torch.empty(
+        W, kref.MASK_WORDS, dtype=torch.uint32, device=dev))
+        for impl in ("cuda", "stream")}
+
+    def segment_walk(impl, upto=L):
+        pos, vis = bufs[impl]
+        pos.copy_(start)
+        for step in range(upto):
+            ops.frog_hop(pos, row_keys, step, R, *graph, impl=impl,
+                         blocked=blocked, visited=vis, record=step < L - 1)
+        return pos, vis.view(torch.int32)
+
+    def segment_walk_plain(upto=L):
+        pos, vis = start, None
+        for step in range(upto):
+            pos = kref.frog_hop_ref(pos, row_keys, step, R, *graph[:3])
+            vis = kref.hop_visits(vis, pos, step, step < L - 1, bs)
+        return pos, vis
+
+    for step in range(L):
+        p = segment_walk_plain(step)[0].long()
+        d = g.out_deg[p]
+        b = kref.hop_bits(row_keys, step, R)
+        e = g.row_ptr[p[d > 0]].long() + torch.remainder(
+            b[d > 0], d[d > 0]).long()
+        seg["bytes"] += 8 * W + 16 * C + 32 * (sectors(p) + sectors(
+            p[d > 0]) + sectors(e))
+        seg["stream_bytes"] += 32 * W + 16 * C + 32 * sectors(e) + 8 * bv \
+            * int(torch.unique(p // bv).numel())
+        want = segment_walk_plain(step + 1)
+        for impl in ("cuda", "stream"):
+            got = segment_walk(impl, step + 1)
+            assert torch.equal(got[0], want[0]) and torch.equal(
+                got[1], want[1]), f"{impl} hop {step} with masks differs"
+    log("12 hop_masks", rows=C, R=R, walks=W, hops=L, mask_block=bs,
+        mask_bytes=4 * want[1].numel(),
+        nonzero_words=int((want[1] != 0).sum()),
+        byte_equal_every_hop=True)
+    for name, impl, key in (("frog_hop", "cuda", ""),
+                            ("frog_hop_stream_sorted", "stream", "stream_")):
+        row(name + ":masks", f"src/repro_torch/kernels/csrc/"
+            f"{'frog_step_stream' if key else 'frog_step'}.cu",
+            "src/repro/kernels/frog_step_stream.py:215" if key
+            else "src/repro/kernels/frog_step.py:84",
+            lambda impl=impl: segment_walk(impl), segment_walk_plain,
+            seg[key + "bytes"],
+            blocks=L * (3 * W if key else hop["blocks"]))
 
 
 def no_host_sync(fn):
@@ -2621,6 +2903,12 @@ def main() -> int:
         ssc.build_shards * ssc.segment_len, launches2
     phase_lost_wave(sharded, hubs, dev)
     phase_faults(g, sharded, results, hubs, dev)
+    log("17 peak", peak_mem_bytes_so_far=torch.cuda.max_memory_allocated())
+    # this slice's path: mutations, refresh and the epoch commit
+    dyn_launches = phase_dynamic(g, index, sharded, results, hubs, dev)
+    log("18 peak", peak_mem_bytes_so_far=torch.cuda.max_memory_allocated())
+    for k, v in dyn_launches.items():
+        launches[k + ":masks"] = v
     for k in ("frog_step_stream_sorted", "frog_superstep_stream_sorted",
               "frog_hop_stream_sorted", "stitch_gather_local",
               "stitch_gather_local_rounds", "stitch_step_local"):
@@ -2643,7 +2931,7 @@ def main() -> int:
     phase_erasure_cpu()
     # the LM stack: llama3.2-1b's 32k prefill forward, its serving loop,
     # and the reduced model's tokens against the CPU's
-    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.registry import get_config, reduced_config
     lm_cfg = get_config(LM_ARCH)
     params, toks, fa_launches, lm_peak = phase_lm_prefill(lm_cfg, dev)
     state, cur = phase_lm_serve(params, lm_cfg, dev)

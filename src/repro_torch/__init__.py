@@ -16,6 +16,11 @@ SpMV kernel. The LM stack's dense family (``repro_torch.models``,
 forward through the hand-written ``flash_attention`` kernel and serves
 through a KV cache.
 
+Dynamic graphs (``repro_torch.dynamic``): edge mutation batches compact
+into a new graph epoch, and the walk index is refreshed in place of a
+rebuild through the same hop kernel, which records each segment's
+visited-block mask as it walks.
+
 The port never imports ``jax`` or ``repro``.
 """
 from repro_torch.config import (FrogWildConfig, KernelConfig, RuntimeConfig,
@@ -25,18 +30,13 @@ from repro_torch.query.index import ShardedWalkIndex, WalkIndex
 from repro_torch.service import (FrogWildService, QueryHandle,
                                  batch_pagerank, build_index)
 
+# the reference's public surface (less ``Gateway``, ROADMAP.md Queue 1
+# item 12); the other names above stay importable from here
 __all__ = [
-    "FrogWildConfig",
     "FrogWildService",
     "KernelConfig",
     "QueryHandle",
     "RuntimeConfig",
     "ServingConfig",
     "ShardConfig",
-    "ShardRuntime",
-    "ShardedWalkIndex",
-    "WalkIndex",
-    "WalkIndexConfig",
-    "batch_pagerank",
-    "build_index",
 ]

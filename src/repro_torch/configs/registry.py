@@ -1,6 +1,11 @@
-"""The LLM architecture registry of the port (port of the LLM half of
-``repro/configs/registry.py``): ``get_config``, ``SHAPES``,
-``shape_applicable`` and ``reduced_config``.
+"""Config registry (port of ``repro/configs/registry.py``). The public
+surface is the graph workload family: ``GRAPHS`` and
+:func:`get_graph_config`, which ``repro_torch.configs`` exports.
+
+The LLM architecture registry below (``ARCHS``, ``get_config``,
+``SHAPES``, ``shape_applicable``, ``reduced_config``) stays off that
+surface (``__all__``), as in the reference: the model tests and
+``launch/serve.py`` import it from this module by name.
 
 The four dense architectures are ported; ``get_config`` of the other six
 raises ``NotImplementedError`` naming their ``ROADMAP.md`` item. The
@@ -20,7 +25,35 @@ import dataclasses
 import importlib
 from typing import Any, Dict, Tuple
 
+from repro_torch.configs.frogwild_graphs import (GraphConfig,
+                                                 LIVEJOURNAL_BENCH,
+                                                 LIVEJOURNAL_FULL,
+                                                 TWITTER_BENCH, TWITTER_FULL)
 from repro_torch.models.config import ModelConfig
+
+__all__ = [
+    "GraphConfig",
+    "GRAPHS",
+    "get_graph_config",
+]
+
+# --- the registered config family: the paper's graph workloads --------------
+
+GRAPHS: Dict[str, GraphConfig] = {
+    cfg.name: cfg
+    for cfg in (LIVEJOURNAL_BENCH, TWITTER_BENCH,
+                LIVEJOURNAL_FULL, TWITTER_FULL)
+}
+
+
+def get_graph_config(name: str) -> GraphConfig:
+    if name not in GRAPHS:
+        raise KeyError(f"unknown graph {name!r}; known: {sorted(GRAPHS)}")
+    return GRAPHS[name]
+
+
+# --- the LLM architecture registry (not exported) ----------------------------
+
 
 _ARCH_MODULES = {
     "h2o-danube-3-4b": "repro_torch.configs.h2o_danube3_4b",

@@ -96,6 +96,17 @@ class CSRGraph:
                                   off.to(torch.int32))
         return self._derived[key]
 
+    def edge_range(self, v: int) -> Tuple[int, int]:
+        """``(row_ptr[v], row_ptr[v + 1])``: ``v``'s out-edges in
+        ``col_idx``."""
+        lo, hi = self.row_ptr[v:v + 2].tolist()
+        return int(lo), int(hi)
+
+    def successors(self, v: int) -> np.ndarray:
+        """``v``'s out-neighbours in stored order (int32, on the host)."""
+        lo, hi = self.edge_range(v)
+        return self.col_idx[lo:hi].cpu().numpy()
+
     def to(self, device: DeviceLike) -> "CSRGraph":
         """The same graph on ``device`` (itself when already there)."""
         dev = resolve_device(device)

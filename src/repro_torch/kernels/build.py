@@ -37,12 +37,13 @@ SIGNATURES = {
     "fw_frog_step": [_c_void_p] * 8 + [_c_int64, _c_void_p],
     "fw_frog_superstep": [_c_void_p] * 4 + [_c_float] + [_c_void_p] * 3
     + [_c_int64, _c_void_p],
-    "fw_frog_hop": [_c_void_p] * 2 + [_c_int32] * 2 + [_c_void_p] * 3
-    + [_c_int64, _c_void_p],
+    "fw_frog_hop": [_c_void_p] * 2 + [_c_int32] * 2 + [_c_void_p] * 4
+    + [_c_int32] * 2 + [_c_int64, _c_void_p],
     "fw_frog_superstep_stream_sorted": [_c_void_p] * 6 + [_c_float]
     + [_c_void_p] * 6 + [_c_int64] + [_c_int32] * 5 + [_c_void_p],
     "fw_frog_hop_stream_sorted": [_c_void_p] * 4 + [_c_int32] * 2
-    + [_c_void_p] * 6 + [_c_int64] + [_c_int32] * 5 + [_c_void_p],
+    + [_c_void_p] + [_c_int32] * 2 + [_c_void_p] * 6 + [_c_int64]
+    + [_c_int32] * 5 + [_c_void_p],
     "fw_frog_count": [_c_void_p] * 2 + [_c_int64, _c_int64, _c_void_p],
     "fw_stitch_gather": [_c_void_p] * 5 + [_c_int64, _c_int32, _c_void_p],
     "fw_stitch_step": [_c_void_p] * 7 + [_c_int64, _c_int32, _c_void_p],

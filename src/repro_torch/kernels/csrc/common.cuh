@@ -42,6 +42,40 @@ __device__ __forceinline__ int32_t fw_shard(int32_t p, int32_t S,
   return shard < 0 ? 0 : (shard > S - 1 ? S - 1 : shard);
 }
 
+// A walk-index segment's visited-block mask (query/index.py's
+// visited_blocks): uint32[N, FW_MASK_WORDS] a walk, bit b of word w set
+// when the segment's walk stood on a vertex of id block 32 w + b (blocks
+// of mask_bs consecutive ids). The build records the intermediate hops
+// only: hop 0 writes the walk's whole row, the bit of the vertex it
+// reached when ``record`` is set and zeros otherwise (a one-hop
+// segment); a later hop with ``record`` set ORs its bit into the row.
+// A vertex whose block is past the mask's 256 (a padding row of the
+// reference's padded graph) sets no bit. The row is the walk's own, so
+// no atomics: one thread writes it.
+#define FW_MASK_WORDS 8
+
+__device__ __forceinline__ void fw_visit(uint32_t* __restrict__ visited,
+                                         int64_t f, int32_t v,
+                                         uint32_t step, int32_t record,
+                                         int32_t mask_bs) {
+  const uint32_t blk = (uint32_t)v / (uint32_t)mask_bs;
+  const bool hit = record && blk < 32u * FW_MASK_WORDS;
+  const uint32_t word = blk >> 5, bit = 1u << (blk & 31u);
+  uint32_t* row = visited + f * FW_MASK_WORDS;
+  if (step == 0) {                 // two 16-byte stores of the whole row
+    uint32_t w[FW_MASK_WORDS];
+#pragma unroll
+    for (uint32_t i = 0; i < FW_MASK_WORDS; ++i) {
+      w[i] = hit && word == i ? bit : 0u;
+    }
+    uint4* row4 = reinterpret_cast<uint4*>(row);
+    row4[0] = make_uint4(w[0], w[1], w[2], w[3]);
+    row4[1] = make_uint4(w[4], w[5], w[6], w[7]);
+  } else if (hit) {
+    row[word] |= bit;
+  }
+}
+
 static inline unsigned int fw_blocks(int64_t n) {
   return (unsigned int)((n + FW_THREADS - 1) / FW_THREADS);
 }

@@ -77,7 +77,14 @@ extern "C" int fw_frog_step(const void* pos, const void* die,
 //
 // frog_hop: one hop of the walk-index build (query/index.py), in place; walk
 // f is slot r = f % R of row c = f / R, its bits randint(fold_in(row_keys[c],
-// step), 0, 2**30, ctr = r); no death, no tally.
+// step), 0, 2**30, ctr = r); no death, no tally. With a visited operand it
+// also records the segment's visited-block mask (common.cuh:fw_visit), which
+// the reference builds in XLA around its Pallas step (_block_one_hot and an
+// OR in the scan, src/repro/query/index.py:237-285): the hop already holds
+// the vertex it reached in a register, so the bit costs a 32-byte row write
+// at hop 0 and one word's read-modify-write at a recorded later hop, where
+// separate torch passes would read and write the [N, 8] rows several times
+// a hop.
 //
 // Design: one thread per frog. A dead frog costs its one alive byte: no
 // draw, no gather (after s steps 0.85^s of the frogs live). Thread 0
@@ -96,7 +103,9 @@ extern "C" int fw_frog_step(const void* pos, const void* die,
 // operations: about 75 integer instructions per threefry block, one block
 // per live frog (the death coin) and one per survivor (the slot), over
 // 132 SMs x 64 INT32 lanes x the SM clock. A hop: 8 B per walk, the row
-// keys, the scattered sectors, and 1 + 2/R blocks a walk (per-CTA keys).
+// keys, the scattered sectors, and 1 + 2/R blocks a walk (per-CTA keys);
+// with masks, 32 B a walk written at hop 0 and one 32-byte sector read and
+// written a walk at a recorded later hop.
 // Which binds depends on the step (phase 12 computes both from the run's
 // data).
 
@@ -137,7 +146,9 @@ __global__ void frog_hop_kernel(int32_t* __restrict__ pos,
                                 uint32_t step, int32_t R,
                                 const int32_t* __restrict__ row_ptr,
                                 const int32_t* __restrict__ col_idx,
-                                const int32_t* __restrict__ deg, int64_t N) {
+                                const int32_t* __restrict__ deg,
+                                uint32_t* __restrict__ visited,
+                                int32_t record, int32_t mask_bs, int64_t N) {
   __shared__ FwKey s_keys[FW_THREADS];
   const int64_t f0 = (int64_t)blockIdx.x * blockDim.x;
   const int64_t c0 = fw_div(f0, R);           // the CTA's first row
@@ -154,8 +165,10 @@ __global__ void frog_hop_kernel(int32_t* __restrict__ pos,
   __syncthreads();
   const int64_t f = f0 + threadIdx.x;
   if (f >= N) return;
-  pos[f] = fw_successor(pos[f], fw_randint30(s_keys[lrow], r), row_ptr,
-                        col_idx, deg);
+  const int32_t nxt = fw_successor(pos[f], fw_randint30(s_keys[lrow], r),
+                                   row_ptr, col_idx, deg);
+  pos[f] = nxt;
+  if (visited != nullptr) fw_visit(visited, f, nxt, step, record, mask_bs);
 }
 
 extern "C" int fw_frog_superstep(void* pos, void* alive, void* counts,
@@ -174,13 +187,14 @@ extern "C" int fw_frog_superstep(void* pos, void* alive, void* counts,
 
 extern "C" int fw_frog_hop(void* pos, const void* row_keys, int32_t step,
                            int32_t R, const void* row_ptr,
-                           const void* col_idx, const void* deg, int64_t N,
-                           void* stream) {
+                           const void* col_idx, const void* deg,
+                           void* visited, int32_t record, int32_t mask_bs,
+                           int64_t N, void* stream) {
   if (N > 0) {
     frog_hop_kernel<<<fw_blocks(N), FW_THREADS, 0, (cudaStream_t)stream>>>(
         (int32_t*)pos, (const int64_t*)row_keys, (uint32_t)step, R,
         (const int32_t*)row_ptr, (const int32_t*)col_idx,
-        (const int32_t*)deg, N);
+        (const int32_t*)deg, (uint32_t*)visited, record, mask_bs, N);
   }
   return (int)cudaGetLastError();
 }

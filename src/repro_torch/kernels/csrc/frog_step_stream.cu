@@ -145,6 +145,8 @@ extern "C" int fw_frog_step_stream_sorted(
 //              successor with randint(fold_in(row_keys[o / R], step), 0,
 //              2**30, ctr = o % R). Sorted walks of one row are scattered,
 //              so each thread derives its row's key (three blocks a walk).
+//              With a visited operand, walk o's visited-block mask row is
+//              written as frog_hop writes it (common.cuh:fw_visit), at o.
 //
 // The shared row_off/deg staging, the col slab staged where it pays and
 // the shared death histogram are the caller-bits kernel's above.
@@ -154,7 +156,8 @@ extern "C" int fw_frog_step_stream_sorted(
 // each dying frog, reads each touched block's row_off/deg slabs and the
 // survivors' col sectors; two threefry blocks per live frog (about 75
 // integer instructions each). A hop: 16 B a walk plus the row keys and the
-// col sectors, three blocks a walk.
+// col sectors, three blocks a walk, and with masks frog_hop's mask bytes
+// (frog_step.cu).
 //
 // Left on the table (ROADMAP R5): every sorted frog is visited, dead ones
 // included, and every visited block stages its 4 KB of row_off/deg; at the
@@ -167,7 +170,8 @@ __device__ __forceinline__ void stream_walk(
     const int32_t* __restrict__ pos_s, const int64_t* __restrict__ order,
     int32_t* __restrict__ pos, uint8_t* __restrict__ alive,
     int32_t* __restrict__ counts, const int64_t* __restrict__ keys,
-    float p_T, uint32_t step, int32_t R, const int32_t* __restrict__ cta_vid,
+    float p_T, uint32_t step, int32_t R, uint32_t* __restrict__ visited,
+    int32_t record, int32_t mask_bs, const int32_t* __restrict__ cta_vid,
     const int32_t* __restrict__ cta_lo, const int32_t* __restrict__ seg_off,
     const int32_t* __restrict__ row_off, const int32_t* __restrict__ deg,
     const int32_t* __restrict__ col, int32_t num_vb, int32_t BV,
@@ -221,7 +225,11 @@ __device__ __forceinline__ void stream_walk(
     const int32_t p = pos_s[f];
     const int32_t local = (int32_t)((int64_t)p - vbase);
     const int32_t d = s_deg[local];
-    pos[o] = d > 0 ? cols[s_row_off[local] + fw_slot(bits, d)] : p;
+    const int32_t nxt = d > 0 ? cols[s_row_off[local] + fw_slot(bits, d)] : p;
+    pos[o] = nxt;
+    if (kHop && visited != nullptr) {
+      fw_visit(visited, o, nxt, step, record, mask_bs);
+    }
   }
   if (kHop) return;
   __syncthreads();
@@ -241,20 +249,21 @@ __global__ void frog_superstep_stream_kernel(
     const int32_t* __restrict__ col, int32_t num_vb, int32_t BV,
     int32_t E_blk, int32_t FB, int32_t stage_col) {
   stream_walk<false>(pos_s, order, pos, alive, counts, step_key, p_T, 0u, 1,
-                     cta_vid, cta_lo, seg_off, row_off, deg, col, num_vb, BV,
+                     nullptr, 0, 1, cta_vid, cta_lo, seg_off, row_off, deg, col, num_vb, BV,
                      E_blk, FB, stage_col);
 }
 
 __global__ void frog_hop_stream_kernel(
     const int32_t* __restrict__ pos_s, const int64_t* __restrict__ order,
     int32_t* __restrict__ pos, const int64_t* __restrict__ row_keys,
-    uint32_t step, int32_t R, const int32_t* __restrict__ cta_vid,
+    uint32_t step, int32_t R, uint32_t* __restrict__ visited, int32_t record,
+    int32_t mask_bs, const int32_t* __restrict__ cta_vid,
     const int32_t* __restrict__ cta_lo, const int32_t* __restrict__ seg_off,
     const int32_t* __restrict__ row_off, const int32_t* __restrict__ deg,
     const int32_t* __restrict__ col, int32_t num_vb, int32_t BV,
     int32_t E_blk, int32_t FB, int32_t stage_col) {
   stream_walk<true>(pos_s, order, pos, nullptr, nullptr, row_keys, 0.0f,
-                    step, R, cta_vid, cta_lo, seg_off, row_off, deg, col,
+                    step, R, visited, record, mask_bs, cta_vid, cta_lo, seg_off, row_off, deg, col,
                     num_vb, BV, E_blk, FB, stage_col);
 }
 
@@ -281,7 +290,8 @@ extern "C" int fw_frog_superstep_stream_sorted(
 
 extern "C" int fw_frog_hop_stream_sorted(
     const void* pos_s, const void* order, void* pos, const void* row_keys,
-    int32_t step, int32_t R, const void* cta_vid, const void* cta_lo,
+    int32_t step, int32_t R, void* visited, int32_t record, int32_t mask_bs,
+    const void* cta_vid, const void* cta_lo,
     const void* seg_off, const void* row_off, const void* deg,
     const void* col, int64_t num_cta, int32_t num_vb, int32_t BV,
     int32_t E_blk, int32_t FB, int32_t stage_col, void* stream) {
@@ -293,7 +303,8 @@ extern "C" int fw_frog_hop_stream_sorted(
   frog_hop_stream_kernel<<<(unsigned int)num_cta, FW_THREADS, smem,
                            (cudaStream_t)stream>>>(
       (const int32_t*)pos_s, (const int64_t*)order, (int32_t*)pos,
-      (const int64_t*)row_keys, (uint32_t)step, R, (const int32_t*)cta_vid,
+      (const int64_t*)row_keys, (uint32_t)step, R, (uint32_t*)visited,
+      record, mask_bs, (const int32_t*)cta_vid,
       (const int32_t*)cta_lo, (const int32_t*)seg_off,
       (const int32_t*)row_off, (const int32_t*)deg, (const int32_t*)col,
       num_vb, BV, E_blk, FB, stage_col);

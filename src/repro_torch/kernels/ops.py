@@ -31,6 +31,8 @@ place. They are the reference's ``frog_step`` under ``rng="device"``,
 drawing the reference's own threefry streams inside the kernel (one
 launch a superstep or hop, and the sort before it under ``"stream"``);
 ``frog_step`` stays its ``rng="caller"`` contract, bits from the caller.
+A hop also writes the segments' visited-block masks when given a
+``visited`` operand (the reference builds them in XLA around its step).
 
 The stitch wrappers take ``rng``, the reference's mode: ``"caller"``
 (default) passes the slot bits (``bits`` / ``s0``, int32[W]);
@@ -546,35 +548,74 @@ def frog_superstep(pos: torch.Tensor, alive: torch.Tensor,
                 row_ptr.data_ptr(), col_idx.data_ptr(), deg.data_ptr(), N)
 
 
+def _check_visited(name: str, visited: Optional[torch.Tensor], N: int,
+                   mask_block: int) -> Tuple[torch.Tensor, ...]:
+    """Checks a hop's mask operand (uint32[N, MASK_WORDS] or ``None``) →
+    the tensors to check for one device with the others."""
+    if visited is None:
+        return ()
+    shape = (N, kref.MASK_WORDS)
+    if visited.dtype != torch.uint32 or tuple(visited.shape) != shape \
+            or not visited.is_contiguous():
+        raise ValueError(f"{name}: visited must be a contiguous uint32"
+                         f"{list(shape)}, got {visited.dtype}"
+                         f"{list(visited.shape)}")
+    if mask_block < 1:
+        raise ValueError(f"{name}: mask_block must be ≥ 1, got "
+                         f"{mask_block}")
+    return (visited,)
+
+
+def _plain_visits(visited: Optional[torch.Tensor], nxt: torch.Tensor,
+                  step: int, record: bool, mask_block: int) -> None:
+    if visited is not None:
+        words = visited.view(torch.int32)
+        words.copy_(kref.hop_visits(words, nxt, step, record, mask_block))
+
+
 def frog_hop(pos: torch.Tensor, row_keys: torch.Tensor, step: int, R: int,
              row_ptr: torch.Tensor, col_idx: torch.Tensor, deg: torch.Tensor,
-             n: int, impl: str = "auto", blocked: Optional[BlockedCSR] = None
+             n: int, impl: str = "auto", blocked: Optional[BlockedCSR] = None,
+             visited: Optional[torch.Tensor] = None, record: bool = False
              ) -> None:
     """One hop of the walk-index build, in place on ``pos`` (int32[C ·
     R]): walk ``c · R + r`` (slot ``r`` of row ``c``) moves along out-edge
     ``randint(fold_in(row_keys[c], step), (R,), 0, 2**30)[r] % d_out``;
     ``row_keys`` is the int64[C, 2] table of the rows' keys. ``impl`` as
     for :func:`frog_superstep`; the plain version is
-    ``ref.frog_hop_ref``."""
+    ``ref.frog_hop_ref``.
+
+    ``visited`` (uint32[C · R, MASK_WORDS]) records the segments'
+    visited-block masks in place, over blocks of
+    ``ref.segment_mask_block_size(n)`` ids: hop 0 writes each walk's row,
+    the bit of the vertex it reached when ``record`` is set, none
+    otherwise; a later hop ORs that bit in when ``record`` is set
+    (``ref.hop_visits``). The build records hops ``0 … L − 2``, the
+    segment's intermediate vertices."""
     name = "frog_hop"
     _check_hop(name, pos, row_keys, step, R)
     _check_graph(name, row_ptr, col_idx, deg, n)
     N = pos.shape[0]
+    mask_block = kref.segment_mask_block_size(n)
+    vis = _check_visited(name, visited, N, mask_block)
     if impl == "stream":
         blocked, pos_s, order, seg_off, sched = _sorted_runs(
             name, pos, row_ptr, col_idx, deg, n, blocked)
         frog_hop_stream_sorted(pos_s, order, pos, row_keys, step, R, seg_off,
-                               sched, blocked)
+                               sched, blocked, visited=visited,
+                               record=record, mask_block=mask_block)
         return
-    use = _use_kernel(name, impl, pos, row_keys, row_ptr, col_idx, deg)
+    use = _use_kernel(name, impl, pos, row_keys, row_ptr, col_idx, deg, *vis)
     if not use:
         pos.copy_(kref.frog_hop_ref(pos, row_keys, step, R, row_ptr, col_idx,
                                     deg))
+        _plain_visits(visited, pos, step, record, mask_block)
         return
     if N:
         _launch(name, pos.device, pos.data_ptr(), row_keys.data_ptr(),
                 int(step), int(R), row_ptr.data_ptr(), col_idx.data_ptr(),
-                deg.data_ptr(), N)
+                deg.data_ptr(), visited.data_ptr() if vis else None,
+                int(record), mask_block, N)
 
 
 def _check_sorted(name: str, pos_s, order, pos, seg_off, schedule,
@@ -642,25 +683,33 @@ def frog_hop_stream_sorted(pos_s: torch.Tensor, order: torch.Tensor,
                            pos: torch.Tensor, row_keys: torch.Tensor,
                            step: int, R: int, seg_off: torch.Tensor,
                            schedule: Tuple[int, torch.Tensor, torch.Tensor],
-                           blocked: BlockedCSR, impl: str = "auto") -> None:
+                           blocked: BlockedCSR, impl: str = "auto",
+                           visited: Optional[torch.Tensor] = None,
+                           record: bool = False, mask_block: int = 1
+                           ) -> None:
     """:func:`frog_hop`'s streamed kernel on walks sorted by vertex (as
     :func:`frog_superstep_stream_sorted`): walk ``order[f]`` moves, in
-    place in ``pos``."""
+    place in ``pos``, and writes its ``visited`` row as :func:`frog_hop`
+    does, over blocks of ``mask_block`` ids."""
     name = "frog_hop_stream_sorted"
     _check_sorted(name, pos_s, order, pos, seg_off, schedule, blocked)
     _check_hop(name, pos, row_keys, step, R)
+    vis = _check_visited(name, visited, pos.shape[0], mask_block)
     use = _use_kernel(name, impl, pos_s, order, pos, row_keys, seg_off,
                       *schedule[1:], blocked.row_off, blocked.deg,
-                      blocked.col)
+                      blocked.col, *vis)
     if not use:
         pos.copy_(kref.frog_hop_stream_sorted_ref(
             pos_s, order, row_keys, step, R, seg_off, blocked.row_off,
             blocked.deg, blocked.col))
+        _plain_visits(visited, pos, step, record, mask_block)
         return
     frogs, work = _sorted_operands(pos_s, order, seg_off, schedule, blocked)
     if pos.shape[0]:
         _launch(name, pos.device, *frogs, pos.data_ptr(),
-                row_keys.data_ptr(), int(step), int(R), *work)
+                row_keys.data_ptr(), int(step), int(R),
+                visited.data_ptr() if vis else None, int(record),
+                int(mask_block), *work)
 
 
 def _check_block(name: str, block: torch.Tensor, base: int) -> None:

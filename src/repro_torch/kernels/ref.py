@@ -233,6 +233,42 @@ def hop_bits(row_keys, step: int, R: int):
                         1 << 30, impl="torch").reshape(-1)
 
 
+# Per-segment visited-block masks of the walk index (the reference's
+# ``_MASK_WORDS`` and ``segment_mask_block_size``, query/index.py): ``32 ·
+# MASK_WORDS`` blocks of ``segment_mask_block_size(n)`` consecutive vertex
+# ids, one bit each, a segment's words uint32.
+MASK_WORDS = 8
+
+
+def segment_mask_block_size(n: int) -> int:
+    """Vertex ids per visited-block bit for an n-vertex graph: every id
+    of the graph falls in one of the mask's 256 blocks."""
+    return max(1, -(-n // (32 * MASK_WORDS)))
+
+
+def block_one_hot(pos, block_size: int):
+    """int32[N, MASK_WORDS], the uint32 words' bits: the visited-block bit
+    of each vertex in ``pos``; a vertex whose block is past the mask's 256
+    sets none (the reference's ``_block_one_hot``)."""
+    blk = pos.long() // block_size
+    words = torch.arange(MASK_WORDS, device=pos.device)
+    bit = torch.bitwise_left_shift(torch.ones_like(blk), blk & 31)
+    oh = torch.where(words[None, :] == (blk >> 5)[:, None], bit[:, None], 0)
+    return (oh - ((oh >> 31) << 32)).to(torch.int32)   # bit 31 wraps
+
+
+def hop_visits(visited, nxt, step: int, record: bool, block_size: int):
+    """The mask rows (int32[N, MASK_WORDS]) after a hop of the index build
+    reached ``nxt``: hop 0 starts them, at ``nxt``'s bit when ``record``
+    is set and empty otherwise; a later hop ORs the bit in when it
+    records. ``visited`` holds the rows before the hop (read after hop 0
+    only)."""
+    oh = (block_one_hot(nxt, block_size) if record
+          else torch.zeros(nxt.shape[0], MASK_WORDS, dtype=torch.int32,
+                           device=nxt.device))
+    return oh if step == 0 else visited | oh
+
+
 def frog_superstep_ref(pos, alive, counts, step_key, p_T: float, row_ptr,
                        col_idx, deg, n: int):
     """A whole superstep of the batch walk → new ``(pos int32[N], alive

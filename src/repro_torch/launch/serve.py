@@ -20,7 +20,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from repro_torch import prng
-from repro_torch.configs import get_config, reduced_config
+from repro_torch.configs.registry import get_config, reduced_config
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import init_params

@@ -35,22 +35,25 @@ per shard (:func:`save_walk_index_shard`, ``<dir>/shard_<s>/step_<k>/``).
 quarantines a corrupt, torn or missing shard and rebuilds it byte-equal
 to the original build's block.
 
-The port's builds record no per-segment ``visited_blocks`` masks yet
-(dynamic-graph invalidation, ``ROADMAP.md`` Queue 1 item 11): their
-indexes carry ``None``, which the reference allows for indexes from
-pre-epoch checkpoints. Masks loaded from a reference-written checkpoint
-are carried through unchanged (uint32 tensors), by :meth:`ShardedWalkIndex.
-reassemble`, :func:`shard_walk_index` and the savers alike. A repaired
-shard has none, so an index served after a repair has none (every shard's
-masks or none, never a mix); the healthy shards keep theirs on disk. The
-``shard_map`` build comes with the mesh (item 8).
+Every build also records, per segment, a bitmask over ``32 ·
+_MASK_WORDS`` vertex-id blocks of ``segment_mask_block_size(n)`` ids: the
+blocks of the segment's intermediate vertices (``p_1 … p_{L-1}``), stored
+as ``visited_blocks`` (uint32[n, R, _MASK_WORDS] on the slab's device), so
+staleness under a mutation batch (``repro_torch.dynamic``) is one bitwise
+test, not a re-walk. The hop kernel writes them as it moves
+(``ops.frog_hop``'s ``visited`` operand), byte-equal to the reference's
+masks, which it builds in XLA around its step. Masks travel with the
+slab: :meth:`ShardedWalkIndex.reassemble`, :func:`shard_walk_index`
+(zero rows past ``n``), the savers and the loaders; an index from a
+pre-epoch checkpoint has ``None``. A repaired shard carries the masks its
+re-walk recorded. The ``shard_map`` build comes with the mesh (item 8).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import os
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -67,7 +70,10 @@ from repro_torch.distributed.runtime import (list_shard_dirs,
                                              save_shard_checkpoint, shard_dir)
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as kref
 from repro_torch.kernels.frog_step_stream import BlockedCSR, blocked_csr_of
+from repro_torch.kernels.ref import MASK_WORDS as _MASK_WORDS
+from repro_torch.kernels.ref import segment_mask_block_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,9 +84,10 @@ class WalkIndex:
       endpoints:   int32[n, R] — ``endpoints[v, r] ~ P^L(· | v)``.
       segment_len: L, the number of steps each stored segment advanced.
       seed:        build seed (provenance; queries use their own keys).
-      visited_blocks: uint32[n, R, W] per-segment visited-block masks, as a
-                   reference-written checkpoint holds them; ``None`` for
-                   the port's builds (see the module docstring).
+      visited_blocks: uint32[n, R, _MASK_WORDS] — per-segment bitmask of
+                   the vertex-id blocks whose out-edges the segment
+                   consumed (``None`` on indexes from pre-epoch
+                   checkpoints; see the module docstring).
       graph_epoch / mutation_offset: provenance of the graph walked.
     """
 
@@ -179,35 +186,50 @@ def shard_walk_index(index: WalkIndex, num_shards: int) -> ShardedWalkIndex:
 
 
 def _segment_walk_rows(row_ptr, col_idx, deg, n, step_impl, R, L, vertices,
-                       key, blocked=None):
-    """Walks the L-step segments of ``vertices`` (all ``R`` slots per row)
-    with the per-vertex key streams → ``endpoints int32[C, R]``; each hop
-    is one ``ops.frog_hop``, which draws the row's bits itself."""
+                       key, blocked=None, out=None):
+    """The one segment-walk program under every build, repair and refresh:
+    walks the L-step segments of ``vertices`` (all ``R`` slots per row)
+    with the per-vertex key streams ``fold_in(fold_in(key, v), l)`` →
+    ``(endpoints int32[C, R], visited_blocks uint32[C, R, _MASK_WORDS])``.
+    Each hop is one ``ops.frog_hop``, which draws the rows' bits and
+    records the masks of hops ``0 … L − 2`` itself (blocks of
+    ``segment_mask_block_size(n)`` ids). ``out`` is an optional pair of
+    contiguous tensors of those shapes to walk in."""
+    C = vertices.shape[0]
+    if out is None:
+        out = (torch.empty(C, R, dtype=torch.int32, device=vertices.device),
+               torch.empty(C, R, _MASK_WORDS, dtype=torch.uint32,
+                           device=vertices.device))
     row_keys = prng.fold_in(key, vertices)
-    pos = torch.repeat_interleave(vertices.to(torch.int32), R)
+    pos = out[0].view(-1)
+    pos.copy_(torch.repeat_interleave(vertices.to(torch.int32), R,
+                                      output_size=C * R))
+    visited = out[1].view(-1, _MASK_WORDS)
     for step in range(L):
         ops.frog_hop(pos, row_keys, step, R, row_ptr, col_idx, deg, n,
-                     impl=step_impl, blocked=blocked)
-    return pos.reshape(-1, R)
+                     impl=step_impl, blocked=blocked, visited=visited,
+                     record=step < L - 1)
+    return out
 
 
 def _walk_shard_rows(g: CSRGraph, cfg: WalkIndexConfig, shard: int, sz: int,
-                     key: torch.Tensor, blocked: Optional[BlockedCSR]
-                     ) -> torch.Tensor:
+                     key: torch.Tensor, blocked: Optional[BlockedCSR],
+                     out=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The one per-shard program under the build and the repair: the rows
     of range shard ``shard`` (``[shard · sz, (shard + 1) · sz)``, cut at
-    ``n``) → ``int32[rows, R]`` on ``g``'s device.
+    ``n``) → ``(int32[rows, R], uint32[rows, R, _MASK_WORDS])`` on ``g``'s
+    device (or in ``out``).
 
     The reference walks the rows of its graph padded to a multiple of
     ``num_shards``; a padding vertex has no in-edge, so walks from the
     real vertices never reach one and walking ``g`` itself gives the same
-    rows."""
+    rows, masks included (the mask blocks are ``g.n``'s in both)."""
     lo = min(shard * sz, g.n)
     vs = torch.arange(lo, min(lo + sz, g.n), dtype=torch.int32,
                       device=g.device)
     return _segment_walk_rows(
         g.row_ptr, g.col_idx, g.out_deg, g.n, cfg.step_impl,
-        cfg.segments_per_vertex, cfg.segment_len, vs, key, blocked)
+        cfg.segments_per_vertex, cfg.segment_len, vs, key, blocked, out)
 
 
 def _check_build(g: CSRGraph, cfg: WalkIndexConfig,
@@ -229,13 +251,20 @@ def _build_walk_index(g: CSRGraph, cfg: WalkIndexConfig,
     blocked = _check_build(g, cfg, blocked)
     if key is None:
         key = prng.PRNGKey(cfg.seed, g.device)
-    sz = -(-g.n // cfg.num_shards)
-    endpoints = torch.cat([_walk_shard_rows(g, cfg, s, sz, key, blocked)
-                           for s in range(cfg.num_shards)])
+    n, R = g.n, cfg.segments_per_vertex
+    sz = -(-n // cfg.num_shards)
+    endpoints = torch.empty(n, R, dtype=torch.int32, device=g.device)
+    masks = torch.empty(n, R, _MASK_WORDS, dtype=torch.uint32,
+                        device=g.device)
+    for s in range(cfg.num_shards):     # each shard walks in its rows
+        lo, hi = min(s * sz, n), min((s + 1) * sz, n)
+        _walk_shard_rows(g, cfg, s, sz, key, blocked,
+                         out=(endpoints[lo:hi], masks[lo:hi]))
     return WalkIndex(
         endpoints=endpoints,
         segment_len=cfg.segment_len,
         seed=cfg.seed,
+        visited_blocks=masks,
         graph_epoch=g.epoch,
         mutation_offset=g.mutation_offset,
     )
@@ -422,26 +451,42 @@ def _assemble_sharded(good, meta, reassemble):
     return sharded.reassemble() if reassemble else sharded
 
 
+def _padding_rows(g: CSRGraph, cfg: WalkIndexConfig, lo: int, hi: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's rows ``lo … hi − 1`` past ``n``: its padded graph's
+    vertices, whose self-loop walks stay where they start; their masks
+    hold that vertex's block bit for each recorded hop (none when ``L =
+    1``, none for a block past the mask's 256)."""
+    R, L = cfg.segments_per_vertex, cfg.segment_len
+    pad = torch.arange(lo, hi, dtype=torch.int32, device=g.device)
+    walks = torch.repeat_interleave(pad, R)
+    masks = kref.hop_visits(None, walks, 0, L > 1,
+                            segment_mask_block_size(g.n))
+    return (walks.view(-1, R),
+            masks.view(torch.uint32).view(-1, R, _MASK_WORDS))
+
+
 def rebuild_shard_blocks(g: CSRGraph, cfg: WalkIndexConfig,
                          shards: List[int],
                          blocked: Optional[BlockedCSR] = None
-                         ) -> Dict[int, torch.Tensor]:
+                         ) -> Dict[int, Tuple[torch.Tensor, torch.Tensor]]:
     """Re-walks just the named shards' blocks of the ``cfg.num_shards``
     range shards of ``g`` with the build's own per-shard program and key
     streams (``fold_in(PRNGKey(cfg.seed), v)``), on ``g``'s device: each
-    hop one ``ops.frog_hop`` launch. Returns ``{shard: int32[sz, R]}``,
-    byte-equal to the reference's ``rebuild_shard_blocks``: rows past
-    ``n`` are the reference's padding vertices, whose self-loop walks end
-    where they start. (No masks: see the module docstring.)"""
+    hop one ``ops.frog_hop`` launch. Returns ``{shard: (endpoints
+    int32[sz, R], visited uint32[sz, R, _MASK_WORDS])}``, byte-equal to
+    the reference's ``rebuild_shard_blocks``. Rows past ``n`` are, as
+    there, the padded graph's vertices (:func:`_padding_rows`), which
+    :func:`shard_walk_index` leaves zero instead; no walk reads them."""
     blocked = _check_build(g, cfg, blocked)
     sz = -(-g.n // cfg.num_shards)
     key = prng.PRNGKey(cfg.seed, g.device)
     out = {}
     for s in shards:
-        rows = _walk_shard_rows(g, cfg, s, sz, key, blocked)
-        pad = torch.arange(s * sz + rows.shape[0], (s + 1) * sz,
-                           dtype=torch.int32, device=g.device)
-        out[s] = torch.cat([rows, pad[:, None].expand(-1, rows.shape[1])])
+        ep, mk = _walk_shard_rows(g, cfg, s, sz, key, blocked)
+        pad_ep, pad_mk = _padding_rows(g, cfg, s * sz + ep.shape[0],
+                                       (s + 1) * sz)
+        out[s] = (torch.cat([ep, pad_ep]), torch.cat([mk, pad_mk]))
     return out
 
 
@@ -485,7 +530,8 @@ def load_or_repair_walk_index(
         raise ValueError(
             f"walk index under {directory!r} was built at graph epoch "
             f"{meta.graph_epoch} but the service graph is at epoch "
-            f"{g.epoch}; a repair would mix epochs — rebuild at the "
+            f"{g.epoch}; a repair would mix epochs — refresh the slab "
+            f"(repro_torch.dynamic.refresh_walk_index) or rebuild at the "
             f"current epoch")
     missing = sorted(set(range(meta.num_shards)) - set(good))
     broken = sorted(set(bad) | set(missing))
@@ -503,9 +549,11 @@ def load_or_repair_walk_index(
     for s in broken:
         if os.path.isdir(shard_dir(directory, s)):
             quarantine_shard_dir(directory, s)
+        ep, mk = rebuilt[s]
         save_walk_index_shard(
-            directory, s, meta.num_shards, g.n, rebuilt[s], meta.L,
-            meta.seed, step=healthy_step, graph_epoch=meta.graph_epoch,
+            directory, s, meta.num_shards, g.n, ep, meta.L,
+            meta.seed, step=healthy_step, visited_blocks=mk,
+            graph_epoch=meta.graph_epoch,
             mutation_offset=meta.mutation_offset)
-        good[s] = {"endpoints": rebuilt[s]}
+        good[s] = {"endpoints": ep, "visited_blocks": mk}
     return _assemble_sharded(good, meta, reassemble)

@@ -34,9 +34,17 @@ it mangle the checkpoint payloads before their first read. Evicted shards
 and the supervisor's log are :attr:`FrogWildService.lost_shards` and
 :attr:`FrogWildService.fault_log`.
 
+Dynamic graphs: :meth:`FrogWildService.apply_mutations` compacts a
+:class:`~repro_torch.dynamic.MutationBatch` into the graph's next epoch,
+refreshes exactly the invalidated walk segments (``repro_torch.dynamic``)
+and commits the two-epoch swap (:meth:`FrogWildService.commit_epoch`):
+queries admitted before it finish on their own epoch's scheduler, which
+:meth:`~FrogWildService.step` and :meth:`~FrogWildService.drain` keep
+driving until they settle, and new admissions land on the new epoch.
+
 ``device=None`` means the CUDA card everywhere; without one these raise,
 and ``device="cpu"`` runs the plain PyTorch path. Mesh runs come with
-``ROADMAP.md`` Queue 1 item 8, epoch commits with item 11.
+``ROADMAP.md`` Queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -113,12 +121,30 @@ def build_index(graph: CSRGraph,
     return _build_walk_index(graph.to(dev), cfg, key)
 
 
+def _on_device(index, device: torch.device):
+    """``index`` (or ``None``) with its slab and masks on ``device``."""
+    if index is None:
+        return None
+    vb = index.visited_blocks
+    vb = None if vb is None else vb.to(device)
+    if isinstance(index, WalkIndex):
+        return dataclasses.replace(index, endpoints=index.endpoints.to(device),
+                                   visited_blocks=vb)
+    return dataclasses.replace(index, blocks=index.blocks.to(device),
+                               visited_blocks=vb)
+
+
 class QueryHandle:
     """Future for one submitted query, with anytime (ε, δ) refinement.
 
     Handles are cooperative: any handle's ``poll()`` / ``result()``
     advances the shared scheduler, so all in-flight queries progress
     together (continuous batching).
+
+    A handle pins the scheduler, and so the graph epoch and slab, it was
+    admitted on: an epoch commit swaps the service's current scheduler,
+    and this handle finishes on its own, byte-identical to a run in which
+    no mutation happened.
     """
 
     def __init__(self, service: "FrogWildService", request: QueryRequest,
@@ -204,14 +230,12 @@ class FrogWildService:
         self.config = config
         S = config.runtime.num_shards
         self.runtime = ShardRuntime.acquire(S) if S > 1 else None
-        if isinstance(index, WalkIndex):
-            index = dataclasses.replace(index,
-                                        endpoints=index.endpoints.to(device))
-        elif isinstance(index, ShardedWalkIndex):
-            index = dataclasses.replace(index, blocks=index.blocks.to(device))
-        self._index = index
+        self._index = _on_device(index, device)
         self._blocked: Optional[BlockedCSR] = None
         self._scheduler: Optional[QueryScheduler] = None
+        # retired epochs' schedulers, kept until their last pinned query
+        # settles (commit_epoch, step)
+        self._retiring: List[QueryScheduler] = []
         self._next_rid = 0
         self._closed = False
         self._injector = (FaultInjector(config.faults)
@@ -253,11 +277,12 @@ class FrogWildService:
         index; idempotent. New work on a closed service raises."""
         if self._closed:
             return
-        sched = self._scheduler
-        if sched is not None:
-            for rid in ([e.req.rid for e in sched.queue]
-                        + [a.req.rid for a in sched.active.values()]):
-                sched.cancel(rid)
+        for sched in [self._scheduler] + self._retiring:
+            if sched is not None:
+                for rid in ([e.req.rid for e in sched.queue]
+                            + [a.req.rid for a in sched.active.values()]):
+                    sched.cancel(rid)
+        self._retiring = []
         self._scheduler = None
         self._index = None
         self._blocked = None
@@ -334,7 +359,9 @@ class FrogWildService:
                         f"walk index under {directory!r} was built at "
                         f"graph epoch {idx.graph_epoch} but the service "
                         f"graph is at epoch {self.graph.epoch} — a stale "
-                        f"slab would serve wrong answers silently; rebuild")
+                        f"slab would serve wrong answers silently; refresh "
+                        f"it (repro_torch.dynamic.refresh_walk_index / "
+                        f"load_epoch_index) or rebuild")
                 return idx
         idx = _build_walk_index(self.graph, icfg, blocked=blocked)
         if directory is not None:
@@ -451,10 +478,101 @@ class FrogWildService:
         return QueryHandle(self, req, decision, sched)
 
     def step(self) -> bool:
-        """Runs one wave; False when nothing is in flight."""
-        return self.scheduler.step_wave()
+        """Runs one wave; False when nothing is in flight.
+
+        Drives the current epoch's scheduler first, then each retiring
+        epoch's that still carries pinned queries; a retiring scheduler
+        whose last pinned query has settled is released here (its handles
+        keep their own references for ``result_for``).
+        """
+        progressed = self.scheduler.step_wave()
+        for sched in list(self._retiring):
+            if sched.queue or sched.active:
+                progressed = sched.step_wave() or progressed
+            if not sched.queue and not sched.active:
+                self._retiring.remove(sched)
+        return progressed
 
     def drain(self) -> List[QueryResult]:
-        """Drives waves until queue and slots are empty; returns all results
-        finished so far (in finish order)."""
+        """Drives waves until queue and slots are empty, the retiring
+        epochs' included; returns the current epoch's results finished so
+        far (in finish order)."""
+        while self._retiring and self.step():
+            pass
         return self.scheduler._drain()
+
+    # --- dynamic graphs (epoch lifecycle) ---------------------------------
+
+    @property
+    def graph_epoch(self) -> int:
+        """The mutation epoch new admissions land on."""
+        return self.graph.epoch
+
+    @property
+    def retiring_epochs(self) -> List[int]:
+        """Epochs still draining pinned queries (oldest first)."""
+        return [s.epoch for s in self._retiring]
+
+    def commit_epoch(self, graph: CSRGraph,
+                     index: Union[WalkIndex, ShardedWalkIndex]) -> int:
+        """Swaps serving to ``(graph, index)`` at their epoch.
+
+        The current scheduler, if it still carries queued or active
+        queries, moves to the retiring list and keeps draining through
+        :meth:`step`; its handles finish byte-identically to a run in
+        which no mutation happened (each scheduler owns its key stream,
+        seeded the same). New admissions land on the new epoch at once.
+        Every cache of the old graph goes: the index and the
+        ``BlockedCSR``. Returns the committed epoch.
+        """
+        self._check_open()
+        if graph.n != self.graph.n:
+            raise ValueError(
+                f"epoch commit cannot change the vertex count "
+                f"({self.graph.n} → {graph.n})")
+        if index.graph_epoch != graph.epoch:
+            raise ValueError(
+                f"slab epoch {index.graph_epoch} does not match graph "
+                f"epoch {graph.epoch} — refusing a mismatched commit")
+        icfg = self.config.walk_index()
+        if (index.segments_per_vertex != icfg.segments_per_vertex
+                or index.segment_len != icfg.segment_len):
+            raise ValueError(
+                f"slab geometry (R, L) = ({index.segments_per_vertex}, "
+                f"{index.segment_len}) does not match the service config "
+                f"({icfg.segments_per_vertex}, {icfg.segment_len})")
+        old = self._scheduler
+        if old is not None and (old.queue or old.active):
+            self._retiring.append(old)
+        self._scheduler = None
+        self.graph = graph.to(self.device)
+        self._index = _on_device(index, self.device)
+        self._blocked = None
+        return graph.epoch
+
+    def apply_mutations(self, batch, *, chunk: int = 1024):
+        """Applies one mutation batch end to end: compacts the CSR at
+        ``epoch + 1``, refreshes exactly the invalidated walk segments on
+        the service's device, persists the new slab under its epoch
+        directory (when ``serving.checkpoint_dir`` is set) and commits the
+        two-epoch swap. Returns the :class:`repro_torch.dynamic.
+        RefreshReport`."""
+        from repro_torch.dynamic import (apply_mutations as _apply,
+                                         refresh_walk_index,
+                                         save_epoch_index)
+
+        self._check_open()
+        index = self.ensure_index()
+        new_graph, changed = _apply(self.graph, batch)
+        step_impl = self.config.walk_index().step_impl
+        blocked = (blocked_csr_of(new_graph) if step_impl == "stream"
+                   else None)
+        new_index, report = refresh_walk_index(
+            index, new_graph, changed, step_impl=step_impl, chunk=chunk,
+            blocked=blocked)
+        directory = self.config.serving.checkpoint_dir
+        if directory is not None:
+            save_epoch_index(directory, new_index)
+        self.commit_epoch(new_graph, new_index)
+        self._blocked = blocked
+        return report

@@ -8,8 +8,9 @@ keeping its newest steps. The walk index across packages, dense and per
 shard: an index the reference wrote loads into the port (its
 ``visited_blocks`` masks carried through) and the port's service serves
 the reference's answers byte for byte from it; an index the port wrote
-loads into the reference with equal leaves. A repair of a checkpoint that
-has masks serves none.
+loads into the reference with equal leaves, its masks included. A repair
+of a checkpoint that has masks serves the reference's masks, the
+repaired shard's from its re-walk.
 """
 import dataclasses
 import json
@@ -224,7 +225,8 @@ def test_index_the_port_wrote_loads_into_the_reference(graphs, tmp_path):
     back = jindex.load_walk_index(d)
     assert np.asarray(back.endpoints).tobytes() == \
         built.endpoints.numpy().tobytes()
-    assert back.visited_blocks is None and back.seed == 5
+    assert back.visited_blocks.tobytes() == \
+        built.visited_blocks.numpy().tobytes() and back.seed == 5
     # per shard: the reference's blocks and masks, loaded and written
     # again by the port
     src, dst = str(tmp_path / "src"), str(tmp_path / "dst")
@@ -251,14 +253,19 @@ def test_repair_of_a_masked_index_serves_no_masks(graphs, tmp_path):
                           num_shards=S, seed=5)
     fixed = tindex.load_or_repair_walk_index(d, graphs[1], cfg,
                                              reassemble=False)
-    assert fixed.visited_blocks is None
+    want = sh.visited_blocks.tobytes()
+    assert fixed.visited_blocks.numpy().tobytes() == want
     assert fixed.blocks.numpy().tobytes() == np.asarray(sh.blocks).tobytes()
-    # the healthy shards keep their masks on disk; every reader of the
-    # repaired layout serves none
-    assert "visited_blocks" in truntime.load_checkpoint_tree(
-        truntime.shard_dir(d, 0), device="cpu")
-    assert tindex.load_walk_index(d, device="cpu").visited_blocks is None
-    assert jindex.load_walk_index(d).visited_blocks is None
+    # the repaired shard's masks are on disk beside the healthy shards';
+    # every reader of the repaired layout serves them all
+    for s in (0, 1):
+        assert "visited_blocks" in truntime.load_checkpoint_tree(
+            truntime.shard_dir(d, s), device="cpu")
+    assert tindex.load_walk_index(
+        d, reassemble=False, device="cpu").visited_blocks.numpy().tobytes() \
+        == want
+    assert np.asarray(jindex.load_walk_index(
+        d, reassemble=False).visited_blocks).tobytes() == want
 
 
 def test_service_checks_what_it_loads(graphs, tmp_path):

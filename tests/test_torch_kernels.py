@@ -830,7 +830,7 @@ def test_cuda_walks_one_launch_per_superstep_and_hop(cuda, step_impl):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,args", [
     ("frog_superstep", (0, 0, 0, 0, 0.15, 0, 0, 0, 1 << 39)),
-    ("frog_hop", (0, 0, 0, 16, 0, 0, 0, 1 << 39))])
+    ("frog_hop", (0, 0, 0, 16, 0, 0, 0, 0, 0, 1, 1 << 39))])
 def test_cuda_refused_draw_launch_raises(cuda, name, args):
     """A draw kernel's launch the card refuses (a grid of 2**31 blocks)
     raises from the wrapper's launch; the kernel never runs."""
@@ -842,8 +842,8 @@ def test_cuda_refused_draw_launch_raises(cuda, name, args):
 @pytest.mark.cuda
 def test_cuda_rebuild_shard_blocks_equal_cpu(cuda):
     """A repair's re-walk on the card: each hop of each named shard one
-    ``frog_hop`` launch, the blocks (the last shard's padding rows
-    included) byte-equal to the CPU's."""
+    ``frog_hop`` launch, the blocks and their masks (the last shard's
+    padding rows included) byte-equal to the CPU's."""
     from repro_torch.config import WalkIndexConfig
     from repro_torch.graph import chung_lu_powerlaw
     from repro_torch.query.index import rebuild_shard_blocks
@@ -855,8 +855,132 @@ def test_cuda_rebuild_shard_blocks_equal_cpu(cuda):
     assert ops.launch_counts()["frog_hop"] == 2 * 3
     want = rebuild_shard_blocks(g, cfg, [1, 3])
     for s in (1, 3):
-        assert torch.equal(got[s].cpu(), want[s])
-    assert got[3][-3:].cpu().tolist() == [[3001 + i] * 8 for i in range(3)]
+        assert torch.equal(got[s][0].cpu(), want[s][0])
+        assert torch.equal(got[s][1].view(torch.int32).cpu(),
+                           want[s][1].view(torch.int32))
+    assert got[3][0][-3:].cpu().tolist() == [[3001 + i] * 8
+                                             for i in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,R,L", [(1, 16, 4), (606, 16, 4),
+                                      (20_011, 7, 3), (300, 300, 2),
+                                      (513, 16, 1)])
+@pytest.mark.parametrize("impl,stage", [
+    ("auto", True), ("stream", True), ("stream", False)])
+def test_cuda_frog_hop_masks_match_plain(cuda, monkeypatch, rows, R, L,
+                                         impl, stage):
+    """The hops of an L-step segment walk recording the visited-block
+    masks (hops 0 … L − 2), each one launch, against the plain version:
+    positions and masks byte for byte after every hop, hop 0 overwriting
+    every word of a row that held garbage, L = 1 leaving every row
+    zero."""
+    from repro_torch import prng
+    _set_col_staging(monkeypatch, stage)
+    row_ptr, col_idx, deg, n, blocked = _draw_graph(cuda)
+    vertices = torch.arange(rows, dtype=torch.int32, device=cuda) * 7 % n
+    row_keys = prng.fold_in(prng.PRNGKey(rows + R, cuda), vertices)
+    got = torch.repeat_interleave(vertices, R)
+    want = got.clone()
+    vis = torch.full((got.shape[0], kref.MASK_WORDS), -1, dtype=torch.int32,
+                     device=cuda).view(torch.uint32)
+    want_vis = vis.view(torch.int32).clone()
+    bs = kref.segment_mask_block_size(n)
+    name = DRAW_ENTRY[("hop", impl)]
+    for step in range(L):
+        before = ops.launch_counts()[name]
+        ops.frog_hop(got, row_keys, step, R, row_ptr, col_idx, deg, n,
+                     impl=impl, blocked=blocked, visited=vis,
+                     record=step < L - 1)
+        assert ops.launch_counts()[name] == before + 1
+        want = kref.frog_hop_ref(want, row_keys, step, R, row_ptr, col_idx,
+                                 deg)
+        want_vis = kref.hop_visits(want_vis, want, step, step < L - 1, bs)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), step
+        assert torch.equal(vis.view(torch.int32), want_vis), step
+    assert bool(want_vis.any()) == (L > 1)
+
+
+@pytest.mark.cuda
+def test_cuda_sorted_hop_mask_skips_blocks_past_the_mask(cuda):
+    """``frog_hop_stream_sorted`` with one id a block: a vertex whose block
+    is past the mask's 256 sets no bit, as in the plain version (the
+    reference's padding rows)."""
+    from repro_torch import prng
+    row_ptr, col_idx, deg, n, blocked = _draw_graph(cuda)
+    R = 8
+    vertices = torch.arange(0, n, 3, dtype=torch.int32, device=cuda)
+    row_keys = prng.fold_in(prng.PRNGKey(5, cuda), vertices)
+    pos = torch.repeat_interleave(vertices, R)
+    got, want = pos.clone(), pos.clone()
+    vis = torch.empty(pos.shape[0], kref.MASK_WORDS, dtype=torch.uint32,
+                      device=cuda)
+    _, pos_s, order, seg_off, sched = ops._sorted_runs(
+        "test", pos, row_ptr, col_idx, deg, n, blocked)
+    ops.frog_hop_stream_sorted(pos_s, order, got, row_keys, 0, R, seg_off,
+                               sched, blocked, visited=vis, record=True,
+                               mask_block=1)
+    want = kref.frog_hop_ref(want, row_keys, 0, R, row_ptr, col_idx, deg)
+    want_vis = kref.hop_visits(None, want, 0, True, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(vis.view(torch.int32), want_vis)
+    assert bool((want >= 256).any()) and not bool(
+        want_vis[want >= 256].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step_impl,shards", [("auto", 1), ("stream", 4)])
+def test_cuda_refresh_equals_rebuild(cuda, step_impl, shards):
+    """``apply_mutations`` and ``refresh_walk_index`` on the card: the
+    stale set and the refreshed slab (endpoints and masks, dense or 4
+    serving blocks) equal a rebuild on the card at the new epoch and the
+    CPU's refresh; each hop of the refresh one hop-kernel launch."""
+    from repro_torch.config import WalkIndexConfig
+    from repro_torch.dynamic import (MutationBatch, apply_mutations,
+                                     invalidate_segments,
+                                     refresh_walk_index)
+    from repro_torch.graph import chung_lu_powerlaw
+    from repro_torch.query import index as tindex
+    g = chung_lu_powerlaw(3000, 8.0, seed=5)
+    cfg = WalkIndexConfig(segments_per_vertex=8, segment_len=3,
+                          num_shards=3, seed=2, step_impl=step_impl)
+    window = range(1500, 1530)
+    batch = MutationBatch.edges(
+        insert=[(v, (v * 7 + 13) % g.n) for v in window],
+        delete=[(v, int(g.successors(v)[0])) for v in window[::3]])
+    out = {}
+    for dev in (cuda, "cpu"):
+        gd = g.to(dev)
+        idx = tindex._build_walk_index(gd, cfg)
+        if shards > 1:
+            idx = tindex.shard_walk_index(idx, shards)
+        g2, changed = apply_mutations(gd, batch)
+        assert g2.device == gd.device
+        stale = invalidate_segments(idx, changed)
+        ops.reset_launch_counts()
+        new, report = refresh_walk_index(idx, g2, changed,
+                                         step_impl=step_impl, chunk=1000)
+        launches = ops.launch_counts()
+        full = tindex._build_walk_index(g2, cfg)
+        if shards > 1:
+            full = tindex.shard_walk_index(full, shards)
+        ep = new.blocks if shards > 1 else new.endpoints
+        full_ep = full.blocks if shards > 1 else full.endpoints
+        assert torch.equal(ep, full_ep)
+        assert torch.equal(new.visited_blocks.view(torch.int32),
+                           full.visited_blocks.view(torch.int32))
+        out[str(dev)] = (stale.cpu(), ep.cpu(),
+                         new.visited_blocks.view(torch.int32).cpu(), report,
+                         launches)
+    stale, ep, vb, report, launches = out[str(cuda)]
+    assert torch.equal(stale, out["cpu"][0])
+    assert torch.equal(ep, out["cpu"][1]) and torch.equal(vb, out["cpu"][2])
+    assert report == out["cpu"][3]
+    assert 0 < report.stale_rows < g.n
+    hop = DRAW_ENTRY[("hop", step_impl)]
+    assert launches[hop] == 3 * -(-report.stale_rows // 1000), launches
 
 
 @pytest.mark.cuda

@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from repro_torch import convert
-from repro_torch.configs import ARCHS, get_config, reduced_config
+from repro_torch.configs.registry import ARCHS, get_config, reduced_config
 from repro_torch.models import (ModelConfig, decode_step, forward_train,
                                 init_decode_state, init_params)
 from repro_torch.models import attention as tattn

@@ -72,7 +72,7 @@ def test_build_walk_index_byte_equal(n, R, L, shards, seed):
     gj, gt = _graphs(n)
     ij, it = _index_pair(gj, gt, R, L, shards, seed)
     _eq(ij.endpoints, it.endpoints)
-    assert it.visited_blocks is None
+    _eq(ij.visited_blocks, it.visited_blocks)
     assert (it.n, it.segments_per_vertex, it.segment_len, it.seed) == (
         ij.n, ij.segments_per_vertex, ij.segment_len, ij.seed)
     # the facade's dispatcher builds the same slab

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from repro_torch import convert, prng
-from repro_torch.configs import get_config, reduced_config
+from repro_torch.configs.registry import get_config, reduced_config
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import init_params
 from repro_torch.serving import (BatchScheduler, Request, prefill,
