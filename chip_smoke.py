@@ -17,8 +17,9 @@ answer against its guarantee:
               its Theorem 1 bound against 50 power iterations; each of its
               32 supersteps one ``frog_superstep`` launch that draws the
               reference's threefry streams itself;
-5. serving  — the walk index (each hop of each of the 8 build shards one
-              ``frog_hop`` launch), 6 top-k and 2 PPR queries through
+5. serving  — the walk index (each of the 8 build shards one
+              ``frog_segment_walk`` launch, no ``frog_hop``), 6 top-k and
+              2 PPR queries through
               ``QueryHandle.result()`` and one ``query_counts`` (its 9
               rounds and their tally one ``stitch_step_rounds`` launch),
               each held to its bound;
@@ -30,7 +31,9 @@ answer against its guarantee:
               layout's build time, ``E_blk`` and bytes; counts byte-equal
               to phase 4's and within the same bound;
 8. sharded  — ``num_shards=8`` with ``step_impl="stream"``: the index built
-              through the streamed kernel equals phase 5's slab row-padded;
+              through the streamed kernel (L sorted hops a build shard and
+              one ``frog_segment_masks`` pass) equals phase 5's slab
+              row-padded;
               phase 5's 8 queries under ``sharded_dispatch="fused"`` and
               ``"loop"`` give phase 5's answers byte for byte, the loop
               wave's rounds one ``stitch_gather_local_rounds`` launch a
@@ -42,7 +45,7 @@ answer against its guarantee:
               it and answers phase 5's queries byte for byte; phase 8's
               blocks persisted one dir a shard, shards 2 and 5 corrupted
               and truncated by a ``FaultPlan``, quarantined and rebuilt
-              through ``frog_hop`` (2 × L launches, the blocks and their
+              through ``frog_segment_walk`` (2 launches, the blocks and their
               visited-block masks byte-equal to the originals; the
               repair's and a full build's times; the checkpoints hold the
               masks, so their bytes are logged beside the slab's);
@@ -62,9 +65,10 @@ answer against its guarantee:
               13) mod n)`` over the block-aligned window of ``n // 100``
               vertices with the fewest in-edges) compacted into epoch 1;
               phase 5's index refreshed (``refresh_walk_index``, the stale
-              rows re-walked through ``frog_hop`` with their masks) and the
-              8-shard fused service's blocks refreshed through
-              ``frog_hop_stream_sorted``, each byte-equal (endpoints and
+              rows re-walked through ``frog_segment_walk`` with their
+              masks, one launch a chunk) and the 8-shard fused service's
+              blocks refreshed through ``frog_hop_stream_sorted`` and
+              ``frog_segment_masks``, each byte-equal (endpoints and
               masks) to a full build at epoch 1, with the refresh's and the
               full build's times and launches; phase 5's 8 queries on a
               service of their own, one wave stepped, ``apply_mutations``,
@@ -118,8 +122,12 @@ answer against its guarantee:
               its streamed twin over the batch walk's 32 supersteps of
               400,000 frogs, ``frog_hop`` and its twin at one build
               shard's 9.7 M walks, and the shard's whole segment walk
-              recording its visited-block masks, rows
-              ``frog_hop:masks`` and ``frog_hop_stream_sorted:masks``)
+              recording its visited-block masks: ``frog_segment_walk``
+              (one launch), the
+              per-hop resident walk it replaced (``frog_hop:masks``), the
+              streamed walk with its mask pass
+              (``frog_hop_stream_sorted:masks``) and the pass alone
+              (``frog_segment_masks``), all under one bound)
               byte-equal to their plain versions at every step, with
               byte and operation bounds from the run's states, planted wrong streams (``k_die`` and ``k_move``
               swapped, the sorted index as counter) that the gate must
@@ -364,7 +372,7 @@ def phase_build():
     t0 = time.perf_counter()
     build.library()
     regs = [ln.strip() for ln in build.BUILD_INFO.get("log", "").splitlines()
-            if "registers" in ln]
+            if "registers" in ln or "spill" in ln]
     log("2 build", seconds=time.perf_counter() - t0,
         built=build.BUILD_INFO.get("built"), ptxas=json.dumps(regs))
 
@@ -746,10 +754,13 @@ def phase_faults(g, sharded, dense_results, hubs, dev):
         svc.close()
         log("17 checkpoint_shards", shards=SHARDS, save_s=t_shards,
             bytes_written=written, repair_s=t_repair, rebuild_2_shards_s=
-            t_rebuild, full_build_s=t_full, frog_hop=launches["frog_hop"],
-            blocks_equal=blocks_eq, masks_equal=masks_eq,
-            quarantined=json.dumps(quarantined))
-        assert launches["frog_hop"] == 2 * L, launches
+            t_rebuild, full_build_s=t_full,
+            frog_segment_walk=launches["frog_segment_walk"],
+            frog_hop=launches["frog_hop"], blocks_equal=blocks_eq,
+            masks_equal=masks_eq, quarantined=json.dumps(quarantined))
+        # one segment walk a repaired shard, none of the per-hop kernels
+        assert launches["frog_segment_walk"] == 2, launches
+        assert launches["frog_hop"] == 0, launches
         assert launches["frog_hop_stream_sorted"] == 0, launches
         assert blocks_eq, "repaired blocks differ from the originals"
         assert masks_eq, "repaired masks differ from the originals"
@@ -931,7 +942,7 @@ def phase_dynamic(g, index, sharded, dense_results, hubs, dev):
     full = _build_walk_index(g2, cfg)
     sync()
     t_full = time.perf_counter() - t0
-    build_hops = ops.launch_counts()["frog_hop"]
+    build_walks = ops.launch_counts()["frog_segment_walk"]
     refreshed = {}
     for what, chunk in (("refresh", 4096),
                         ("refresh_shard_chunk", -(-g.n // cfg.num_shards))):
@@ -941,16 +952,19 @@ def phase_dynamic(g, index, sharded, dense_results, hubs, dev):
         new, report = refresh_walk_index(index, g2, changed, chunk=chunk)
         sync()
         t_refresh = time.perf_counter() - t0
+        walks = ops.launch_counts()["frog_segment_walk"]
         hops = ops.launch_counts()["frog_hop"]
         equal = index_equal(new, full)
         log("18 " + what, chunk=chunk, **dataclasses.asdict(report),
             stale_row_share=report.stale_rows / report.n,
             stale_segment_share=report.stale_segments
             / report.total_segments, refresh_s=t_refresh,
-            full_build_s=t_full, frog_hop=hops, full_build_frog_hop=
-            build_hops, equal_full_build=equal)
+            full_build_s=t_full, frog_segment_walk=walks,
+            full_build_frog_segment_walk=build_walks, frog_hop=hops,
+            equal_full_build=equal)
         assert equal, "the refreshed index differs from a full build"
-        assert hops == cfg.segment_len * -(-report.stale_rows // chunk)
+        # one segment walk a chunk of stale rows
+        assert walks == -(-report.stale_rows // chunk) and hops == 0
         refreshed[what] = new
     new = refreshed.pop("refresh")
     del refreshed
@@ -970,10 +984,15 @@ def phase_dynamic(g, index, sharded, dense_results, hubs, dev):
     log("18 refresh_sharded", shards=new_sh.num_shards,
         stale_rows=report_sh.stale_rows, refresh_s=t_sh,
         frog_hop_stream_sorted=launches_sh["frog_hop_stream_sorted"],
+        frog_segment_masks=launches_sh["frog_segment_masks"],
         equal_full_build=equal)
     assert equal and new_sh.num_shards == SHARDS, \
         "the refreshed blocks differ from a full build"
-    assert launches_sh["frog_hop_stream_sorted"] > 0, launches_sh
+    # a chunk (4,096 rows): L sorted hops, one mask pass, no masked hop
+    chunks_sh = -(-report_sh.stale_rows // 4096)
+    assert launches_sh["frog_segment_masks"] == chunks_sh, launches_sh
+    assert launches_sh["frog_hop_stream_sorted"] == \
+        cfg.segment_len * chunks_sh, launches_sh
     del new_sh, blocks
 
     # phase 5's queries pinned across apply_mutations, on their own service
@@ -1005,7 +1024,10 @@ def phase_dynamic(g, index, sharded, dense_results, hubs, dev):
     assert retiring == [0] and svc.retiring_epochs == []
     assert fresh.epoch == 1 and svc.graph_epoch == 1
     assert index_equal(served, full), "the committed slab is not epoch 1's"
-    assert launches["frog_hop"] > 0, launches
+    # the commit's refresh: one segment walk a 1,024-row chunk
+    assert launches["frog_segment_walk"] == \
+        -(-report_svc.stale_rows // 1024), launches
+    assert launches["frog_hop"] == 0, launches
     svc.close()
     del served
 
@@ -1885,62 +1907,117 @@ def draw_rows(svc, g, blocked, row, dev):
             lambda impl=impl: hop_from_last(impl),
             lambda: kref.frog_hop_ref(last, row_keys, L - 1, R, *graph[:3]),
             hop[key + "bytes"] + 8 * W,
-            blocks=3 * W if key else hop["blocks"])
+            # streamed: one block a walk, and two a row for its hop key
+            blocks=W + 2 * C if key else hop["blocks"])
+    # what binds the streamed hop: its sort and runs, its kernel as the hop
+    # runs it (writes and hop-key reads at order[f]), and the same launch
+    # with order the identity (both in sorted order)
+    pos_s, order, seg_off, sched = sorted_runs(last)
+    hop_keys = kref.hop_keys(row_keys, L - 1, impl=None)
+    identity = torch.arange(W, device=dev)
+
+    def sorted_hop(o):
+        ops.frog_hop_stream_sorted(pos_s, o, work, row_keys, L - 1, R,
+                                   seg_off, sched, blocked,
+                                   hop_keys=hop_keys)
+
+    log("12 hop_stream_split", walks=W,
+        sort_and_runs_ms=time_ms(lambda: sorted_runs(last)),
+        kernel_ms=time_ms(lambda: sorted_hop(order)),
+        kernel_sorted_order_ms=time_ms(lambda: sorted_hop(identity)))
 
     # the segment walk with its masks, as the build, the repair and the
     # refresh run it: the shard's L hops from the start, hops 0 … L − 2
-    # recording the visited-block masks, byte-equal at every hop. Bound:
-    # the start copied, each hop's 8 B a walk, row keys and scattered
-    # sectors, and the masks written once (32 B a walk)
+    # recording the visited-block masks. One bound for every form, from
+    # the walk's own inputs and outputs: the vertices and row keys read
+    # once (20 B a row), endpoints and masks written once (36 B a walk),
+    # the distinct row_ptr sectors (at p and p + 1: a degree is their
+    # difference) of all L hops together, since row_ptr (19 MB) fits the
+    # 50 MB L2 and need be read once, the distinct col_idx sectors of each
+    # hop, since col_idx (275 MB) does not fit and a hop's random reads
+    # find last hop's lines gone, and one threefry block a walk and hop and
+    # two a row and hop (its key)
     bs = kref.segment_mask_block_size(n)
-    seg = {"bytes": 40 * W, "stream_bytes": 40 * W}
-    bufs = {impl: (torch.empty_like(start), torch.empty(
-        W, kref.MASK_WORDS, dtype=torch.uint32, device=dev))
-        for impl in ("cuda", "stream")}
-
-    def segment_walk(impl, upto=L):
-        pos, vis = bufs[impl]
-        pos.copy_(start)
-        for step in range(upto):
-            ops.frog_hop(pos, row_keys, step, R, *graph, impl=impl,
-                         blocked=blocked, visited=vis, record=step < L - 1)
-        return pos, vis.view(torch.int32)
-
-    def segment_walk_plain(upto=L):
-        pos, vis = start, None
-        for step in range(upto):
-            pos = kref.frog_hop_ref(pos, row_keys, step, R, *graph[:3])
-            vis = kref.hop_visits(vis, pos, step, step < L - 1, bs)
-        return pos, vis
-
+    seg_bytes = 20 * C + 36 * W
+    row_ptr_at = []
     for step in range(L):
-        p = segment_walk_plain(step)[0].long()
+        p = kref.frog_segment_walk_ref(vertices, row_keys, R, step, *graph)[
+            0].reshape(-1).long() if step else start.long()
         d = g.out_deg[p]
         b = kref.hop_bits(row_keys, step, R)
         e = g.row_ptr[p[d > 0]].long() + torch.remainder(
             b[d > 0], d[d > 0]).long()
-        seg["bytes"] += 8 * W + 16 * C + 32 * (sectors(p) + sectors(
-            p[d > 0]) + sectors(e))
-        seg["stream_bytes"] += 32 * W + 16 * C + 32 * sectors(e) + 8 * bv \
-            * int(torch.unique(p // bv).numel())
-        want = segment_walk_plain(step + 1)
-        for impl in ("cuda", "stream"):
-            got = segment_walk(impl, step + 1)
-            assert torch.equal(got[0], want[0]) and torch.equal(
-                got[1], want[1]), f"{impl} hop {step} with masks differs"
-    log("12 hop_masks", rows=C, R=R, walks=W, hops=L, mask_block=bs,
+        row_ptr_at += [p, p + 1]
+        seg_bytes += 32 * sectors(e)
+    seg_bytes += 32 * sectors(torch.cat(row_ptr_at))
+    del row_ptr_at
+    seg_blocks = L * W + 2 * L * C
+    want = kref.frog_segment_walk_ref(vertices, row_keys, R, L, *graph)
+    # the per-hop resident walk the build ran before (frog_hop with its
+    # visited operand), byte-equal at every hop
+    pos, vis = torch.empty_like(start), torch.empty(
+        W, kref.MASK_WORDS, dtype=torch.uint32, device=dev)
+
+    def hop_walk(upto=L):
+        pos.copy_(start)
+        for step in range(upto):
+            ops.frog_hop(pos, row_keys, step, R, *graph, impl="cuda",
+                         visited=vis, record=step < L - 1)
+        return pos.view(C, R), vis.view(torch.int32).view(C, R, -1)
+
+    plain_pos, plain_vis = start, None
+    for step in range(L):
+        plain_pos = kref.frog_hop_ref(plain_pos, row_keys, step, R,
+                                      *graph[:3])
+        plain_vis = kref.hop_visits(plain_vis, plain_pos, step, step < L - 1,
+                                    bs)
+        got = hop_walk(step + 1)
+        assert torch.equal(got[0].reshape(-1), plain_pos) and torch.equal(
+            got[1].reshape(W, -1), plain_vis), f"hop {step} with masks"
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    out = {impl: (torch.empty(C, R, dtype=torch.int32, device=dev),
+                  torch.empty(C, R, kref.MASK_WORDS, dtype=torch.uint32,
+                              device=dev)) for impl in ("cuda", "stream")}
+
+    def segment_walk(impl):
+        ep, vb = ops.frog_segment_walk(vertices, row_keys, R, L, *graph,
+                                       impl=impl, out=out[impl],
+                                       blocked=blocked)
+        return ep, vb.view(torch.int32)
+
+    log("12 segment_walk", rows=C, R=R, walks=W, hops=L, mask_block=bs,
         mask_bytes=4 * want[1].numel(),
-        nonzero_words=int((want[1] != 0).sum()),
-        byte_equal_every_hop=True)
-    for name, impl, key in (("frog_hop", "cuda", ""),
-                            ("frog_hop_stream_sorted", "stream", "stream_")):
-        row(name + ":masks", f"src/repro_torch/kernels/csrc/"
-            f"{'frog_step_stream' if key else 'frog_step'}.cu",
-            "src/repro/kernels/frog_step_stream.py:215" if key
+        nonzero_words=int((want[1] != 0).sum()), bound_ms=max(
+            bound_ms(seg_bytes), ops_bound_ms(seg_blocks)),
+        byte_equal=True)
+    for name, fn in (("frog_segment_walk", lambda: segment_walk("cuda")),
+                     ("frog_hop:masks", hop_walk),
+                     ("frog_hop_stream_sorted:masks",
+                      lambda: segment_walk("stream"))):
+        row(name, "src/repro_torch/kernels/csrc/" + (
+            "frog_segment.cu" if name == "frog_segment_walk" else
+            "frog_step.cu" if name == "frog_hop:masks" else
+            "frog_step_stream.cu"),
+            "src/repro/kernels/frog_step_stream.py:215" if "stream" in name
             else "src/repro/kernels/frog_step.py:84",
-            lambda impl=impl: segment_walk(impl), segment_walk_plain,
-            seg[key + "bytes"],
-            blocks=L * (3 * W if key else hop["blocks"]))
+            fn, lambda: kref.frog_segment_walk_ref(vertices, row_keys, R, L,
+                                                   *graph),
+            seg_bytes, blocks=seg_blocks)
+    # the streamed walk's mask pass alone, over the trail of hops 0 … L − 2
+    # (bound: 4 (L − 1) B a walk read, 32 B written)
+    trail = torch.stack([
+        kref.frog_segment_walk_ref(vertices, row_keys, R, s, *graph)[0]
+        .reshape(-1) for s in range(1, L)])
+    masks = torch.empty(W, kref.MASK_WORDS, dtype=torch.uint32, device=dev)
+
+    def mask_pass():
+        ops.frog_segment_masks(trail, masks, bs)
+        return masks.view(torch.int32)
+
+    row("frog_segment_masks", "src/repro_torch/kernels/csrc/"
+        "frog_step_stream.cu", "src/repro/kernels/frog_step_stream.py:215",
+        mask_pass, lambda: kref.frog_segment_masks_ref(trail, bs),
+        4 * (L - 1) * W + 32 * W)
 
 
 def no_host_sync(fn):
@@ -2700,6 +2777,7 @@ PORT_KERNELS = ("fa_wgmma_kernel", "flash_attention_kernel",
                 "frog_step_stream_kernel", "frog_step_kernel",
                 "frog_superstep_stream_kernel", "frog_superstep_kernel",
                 "frog_hop_stream_kernel", "frog_hop_kernel",
+                "frog_segment_walk_kernel", "frog_segment_masks_kernel",
                 "frog_count_kernel", "stitch_gather_local_kernel",
                 "stitch_step_local_kernel", "stitch_gather_rounds_kernel",
                 "stitch_gather_local_rounds_kernel",
@@ -2866,7 +2944,8 @@ def main() -> int:
     index, hubs, results = phase_serving(svc, pi, dev)
     launches = ops.launch_counts()
     log("launches", path="dense", **launches)
-    missing = [k for k in ("frog_superstep", "frog_hop", "frog_count",
+    missing = [k for k in ("frog_superstep", "frog_segment_walk",
+                           "frog_count",
                            "stitch_gather_rounds", "stitch_step_rounds",
                            "threefry_randint", "threefry_uniform",
                            "threefry_split", "threefry_fold_in")
@@ -2875,10 +2954,12 @@ def main() -> int:
     # query_counts' rounds and their tally in one launch, none a round
     assert launches["stitch_step_rounds"] == 1, launches
     assert launches["stitch_step"] == 0, launches
-    # one launch a superstep (t = 32) and a hop of each build shard
+    # one launch a superstep (t = 32) and a segment walk of each build
+    # shard, its L hops in it
     sc = svc.config.serving
     assert launches["frog_superstep"] == 32, launches
-    assert launches["frog_hop"] == sc.build_shards * sc.segment_len, launches
+    assert launches["frog_segment_walk"] == sc.build_shards, launches
+    assert launches["frog_hop"] == 0, launches
     phase_plain(svc, res, index, hubs, dev)
     # the streamed batch estimate and sharded serving
     ops.reset_launch_counts()
@@ -2887,7 +2968,7 @@ def main() -> int:
     launches2 = ops.launch_counts()
     log("launches", path="stream_sharded", **launches2)
     missing = [k for k in ("frog_superstep_stream_sorted",
-                           "frog_hop_stream_sorted",
+                           "frog_hop_stream_sorted", "frog_segment_masks",
                            "stitch_gather_local_rounds",
                            "stitch_gather_rounds", "frog_count")
                if launches2[k] < 1]
@@ -2901,6 +2982,8 @@ def main() -> int:
     assert launches2["frog_superstep_stream_sorted"] == 32, launches2
     assert launches2["frog_hop_stream_sorted"] == \
         ssc.build_shards * ssc.segment_len, launches2
+    # the hops write no mask row: one mask pass a build shard
+    assert launches2["frog_segment_masks"] == ssc.build_shards, launches2
     phase_lost_wave(sharded, hubs, dev)
     phase_faults(g, sharded, results, hubs, dev)
     log("17 peak", peak_mem_bytes_so_far=torch.cuda.max_memory_allocated())
@@ -2910,7 +2993,8 @@ def main() -> int:
     for k, v in dyn_launches.items():
         launches[k + ":masks"] = v
     for k in ("frog_step_stream_sorted", "frog_superstep_stream_sorted",
-              "frog_hop_stream_sorted", "stitch_gather_local",
+              "frog_hop_stream_sorted", "frog_segment_masks",
+              "stitch_gather_local",
               "stitch_gather_local_rounds", "stitch_step_local"):
         launches[k] = launches2[k]
     peak = torch.cuda.max_memory_allocated()

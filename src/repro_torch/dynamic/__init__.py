@@ -8,7 +8,7 @@ walk-index refresh (port of ``repro/dynamic``).
 * :mod:`repro_torch.dynamic.refresh` — per-segment invalidation from the
   build's ``visited_blocks`` masks on the index's device, and an
   incremental re-walk of the stale rows through the index build's segment
-  walk (the ``frog_hop`` kernel, masks recorded in it), writing back
+  walk (the ``frog_segment_walk`` kernel, masks recorded in it), writing back
   exactly the stale cells; epoch'd checkpoint directories;
 * :meth:`repro_torch.FrogWildService.apply_mutations` — the two-epoch
   commit that swaps slabs without stopping admission.

@@ -18,8 +18,8 @@ a segment ``(v, r)`` is stale iff
 
 :func:`refresh_walk_index` re-walks the rows holding stale segments
 through the index build's own segment walk (``query/index.py:
-_segment_walk_rows``, each hop one ``frog_hop`` launch that records the
-masks) and writes back exactly the invalidated cells, on the index's
+_segment_walk_rows``, one ``frog_segment_walk`` launch a chunk that
+records the masks) and writes back exactly the invalidated cells, on the index's
 device: the result equals a from-scratch build at the new epoch, byte
 for byte. The reference pads its last chunk of rows to a power of two so
 that JAX does not re-trace; nothing here traces, so the port walks the

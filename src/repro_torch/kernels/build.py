@@ -41,9 +41,12 @@ SIGNATURES = {
     + [_c_int32] * 2 + [_c_int64, _c_void_p],
     "fw_frog_superstep_stream_sorted": [_c_void_p] * 6 + [_c_float]
     + [_c_void_p] * 6 + [_c_int64] + [_c_int32] * 5 + [_c_void_p],
-    "fw_frog_hop_stream_sorted": [_c_void_p] * 4 + [_c_int32] * 2
-    + [_c_void_p] + [_c_int32] * 2 + [_c_void_p] * 6 + [_c_int64]
-    + [_c_int32] * 5 + [_c_void_p],
+    "fw_frog_hop_stream_sorted": [_c_void_p] * 4 + [_c_int32]
+    + [_c_void_p] * 6 + [_c_int64] + [_c_int32] * 5 + [_c_void_p],
+    "fw_frog_segment_walk": [_c_void_p] * 2 + [_c_int32] * 2
+    + [_c_void_p] * 4 + [_c_int32, _c_int64, _c_void_p],
+    "fw_frog_segment_masks": [_c_void_p, _c_int32, _c_void_p, _c_int32,
+                              _c_int32, _c_int64, _c_void_p],
     "fw_frog_count": [_c_void_p] * 2 + [_c_int64, _c_int64, _c_void_p],
     "fw_stitch_gather": [_c_void_p] * 5 + [_c_int64, _c_int32, _c_void_p],
     "fw_stitch_step": [_c_void_p] * 7 + [_c_int64, _c_int32, _c_void_p],

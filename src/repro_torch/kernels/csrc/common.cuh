@@ -46,33 +46,48 @@ __device__ __forceinline__ int32_t fw_shard(int32_t p, int32_t S,
 // visited_blocks): uint32[N, FW_MASK_WORDS] a walk, bit b of word w set
 // when the segment's walk stood on a vertex of id block 32 w + b (blocks
 // of mask_bs consecutive ids). The build records the intermediate hops
-// only: hop 0 writes the walk's whole row, the bit of the vertex it
-// reached when ``record`` is set and zeros otherwise (a one-hop
-// segment); a later hop with ``record`` set ORs its bit into the row.
-// A vertex whose block is past the mask's 256 (a padding row of the
-// reference's padded graph) sets no bit. The row is the walk's own, so
-// no atomics: one thread writes it.
+// only (0 … L − 2). A vertex whose block is past the mask's 256 (a
+// padding row of the reference's padded graph) sets no bit. A row is one
+// walk's, so one thread writes it and no atomics are needed.
 #define FW_MASK_WORDS 8
 
+// ORs vertex v's block bit into a row held in registers (the words are
+// indexed with constants only, so the row stays out of local memory)
+__device__ __forceinline__ void fw_mask_or(uint32_t (&w)[FW_MASK_WORDS],
+                                           int32_t v, int32_t mask_bs) {
+  const uint32_t blk = (uint32_t)v / (uint32_t)mask_bs;
+  const uint32_t word = blk >> 5;
+  const uint32_t bit = blk < 32u * FW_MASK_WORDS ? 1u << (blk & 31u) : 0u;
+#pragma unroll
+  for (uint32_t i = 0; i < FW_MASK_WORDS; ++i) w[i] |= word == i ? bit : 0u;
+}
+
+// walk f's whole row as two 16-byte stores
+__device__ __forceinline__ void fw_mask_store(
+    uint32_t* __restrict__ visited, int64_t f,
+    const uint32_t (&w)[FW_MASK_WORDS]) {
+  uint4* row4 = reinterpret_cast<uint4*>(visited + f * FW_MASK_WORDS);
+  row4[0] = make_uint4(w[0], w[1], w[2], w[3]);
+  row4[1] = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+// One hop's part of the mask (frog_hop): hop 0 writes the walk's whole
+// row, the bit of the vertex it reached when ``record`` is set and zeros
+// otherwise (a one-hop segment); a later hop with ``record`` set ORs its
+// bit into the row.
 __device__ __forceinline__ void fw_visit(uint32_t* __restrict__ visited,
                                          int64_t f, int32_t v,
                                          uint32_t step, int32_t record,
                                          int32_t mask_bs) {
+  if (step == 0) {
+    uint32_t w[FW_MASK_WORDS] = {};
+    if (record) fw_mask_or(w, v, mask_bs);
+    fw_mask_store(visited, f, w);
+    return;
+  }
   const uint32_t blk = (uint32_t)v / (uint32_t)mask_bs;
-  const bool hit = record && blk < 32u * FW_MASK_WORDS;
-  const uint32_t word = blk >> 5, bit = 1u << (blk & 31u);
-  uint32_t* row = visited + f * FW_MASK_WORDS;
-  if (step == 0) {                 // two 16-byte stores of the whole row
-    uint32_t w[FW_MASK_WORDS];
-#pragma unroll
-    for (uint32_t i = 0; i < FW_MASK_WORDS; ++i) {
-      w[i] = hit && word == i ? bit : 0u;
-    }
-    uint4* row4 = reinterpret_cast<uint4*>(row);
-    row4[0] = make_uint4(w[0], w[1], w[2], w[3]);
-    row4[1] = make_uint4(w[4], w[5], w[6], w[7]);
-  } else if (hit) {
-    row[word] |= bit;
+  if (record && blk < 32u * FW_MASK_WORDS) {
+    visited[f * FW_MASK_WORDS + (blk >> 5)] |= 1u << (blk & 31u);
   }
 }
 

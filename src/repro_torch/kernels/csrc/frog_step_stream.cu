@@ -144,9 +144,14 @@ extern "C" int fw_frog_step_stream_sorted(
 //   hop:       o = order[f] is slot o % R of row o / R; pos[o] = the
 //              successor with randint(fold_in(row_keys[o / R], step), 0,
 //              2**30, ctr = o % R). Sorted walks of one row are scattered,
-//              so each thread derives its row's key (three blocks a walk).
-//              With a visited operand, walk o's visited-block mask row is
-//              written as frog_hop writes it (common.cuh:fw_visit), at o.
+//              so the caller draws the rows' hop keys for the step (randint's
+//              low stream of fold_in(row key, step), ops.frog_hop_stream_
+//              sorted, C x 16 B that stay in L2) and a walk reads its row's
+//              and draws one block, where deriving the key itself took
+//              three. The hop touches no mask row: a segment walk's hops
+//              0 … L − 2 write their pos into rows of a trail buffer, and
+//              frog_segment_masks below writes every walk's mask row from
+//              them in one coalesced pass.
 //
 // The shared row_off/deg staging, the col slab staged where it pays and
 // the shared death histogram are the caller-bits kernel's above.
@@ -155,9 +160,8 @@ extern "C" int fw_frog_step_stream_sorted(
 // alive at order (1 B), writes pos (4 B) for each survivor and alive for
 // each dying frog, reads each touched block's row_off/deg slabs and the
 // survivors' col sectors; two threefry blocks per live frog (about 75
-// integer instructions each). A hop: 16 B a walk plus the row keys and the
-// col sectors, three blocks a walk, and with masks frog_hop's mask bytes
-// (frog_step.cu).
+// integer instructions each). A hop: 16 B a walk plus the hop keys and the
+// col sectors, one block a walk.
 //
 // Left on the table (ROADMAP R5): every sorted frog is visited, dead ones
 // included, and every visited block stages its 4 KB of row_off/deg; at the
@@ -170,8 +174,7 @@ __device__ __forceinline__ void stream_walk(
     const int32_t* __restrict__ pos_s, const int64_t* __restrict__ order,
     int32_t* __restrict__ pos, uint8_t* __restrict__ alive,
     int32_t* __restrict__ counts, const int64_t* __restrict__ keys,
-    float p_T, uint32_t step, int32_t R, uint32_t* __restrict__ visited,
-    int32_t record, int32_t mask_bs, const int32_t* __restrict__ cta_vid,
+    float p_T, int32_t R, const int32_t* __restrict__ cta_vid,
     const int32_t* __restrict__ cta_lo, const int32_t* __restrict__ seg_off,
     const int32_t* __restrict__ row_off, const int32_t* __restrict__ deg,
     const int32_t* __restrict__ col, int32_t num_vb, int32_t BV,
@@ -210,8 +213,7 @@ __device__ __forceinline__ void stream_walk(
     int32_t bits;
     if (kHop) {
       const int64_t c = fw_div(o, R);
-      const FwKey k = fw_hop_key(fw_key_at(keys, c), step);
-      bits = fw_randint30(k, (uint64_t)(o - c * R));
+      bits = fw_randint30(fw_key_at(keys, c), (uint64_t)(o - c * R));
     } else {
       if (!alive[o]) continue;
       const FwStepKeys k = s_keys;
@@ -227,9 +229,6 @@ __device__ __forceinline__ void stream_walk(
     const int32_t d = s_deg[local];
     const int32_t nxt = d > 0 ? cols[s_row_off[local] + fw_slot(bits, d)] : p;
     pos[o] = nxt;
-    if (kHop && visited != nullptr) {
-      fw_visit(visited, o, nxt, step, record, mask_bs);
-    }
   }
   if (kHop) return;
   __syncthreads();
@@ -248,23 +247,22 @@ __global__ void frog_superstep_stream_kernel(
     const int32_t* __restrict__ row_off, const int32_t* __restrict__ deg,
     const int32_t* __restrict__ col, int32_t num_vb, int32_t BV,
     int32_t E_blk, int32_t FB, int32_t stage_col) {
-  stream_walk<false>(pos_s, order, pos, alive, counts, step_key, p_T, 0u, 1,
-                     nullptr, 0, 1, cta_vid, cta_lo, seg_off, row_off, deg, col, num_vb, BV,
+  stream_walk<false>(pos_s, order, pos, alive, counts, step_key, p_T, 1,
+                     cta_vid, cta_lo, seg_off, row_off, deg, col, num_vb, BV,
                      E_blk, FB, stage_col);
 }
 
 __global__ void frog_hop_stream_kernel(
     const int32_t* __restrict__ pos_s, const int64_t* __restrict__ order,
-    int32_t* __restrict__ pos, const int64_t* __restrict__ row_keys,
-    uint32_t step, int32_t R, uint32_t* __restrict__ visited, int32_t record,
-    int32_t mask_bs, const int32_t* __restrict__ cta_vid,
+    int32_t* __restrict__ pos, const int64_t* __restrict__ hop_keys,
+    int32_t R, const int32_t* __restrict__ cta_vid,
     const int32_t* __restrict__ cta_lo, const int32_t* __restrict__ seg_off,
     const int32_t* __restrict__ row_off, const int32_t* __restrict__ deg,
     const int32_t* __restrict__ col, int32_t num_vb, int32_t BV,
     int32_t E_blk, int32_t FB, int32_t stage_col) {
-  stream_walk<true>(pos_s, order, pos, nullptr, nullptr, row_keys, 0.0f,
-                    step, R, visited, record, mask_bs, cta_vid, cta_lo, seg_off, row_off, deg, col,
-                    num_vb, BV, E_blk, FB, stage_col);
+  stream_walk<true>(pos_s, order, pos, nullptr, nullptr, hop_keys, 0.0f, R,
+                    cta_vid, cta_lo, seg_off, row_off, deg, col, num_vb, BV,
+                    E_blk, FB, stage_col);
 }
 
 extern "C" int fw_frog_superstep_stream_sorted(
@@ -289,9 +287,8 @@ extern "C" int fw_frog_superstep_stream_sorted(
 }
 
 extern "C" int fw_frog_hop_stream_sorted(
-    const void* pos_s, const void* order, void* pos, const void* row_keys,
-    int32_t step, int32_t R, void* visited, int32_t record, int32_t mask_bs,
-    const void* cta_vid, const void* cta_lo,
+    const void* pos_s, const void* order, void* pos, const void* hop_keys,
+    int32_t R, const void* cta_vid, const void* cta_lo,
     const void* seg_off, const void* row_off, const void* deg,
     const void* col, int64_t num_cta, int32_t num_vb, int32_t BV,
     int32_t E_blk, int32_t FB, int32_t stage_col, void* stream) {
@@ -303,10 +300,55 @@ extern "C" int fw_frog_hop_stream_sorted(
   frog_hop_stream_kernel<<<(unsigned int)num_cta, FW_THREADS, smem,
                            (cudaStream_t)stream>>>(
       (const int32_t*)pos_s, (const int64_t*)order, (int32_t*)pos,
-      (const int64_t*)row_keys, (uint32_t)step, R, (uint32_t*)visited,
-      record, mask_bs, (const int32_t*)cta_vid,
+      (const int64_t*)hop_keys, R, (const int32_t*)cta_vid,
       (const int32_t*)cta_lo, (const int32_t*)seg_off,
       (const int32_t*)row_off, (const int32_t*)deg, (const int32_t*)col,
       num_vb, BV, E_blk, FB, stage_col);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// frog_segment_masks: the streamed segment walk's visited-block masks in one
+// pass (plain version: kernels/ref.py:frog_segment_masks_ref). Hops 0 … L − 2
+// of a walk over sorted walks store their positions into the rows of a
+// trail, int32[T, N] with T = L − 1; walk f's mask row is the OR of the
+// block bits of trail[0 … T − 1][f] (common.cuh:fw_mask_or), ORed into the
+// row's old words when ``accumulate`` is set (a later recorded hop of
+// frog_hop's per-hop form, T = 1). One thread a walk: T coalesced int32
+// reads and two 16-byte stores, where a sorted hop writing its walks' rows
+// read and wrote a scattered 32-byte sector a walk.
+//
+// Bound (bytes, 3.35 TB/s): 4 T B a walk read and 32 B written (and 32 B
+// read when accumulating).
+
+__global__ void frog_segment_masks_kernel(const int32_t* __restrict__ trail,
+                                          int32_t T,
+                                          uint32_t* __restrict__ visited,
+                                          int32_t mask_bs, int32_t accumulate,
+                                          int64_t N) {
+  const int64_t f = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (f >= N) return;
+  uint32_t w[FW_MASK_WORDS] = {};
+  if (accumulate) {
+    const uint4* row4 = reinterpret_cast<const uint4*>(
+        visited + f * FW_MASK_WORDS);
+    const uint4 a = row4[0], b = row4[1];
+    w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+    w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
+  }
+  for (int32_t t = 0; t < T; ++t) fw_mask_or(w, trail[t * N + f], mask_bs);
+  fw_mask_store(visited, f, w);
+}
+
+extern "C" int fw_frog_segment_masks(const void* trail, int32_t T,
+                                     void* visited, int32_t mask_bs,
+                                     int32_t accumulate, int64_t N,
+                                     void* stream) {
+  if (N > 0) {
+    frog_segment_masks_kernel<<<fw_blocks(N), FW_THREADS, 0,
+                                (cudaStream_t)stream>>>(
+        (const int32_t*)trail, T, (uint32_t*)visited, mask_bs, accumulate,
+        N);
+  }
   return (int)cudaGetLastError();
 }

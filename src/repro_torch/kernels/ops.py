@@ -33,6 +33,11 @@ launch a superstep or hop, and the sort before it under ``"stream"``);
 ``frog_step`` stays its ``rng="caller"`` contract, bits from the caller.
 A hop also writes the segments' visited-block masks when given a
 ``visited`` operand (the reference builds them in XLA around its step).
+``frog_segment_walk`` is ``frog_hop``'s kernel redesigned for a whole
+segment walk: all L hops and their masks in one launch, as the index
+build, repair and refresh run it; under ``"stream"`` its L sorted hops
+store their positions into a trail and ``frog_segment_masks`` writes the
+masks from it in one pass.
 
 The stitch wrappers take ``rng``, the reference's mode: ``"caller"``
 (default) passes the slot bits (``bits`` / ``s0``, int32[W]);
@@ -71,6 +76,7 @@ LAUNCHES: Dict[str, int] = {"frog_step": 0, "frog_count": 0,
                             "stitch_gather_local_rounds": 0,
                             "frog_step_stream_sorted": 0,
                             "frog_superstep": 0, "frog_hop": 0,
+                            "frog_segment_walk": 0, "frog_segment_masks": 0,
                             "frog_superstep_stream_sorted": 0,
                             "frog_hop_stream_sorted": 0,
                             "spmv_ell_slab": 0, "flash_attention": 0,
@@ -591,7 +597,9 @@ def frog_hop(pos: torch.Tensor, row_keys: torch.Tensor, step: int, R: int,
     the bit of the vertex it reached when ``record`` is set, none
     otherwise; a later hop ORs that bit in when ``record`` is set
     (``ref.hop_visits``). The build records hops ``0 … L − 2``, the
-    segment's intermediate vertices."""
+    segment's intermediate vertices; it runs them all in one
+    :func:`frog_segment_walk`. Under ``"stream"`` the sorted hop leaves
+    the masks to :func:`frog_segment_masks`, one more launch."""
     name = "frog_hop"
     _check_hop(name, pos, row_keys, step, R)
     _check_graph(name, row_ptr, col_idx, deg, n)
@@ -602,8 +610,11 @@ def frog_hop(pos: torch.Tensor, row_keys: torch.Tensor, step: int, R: int,
         blocked, pos_s, order, seg_off, sched = _sorted_runs(
             name, pos, row_ptr, col_idx, deg, n, blocked)
         frog_hop_stream_sorted(pos_s, order, pos, row_keys, step, R, seg_off,
-                               sched, blocked, visited=visited,
-                               record=record, mask_block=mask_block)
+                               sched, blocked)
+        if visited is not None and (record or step == 0):
+            trail = pos[None] if record else pos[None][:0]
+            frog_segment_masks(trail, visited, mask_block,
+                               accumulate=step > 0)
         return
     use = _use_kernel(name, impl, pos, row_keys, row_ptr, col_idx, deg, *vis)
     if not use:
@@ -684,32 +695,149 @@ def frog_hop_stream_sorted(pos_s: torch.Tensor, order: torch.Tensor,
                            step: int, R: int, seg_off: torch.Tensor,
                            schedule: Tuple[int, torch.Tensor, torch.Tensor],
                            blocked: BlockedCSR, impl: str = "auto",
-                           visited: Optional[torch.Tensor] = None,
-                           record: bool = False, mask_block: int = 1
-                           ) -> None:
+                           hop_keys: Optional[torch.Tensor] = None) -> None:
     """:func:`frog_hop`'s streamed kernel on walks sorted by vertex (as
-    :func:`frog_superstep_stream_sorted`): walk ``order[f]`` moves, in
-    place in ``pos``, and writes its ``visited`` row as :func:`frog_hop`
-    does, over blocks of ``mask_block`` ids."""
+    :func:`frog_superstep_stream_sorted`): walk ``order[f]`` moves, its
+    new vertex written to ``pos`` at ``order[f]`` (every walk of ``pos``
+    is written, so ``pos`` may be another buffer than the one sorted).
+    The kernel reads the rows' keys of the hop, ``hop_keys`` (int64[C,
+    2], ``ref.hop_keys(row_keys, step)``), drawn here when not given: two
+    ``threefry_fold_in`` launches."""
     name = "frog_hop_stream_sorted"
     _check_sorted(name, pos_s, order, pos, seg_off, schedule, blocked)
     _check_hop(name, pos, row_keys, step, R)
-    vis = _check_visited(name, visited, pos.shape[0], mask_block)
     use = _use_kernel(name, impl, pos_s, order, pos, row_keys, seg_off,
                       *schedule[1:], blocked.row_off, blocked.deg,
-                      blocked.col, *vis)
+                      blocked.col)
+    if hop_keys is None:
+        hop_keys = kref.hop_keys(row_keys, step,
+                                 impl=None if use else "torch")
+    _check_keys(name, "hop_keys", hop_keys, row_keys.shape)
     if not use:
         pos.copy_(kref.frog_hop_stream_sorted_ref(
-            pos_s, order, row_keys, step, R, seg_off, blocked.row_off,
-            blocked.deg, blocked.col))
-        _plain_visits(visited, pos, step, record, mask_block)
+            pos_s, order, hop_keys, R, seg_off, blocked.row_off, blocked.deg,
+            blocked.col))
         return
     frogs, work = _sorted_operands(pos_s, order, seg_off, schedule, blocked)
     if pos.shape[0]:
-        _launch(name, pos.device, *frogs, pos.data_ptr(),
-                row_keys.data_ptr(), int(step), int(R),
-                visited.data_ptr() if vis else None, int(record),
-                int(mask_block), *work)
+        _launch(name, pos.device, *frogs, pos.data_ptr(), hop_keys.data_ptr(),
+                int(R), *work)
+
+
+def frog_segment_masks(trail: torch.Tensor, visited: torch.Tensor,
+                       mask_block: int, impl: str = "auto",
+                       accumulate: bool = False) -> None:
+    """The visited-block mask rows of walks that stood on ``trail[0 … T −
+    1]`` (int32[T, N], one row a recorded hop), in place in ``visited``
+    (uint32[N, MASK_WORDS]): each walk's row the OR of its T block bits
+    (blocks of ``mask_block`` ids), ORed into the row's old words under
+    ``accumulate``. One launch; the plain version is
+    ``ref.frog_segment_masks_ref``."""
+    name = "frog_segment_masks"
+    _check_i32(name, "trail", trail, ndim=2)
+    N = trail.shape[1]
+    vis = _check_visited(name, visited, N, mask_block)
+    use = _use_kernel(name, impl, trail, *vis)
+    words = visited.view(torch.int32)
+    if not use:
+        words.copy_(kref.frog_segment_masks_ref(
+            trail, mask_block, words if accumulate else None))
+        return
+    if N:
+        _launch(name, trail.device, trail.data_ptr(), trail.shape[0],
+                visited.data_ptr(), int(mask_block), int(accumulate), N)
+
+
+def _segment_out(name: str, out, C: int, R: int, device: torch.device):
+    """The segment walk's ``(endpoints int32[C, R], visited uint32[C, R,
+    MASK_WORDS])``: ``out`` checked, or allocated."""
+    shapes = ((C, R), (C, R, kref.MASK_WORDS))
+    if out is None:
+        return tuple(torch.empty(shape, dtype=dt, device=device)
+                     for shape, dt in zip(shapes, (torch.int32,
+                                                   torch.uint32)))
+    for t, shape, dt in zip(out, shapes, (torch.int32, torch.uint32)):
+        if t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name}: out must be contiguous int32{[C, R]} "
+                             f"and uint32{list(shapes[1])} tensors, got "
+                             f"{t.dtype}{list(t.shape)}")
+    return tuple(out)
+
+
+def frog_segment_walk(vertices: torch.Tensor, row_keys: torch.Tensor, R: int,
+                      L: int, row_ptr: torch.Tensor, col_idx: torch.Tensor,
+                      deg: torch.Tensor, n: int, impl: str = "auto",
+                      out=None, blocked: Optional[BlockedCSR] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A walk-index segment walk, whole: the ``R`` walks of each row ``c``
+    start at ``vertices[c]`` (int32[C]) and take ``L ≥ 1`` hops of
+    :func:`frog_hop` under ``row_keys[c]`` (int64[C, 2]), hops ``0 … L −
+    2`` recorded in their visited-block masks over blocks of
+    ``ref.segment_mask_block_size(n)`` ids → ``(endpoints int32[C, R],
+    visited uint32[C, R, MASK_WORDS])``, written into ``out`` when given.
+
+    One launch of the kernel (``"auto"`` on CUDA tensors, ``"cuda"``);
+    the plain version (``ref.frog_segment_walk_ref``) for CPU tensors and
+    ``"torch"``. The kernel reads a vertex's degree as ``row_ptr[v + 1] −
+    row_ptr[v]``, not ``deg[v]`` (one gathered sector a hop fewer): the
+    two agree for every ``CSRGraph``, whose ``out_deg`` is
+    ``diff(row_ptr)``, and ``deg`` must be that.
+
+    ``"stream"`` runs the L hops through the sorted kernel over
+    ``blocked`` (built from the CSR when not given), each hop's positions
+    into a trail whose rows :func:`frog_segment_masks` then turns into
+    the masks: L + 1 launches and two ``threefry_fold_in`` for every
+    hop's keys."""
+    name = "frog_segment_walk"
+    _check_i32(name, "vertices", vertices)
+    C = vertices.shape[0]
+    if R < 1 or L < 1:
+        raise ValueError(f"{name}: R and L must be ≥ 1, got R = {R}, "
+                         f"L = {L}")
+    _check_keys(name, "row_keys", row_keys, (C, 2))
+    _check_graph(name, row_ptr, col_idx, deg, n)
+    ep, vis = _segment_out(name, out, C, R, vertices.device)
+    mask_block = kref.segment_mask_block_size(n)
+    if impl == "stream":
+        _segment_walk_stream(vertices, row_keys, R, L, row_ptr, col_idx, deg,
+                             n, blocked, ep, vis, mask_block)
+        return ep, vis
+    use = _use_kernel(name, impl, vertices, row_keys, row_ptr, col_idx, deg,
+                      ep, vis)
+    if not use:
+        e, m = kref.frog_segment_walk_ref(vertices, row_keys, R, L, row_ptr,
+                                          col_idx, deg, n)
+        ep.copy_(e)
+        vis.view(torch.int32).copy_(m)
+    elif C:
+        _launch(name, vertices.device, vertices.data_ptr(),
+                row_keys.data_ptr(), int(R), int(L), row_ptr.data_ptr(),
+                col_idx.data_ptr(), ep.data_ptr(), vis.data_ptr(),
+                mask_block, C * R)
+    return ep, vis
+
+
+def _segment_walk_stream(vertices, row_keys, R: int, L: int, row_ptr,
+                         col_idx, deg, n: int, blocked, ep, vis,
+                         mask_block: int) -> None:
+    """:func:`frog_segment_walk` under ``"stream"``: hop ``s < L − 1``
+    writes row ``s`` of the trail, the last hop the endpoints."""
+    C = vertices.shape[0]
+    if not C:
+        return
+    N = C * R
+    pos = torch.repeat_interleave(vertices, R, output_size=N)
+    trail = torch.empty(L - 1, N, dtype=torch.int32, device=pos.device)
+    steps = torch.arange(L, device=pos.device)[:, None]
+    keys = kref.hop_keys(row_keys, steps, impl=None)
+    for step in range(L):
+        dst = trail[step] if step < L - 1 else ep.view(-1)
+        blocked, pos_s, order, seg_off, sched = _sorted_runs(
+            "frog_segment_walk", pos, row_ptr, col_idx, deg, n, blocked)
+        frog_hop_stream_sorted(pos_s, order, dst, row_keys, step, R, seg_off,
+                               sched, blocked, hop_keys=keys[step])
+        pos = dst
+    frog_segment_masks(trail, vis.view(N, kref.MASK_WORDS), mask_block)
 
 
 def _check_block(name: str, block: torch.Tensor, base: int) -> None:

@@ -233,6 +233,23 @@ def hop_bits(row_keys, step: int, R: int):
                         1 << 30, impl="torch").reshape(-1)
 
 
+def hop_keys(row_keys, step, impl: Optional[str] = "torch"):
+    """The keys the rows' walks draw a hop's bits from (int64[C, 2], or
+    int64[L, C, 2] for ``step`` a tensor of shape ``[L, 1]``): randint's
+    low stream of ``fold_in(row_keys[c], step)``, which is ``split(k)[1]
+    = fold_in(k, 1)``. ``impl`` as for a ``prng`` draw (``None``: the
+    draw kernels on a CUDA key)."""
+    return prng.fold_in(prng.fold_in(row_keys, step, impl=impl), 1,
+                        impl=impl)
+
+
+def hop_key_bits(keys, R: int):
+    """:func:`hop_bits` from the rows' :func:`hop_keys`: walk ``c · R + r``
+    draws one block, the low 30 bits of ``bits(keys[c], r)``."""
+    return (prng.random_bits(keys, (R,), impl="torch")
+            & ((1 << 30) - 1)).to(torch.int32).reshape(-1)
+
+
 # Per-segment visited-block masks of the walk index (the reference's
 # ``_MASK_WORDS`` and ``segment_mask_block_size``, query/index.py): ``32 ·
 # MASK_WORDS`` blocks of ``segment_mask_block_size(n)`` consecutive vertex
@@ -267,6 +284,36 @@ def hop_visits(visited, nxt, step: int, record: bool, block_size: int):
           else torch.zeros(nxt.shape[0], MASK_WORDS, dtype=torch.int32,
                            device=nxt.device))
     return oh if step == 0 else visited | oh
+
+
+def frog_segment_masks_ref(trail, block_size: int, visited=None):
+    """The mask rows (int32[N, MASK_WORDS]) of walks that stood on
+    ``trail[0 … T − 1]`` (int32[T, N]): the OR of their block bits, and of
+    ``visited``'s old words when given."""
+    out = (torch.zeros(trail.shape[1], MASK_WORDS, dtype=torch.int32,
+                       device=trail.device) if visited is None
+           else visited.clone())
+    for t in range(trail.shape[0]):
+        out |= block_one_hot(trail[t], block_size)
+    return out
+
+
+def frog_segment_walk_ref(vertices, row_keys, R: int, L: int, row_ptr,
+                          col_idx, deg, n: int):
+    """A walk-index segment walk (the reference's ``_segment_walk_rows``):
+    the ``R`` walks of each row ``c`` start at ``vertices[c]`` and take
+    ``L`` hops of :func:`frog_hop_ref`, hops ``0 … L − 2`` recorded in
+    their masks (:func:`hop_visits`) → ``(endpoints int32[C, R], visited
+    int32[C, R, MASK_WORDS])``."""
+    C = vertices.shape[0]
+    pos = torch.repeat_interleave(vertices.to(torch.int32), R,
+                                  output_size=C * R)
+    bs = segment_mask_block_size(n)
+    vis = None
+    for step in range(L):
+        pos = frog_hop_ref(pos, row_keys, step, R, row_ptr, col_idx, deg)
+        vis = hop_visits(vis, pos, step, step < L - 1, bs)
+    return pos.view(C, R), vis.view(C, R, MASK_WORDS)
 
 
 def frog_superstep_ref(pos, alive, counts, step_key, p_T: float, row_ptr,
@@ -311,12 +358,13 @@ def frog_superstep_stream_sorted_ref(pos_s, order, alive, counts, step_key,
             counts + dead[: counts.shape[0]])
 
 
-def frog_hop_stream_sorted_ref(pos_s, order, row_keys, step: int, R: int,
-                               seg_off, row_off, deg, col):
+def frog_hop_stream_sorted_ref(pos_s, order, keys, R: int, seg_off, row_off,
+                               deg, col):
     """:func:`frog_hop_ref` through the streamed superstep, on walks sorted
-    by vertex: the new positions in the original order."""
+    by vertex, the rows' bits from their :func:`hop_keys`: the new
+    positions in the original order."""
     o = order.long()
-    bits = hop_bits(row_keys, step, R)[o]
+    bits = hop_key_bits(keys, R)[o]
     nxt_s, _ = frog_step_stream_sorted_ref(pos_s, torch.zeros_like(pos_s),
                                            bits, seg_off, row_off, deg, col)
     return _unsort(o, nxt_s)

@@ -19,9 +19,11 @@ reference's. The build walks one range shard of ``build_shards`` at a time
 through :func:`_walk_shard_rows`, which bounds the walkers (and the key
 streams) alive per step to ``R · n / build_shards``;
 :func:`rebuild_shard_blocks` re-walks single shards through the same
-function. Every hop runs through ``ops.frog_hop``, one launch that draws
-the rows' bits itself; with ``step_impl="stream"`` through the streamed
-kernel over the graph's :class:`BlockedCSR` (the service's cached one).
+function. A segment walk is one ``ops.frog_segment_walk`` launch that
+takes all L hops and draws the rows' bits itself; with
+``step_impl="stream"`` it runs L launches of the streamed hop kernel over
+the graph's :class:`BlockedCSR` (the service's cached one) and one of the
+mask pass.
 (The reference documents ``"stream"`` for its build but its jitted row
 walker passes the graph as traced operands, which its ``ops.frog_step``
 refuses; the port's slab equals the reference's slab built with any other
@@ -40,9 +42,9 @@ _MASK_WORDS`` vertex-id blocks of ``segment_mask_block_size(n)`` ids: the
 blocks of the segment's intermediate vertices (``p_1 … p_{L-1}``), stored
 as ``visited_blocks`` (uint32[n, R, _MASK_WORDS] on the slab's device), so
 staleness under a mutation batch (``repro_torch.dynamic``) is one bitwise
-test, not a re-walk. The hop kernel writes them as it moves
-(``ops.frog_hop``'s ``visited`` operand), byte-equal to the reference's
-masks, which it builds in XLA around its step. Masks travel with the
+test, not a re-walk. The segment-walk kernel builds them in registers
+as it walks and writes each once, byte-equal to the reference's masks,
+which it builds in XLA around its step. Masks travel with the
 slab: :meth:`ShardedWalkIndex.reassemble`, :func:`shard_walk_index`
 (zero rows past ``n``), the savers and the loaders; an index from a
 pre-epoch checkpoint has ``None``. A repaired shard carries the masks its
@@ -191,25 +193,13 @@ def _segment_walk_rows(row_ptr, col_idx, deg, n, step_impl, R, L, vertices,
     walks the L-step segments of ``vertices`` (all ``R`` slots per row)
     with the per-vertex key streams ``fold_in(fold_in(key, v), l)`` →
     ``(endpoints int32[C, R], visited_blocks uint32[C, R, _MASK_WORDS])``.
-    Each hop is one ``ops.frog_hop``, which draws the rows' bits and
-    records the masks of hops ``0 … L − 2`` itself (blocks of
+    The walk is one ``ops.frog_segment_walk``, which draws the rows' bits
+    and records the masks of hops ``0 … L − 2`` itself (blocks of
     ``segment_mask_block_size(n)`` ids). ``out`` is an optional pair of
     contiguous tensors of those shapes to walk in."""
-    C = vertices.shape[0]
-    if out is None:
-        out = (torch.empty(C, R, dtype=torch.int32, device=vertices.device),
-               torch.empty(C, R, _MASK_WORDS, dtype=torch.uint32,
-                           device=vertices.device))
-    row_keys = prng.fold_in(key, vertices)
-    pos = out[0].view(-1)
-    pos.copy_(torch.repeat_interleave(vertices.to(torch.int32), R,
-                                      output_size=C * R))
-    visited = out[1].view(-1, _MASK_WORDS)
-    for step in range(L):
-        ops.frog_hop(pos, row_keys, step, R, row_ptr, col_idx, deg, n,
-                     impl=step_impl, blocked=blocked, visited=visited,
-                     record=step < L - 1)
-    return out
+    return ops.frog_segment_walk(vertices, prng.fold_in(key, vertices), R, L,
+                                 row_ptr, col_idx, deg, n, impl=step_impl,
+                                 out=out, blocked=blocked)
 
 
 def _walk_shard_rows(g: CSRGraph, cfg: WalkIndexConfig, shard: int, sz: int,
@@ -473,11 +463,12 @@ def rebuild_shard_blocks(g: CSRGraph, cfg: WalkIndexConfig,
     """Re-walks just the named shards' blocks of the ``cfg.num_shards``
     range shards of ``g`` with the build's own per-shard program and key
     streams (``fold_in(PRNGKey(cfg.seed), v)``), on ``g``'s device: each
-    hop one ``ops.frog_hop`` launch. Returns ``{shard: (endpoints
-    int32[sz, R], visited uint32[sz, R, _MASK_WORDS])}``, byte-equal to
-    the reference's ``rebuild_shard_blocks``. Rows past ``n`` are, as
-    there, the padded graph's vertices (:func:`_padding_rows`), which
-    :func:`shard_walk_index` leaves zero instead; no walk reads them."""
+    shard one ``ops.frog_segment_walk`` launch. Returns ``{shard:
+    (endpoints int32[sz, R], visited uint32[sz, R, _MASK_WORDS])}``,
+    byte-equal to the reference's ``rebuild_shard_blocks``. Rows past
+    ``n`` are, as there, the padded graph's vertices
+    (:func:`_padding_rows`), which :func:`shard_walk_index` leaves zero
+    instead; no walk reads them."""
     blocked = _check_build(g, cfg, blocked)
     sz = -(-g.n // cfg.num_shards)
     key = prng.PRNGKey(cfg.seed, g.device)

@@ -674,6 +674,10 @@ DRAW_ENTRY = {("superstep", "auto"): "frog_superstep",
               ("superstep", "stream"): "frog_superstep_stream_sorted",
               ("hop", "auto"): "frog_hop",
               ("hop", "stream"): "frog_hop_stream_sorted"}
+# the kernel of a build's, repair's or refresh's segment walk: one launch
+# a walk, or under "stream" one a hop and one frog_segment_masks a walk
+SEGMENT_ENTRY = {"auto": "frog_segment_walk",
+                 "stream": "frog_hop_stream_sorted"}
 
 
 def _draw_graph(cuda, hub_deg=None):
@@ -815,13 +819,18 @@ def test_cuda_walks_one_launch_per_superstep_and_hop(cuda, step_impl):
         out[str(dev)] = (res.counts.cpu(), slab.cpu(), walk, build)
     counts, slab, walk, build = out[str(cuda)]
     step = DRAW_ENTRY[("superstep", step_impl)]
-    hop = DRAW_ENTRY[("hop", step_impl)]
     # the walk's two splits and start randint, and one fold_in of the row
-    # keys a build shard, each one launch
+    # keys a build shard, each one launch; the resident build one segment
+    # walk a build shard, the streamed one a sorted hop a hop, one mask
+    # pass and two fold_in draws of every hop's keys a build shard
     assert walk == {**{k: 0 for k in walk}, step: t, "frog_count": 1,
                     "threefry_split": 2, "threefry_randint": 1}
-    assert build == {**{k: 0 for k in build}, hop: 3 * 3,
-                     "threefry_fold_in": 3}
+    streamed = step_impl == "stream"
+    extra = ({"frog_segment_masks": 3, "threefry_fold_in": 3 + 3 * 2}
+             if streamed else {"threefry_fold_in": 3})
+    assert build == {**{k: 0 for k in build},
+                     SEGMENT_ENTRY[step_impl]: 3 * (3 if streamed else 1),
+                     **extra}
     assert torch.equal(counts, out["cpu"][0])
     assert torch.equal(slab, out["cpu"][1])
     assert sum(out["cpu"][2].values()) == sum(out["cpu"][3].values()) == 0
@@ -841,9 +850,10 @@ def test_cuda_refused_draw_launch_raises(cuda, name, args):
 
 @pytest.mark.cuda
 def test_cuda_rebuild_shard_blocks_equal_cpu(cuda):
-    """A repair's re-walk on the card: each hop of each named shard one
-    ``frog_hop`` launch, the blocks and their masks (the last shard's
-    padding rows included) byte-equal to the CPU's."""
+    """A repair's re-walk on the card: each named shard one
+    ``frog_segment_walk`` launch and no ``frog_hop``, the blocks and their
+    masks (the last shard's padding rows included) byte-equal to the
+    CPU's."""
     from repro_torch.config import WalkIndexConfig
     from repro_torch.graph import chung_lu_powerlaw
     from repro_torch.query.index import rebuild_shard_blocks
@@ -852,7 +862,8 @@ def test_cuda_rebuild_shard_blocks_equal_cpu(cuda):
                           num_shards=4, seed=9)
     ops.reset_launch_counts()
     got = rebuild_shard_blocks(g.to(cuda), cfg, [1, 3])
-    assert ops.launch_counts()["frog_hop"] == 2 * 3
+    assert ops.launch_counts()["frog_segment_walk"] == 2
+    assert ops.launch_counts()["frog_hop"] == 0
     want = rebuild_shard_blocks(g, cfg, [1, 3])
     for s in (1, 3):
         assert torch.equal(got[s][0].cpu(), want[s][0])
@@ -904,9 +915,9 @@ def test_cuda_frog_hop_masks_match_plain(cuda, monkeypatch, rows, R, L,
 
 @pytest.mark.cuda
 def test_cuda_sorted_hop_mask_skips_blocks_past_the_mask(cuda):
-    """``frog_hop_stream_sorted`` with one id a block: a vertex whose block
-    is past the mask's 256 sets no bit, as in the plain version (the
-    reference's padding rows)."""
+    """``frog_hop_stream_sorted`` and the mask pass after it with one id a
+    block: a vertex whose block is past the mask's 256 sets no bit, as in
+    the plain version (the reference's padding rows)."""
     from repro_torch import prng
     row_ptr, col_idx, deg, n, blocked = _draw_graph(cuda)
     R = 8
@@ -919,8 +930,8 @@ def test_cuda_sorted_hop_mask_skips_blocks_past_the_mask(cuda):
     _, pos_s, order, seg_off, sched = ops._sorted_runs(
         "test", pos, row_ptr, col_idx, deg, n, blocked)
     ops.frog_hop_stream_sorted(pos_s, order, got, row_keys, 0, R, seg_off,
-                               sched, blocked, visited=vis, record=True,
-                               mask_block=1)
+                               sched, blocked)
+    ops.frog_segment_masks(got[None], vis, 1)
     want = kref.frog_hop_ref(want, row_keys, 0, R, row_ptr, col_idx, deg)
     want_vis = kref.hop_visits(None, want, 0, True, 1)
     torch.cuda.synchronize()
@@ -936,7 +947,8 @@ def test_cuda_refresh_equals_rebuild(cuda, step_impl, shards):
     """``apply_mutations`` and ``refresh_walk_index`` on the card: the
     stale set and the refreshed slab (endpoints and masks, dense or 4
     serving blocks) equal a rebuild on the card at the new epoch and the
-    CPU's refresh; each hop of the refresh one hop-kernel launch."""
+    CPU's refresh; each chunk one segment walk (resident: one launch;
+    streamed: a sorted hop a hop and one mask pass)."""
     from repro_torch.config import WalkIndexConfig
     from repro_torch.dynamic import (MutationBatch, apply_mutations,
                                      invalidate_segments,
@@ -979,8 +991,13 @@ def test_cuda_refresh_equals_rebuild(cuda, step_impl, shards):
     assert torch.equal(ep, out["cpu"][1]) and torch.equal(vb, out["cpu"][2])
     assert report == out["cpu"][3]
     assert 0 < report.stale_rows < g.n
-    hop = DRAW_ENTRY[("hop", step_impl)]
-    assert launches[hop] == 3 * -(-report.stale_rows // 1000), launches
+    streamed = step_impl == "stream"
+    chunks = -(-report.stale_rows // 1000)
+    assert launches[SEGMENT_ENTRY[step_impl]] == \
+        (3 if streamed else 1) * chunks, launches
+    assert launches["frog_hop"] == 0, launches
+    assert launches["frog_segment_masks"] == \
+        (chunks if streamed else 0), launches
 
 
 @pytest.mark.cuda
