@@ -77,6 +77,36 @@ answer against its guarantee:
               through ``save_epoch_index`` / ``load_epoch_index`` (bytes,
               seconds); and a 100,000-vertex build and refresh on the card
               and on the CPU, resident and streamed, byte-equal masks;
+19. gateway — (runs after phase 18) ``Gateway.open(g, RuntimeConfig(),
+              replicas=2)``: both replicas' ``ensure_index()`` one object
+              (one ``data_ptr()`` each for endpoints and masks), the
+              allocator grown by less than 1.5 × one index's bytes, the
+              index equal to phase 5's; phase 5's 8 queries through it
+              (the first top-k live, its 5 twins joined, the PPRs live),
+              each live answer byte-equal to a direct service's over the
+              same index given the same requests on the same replica, each
+              joined one its parent's object; the 8 again at ε = 0.33,
+              which their certificates (0.3267: t = 32 caps the ε = 0.3
+              plan) dominate, all from the cache with no wave, and a
+              repeat at ε = 0.3 live; an in-flight join (the identical
+              target the parent's object, ε = 0.5 settled no later); the
+              batch estimate at ε = 0.1 live (32 ``frog_superstep``
+              launches, phase 4's top-100) and at ε = 0.23 from the cache
+              (none); ``serve_http`` on 127.0.0.1: a live ``/topk`` from a
+              handler thread read back from the cache, a cached one equal
+              to the in-process answer, ``/healthz``, ``/metrics``; on
+              gateways of their own without the cache, replica 0 crashed
+              at its first wave (one failover, byte-equal to the fault-free
+              answer), replica 0 stalled past a 1 s heartbeat (quarantined,
+              rerouted, byte-equal), overload shedding (distinct PPR
+              sources past one plan's walks: 7 of 8 shed with
+              ``retry_after_s`` > 0, HTTP 503 with ``Retry-After``) and
+              ``drain()``; ``Gateway.apply_mutations`` of phase 18's batch
+              with a query in flight on a restarted (cold) replica: one
+              refresh (one ``frog_segment_walk`` a 1,024-row chunk, as
+              phase 18's commit, no ``frog_hop``), both replicas on its
+              index, the pinned answer byte-equal to a direct service's at
+              epoch 0, a repeat live at epoch 1;
 9. erasure  — the quickstart's partial-synchronization walk
               (``examples/quickstart.py``: 400,000 frogs, t =
               ``suggested_steps(μ_20(π))``, p_s = 0.7, channel erasure over
@@ -191,8 +221,10 @@ walks and the GraphLab-PR baseline), reset just before the 32k forward of
 phase 14 and read just after it, reset just before phase 15's
 scheduler run and read just after it, in phase 17 reset just before
 the repair and each degraded service's queries and read just after each,
-and in phase 18 (this slice's path) reset just before each refresh and
-the pinned service's run and read just after each;
+in phase 18 reset just before each refresh and the pinned service's run
+and read just after each, and in phase 19 (the gateway's path) reset just
+before ``Gateway.open`` and read just after the HTTP requests, and reset
+just before ``Gateway.apply_mutations`` and read just after it;
 phases 6, 11, 12 and 13 reset them around each run whose draw launches
 they count.
 The last line is ``{"ok": true, "device": {...}}``; any failed check or
@@ -201,6 +233,7 @@ launch raises and exits non-zero, as does a machine without CUDA.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -1076,6 +1109,421 @@ def phase_dynamic(g, index, sharded, dense_results, hubs, dev):
         assert equal, f"{step_impl}: the card's masks differ from the CPU's"
     return {"frog_hop": launches["frog_hop"],
             "frog_hop_stream_sorted": launches_sh["frog_hop_stream_sorted"]}
+
+
+# phase 19: the serving gateway. Wall-clock settings sized to the card's
+# waves (43-64 ms at LiveJournal scale), not to the CPU's defaults
+GATEWAY = dict(replicas=2, heartbeat_s=1.0, stall_s=1.5, cache_eps=0.33,
+               batch_cache_eps=0.23, join_k=20, http_k=12, http_eps=0.4,
+               overload_queries=8)
+
+
+def index_bytes(index) -> int:
+    slab = index.endpoints if hasattr(index, "endpoints") else index.blocks
+    vb = index.visited_blocks
+    return (slab.numel() * slab.element_size()
+            + (0 if vb is None else vb.numel() * vb.element_size()))
+
+
+def same_answer(a, b) -> bool:
+    """Byte-equal answers: vertices, scores, bound, walks and waves."""
+    return (a.vertices.tobytes() == b.vertices.tobytes()
+            and a.scores.dtype == b.scores.dtype
+            and a.scores.tobytes() == b.scores.tobytes()
+            and a.epsilon_bound == b.epsilon_bound
+            and (a.num_walks, a.waves) == (b.num_walks, b.waves))
+
+
+def direct_twins(g, index, handles, dev):
+    """The answers of direct services over ``index`` given, replica by
+    replica and in the same order, the requests the gateway routed live:
+    the cold-replica contract under continuous batching (a query's answer
+    depends on the queries that share its waves)."""
+    from repro_torch import FrogWildService, RuntimeConfig
+    want = {}
+    for ridx in sorted({h.replica for h in handles if h.source == "live"}):
+        svc = FrogWildService.open(g, RuntimeConfig(), device=dev,
+                                   index=index)
+        mine = [h for h in handles if h.source == "live"
+                and h.replica == ridx]
+        twins = [svc.resubmit(h._inner.request) for h in mine]
+        for h, t in zip(mine, twins):
+            want[id(h)] = t.result()
+        svc.close()
+    return want
+
+
+def http_get(url: str):
+    """``(status, headers, JSON body)``; an HTTP error status is an answer
+    (the 503 gate reads it), a refused connection raises."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=120) as resp:
+            return resp.status, dict(resp.headers), json.load(resp)
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.load(e)
+
+
+def phase_gateway(g, index, res, pi, hubs, dev):
+    """The serving gateway at LiveJournal scale (phase 19): two replicas
+    over one walk index in device memory; phase 5's queries live, their
+    repeat from the cache, an in-flight join, the cached batch estimate,
+    the HTTP front end from its handler threads, a crash failover, a
+    stall, overload shedding and drain on gateways of their own, and
+    ``Gateway.apply_mutations`` of phase 18's batch under a pinned query.
+    Returns the launch counts of the gateway's path."""
+    import math
+    import torch
+    from repro_torch import Gateway, RuntimeConfig
+    from repro_torch.core import mass_captured
+    from repro_torch.gateway import serve_http
+    from repro_torch.kernels import ops
+    from repro_torch.query.engine import plan_query
+    from repro_torch.query.scheduler import _topk_stable
+    cfg = RuntimeConfig()
+    R = GATEWAY["replicas"]
+
+    # one index for the pool: a second replica adds no slab and no mask
+    ops.reset_launch_counts()
+    sync()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    gw = Gateway.open(g, cfg, replicas=R, device=dev)
+    sync()
+    t_open = time.perf_counter() - t0
+    grown = torch.cuda.memory_allocated() - before
+    idx = gw.pool.index
+    nbytes = index_bytes(idx)
+    shared = all(r.ensure_index() is idx and r.graph is gw.pool.graph
+                 for r in gw.pool.replicas)
+    ptrs = {(r.ensure_index().endpoints.data_ptr(),
+             r.ensure_index().visited_blocks.data_ptr())
+            for r in gw.pool.replicas}
+    log("19 shared_index", replicas=R, open_s=t_open, index_bytes=nbytes,
+        allocator_growth_bytes=grown, growth_over_index=grown / nbytes,
+        same_object=shared, distinct_data_ptrs=len(ptrs),
+        equal_phase5_index=index_equal(idx, index))
+    assert shared and len(ptrs) == 1, "the replicas do not share one index"
+    assert grown < 1.5 * nbytes, (grown, nbytes)
+    assert index_equal(idx, index), "the gateway built another index"
+
+    # phase 5's 8 queries: the first top-k live, its 5 twins joined, the
+    # PPRs live; each answer that of a direct service given the same
+    # requests on the same replica
+    sync()
+    t0 = time.perf_counter()
+    handles = submit_queries(gw, hubs)
+    live = [h.result() for h in handles]
+    sync()
+    t_live = time.perf_counter() - t0
+    sources = [h.source for h in handles]
+    want = direct_twins(g, idx, handles, dev)
+    equal = all(same_answer(r, want[id(h)]) for h, r in zip(handles, live)
+                if h.source == "live")
+    joined_verbatim = all(r is live[0] for h, r in zip(handles, live)
+                          if h.source == "joined")
+    mu_opt = float(mass_captured(pi, pi, 10))
+    for h, r in zip(handles, live):
+        if r.kind == "topk":
+            mu = float(pi[torch.as_tensor(r.vertices, device=dev)].sum())
+            assert mu >= mu_opt - r.epsilon_bound, (mu, mu_opt, r)
+        else:
+            assert int(r.vertices[0]) == h._inner.request.source, r
+            assert float(r.scores[0]) >= 0.10, r
+    log("19 live", queries=len(live), seconds=t_live,
+        sources=json.dumps(sources),
+        replicas=json.dumps([h.replica for h in handles]),
+        waves=gw.pool.total_waves_run(),
+        certificates=json.dumps([r.epsilon_bound for r in live]),
+        equal_direct_service=equal, joined_verbatim=joined_verbatim)
+    assert sources == ["live"] + ["joined"] * 5 + ["live", "live"], sources
+    assert equal, "a live answer differs from its direct service's"
+    assert joined_verbatim, "a joined answer is not its parent's object"
+
+    # the same requests at an ε their certificates dominate: all from the
+    # cache, no wave; at phase 5's ε = 0.3 the clamped plans' certificates
+    # (0.3267) do not dominate, and the repeat goes live (the near miss)
+    eps_c = GATEWAY["cache_eps"]
+    assert all(r.epsilon_bound <= eps_c for r in live), live
+    waves = gw.pool.total_waves_run()
+    sync()
+    t0 = time.perf_counter()
+    again = [gw.topk(k=10, epsilon=eps_c) for _ in range(6)] + [
+        gw.ppr(v, k=10, epsilon=eps_c) for v in hubs]
+    cached = [h.result() for h in again]
+    t_cache = time.perf_counter() - t0
+    verbatim = all(c is r for c, r in zip(cached, live))
+    new_waves = gw.pool.total_waves_run() - waves
+    near = gw.topk(k=10, epsilon=0.3)
+    near_source = near.source
+    near.result()
+    log("19 cache", queries=len(cached), seconds=t_cache, epsilon=eps_c,
+        sources=json.dumps(sorted({h.source for h in again})),
+        new_waves=new_waves, verbatim=verbatim,
+        near_miss_epsilon=0.3, near_miss_source=near_source)
+    assert all(h.source == "cache" for h in again) and verbatim
+    assert new_waves == 0, "a cache hit ran a wave"
+    assert near_source == "live"
+
+    # an in-flight join: duplicates submitted before the parent's first
+    # wave ride its walks; the weaker target settles no later
+    k_j = GATEWAY["join_k"]
+    parent = gw.topk(k=k_j, epsilon=0.3)
+    same = gw.topk(k=k_j, epsilon=0.3)
+    weaker = gw.topk(k=k_j, epsilon=0.5)
+    waves = gw.pool.total_waves_run()
+    sync()
+    t0 = time.perf_counter()
+    weaker_at = None
+    n = 0
+    while not parent.done():
+        parent.poll()
+        n += 1
+        if weaker_at is None and weaker.done():
+            weaker_at = n
+    t_join = time.perf_counter() - t0
+    rp, rs, rw = parent.result(), same.result(), weaker.result()
+    log("19 join", k=k_j, sources=json.dumps([parent.source, same.source,
+                                              weaker.source]),
+        parent_waves=n, weaker_settled_at=weaker_at, seconds=t_join,
+        weaker_walks=rw.num_walks, parent_walks=rp.num_walks,
+        weaker_bound=rw.epsilon_bound, same_is_parent=rs is rp,
+        pool_waves=gw.pool.total_waves_run() - waves)
+    assert (parent.source, same.source, weaker.source) == (
+        "live", "joined", "joined")
+    assert rs is rp and weaker_at is not None and weaker_at <= n
+    assert rw.epsilon_bound <= 0.5 and rw.num_walks <= rp.num_walks
+    assert gw.pool.total_waves_run() - waves == n, "a join ran walks"
+
+    # the batch estimate live at phase 4's ε = 0.1 (its top-100), then
+    # from the cache at an ε its certificate dominates (t = 32 caps the
+    # plan: the certificate is 0.2268, so a repeat at 0.1 would go live)
+    eps_b, delta_b, k_b = 0.1, 0.1, 100
+    counts = {}
+    out = []
+    for name, eps in (("live", eps_b), ("cached", GATEWAY["batch_cache_eps"])):
+        before = ops.launch_counts()["frog_superstep"]
+        sync()
+        t0 = time.perf_counter()
+        out.append(gw.pagerank(epsilon=eps, delta=delta_b, k=k_b))
+        sync()
+        counts[name] = (ops.launch_counts()["frog_superstep"] - before,
+                        time.perf_counter() - t0)
+    pi4 = res.pi_hat.cpu().numpy()
+    top4 = _topk_stable(pi4, k_b)
+    plan = plan_query(k_b, eps_b, delta_b, p_T=cfg.p_T,
+                      max_steps=cfg.serving.max_steps)
+    equal = (out[0].vertices.tobytes() == top4.tobytes()
+             and out[0].scores.tobytes() == pi4[top4].tobytes())
+    log("19 pagerank", frog_superstep_live=counts["live"][0],
+        frog_superstep_cached=counts["cached"][0],
+        cached_epsilon=GATEWAY["batch_cache_eps"],
+        live_s=counts["live"][1], cached_s=counts["cached"][1],
+        num_walks=out[0].num_walks, epsilon_bound=out[0].epsilon_bound,
+        equal_phase4=equal, cached_verbatim=out[1] is out[0])
+    assert counts["live"][0] == plan.num_steps == 32
+    assert counts["cached"][0] == 0 and out[1] is out[0]
+    assert equal, "the gateway's batch estimate differs from phase 4's"
+
+    # the HTTP front end: a live top-k launched from a handler thread
+    # (its certificate enters the cache, and the process reads the same
+    # answer back), a cached one, /healthz and /metrics
+    k_h, eps_h = GATEWAY["http_k"], GATEWAY["http_eps"]
+    with serve_http(gw, port=0) as srv:
+        t0 = time.perf_counter()
+        code, _, body = http_get(f"{srv.url}/topk?k={k_h}&epsilon={eps_h}")
+        t_http = time.perf_counter() - t0
+        c_cached, _, b_cached = http_get(
+            f"{srv.url}/topk?k=10&epsilon={eps_c}")
+        c_health, _, health = http_get(f"{srv.url}/healthz")
+        c_metrics, _, metrics = http_get(f"{srv.url}/metrics")
+    mine = gw.topk(k=k_h, epsilon=eps_h)
+    r_h = mine.result()
+    finite = all(math.isfinite(x) for x in body.get("scores", [math.nan]))
+    read_back = (body.get("vertices") == r_h.vertices.tolist()
+                 and body.get("scores") == r_h.scores.tolist())
+    http_equal = (b_cached.get("vertices") == live[0].vertices.tolist()
+                  and b_cached.get("scores") == live[0].scores.tolist())
+    log("19 http", status=code, source=body.get("source"), seconds=t_http,
+        k=len(body.get("vertices", [])), finite=finite,
+        epsilon_bound=body.get("epsilon_bound"),
+        inprocess_source=mine.source, read_back_equal=read_back,
+        cached_status=c_cached, cached_source=b_cached.get("source"),
+        cached_equal=http_equal, healthz=c_health,
+        healthy=health.get("healthy"), metrics=c_metrics,
+        hit_rate=metrics.get("hit_rate"), join_rate=metrics.get("join_rate"))
+    assert code == 200 and body["source"] == "live" and finite
+    assert len(body["vertices"]) == k_h and body["epsilon_bound"] <= eps_h
+    assert mine.source == "cache" and read_back, "the handler's answer"
+    assert c_cached == 200 and b_cached["source"] == "cache" and http_equal
+    assert c_health == 200 and health["healthy"]
+    assert c_metrics == 200 and {"hit_rate", "join_rate"} <= metrics.keys()
+
+    launches = ops.launch_counts()
+    log("launches", path="gateway", **launches)
+    assert launches["stitch_gather_rounds"] >= 1, launches
+    assert launches["frog_count"] >= 1, launches
+    assert launches["frog_superstep"] == 32, launches
+    assert launches["stitch_gather"] == 0, launches
+    # one index build for the pool (a build shard a launch), no hop
+    assert launches["frog_segment_walk"] == cfg.serving.build_shards
+    assert launches["frog_hop"] == 0, launches
+    s = gw.stats()
+    log("19 stats", requests=s["requests"], cache_hits=s["cache_hits"],
+        joins=s["joins"], live=s["live"], hit_rate=s["hit_rate"],
+        join_rate=s["join_rate"], qps=s["qps"], p50_ms=s["p50_ms"],
+        p99_ms=s["p99_ms"], replica_waves=json.dumps(
+            [r["waves_run"] for r in s["replicas"]]))
+
+    phase_gateway_faults(g, cfg, dev)
+    mut = phase_gateway_mutations(gw, g, idx, dev)
+    gw.close()
+    return launches, mut
+
+
+def phase_gateway_faults(g, cfg, dev):
+    """Phase 19's faults, each on a gateway of its own without the cache,
+    as the reference benchmark runs them: replica 0 crashed at its first
+    wave, replica 0 stalled past its heartbeat, and overload shedding
+    (503 over HTTP) followed by drain."""
+    import dataclasses
+    from repro_torch import FrogWildService, Gateway
+    from repro_torch.distributed.faults import FaultPlan
+    from repro_torch.gateway import GatewayOverloadError, serve_http
+    from repro_torch.query.engine import plan_query
+
+    def fault_free(gw):
+        with FrogWildService.open(g, cfg, device=dev,
+                                  index=gw.pool.index) as svc:
+            return svc.topk(k=10, epsilon=0.3).result()
+
+    plan = dataclasses.replace(cfg, faults=FaultPlan(
+        seed=7, replica_crashes=((0, 0),)))
+    gw = Gateway.open(g, plan, replicas=2, cache=False, device=dev)
+    sync()
+    t0 = time.perf_counter()
+    h = gw.topk(k=10, epsilon=0.3)
+    r = h.result()
+    sync()
+    failover_s = time.perf_counter() - t0
+    equal = same_answer(r, fault_free(gw))
+    log("19 crash", failover_latency_s=failover_s, failovers=h.failovers,
+        replica=h.replica, breaker_0=gw.pool.breaker_state(0),
+        routable=json.dumps(gw.pool.routable()), equal_fault_free=equal)
+    assert h.failovers == 1 and gw.metrics.failovers == 1 and h.replica == 1
+    assert gw.pool.breaker_state(0) == "open" and equal
+    gw.close()
+    del gw
+
+    hb, stall = GATEWAY["heartbeat_s"], GATEWAY["stall_s"]
+    plan = dataclasses.replace(cfg, faults=FaultPlan(
+        seed=7, replica_stalls=((0, 0, stall),)))
+    gw = Gateway.open(g, plan, replicas=2, cache=False, device=dev,
+                      heartbeat_timeout_s=hb)
+    t0 = time.perf_counter()
+    h = gw.topk(k=10, epsilon=0.3)
+    r = h.result()
+    sync()
+    t_stall = time.perf_counter() - t0
+    equal = same_answer(r, fault_free(gw))
+    log("19 stall", heartbeat_s=hb, stall_s=stall, seconds=t_stall,
+        replica=h.replica, breaker_0=gw.pool.breaker_state(0),
+        crashed_0=gw.pool.states[0].crashed,
+        routable=json.dumps(gw.pool.routable()), equal_fault_free=equal)
+    assert h.replica == 1 and gw.pool.routable() == [1]
+    assert gw.pool.breaker_state(0) == "open"
+    assert not gw.pool.states[0].crashed and equal
+    gw.close()
+    del gw
+
+    # distinct PPR sources (duplicates would join, and joins are never
+    # shed) against one plan's walks of backlog
+    nq = GATEWAY["overload_queries"]
+    walks = plan_query(10, 0.3, 0.1, p_T=cfg.p_T,
+                       max_steps=cfg.serving.max_steps,
+                       segments_per_vertex=cfg.serving.segments_per_vertex,
+                       segment_len=cfg.serving.segment_len).num_walks
+    gw = Gateway.open(g, cfg, replicas=2, cache=False, device=dev,
+                      shed_backlog_walks=walks)
+    admitted, retry = [], []
+    for i in range(nq):
+        try:
+            admitted.append(gw.ppr(17 * i + 1, k=10, epsilon=0.3))
+        except GatewayOverloadError as e:
+            retry.append(e.retry_after_s)
+    shed_rate = len(retry) / nq
+    with serve_http(gw, port=0) as srv:
+        # a source no admitted query has (a duplicate would join)
+        code, headers, body = http_get(
+            f"{srv.url}/ppr?source=3&k=10&epsilon=0.3")
+    sync()
+    t0 = time.perf_counter()
+    drained = gw.drain()
+    sync()
+    t_drain = time.perf_counter() - t0
+    log("19 overload", queries=nq, admitted=len(admitted),
+        shed_rate=shed_rate, retry_after_s=json.dumps(retry),
+        http_status=code, retry_after_header=headers.get("Retry-After"),
+        reason_code=body.get("reason_code"), drained=len(drained),
+        drain_s=t_drain, closed=gw.closed)
+    assert len(admitted) == 1 and len(retry) == nq - 1
+    assert all(x > 0 for x in retry)
+    assert code == 503 and body["reason_code"] == "overload"
+    assert int(headers["Retry-After"]) >= 1
+    assert [d.rid for d in drained] == [admitted[0].result().rid]
+    assert gw.closed
+    del gw
+
+
+def phase_gateway_mutations(gw, g, idx, dev):
+    """Phase 18's mutation batch through ``Gateway.apply_mutations`` with
+    a query in flight on a restarted (cold) replica: one refresh, on the
+    pool's index, handed to both replicas; the pinned query byte-equal to
+    a direct service's at epoch 0; epoch 0's certificates orphaned."""
+    from repro_torch import FrogWildService, RuntimeConfig
+    from repro_torch.kernels import ops
+    _, _, batch = mutation_window(g)
+    # a cold replica 1, so the pinned query's epoch-0 answer is a cold
+    # service's: restart over the same index, no rebuild
+    fresh = gw.pool.restart_replica(1)
+    assert fresh.ensure_index() is idx
+    h = gw.topk(k=10, epsilon=0.3)
+    assert h.source == "live" and h.replica == 1, (h.source, h.replica)
+    h.poll()
+    ops.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    report = gw.apply_mutations(batch)
+    sync()
+    t_commit = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    log("launches", path="gateway_mutations", **launches)
+    new = gw.pool.index
+    one = all(r.ensure_index() is new for r in gw.pool.replicas)
+    pinned = h.result()
+    with FrogWildService.open(g, RuntimeConfig(), device=dev,
+                              index=idx) as svc:
+        want = svc.topk(k=10, epsilon=0.3).result()
+    after = gw.topk(k=10, epsilon=0.3)
+    r_after = after.result()
+    expected = -(-report.stale_rows // 1024)
+    log("19 mutations", inserts=batch.size, stale_rows=report.stale_rows,
+        apply_mutations_s=t_commit, epoch=gw.epoch,
+        frog_segment_walk=launches["frog_segment_walk"],
+        expected_one_refresh=expected, frog_hop=launches["frog_hop"],
+        replicas_share_new_index=one,
+        orphaned=gw.metrics.epoch_orphaned, pinned_epoch=pinned.epoch,
+        pinned_equal_epoch0=same_answer(pinned, want),
+        repeat_source=after.source, repeat_epoch=r_after.epoch)
+    assert gw.epoch == 1 and report.epoch == 1
+    assert launches["frog_segment_walk"] == expected, launches
+    assert launches["frog_hop"] == 0, launches
+    assert one and new is not idx
+    assert gw.metrics.epoch_orphaned >= 1
+    assert pinned.epoch == 0 and same_answer(pinned, want)
+    assert after.source == "live" and r_after.epoch == 1
+    return launches
 
 
 def erasure_config(model, draw, N, t, p_s=QUICKSTART["p_s"]):
@@ -2987,9 +3435,21 @@ def main() -> int:
     phase_lost_wave(sharded, hubs, dev)
     phase_faults(g, sharded, results, hubs, dev)
     log("17 peak", peak_mem_bytes_so_far=torch.cuda.max_memory_allocated())
-    # this slice's path: mutations, refresh and the epoch commit
+    # dynamic graphs: mutations, refresh and the epoch commit
     dyn_launches = phase_dynamic(g, index, sharded, results, hubs, dev)
     log("18 peak", peak_mem_bytes_so_far=torch.cuda.max_memory_allocated())
+    # the serving gateway over phase 5's graph
+    t0 = time.perf_counter()
+    phase_gateway(g, index, res, pi, hubs, dev)
+    held = torch.cuda.memory_allocated()
+    # a parent handle and its joiners reference each other, and through
+    # their schedulers the closed gateways' indexes: collect them now
+    # rather than at the next full collection, inside the LM phases
+    gc.collect()
+    log("19 done", seconds=time.perf_counter() - t0,
+        allocated_before_collect=held,
+        allocated_after_collect=torch.cuda.memory_allocated(),
+        peak_mem_bytes_so_far=torch.cuda.max_memory_allocated())
     for k, v in dyn_launches.items():
         launches[k + ":masks"] = v
     for k in ("frog_step_stream_sorted", "frog_superstep_stream_sorted",

@@ -21,19 +21,26 @@ into a new graph epoch, and the walk index is refreshed in place of a
 rebuild through the same hop kernel, which records each segment's
 visited-block mask as it walks.
 
+The serving gateway (``repro_torch.gateway``, :class:`Gateway`): replicas
+of the service over one walk index in device memory, behind an (ε,
+δ)-aware result cache, in-flight joins, supervised failover and a stdlib
+HTTP front end.
+
 The port never imports ``jax`` or ``repro``.
 """
 from repro_torch.config import (FrogWildConfig, KernelConfig, RuntimeConfig,
                                 ServingConfig, ShardConfig, WalkIndexConfig)
 from repro_torch.distributed.runtime import ShardRuntime
+from repro_torch.gateway import Gateway
 from repro_torch.query.index import ShardedWalkIndex, WalkIndex
 from repro_torch.service import (FrogWildService, QueryHandle,
                                  batch_pagerank, build_index)
 
-# the reference's public surface (less ``Gateway``, ROADMAP.md Queue 1
-# item 12); the other names above stay importable from here
+# the reference's public surface; the other names above stay importable
+# from here
 __all__ = [
     "FrogWildService",
+    "Gateway",
     "KernelConfig",
     "QueryHandle",
     "RuntimeConfig",

@@ -24,3 +24,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "port's plain PyTorch path on the CPU")
     return dev
+
+
+def on_device(tensor: torch.Tensor, device: torch.device) -> bool:
+    """True when ``tensor`` lives on ``device``, where a CUDA device given
+    without an index means the current one (``cuda`` holds ``cuda:0``'s
+    tensors while card 0 is current)."""
+    t = tensor.device
+    if t.type != device.type:
+        return False
+    if device.index is None and t.type == "cuda":
+        return t.index == torch.cuda.current_device()
+    return t.index == device.index

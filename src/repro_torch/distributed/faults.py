@@ -24,8 +24,8 @@ deterministically:
   and no failover path left: the only way a wave surfaces an error).
 * The replica-level taxonomy of a gateway tier: :class:`ReplicaCrashed` /
   :class:`ReplicaStalled` and the plan's ``replica_*`` schedules, consulted
-  at a replica pool's boundary (``ROADMAP.md`` Queue 1 item 12 ports the
-  pool; the scheduler never reads them).
+  at a replica pool's boundary (:class:`repro_torch.gateway.ReplicaPool`;
+  the scheduler never reads them).
 
 The module is stdlib-only, so the config layer can reference
 :class:`FaultPlan` without pulling in torch.

@@ -15,7 +15,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, on_device, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,7 +110,7 @@ class CSRGraph:
     def to(self, device: DeviceLike) -> "CSRGraph":
         """The same graph on ``device`` (itself when already there)."""
         dev = resolve_device(device)
-        if self.device == dev:
+        if on_device(self.row_ptr, dev):
             return self
         return dataclasses.replace(
             self, row_ptr=self.row_ptr.to(dev), col_idx=self.col_idx.to(dev),

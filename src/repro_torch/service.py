@@ -10,7 +10,11 @@ top-k / PPR serving (port of ``repro/service.py``, single device).
   continuous-batching scheduler.
 * :class:`QueryHandle` — ``poll()`` / ``partial()`` / ``result()`` /
   ``cancel()``; with ``early_stop`` (the default) a query finishes once the
-  anytime Theorem 1 bound reaches its ε.
+  anytime Theorem 1 bound reaches its ε. ``join(ε, δ)`` attaches a
+  duplicate request whose target it dominates (a
+  :class:`JoinedQueryHandle`, no walks of its own), and
+  :meth:`FrogWildService.resubmit` replays a request under a fresh rid:
+  the gateway's in-flight join and failover (``repro_torch.gateway``).
 * :func:`batch_pagerank` / :func:`build_index` — the module-level
   dispatchers under the facade.
 
@@ -50,6 +54,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import List, Optional, Union
 
 import torch
@@ -60,8 +65,8 @@ from repro_torch.config import (FrogWildConfig, KernelConfig, RuntimeConfig,
                                 ServingConfig, ShardConfig, WalkIndexConfig)
 from repro_torch.core.frogwild import (FrogWildResult, _frogwild_walks,
                                       compiled_estimate)
-from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.faults import FaultInjector
+from repro_torch.device import DeviceLike, on_device, resolve_device
+from repro_torch.distributed.faults import FaultInjector, WaveFailedError
 from repro_torch.distributed.runtime import ShardRuntime
 from repro_torch.graph.csr import CSRGraph, load_graph
 from repro_torch.kernels.frog_step_stream import BlockedCSR, blocked_csr_of
@@ -76,6 +81,7 @@ from repro_torch.query.scheduler import (QueryPartial, QueryRequest,
 
 __all__ = [
     "FrogWildService",
+    "JoinedQueryHandle",
     "QueryHandle",
     "QueryPartial",
     "RuntimeConfig",
@@ -122,10 +128,15 @@ def build_index(graph: CSRGraph,
 
 
 def _on_device(index, device: torch.device):
-    """``index`` (or ``None``) with its slab and masks on ``device``."""
+    """``index`` (or ``None``) with its slab and masks on ``device``:
+    ``index`` itself when they are there already, so services handed one
+    index (a replica pool's) share its object and its tensors."""
     if index is None:
         return None
     vb = index.visited_blocks
+    slab = index.endpoints if isinstance(index, WalkIndex) else index.blocks
+    if on_device(slab, device) and (vb is None or on_device(vb, device)):
+        return index
     vb = None if vb is None else vb.to(device)
     if isinstance(index, WalkIndex):
         return dataclasses.replace(index, endpoints=index.endpoints.to(device),
@@ -216,6 +227,135 @@ class QueryHandle:
             return False
         return self._sched.cancel(self.rid)
 
+    def join(self, epsilon: Optional[float] = None,
+             delta: Optional[float] = None) -> "JoinedQueryHandle":
+        """Attaches a duplicate request to this live handle (the gateway's
+        in-flight join).
+
+        Valid only when this handle's target dominates the joiner's
+        (``self.ε ≤ ε`` and ``self.δ ≤ δ``): Theorem 1 then certifies the
+        joiner's weaker bound from the walks already running, no later
+        than this handle's own. The joined handle runs no walks of its
+        own; it settles the wave its (ε, δ) is certified, at the latest
+        the wave this handle finishes.
+        """
+        eps = self.request.epsilon if epsilon is None else epsilon
+        dlt = self.request.delta if delta is None else delta
+        if self.request.epsilon > eps or self.request.delta > dlt:
+            raise ValueError(
+                f"cannot join query {self.rid}: its target "
+                f"(ε={self.request.epsilon}, δ={self.request.delta}) does "
+                f"not dominate the joiner's (ε={eps}, δ={dlt}) — submit a "
+                f"fresh query instead")
+        if not self.admitted:
+            raise RuntimeError(
+                f"cannot join rejected query {self.rid}: "
+                f"{self.decision.reason}")
+        return JoinedQueryHandle(self, eps, dlt)
+
+
+class JoinedQueryHandle:
+    """A duplicate request riding a live :class:`QueryHandle`.
+
+    Made by :meth:`QueryHandle.join`; the parent's (ε, δ) target dominates
+    this one's. ``poll()`` / ``result()`` drive the parent's service,
+    ``partial()`` is the parent's snapshot, and the join settles the wave
+    its own (ε, δ) is certified by the walks tallied so far. With the
+    parent's target, the settled result is the parent's
+    :class:`~repro_torch.query.scheduler.QueryResult` object.
+    """
+
+    def __init__(self, parent: QueryHandle, epsilon: float, delta: float):
+        self.parent = parent
+        self.epsilon = epsilon
+        self.delta = delta
+        self._result: Optional[QueryResult] = None
+        self._t_join = time.perf_counter()
+
+    @property
+    def rid(self) -> int:
+        return self.parent.rid
+
+    @property
+    def admitted(self) -> bool:
+        return self.parent.admitted
+
+    def done(self) -> bool:
+        """True when settled, or terminal: a parent cancelled or rejected
+        before certifying this join never will, so the join reports done
+        (its ``result()`` then raises)."""
+        if self._result is not None or self._settle():
+            return True
+        return self.parent.status() in ("cancelled", "rejected")
+
+    def poll(self) -> bool:
+        """Advances the parent's service by one wave unless already done."""
+        if not self.done():
+            self.parent._service.step()
+        return self.done()
+
+    def partial(self) -> QueryPartial:
+        """The parent's anytime snapshot (shared tallies)."""
+        return self.parent.partial()
+
+    def _settle(self) -> bool:
+        """Settles the joined result once certifiable; False until then."""
+        parent = self.parent
+        st = parent.status()
+        if st == "finished":
+            # the parent's certificate dominates this join's target
+            self._result = parent._sched.result_for(parent.rid)
+            return True
+        if st != "active":
+            return False
+        if (self.epsilon, self.delta) == (parent.request.epsilon,
+                                          parent.request.delta):
+            return False             # the parent's target: settle with it
+        sched = parent._sched
+        p = sched.partial(self.rid)
+        if not p.walks_done:
+            return False
+        bound = sched.anytime_bound(parent.decision.plan.num_steps,
+                                    parent.request.k, self.delta,
+                                    p.walks_done)
+        if bound > self.epsilon:
+            return False
+        # the weaker bound holds mid-flight: this wave's snapshot is the
+        # joined result while the parent keeps refining
+        self._result = QueryResult(
+            rid=p.rid, kind=p.kind, vertices=p.vertices, scores=p.scores,
+            num_walks=p.walks_done,
+            num_steps=parent.decision.plan.num_steps, waves=p.waves,
+            latency_s=time.perf_counter() - self._t_join,
+            epsilon_bound=bound, early_stopped=True, degraded=p.degraded,
+            shards_lost=p.shards_lost, walks_lost=p.walks_lost,
+            epoch=sched.epoch)
+        return True
+
+    def result(self, max_waves: Optional[int] = None) -> QueryResult:
+        """Drives waves until this join's (ε, δ) is certified; a parent
+        cancelled or rejected first raises :class:`~repro_torch.
+        distributed.faults.WaveFailedError`."""
+        waves = 0
+        while True:
+            if self.done():
+                if self._result is None:
+                    st = self.parent.status()
+                    raise WaveFailedError(
+                        f"joined query {self.rid}: parent handle is {st} "
+                        f"before this join's (ε={self.epsilon}, "
+                        f"δ={self.delta}) was certified — resubmit")
+                return self._result
+            st = self.parent.status()
+            if max_waves is not None and waves >= max_waves:
+                raise TimeoutError(
+                    f"joined query {self.rid} still {st} after "
+                    f"{waves} waves")
+            if not self.parent._service.step():
+                raise RuntimeError(
+                    f"scheduler idle but joined query {self.rid} is {st}")
+            waves += 1
+
 
 class FrogWildService:
     """Batch PageRank, walk-index lifecycle and top-k / PPR serving over
@@ -274,7 +414,9 @@ class FrogWildService:
 
     def close(self) -> None:
         """Cancels queued and in-flight queries and drops the scheduler and
-        index; idempotent. New work on a closed service raises."""
+        the service's references to the index; idempotent. The index's
+        tensors stay untouched (a replica pool's other services share
+        them). New work on a closed service raises."""
         if self._closed:
             return
         for sched in [self._scheduler] + self._retiring:
@@ -476,6 +618,17 @@ class FrogWildService:
         sched = self.scheduler
         decision = sched._submit(req)
         return QueryHandle(self, req, decision, sched)
+
+    def resubmit(self, req: QueryRequest) -> QueryHandle:
+        """Submits a fresh copy of ``req`` (new rid, new latency clock):
+        the gateway's failover and hedge hook. On a cold or restarted
+        replica the scheduler's key stream starts at wave 0, so the
+        replayed answer is byte-equal to a fault-free run on a cold
+        replica."""
+        return self._submit_request(
+            kind=req.kind, k=req.k, source=req.source, epsilon=req.epsilon,
+            delta=req.delta, num_walks=req.num_walks, slo_s=req.slo_s,
+            allow_downgrade=req.allow_downgrade, early_stop=req.early_stop)
 
     def step(self) -> bool:
         """Runs one wave; False when nothing is in flight.

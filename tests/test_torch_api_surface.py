@@ -16,12 +16,9 @@ from test_api_surface import SURFACE
 
 # names of the reference's surface that the port does not export yet, by
 # the Queue 1 item that brings them
-TO_COME = {
-    "repro": {"Gateway": 12},
-    "repro.service": {"JoinedQueryHandle": 12},
-}
+TO_COME = {}
 # packages of the reference's surface that the port does not have yet
-PACKAGES_TO_COME = {"repro.gateway": 12}
+PACKAGES_TO_COME = {}
 # the reference's deprecated shims of its index build: the port builds
 # through ``FrogWildService.ensure_index`` / ``service.build_index``, and
 # the sharded shim needs a mesh
