@@ -5,9 +5,10 @@
 
 Drives the port's main paths once through the entry points a user calls:
 FrogWild! at LiveJournal scale (n = 4,847,571, avg out-degree 14.2,
-θ = 2.2, seed 0; ``repro_torch.configs.LIVEJOURNAL_FULL``) and the LM
-stack's dense serving path at llama3.2-1b's full width. It checks every
-answer against its guarantee:
+θ = 2.2, seed 0; ``repro_torch.configs.LIVEJOURNAL_FULL``), the LM
+stack's dense serving path at llama3.2-1b's full width and its MoE family
+at olmoe-1b-7b's full width and depth. It checks every answer against its
+guarantee:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
 2. build    — the CUDA kernels, compiled from ``csrc/`` with nvcc
@@ -210,7 +211,28 @@ answer against its guarantee:
               device-busy time (the idle share), the port's kernels'
               launches and device time by name, the ELL iteration's five
               costliest device operations, and ``flash_attention``'s
-              share of the prefill's device time.
+              share of the prefill's device time;
+20. moe     — (runs last, once the llama model and the FrogWild! tensors
+              are released; the allocator's bytes logged) olmoe-1b-7b at
+              full width and depth (6.92 B parameters, 1.28 B active,
+              random, seed 0): phase 14's prefill and gates on 1 ×
+              32,768 tokens (``flash_attention`` launched 16 times at 16
+              heads of 128, bf16 logits within 5e-2 of the plain path's);
+              each layer's dropped (token, pick) pairs; layer 0 in float32
+              over one 4,096-token routing group of its prefill input,
+              ``dropped`` equal to a plain count and the output on 256
+              tokens that kept every pick within 1e-4 of
+              ``moe_mixture_ref``, a gate a planted router fault (each
+              token's first two weights swapped) must fail; phase 15's
+              launcher run and serving invariant (at capacity factor E / k,
+              where nothing drops); ``flash_attention`` at its shape
+              against SDPA; the prefill and one ``serve_step`` under the
+              profiler, device ms split into attention, the MoE stages
+              (``moe.route``, ``moe.dispatch``, ``moe.experts``,
+              ``moe.combine``) and the rest; phase 16 on the reduced
+              olmoe; phi3.5-moe at full width cut from 32 to 2 layers,
+              phase 14's prefill and gates at S = 4,096 (32/8 GQA heads of
+              128, top-2 of 16 experts at d_ff 6,400); the peak memory.
 
 Phases 14-16 run after phase 11 and before 12 and 13, which read them.
 Launch counts are reset just before phase 4 and read just after phase 5
@@ -224,7 +246,9 @@ the repair and each degraded service's queries and read just after each,
 in phase 18 reset just before each refresh and the pinned service's run
 and read just after each, and in phase 19 (the gateway's path) reset just
 before ``Gateway.open`` and read just after the HTTP requests, and reset
-just before ``Gateway.apply_mutations`` and read just after it;
+just before ``Gateway.apply_mutations`` and read just after it, and in
+phase 20 reset just before each prefill forward and the launcher's run
+and read just after each;
 phases 6, 11, 12 and 13 reset them around each run whose draw launches
 they count.
 The last line is ``{"ok": true, "device": {...}}``; any failed check or
@@ -272,6 +296,18 @@ LM_ARCH = "llama3.2-1b"
 LM_PREFILL = dict(batch=1, seq=32_768, gate2_seq=4_096)
 # the serving launcher's workload (python -m repro_torch.launch.serve)
 LM_SERVE = dict(requests=6, max_new=16, max_batch=4, invariant_seq=64)
+# the MoE family (phase 20): olmoe-1b-7b at full width and depth
+# (src/repro_torch/configs/olmoe_1b_7b.py), random weights from seed 0,
+# the prefill at LM_PREFILL's shape; its float32 layer gate over one
+# routing group of layer 0's prefill input, on the first 256 tokens that
+# kept every pick, at the config's capacity factor and at 1.0 (C = 512,
+# the mean load, where pairs drop); phi3.5-moe at full width with its depth cut from 32 to
+# 2 layers (its 41.9 B parameters are 83.7 GB in bf16 alone), one forward
+# at S = 4,096
+MOE_ARCH = "olmoe-1b-7b"
+MOE_LAYER_GATE = dict(seq=4_096, tokens=256, tight_factor=1.0)
+MOE_PHI = dict(arch="phi3.5-moe-42b-a6.6b", layers=2, seq=4_096)
+MOE_STAGES = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine")
 # flash_attention against attention_ref at S = 4,096 (a 32k oracle would
 # hold 137 GB of logits): B, Hq, Hkv, Sq, Skv, D, window, causal, cap,
 # q_offset, dtype, max abs tolerance (tests/test_kernels.py:153's)
@@ -2722,7 +2758,8 @@ def max_layer_rel(got, want, dim: int = 1) -> tuple:
 
 def phase_lm_prefill(cfg, dev, batch=LM_PREFILL["batch"],
                      seq=LM_PREFILL["seq"],
-                     gate2_seq=LM_PREFILL["gate2_seq"]):
+                     gate2_seq=LM_PREFILL["gate2_seq"], tag="14",
+                     path="lm_prefill"):
     """``forward_train`` at full width and depth on ``[batch, seq]``
     tokens through the ``flash_attention`` kernel (one launch a layer),
     then gate 1 (bf16: relative Frobenius error against the same forward
@@ -2730,7 +2767,7 @@ def phase_lm_prefill(cfg, dev, batch=LM_PREFILL["batch"],
     chunked version on its own inputs, ``ATTN_REL``) and gate 2 (float32
     at ``gate2_seq``: max abs error ≤ 1e-3 · max |logits|, and each
     layer's attention output within ``ATTN_REL``, which a planted fault
-    must fail)."""
+    must fail). ``tag`` and ``path`` label its lines."""
     import dataclasses
     import torch
     from repro_torch import prng
@@ -2740,7 +2777,8 @@ def phase_lm_prefill(cfg, dev, batch=LM_PREFILL["batch"],
     params = lm_model(cfg, dev)
     sync()
     n_params = sum(p.numel() for p in params.parameters())
-    log("14 lm_model", arch=cfg.name, params=n_params,
+    log(f"{tag} lm_model", arch=cfg.name, layers=cfg.num_layers,
+        params=n_params,
         param_bytes=sum(p.numel() * p.element_size()
                         for p in params.parameters()),
         init_s=time.perf_counter() - t0)
@@ -2756,7 +2794,7 @@ def phase_lm_prefill(cfg, dev, batch=LM_PREFILL["batch"],
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    log("launches", path="lm_prefill", **launches)
+    log("launches", path=path, **launches)
     assert launches["flash_attention"] == cfg.num_layers, launches
     assert logits.shape == (batch, seq, cfg.vocab_size), logits.shape
     assert logits.dtype == torch.bfloat16
@@ -2771,7 +2809,7 @@ def phase_lm_prefill(cfg, dev, batch=LM_PREFILL["batch"],
         logits, _ = forward_train(params, {"tokens": toks}, cfg)
     sync()
     warm = time.perf_counter() - t0
-    log("14 lm_prefill", batch=batch, seq=seq, wall_s=wall,
+    log(f"{tag} lm_prefill", batch=batch, seq=seq, wall_s=wall,
         tokens_per_s=batch * seq / wall, warm_wall_s=warm,
         warm_tokens_per_s=batch * seq / warm, peak_mem_bytes=peak,
         finite=finite)
@@ -2784,7 +2822,7 @@ def phase_lm_prefill(cfg, dev, batch=LM_PREFILL["batch"],
     sync()
     t_plain = time.perf_counter() - t0
     rel = rel_frobenius(logits, logits_t)
-    log("14 lm_prefill_gate1", dtype=cfg.dtype, plain_wall_s=t_plain,
+    log(f"{tag} lm_prefill_gate1", dtype=cfg.dtype, plain_wall_s=t_plain,
         rel_frobenius=rel, limit=5e-2, ok=rel <= 5e-2)
     assert rel <= 5e-2, "bf16 prefill logits stray from the plain path"
     del logits, logits_t
@@ -2811,7 +2849,7 @@ def phase_lm_prefill(cfg, dev, batch=LM_PREFILL["batch"],
             worst = tuple(map(max, worst, rel_rows(out, want, dim=2)))
             del want
     lim = ATTN_REL[cfg.dtype]
-    log("14 lm_prefill_gate1b", dtype=cfg.dtype, launches=len(calls),
+    log(f"{tag} lm_prefill_gate1b", dtype=cfg.dtype, launches=len(calls),
         max_rel_frobenius=worst[0], max_rel_frobenius_last_eighth=worst[1],
         limit=lim, ok=max(worst) <= lim)
     assert max(worst) <= lim, "a launch strays from the chunked version"
@@ -2841,7 +2879,8 @@ def phase_lm_prefill(cfg, dev, batch=LM_PREFILL["batch"],
         got, got_attn = runs[what]
         err = float((got - b).abs().max())
         att = max_layer_rel(got_attn, b_attn)
-        log("14 lm_prefill_gate2", run=what, dtype="float32", seq=gate2_seq,
+        log(f"{tag} lm_prefill_gate2", run=what, dtype="float32",
+            seq=gate2_seq,
             max_abs_err=err, max_abs_logit=scale, ratio=err / scale,
             limit=1e-3, logits_ok=err <= 1e-3 * scale,
             attn_max_rel_frobenius=att[0],
@@ -2861,13 +2900,18 @@ def phase_lm_prefill(cfg, dev, batch=LM_PREFILL["batch"],
 def phase_lm_serve(params, cfg, dev, requests=LM_SERVE["requests"],
                    max_new=LM_SERVE["max_new"],
                    max_batch=LM_SERVE["max_batch"],
-                   invariant_seq=LM_SERVE["invariant_seq"]):
+                   invariant_seq=LM_SERVE["invariant_seq"], tag="15",
+                   path="lm_serve"):
     """The launcher's workload (``BatchScheduler`` over
     ``launch.serve.make_requests``, greedy), ms per ``serve_step`` at
     B = ``max_batch``, and the serving invariant in float32: decode logits
     at each of ``invariant_seq`` positions against ``forward_train``'s,
     relative error ≤ 1e-3, and each layer's attention output within
-    ``ATTN_REL``, which a planted decode fault must fail."""
+    ``ATTN_REL``, which a planted decode fault must fail. An MoE forward
+    runs the invariant at capacity factor E / k, whose capacity is the
+    group's length, so no pair can drop (a token picks an expert once;
+    decode, one token a group of capacity 8, drops none). ``tag`` and
+    ``path`` label its lines."""
     import dataclasses
     import torch
     from repro_torch import prng
@@ -2887,7 +2931,7 @@ def phase_lm_serve(params, cfg, dev, requests=LM_SERVE["requests"],
     done = sched.run()
     sync()
     wall = time.perf_counter() - t0
-    log("launches", path="lm_serve", **ops.launch_counts())
+    log("launches", path=path, **ops.launch_counts())
     total = sum(len(r.output) for r in done)
     assert len(done) == requests and all(
         r.done and 1 <= len(r.output) <= max_new for r in done)
@@ -2905,7 +2949,7 @@ def phase_lm_serve(params, cfg, dev, requests=LM_SERVE["requests"],
                                 key=prng.fold_in(prng.PRNGKey(0, dev), i))
     sync()
     step_ms = (time.perf_counter() - t0) / steps * 1e3
-    log("15 lm_serve", requests=requests, max_batch=max_batch,
+    log(f"{tag} lm_serve", requests=requests, max_batch=max_batch,
         max_len=MAX_LEN, tokens=total, wall_s=wall,
         tokens_per_s=total / wall, serve_step_ms=step_ms, batch=max_batch,
         outputs=json.dumps([r.output for r in done]))
@@ -2914,6 +2958,9 @@ def phase_lm_serve(params, cfg, dev, requests=LM_SERVE["requests"],
     # with a planted decode fault (the newest key left out) to show which
     # of the two gates sees it
     f32 = dataclasses.replace(cfg, dtype="float32")
+    if cfg.family == "moe":
+        f32 = dataclasses.replace(f32, moe_capacity_factor=(
+            cfg.num_experts / cfg.num_experts_per_tok))
     toks = prng.randint(prng.PRNGKey(2, dev), (1, invariant_seq), 0,
                         cfg.vocab_size)
     with lm_taps() as (want_attn, _), torch.inference_mode():
@@ -2934,7 +2981,7 @@ def phase_lm_serve(params, cfg, dev, requests=LM_SERVE["requests"],
         L = cfg.num_layers
         per_layer = [torch.cat(attn[i::L], dim=1) for i in range(L)]
         att = max_layer_rel(per_layer, want_attn)
-        log("15 lm_serve_invariant", run=what, dtype="float32",
+        log(f"{tag} lm_serve_invariant", run=what, dtype="float32",
             seq=invariant_seq, max_rel_err=rel, limit=1e-3,
             logits_ok=rel <= 1e-3, attn_max_rel_frobenius=att[0],
             attn_max_rel_frobenius_last_eighth=att[1], attn_limit=lim,
@@ -2950,12 +2997,13 @@ def phase_lm_serve(params, cfg, dev, requests=LM_SERVE["requests"],
 
 def phase_lm_cpu(cfg, dev, requests=LM_SERVE["requests"],
                  max_new=LM_SERVE["max_new"],
-                 max_batch=LM_SERVE["max_batch"]):
+                 max_batch=LM_SERVE["max_batch"], tag="16"):
     """The reduced config's scheduler run on the card and on the CPU, one
     set of weights: equal tokens (a differing token fails unless the CPU's
     top-2 logit margin at that step is below 1e-4, printed), and each
     decode step's logits and attention outputs within ``ATTN_REL``, which
-    a planted decode fault on the card must fail."""
+    a planted decode fault on the card must fail. ``tag`` labels its
+    lines."""
     import copy
     import torch
     from repro_torch.kernels import ref as kref
@@ -2981,7 +3029,8 @@ def phase_lm_cpu(cfg, dev, requests=LM_SERVE["requests"],
             t0 = time.perf_counter()
             runs[where] = sched.run()
             sync()
-        log("16 lm_cpu_run", device=where, seconds=time.perf_counter() - t0,
+        log(f"{tag} lm_cpu_run", device=where,
+            seconds=time.perf_counter() - t0,
             decode_steps=len(steps[where]))
     # the decode steps' logits and attention outputs, card against CPU,
     # while both fed the same tokens
@@ -2996,7 +3045,7 @@ def phase_lm_cpu(cfg, dev, requests=LM_SERVE["requests"],
             lg = max(lg, float((la.cpu() - lb).norm() / lb.norm()))
             att = max(att, max(float((x.cpu() - y).norm() / y.norm())
                                for x, y in zip(aa, ab, strict=True)))
-        log("16 lm_cpu_steps", run=what, steps_compared=n,
+        log(f"{tag} lm_cpu_steps", run=what, steps_compared=n,
             steps=len(steps["cpu"]), logits_max_rel_err=lg,
             attn_max_rel_err=att, limit=lim, logits_ok=lg <= lim,
             attn_ok=att <= lim)
@@ -3006,7 +3055,7 @@ def phase_lm_cpu(cfg, dev, requests=LM_SERVE["requests"],
                 "the card's decode steps stray from the CPU's"
         else:
             assert att > lim, "the attention gate misses a planted fault"
-    log("16 lm_cpu_fault_tokens", equal_cpu=all(
+    log(f"{tag} lm_cpu_fault_tokens", equal_cpu=all(
         a.output == b.output for a, b in zip(runs["cuda_fault"],
                                              runs["cpu"])))
     differ, near_ties = 0, []
@@ -3021,11 +3070,11 @@ def phase_lm_cpu(cfg, dev, requests=LM_SERVE["requests"],
         logits, _ = prefill(cpu_params, cfg, torch.tensor([seq]), MAX_LEN)
         top = torch.topk(logits[0].float(), 2).values
         margin = float(top[0] - top[1])
-        log("16 lm_cpu_differ", rid=b.rid, step=j, cuda=a.output[j],
+        log(f"{tag} lm_cpu_differ", rid=b.rid, step=j, cuda=a.output[j],
             cpu=b.output[j], cpu_top2_margin=margin)
         differ += 1
         near_ties.append(margin < 1e-4)
-    log("16 lm_cpu", arch=cfg.name, requests=requests,
+    log(f"{tag} lm_cpu", arch=cfg.name, requests=requests,
         tokens=sum(len(r.output) for r in runs["cpu"]),
         requests_differing=differ, equal=differ == 0)
     assert all(near_ties), "the card's tokens differ from the CPU's"
@@ -3078,7 +3127,7 @@ def kernel_design(fn) -> str:
 
 
 def flash_attention_row(launches, cfg, dev, batch=LM_PREFILL["batch"],
-                        seq=LM_PREFILL["seq"]):
+                        seq=LM_PREFILL["seq"], checks=True, tag="12"):
     """``flash_attention`` at the slice's shape (``cfg``'s heads at S =
     32,768, bf16, random q, k and v): the kernel's ms, its bound, SDPA's ms
     and the plain chunked version's answer (max abs error ≤ 2e-2, relative
@@ -3088,7 +3137,9 @@ def flash_attention_row(launches, cfg, dev, batch=LM_PREFILL["batch"],
     shapes, whose first gives the plain ms, each timed beside SDPA where
     one SDPA call computes the same function. SDPA's own reading at 32k
     under the same gate is logged as information. The bf16 calls must run
-    the tensor-core kernel, the float32 call the SIMT one."""
+    the tensor-core kernel, the float32 call the SIMT one. ``checks=False``
+    leaves the three check shapes out (and so the plain ms); ``tag``
+    labels the lines."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -3105,7 +3156,7 @@ def flash_attention_row(launches, cfg, dev, batch=LM_PREFILL["batch"],
     err32k = float((out.float() - plain32k.float()).abs().max())
     lim = ATTN_REL["bfloat16"]
     rel32k = rel_rows(out, plain32k, dim=2)
-    log("12 flash_attention_32k", max_abs_err=err32k, tolerance=2e-2,
+    log(f"{tag} flash_attention_32k", max_abs_err=err32k, tolerance=2e-2,
         rel_frobenius=rel32k[0], rel_frobenius_last_eighth=rel32k[1],
         limit=lim, ok=err32k <= 2e-2 and max(rel32k) <= lim)
     assert err32k <= 2e-2 and max(rel32k) <= lim, \
@@ -3119,7 +3170,7 @@ def flash_attention_row(launches, cfg, dev, batch=LM_PREFILL["batch"],
         ctl = rel_rows(bad, plain32k, dim=2)
         ctl_abs = float((bad.float() - plain32k.float()).abs().max())
         del bad
-        log("12 flash_attention_32k_control", fault=what,
+        log(f"{tag} flash_attention_32k_control", fault=what,
             max_abs_err=ctl_abs, rel_frobenius=ctl[0],
             rel_frobenius_last_eighth=ctl[1], limit=lim,
             caught=max(ctl) > lim, caught_by_max_abs=ctl_abs > 2e-2)
@@ -3128,7 +3179,7 @@ def flash_attention_row(launches, cfg, dev, batch=LM_PREFILL["batch"],
         q, k, v, is_causal=True, enable_gqa=True)
     with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
         sdpa_rel = rel_rows(sdpa(), plain32k, dim=2)
-    log("12 flash_attention_32k_sdpa", rel_frobenius=sdpa_rel[0],
+    log(f"{tag} flash_attention_32k_sdpa", rel_frobenius=sdpa_rel[0],
         rel_frobenius_last_eighth=sdpa_rel[1], limit=lim,
         within=max(sdpa_rel) <= lim,
         note="information: SDPA (FlashAttention-2 backend) under the same "
@@ -3143,9 +3194,9 @@ def flash_attention_row(launches, cfg, dev, batch=LM_PREFILL["batch"],
     flops = 4 * B * Hq * pairs * D
     nbytes = 2 * (2 * B * Hq * S * D + 2 * B * Hkv * S * D)
     bound = max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-    errs, plain_ms = [], None
+    errs, plain_ms, plain_reps = [], None, None
     for what, (b, hq, hkv, sq, skv, d, window, causal, cap, qo, dt,
-               tol) in FA_CHECKS.items():
+               tol) in (FA_CHECKS.items() if checks else ()):
         dtype = getattr(torch, dt)
         qq, kk, vv = (torch.randn((b, h, n, d), generator=gen, device=dev,
                                   dtype=dtype)
@@ -3165,7 +3216,7 @@ def flash_attention_row(launches, cfg, dev, batch=LM_PREFILL["batch"],
         assert c_design in ("wgmma" if dt == "bfloat16" else "simt",
                             "not measured"), (what, c_design)
         c_flop = 4 * b * hq * live_pairs(sq, skv, causal, window, qo) * d
-        log("12 flash_attention_check", shape=what, dtype=dt, Sq=sq,
+        log(f"{tag} flash_attention_check", shape=what, dtype=dt, Sq=sq,
             Skv=skv, D=d, window=window, causal=causal, soft_cap=cap,
             q_offset=qo, max_abs_err=err, tolerance=tol,
             rel_frobenius=rel[0], rel_frobenius_last_eighth=rel[1],
@@ -3184,20 +3235,24 @@ def flash_attention_row(launches, cfg, dev, batch=LM_PREFILL["batch"],
              launches=launches, max_abs_err=max([err32k] + errs), ms=ms,
              plain_ms=plain_ms, bound_ms=bound, bound_by="operations",
              library_ms=lib_ms)
-    log("12 kernel", **{k: v for k, v in r.items()
+    log(f"{tag} kernel", **{k: v for k, v in r.items()
                         if k not in ("source", "replaces", "route")},
         design=design, tflop_per_s=flops / ms / 1e9,
         reps=reps, library_reps=lib_reps, plain_reps=plain_reps,
         max_abs_err_32k_vs_chunked=err32k,
         plain="attention_ref at S=4096 (llama heads); at 32k it would "
-        "hold 137 GB of logits", library="SDPA flash backend, enable_gqa",
-        flop=flops, bytes=nbytes)
+        "hold 137 GB of logits" if checks else "not measured",
+        library="SDPA flash backend, enable_gqa", flop=flops, bytes=nbytes,
+        shape=f"B={B} Hq={Hq} Hkv={Hkv} S={S} D={D}")
     return r
 
 
-def phase_lm_profile(params, cfg, toks, state, cur):
+def phase_lm_profile(params, cfg, toks, state, cur, tag="13", stages=()):
     """Where one 32k prefill forward and one ``serve_step`` at B = 4 spend
-    their time."""
+    their time: wall, device-busy and idle share, the port's kernels,
+    ``flash_attention``'s share, the five costliest kernels, and the
+    device ms split by :func:`stage_ms` into attention, ``stages`` (the
+    MoE layer's ``record_function`` ranges) and the rest."""
     import torch
     from repro_torch.models import forward_train
     from repro_torch.serving import serve_step
@@ -3209,15 +3264,177 @@ def phase_lm_profile(params, cfg, toks, state, cur):
     for what, fn in (("lm_prefill_32k", prefill_fwd),
                      ("lm_serve_step", lambda: serve_step(params, state, cur,
                                                           cfg))):
-        wall, busy, kernels, by_name, _ = device_busy_ms(fn, by_kernel=True)
+        wall, busy, kernels, by_name, top, split = device_busy_ms(
+            fn, stages=stages)
         attn_ms = sum(by_name.get(k, (0, 0.0))[1]
                       for k in ("fa_wgmma_kernel", "flash_attention_kernel"))
-        log("13 profile", what=what, wall_ms=wall,
+        log(f"{tag} profile", what=what, wall_ms=wall,
             device_busy_ms=busy if kernels else "not measured",
             idle_share=1 - busy / wall if kernels else "not measured",
             kernels=kernels, port_kernels_launches_ms=json.dumps(by_name),
             flash_attention_share=attn_ms / busy if kernels else
-            "not measured")
+            "not measured",
+            stages_ms=json.dumps(split) if kernels else "not measured",
+            top5_name_launches_ms=json.dumps(top))
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the MoE family (olmoe-1b-7b at full width, phi3.5-moe cut)
+# ---------------------------------------------------------------------------
+
+def free_device_memory() -> dict:
+    """Collect what nothing references and return the allocator's cache
+    to the card: its bytes allocated, reserved and at peak so far."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(allocated_bytes=torch.cuda.memory_allocated(),
+                reserved_bytes=torch.cuda.memory_reserved(),
+                peak_mem_bytes_so_far=torch.cuda.max_memory_allocated())
+
+
+def first_picks_swapped(orig):
+    """Planted fault in the router: each token's first two top-k weights
+    trade places (its experts keep their order)."""
+    def fn(*a, **kw):
+        probs, top_p, top_e = orig(*a, **kw)
+        perm = [1, 0] + list(range(2, top_p.shape[-1]))
+        return probs, top_p[..., perm], top_e
+    return fn
+
+
+def kept_pairs(top_e, num_experts: int, cap: int):
+    """``bool[G, S, k]``: which (token, pick) pairs of the groups
+    ``top_e [G, S, k]`` keep a slot, by a plain count: a pair's rank is
+    the number of pairs of its group before it (token-major) on the same
+    expert, and a rank of ``cap`` or more drops."""
+    import torch
+    G, S, k = top_e.shape
+    flat = top_e.reshape(G, S * k)
+    seen = torch.nn.functional.one_hot(flat, num_experts).cumsum(1)
+    rank = seen.gather(2, flat[..., None])[..., 0] - 1
+    return (rank < cap).view(G, S, k)
+
+
+def phase_moe_layer(params, cfg, toks, seq=MOE_LAYER_GATE["seq"],
+                    tokens=MOE_LAYER_GATE["tokens"],
+                    tight=MOE_LAYER_GATE["tight_factor"]):
+    """The 32k prefill's dispatch: each layer's dropped (token, pick)
+    pairs, from a tap on ``moe_forward``; then layer 0 in float32 on the
+    first ``seq`` tokens of its prefill input (one routing group), at the
+    config's capacity factor and at ``tight``, where pairs drop:
+    ``dropped`` against :func:`kept_pairs`' plain count, and the output on
+    the first ``tokens`` tokens that kept every pick against
+    ``moe_mixture_ref`` (relative Frobenius ≤ 1e-4), a gate a planted
+    router fault (:func:`first_picks_swapped`) must fail."""
+    import dataclasses
+    import torch
+    from repro_torch.models import forward_train, moe, transformer
+    dropped, inputs = [], []
+
+    def tap(orig):
+        def fn(p, x, c, *a, **kw):
+            y, aux = orig(p, x, c, *a, **kw)
+            if not inputs:
+                inputs.append(x)
+            dropped.append(aux["dropped"])
+            return y, aux
+        return fn
+
+    with patched(transformer, "moe_forward", tap), torch.inference_mode():
+        forward_train(params, {"tokens": toks}, cfg)
+    per_layer = [int(d) for d in dropped]
+    pairs = toks.numel() * cfg.num_experts_per_tok
+    group = moe.group_size(toks.shape[1])
+    log("20 moe_dropped", pairs_per_layer=pairs, group=group,
+        capacity=moe.capacity(cfg, group),
+        per_layer=json.dumps(per_layer),
+        max_share=max(per_layer) / pairs,
+        mean_share=sum(per_layer) / len(per_layer) / pairs)
+    assert len(per_layer) == cfg.num_layers, per_layer
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    layer = params.blocks[0].moe
+    x = inputs[0][:, :seq].float()
+    del inputs
+    assert moe.group_size(seq) == seq
+    runs = {}
+    with torch.inference_mode():
+        _, _, top_e = moe.route(layer, x, f32)
+        for what, factor, fault in (
+                ("sound", cfg.moe_capacity_factor, None),
+                ("sound_tight", tight, None),
+                ("fault", cfg.moe_capacity_factor, first_picks_swapped)):
+            c = dataclasses.replace(f32, moe_capacity_factor=factor)
+            cap = moe.capacity(c, seq)
+            kept = kept_pairs(top_e, cfg.num_experts, cap)
+            idx = kept.all(-1)[0].nonzero()[:, 0][:tokens]
+            want = moe.moe_mixture_ref(layer, x[:, idx], c)
+            with contextlib.ExitStack() as stack:
+                if fault is not None:
+                    stack.enter_context(patched(moe, "route", fault))
+                y, aux = moe.moe_forward(layer, x, c)
+            runs[what] = r = dict(
+                capacity_factor=factor, capacity=cap,
+                dropped=int(aux["dropped"]),
+                plain_dropped=int((~kept).sum()), tokens_compared=len(idx),
+                rel_frobenius=rel_frobenius(y[:, idx], want))
+            log("20 moe_layer_gate", run=what, dtype="float32", seq=seq,
+                **r, limit=1e-4, ok=r["rel_frobenius"] <= 1e-4
+                and r["dropped"] == r["plain_dropped"])
+    for what in ("sound", "sound_tight"):
+        r = runs[what]
+        assert r["tokens_compared"] >= 64, (what, r)
+        assert r["dropped"] == r["plain_dropped"], (what, r)
+        assert r["rel_frobenius"] <= 1e-4, \
+            f"moe_forward strays from the mixture ({what})"
+    assert runs["sound_tight"]["dropped"] > 0, runs
+    assert runs["fault"]["rel_frobenius"] > 1e-4, \
+        "the MoE gate misses a planted fault"
+    return per_layer
+
+
+def phase_moe(dev):
+    """Phase 20: olmoe-1b-7b at full width and depth (the 32k prefill and
+    its gates, each layer's dropped pairs and the float32 layer gate, the
+    launcher's 6 requests, ``flash_attention`` at its shape, a trace of the
+    prefill and a ``serve_step``), the reduced olmoe's tokens on the card
+    against the CPU's, and phi3.5-moe at full width cut to 2 layers (one
+    forward at S = 4,096 against the plain attention path). Returns the
+    peak device memory."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_config, reduced_config
+    t0 = time.perf_counter()
+    cfg = get_config(MOE_ARCH)
+    log("20 moe_config", arch=cfg.name, param_count=cfg.param_count,
+        active_param_count=cfg.active_param_count,
+        experts=cfg.num_experts, top_k=cfg.num_experts_per_tok,
+        capacity_factor=cfg.moe_capacity_factor)
+    params, toks, fa_launches, _ = phase_lm_prefill(
+        cfg, dev, tag="20", path="moe_prefill")
+    assert fa_launches == cfg.num_layers == 16, fa_launches
+    phase_moe_layer(params, cfg, toks)
+    state, cur = phase_lm_serve(params, cfg, dev, tag="20",
+                                path="moe_serve")
+    flash_attention_row(fa_launches, cfg, dev, checks=False, tag="20")
+    phase_lm_profile(params, cfg, toks, state, cur, tag="20",
+                     stages=MOE_STAGES)
+    peak = torch.cuda.max_memory_allocated()
+    del params, toks, state, cur
+    log("20 olmoe_done", seconds=time.perf_counter() - t0,
+        peak_mem_bytes=peak, **free_device_memory())
+    phase_lm_cpu(reduced_config(cfg), dev, tag="20")
+    phi = dataclasses.replace(get_config(MOE_PHI["arch"]),
+                              num_layers=MOE_PHI["layers"])
+    params, _, launches, _ = phase_lm_prefill(
+        phi, dev, seq=MOE_PHI["seq"], gate2_seq=MOE_PHI["seq"],
+        tag="20 phi", path="moe_phi_prefill")
+    assert launches == MOE_PHI["layers"], launches
+    del params
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    log("20 done", seconds=time.perf_counter() - t0, peak_mem_bytes=peak,
+        **free_device_memory())
+    return peak
 
 
 # the port's CUDA kernels by their function names in a trace
@@ -3260,11 +3477,13 @@ def top_kernels(events, k: int = 5) -> list:
     return [[name[:90], n, ms] for name, (n, ms) in top]
 
 
-def device_busy_ms(fn, by_kernel: bool = False) -> tuple:
+def device_busy_ms(fn, by_kernel: bool = False, stages=None) -> tuple:
     """``(wall ms, device-busy ms, kernels)`` of one ``fn()``: the union of
     the kernel intervals ``torch.profiler`` traced (CUPTI sees the ctypes
     launches too), against the host's clock; with ``by_kernel``, also
-    :func:`port_kernel_times` and :func:`top_kernels` of the trace."""
+    :func:`port_kernel_times` and :func:`top_kernels` of the trace, and
+    with ``stages`` (``record_function`` names, maybe none) those and
+    :func:`stage_ms`."""
     import tempfile
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3288,10 +3507,47 @@ def device_busy_ms(fn, by_kernel: bool = False) -> tuple:
         if b > end:
             busy += b - max(a, end)
             end = b
+    if stages is not None:
+        return (wall, busy / 1e3, len(spans), port_kernel_times(kernels),
+                top_kernels(kernels), stage_ms(events, stages))
     if by_kernel:
         return (wall, busy / 1e3, len(spans), port_kernel_times(kernels),
                 top_kernels(kernels))
     return wall, busy / 1e3, len(spans)
+
+
+def stage_ms(events, stages) -> dict:
+    """Device ms by stage from a trace's events: ``attention`` (the port's
+    ``flash_attention`` kernels, by name), each of ``stages`` (the kernels
+    whose launch, by its correlation id, lies inside a
+    ``record_function`` range of that name on the launching thread; the
+    innermost range wins) and ``other`` (the rest)."""
+    ranges = [(e.get("tid"), float(e["ts"]),
+               float(e["ts"]) + float(e.get("dur", 0)), e["name"])
+              for e in events if e.get("cat") == "user_annotation"
+              and e.get("name") in stages]
+    launches = {e["args"]["correlation"]: (e.get("tid"), float(e["ts"]))
+                for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    out = dict.fromkeys(("attention", *stages, "other"), 0.0)
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        ms = float(e.get("dur", 0)) / 1e3
+        if any(k in e.get("name", "") for k in ("fa_wgmma_kernel",
+                                                 "flash_attention_kernel")):
+            out["attention"] += ms
+            continue
+        stage = "other"
+        where = launches.get(e.get("args", {}).get("correlation"))
+        if where is not None:
+            inside = [r for r in ranges
+                      if r[0] == where[0] and r[1] <= where[1] <= r[2]]
+            if inside:
+                stage = min(inside, key=lambda r: r[2] - r[1])[3]
+        out[stage] += ms
+    return out
 
 
 def phase_profile(svc, stream_svc, loop_svc, erasure_svc, g):
@@ -3488,9 +3744,16 @@ def main() -> int:
     phase_lm_profile(params, lm_cfg, toks, state, cur)
     for s in (svc, stream_svc, erasure_svc, *sharded.values()):
         s.close()
+    # the MoE family, once the llama model and the FrogWild! tensors are
+    # gone
+    peak = max(peak, erasure_peak, lm_peak, torch.cuda.max_memory_allocated())
+    del (params, toks, state, cur, svc, stream_svc, erasure_svc, sharded,
+         index, res, pi, results, hubs, ell, erasure_runs, g, s)
+    log("20 released", **free_device_memory())
+    torch.cuda.reset_peak_memory_stats()
+    moe_peak = phase_moe(dev)
     log("done", seconds=time.perf_counter() - t_all,
-        peak_mem_bytes=max(peak, erasure_peak, lm_peak,
-                           torch.cuda.max_memory_allocated()))
+        peak_mem_bytes=max(peak, moe_peak))
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

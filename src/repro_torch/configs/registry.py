@@ -7,8 +7,9 @@ The LLM architecture registry below (``ARCHS``, ``get_config``,
 surface (``__all__``), as in the reference: the model tests and
 ``launch/serve.py`` import it from this module by name.
 
-The four dense architectures are ported; ``get_config`` of the other six
-raises ``NotImplementedError`` naming their ``ROADMAP.md`` item. The
+The four dense architectures and the two MoE ones are ported;
+``get_config`` of the other four raises ``NotImplementedError`` naming
+their ``ROADMAP.md`` item. The
 reference's ``input_specs`` / ``param_specs`` are ``eval_shape`` tooling
 and come with the launch tools (Queue 1 item 15).
 
@@ -60,11 +61,11 @@ _ARCH_MODULES = {
     "starcoder2-7b": "repro_torch.configs.starcoder2_7b",
     "gemma3-4b": "repro_torch.configs.gemma3_4b",
     "llama3.2-1b": "repro_torch.configs.llama32_1b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi35_moe",
 }
 _NOT_PORTED = {
     "llava-next-mistral-7b": "14 (the vlm branch)",
-    "olmoe-1b-7b": "14 (models/moe.py)",
-    "phi3.5-moe-42b-a6.6b": "14 (models/moe.py)",
     "whisper-medium": "14 (the encdec branch)",
     "rwkv6-3b": "14 (models/rwkv6.py)",
     "zamba2-1.2b": "14 (models/mamba2.py and the hybrid branch)",
@@ -110,7 +111,7 @@ def shape_applicable(cfg: ModelConfig, shape: str) -> Tuple[bool, str]:
 
 def reduced_config(cfg: ModelConfig) -> ModelConfig:
     """Same wiring, toy width: one forward/decode runs on a CPU. The
-    reference's rules for the dense family."""
+    reference's rules for the dense and MoE families."""
     kw: Dict[str, Any] = dict(
         name=cfg.name + "-smoke",
         family=cfg.family,
@@ -131,4 +132,7 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
     if cfg.global_every is not None:
         kw["global_every"] = 2
         kw["num_layers"] = 4
+    if cfg.family == "moe":
+        kw.update(num_experts=8, num_experts_per_tok=min(
+            cfg.num_experts_per_tok, 2), d_ff=64, moe_capacity_factor=2.0)
     return ModelConfig(**kw)

@@ -5,6 +5,9 @@ per-shard blocks), streamed-step slab layouts, hybrid ELL layouts, PRNG
 keys and LM parameter trees as JAX or numpy arrays; ``np.asarray`` of them
 gives plain arrays, and these helpers turn those into the port's objects,
 so both packages compute on the same graph, slab, layout, key and weights.
+Each puts its result on ``device``, the card unless the caller asks for
+the CPU (``device="cpu"``), as every entry point of the port does: with
+no card and no ``device`` they raise.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from repro_torch.query.index import ShardedWalkIndex, WalkIndex
 
 def graph_from_numpy(n: int, row_ptr, col_idx, epoch: int = 0,
                      mutation_offset: int = 0,
-                     device: DeviceLike = "cpu") -> CSRGraph:
+                     device: DeviceLike = None) -> CSRGraph:
     """A CSRGraph from ``row_ptr`` / ``col_idx`` arrays (degrees
     re-derived), on ``device``."""
     row_ptr = np.asarray(row_ptr)
@@ -40,7 +43,7 @@ def graph_from_numpy(n: int, row_ptr, col_idx, epoch: int = 0,
 
 def walk_index_from_numpy(endpoints, segment_len: int, seed: int,
                           graph_epoch: int = 0, mutation_offset: int = 0,
-                          device: DeviceLike = "cpu") -> WalkIndex:
+                          device: DeviceLike = None) -> WalkIndex:
     """A WalkIndex from an ``int[n, R]`` endpoint slab, on ``device``."""
     ep = np.asarray(endpoints)
     if ep.ndim != 2:
@@ -55,7 +58,7 @@ def walk_index_from_numpy(endpoints, segment_len: int, seed: int,
 def sharded_walk_index_from_numpy(blocks, n: int, segment_len: int,
                                   seed: int, graph_epoch: int = 0,
                                   mutation_offset: int = 0,
-                                  device: DeviceLike = "cpu"
+                                  device: DeviceLike = None
                                   ) -> ShardedWalkIndex:
     """A ShardedWalkIndex from stacked ``int[S, shard_size, R]`` blocks, on
     ``device``."""
@@ -70,7 +73,7 @@ def sharded_walk_index_from_numpy(blocks, n: int, segment_len: int,
 
 
 def blocked_csr_from_numpy(vertex_block: int, row_off, deg, col,
-                           device: DeviceLike = "cpu") -> BlockedCSR:
+                           device: DeviceLike = None) -> BlockedCSR:
     """A BlockedCSR from the reference's ``row_off`` / ``deg``
     (``[num_vb, BV]``) and ``col`` (``[num_vb, E_blk]``) arrays."""
     arrays = [np.asarray(a) for a in (row_off, deg, col)]
@@ -81,7 +84,7 @@ def blocked_csr_from_numpy(vertex_block: int, row_off, deg, col,
 
 
 def ell_from_numpy(n_rows: int, K: int, idx, valid, weight, spill_src,
-                   spill_dst, spill_w, device: DeviceLike = "cpu"
+                   spill_dst, spill_w, device: DeviceLike = None
                    ) -> EllGraph:
     """An EllGraph from the reference's arrays (``idx`` / ``valid`` /
     ``weight`` ``[n_rows, K]`` and the spill tail), on ``device``."""
@@ -105,7 +108,7 @@ def _i32(a: np.ndarray, device: DeviceLike) -> torch.Tensor:
         resolve_device(device))
 
 
-def key_from_jax(key_data, device: DeviceLike = "cpu") -> torch.Tensor:
+def key_from_jax(key_data, device: DeviceLike = None) -> torch.Tensor:
     """The port's key for the reference key whose ``jax.random.key_data``
     (``uint32[..., 2]``) is given."""
     return prng.wrap_key_data(np.asarray(key_data).astype(np.int64), device)
@@ -113,11 +116,12 @@ def key_from_jax(key_data, device: DeviceLike = "cpu") -> torch.Tensor:
 
 def model_config_from_reference(fields: Mapping[str, Any]) -> ModelConfig:
     """The port's ``ModelConfig`` for the reference config whose
-    ``dataclasses.asdict`` is ``fields``: the fields the dense path reads,
-    with ``attn_impl`` renamed (``"pallas"`` → ``"auto"``, ``"jnp_flash"``
-    → ``"torch"``). The reference's family-specific fields are dropped
-    (the dense path reads none of them), so another family raises
-    ``ModelConfig``'s ``NotImplementedError``."""
+    ``dataclasses.asdict`` is ``fields``: the fields the dense and MoE
+    paths read (the four MoE fields among them), with ``attn_impl``
+    renamed (``"pallas"`` → ``"auto"``, ``"jnp_flash"`` → ``"torch"``).
+    The fields of the families not ported are dropped (no ported path
+    reads them), so such a family raises ``ModelConfig``'s
+    ``NotImplementedError``."""
     names = {f.name for f in dataclasses.fields(ModelConfig)}
     kw = {k: v for k, v in fields.items() if k in names}
     impl = kw.get("attn_impl", "auto")
@@ -126,11 +130,16 @@ def model_config_from_reference(fields: Mapping[str, Any]) -> ModelConfig:
 
 
 def model_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
-                            device: DeviceLike = "cpu") -> Transformer:
+                            device: DeviceLike = None) -> Transformer:
     """The port's parameter modules from the reference's tree (``embed``,
-    ``final_norm``, optional ``head``, and ``blocks`` stacked ``[L, …]``),
-    each leaf taken through ``np.asarray``. Matrices are transposed from
-    the reference's ``[in, out]`` to ``[out, in]``."""
+    ``final_norm``, optional ``head``, and ``blocks`` stacked ``[L, …]``
+    with ``mlp`` or, for the MoE family, ``moe``), each leaf taken through
+    ``np.asarray``. The dense matrices (``head``, the attention and MLP
+    weights and the MoE ``router [L, d, E]``) are transposed from the
+    reference's ``[in, out]`` to ``[out, in]``; the expert weights
+    (``w_gate`` / ``w_up [L, E, d, f]``, ``w_down [L, E, f, d]``) keep the
+    reference's layout, which the batched products take."""
+    dev = resolve_device(device)
     params = init_params(cfg, device="meta")
     blocks = tree["blocks"]
     state: Dict[str, np.ndarray] = {
@@ -145,10 +154,16 @@ def model_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
             state[pre + ln + ".scale"] = np.asarray(blocks[ln]["scale"])[i]
         for w in ("wq", "wk", "wv", "wo"):
             state[pre + "attn." + w] = np.asarray(blocks["attn"][w])[i].T
-        for w in ("w_up", "w_gate", "w_down"):
-            if w in blocks["mlp"]:
-                state[pre + "mlp." + w] = np.asarray(blocks["mlp"][w])[i].T
-    dev = resolve_device(device)
+        if cfg.family == "moe":
+            moe = blocks["moe"]
+            state[pre + "moe.router"] = np.asarray(moe["router"])[i].T
+            for w in ("w_gate", "w_up", "w_down"):
+                state[pre + "moe." + w] = np.asarray(moe[w])[i]
+        else:
+            for w in ("w_up", "w_gate", "w_down"):
+                if w in blocks["mlp"]:
+                    state[pre + "mlp." + w] = \
+                        np.asarray(blocks["mlp"][w])[i].T
     tensors = {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(
         dev, pdtype_of(cfg))
         for k, v in state.items()}

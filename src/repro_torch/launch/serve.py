@@ -2,11 +2,15 @@
 (port of ``repro/launch/serve.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --smoke --device cpu --requests 6 --max-new 16
 
-It runs on the card unless ``--device`` says otherwise, at the
-architecture's full width unless ``--smoke`` asks for the reduced config.
+``--arch`` is any ported architecture: the four dense ones and the MoE
+olmoe-1b-7b and phi3.5-moe-42b-a6.6b (whose 41.9 B parameters outgrow one
+card at full width; ``--smoke`` runs it). It runs on the card unless
+``--device`` says otherwise, at the architecture's full width unless
+``--smoke`` asks for the reduced config.
 Weights are random, from ``torch.Generator`` seed ``--seed``. The prompts
 (request r: 3 + r % 5 tokens drawn by ``randint(fold_in(PRNGKey(seed +
 1), r), …, 2, vocab)``) are the reference launcher's, token for token.

@@ -1,13 +1,16 @@
-"""The LM stack's dense family on PyTorch (port of ``repro/models``).
+"""The LM stack's dense and MoE families on PyTorch (port of
+``repro/models``).
 
 Parameters are ``nn.Module`` trees built by ``init_params``; the
 functions take them with a ``ModelConfig``, as the reference's take its
 parameter dicts. ``forward_train`` is the full-sequence forward (the
 prefill program), whose attention runs the hand-written CUDA
 ``flash_attention`` kernel on the card; ``init_decode_state`` and
-``decode_step`` are the KV-cache serving path. The other families (MoE,
-RWKV6, Mamba2 and the hybrid, encoder-decoder and VLM branches) raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+``decode_step`` are the KV-cache serving path. MoE layers
+(``models/moe.py``) route each token to its top-k experts under the
+reference's capacity dispatch. The other families (RWKV6, Mamba2 and the
+hybrid, encoder-decoder and VLM branches) raise ``NotImplementedError``
+naming their ``ROADMAP.md`` item.
 """
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (DecodeState, Transformer,

@@ -1,11 +1,12 @@
 """The model configuration of the port's LM stack (port of
 ``repro/models/config.py``).
 
-Only the fields the dense path reads exist here: a field arrives with the
-slice that reads it, so passing one of the reference's other fields
-(``num_experts``, ``ssm_state``, ``encoder_layers``, …) is a
-``TypeError``, not a setting silently ignored. ``family`` other than
-``"dense"`` raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
+Only the fields the ported families read exist here (the dense and MoE
+families): a field arrives with the slice that reads it, so passing one of
+the reference's other fields (``ssm_state``, ``encoder_layers``, …) is a
+``TypeError``, not a setting silently ignored. A ``family`` other than
+``"dense"`` or ``"moe"`` raises ``NotImplementedError`` naming its
+``ROADMAP.md`` item.
 
 ``attn_impl`` takes the port's names:
 
@@ -24,8 +25,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+FAMILIES = ("dense", "moe")
 FAMILIES_NOT_PORTED = {
-    "moe": "14 (models/moe.py)",
     "ssm": "14 (models/rwkv6.py)",
     "hybrid": "14 (models/mamba2.py and the hybrid branch)",
     "encdec": "14 (the encdec branch)",
@@ -54,6 +55,12 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     logit_soft_cap: Optional[float] = None
 
+    # --- MoE ---
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_capacity_factor: float = 1.25
+    moe_dispatch_chunks: int = 8       # batch sub-chunks per dispatch pass
+
     # --- numerics / misc ---
     act: str = "silu"
     mlp_gated: bool = True                 # False: classic 2-matrix MLP
@@ -71,8 +78,15 @@ class ModelConfig:
                 f"family {self.family!r} is not ported to repro_torch yet "
                 f"(ROADMAP.md Queue 1 item "
                 f"{FAMILIES_NOT_PORTED[self.family]})")
-        if self.family != "dense":
+        if self.family not in FAMILIES:
             raise ValueError(f"unknown family {self.family!r}")
+        if self.family == "moe" and not (
+                1 <= self.num_experts_per_tok <= self.num_experts):
+            raise ValueError(
+                f"an MoE config needs 1 <= num_experts_per_tok <= "
+                f"num_experts, got num_experts_per_tok="
+                f"{self.num_experts_per_tok}, num_experts="
+                f"{self.num_experts}")
         if self.attn_impl in ATTN_RENAMED:
             raise ValueError(
                 f"attn_impl={self.attn_impl!r} is the reference's name; the "
@@ -111,11 +125,23 @@ class ModelConfig:
 
     @property
     def param_count(self) -> int:
-        """Analytic parameter count (embeddings, attention and MLP
-        matrices; the norm scales are left out, as in the reference)."""
+        """Analytic parameter count (embeddings, attention and MLP or
+        expert matrices and the router; the norm scales are left out, as
+        in the reference)."""
         d, f, V, L = self.d_model, self.d_ff, self.vocab_size, self.num_layers
         hd, Hq, Hkv = self.head_dim, self.num_heads, self.num_kv_heads
         emb = V * d * (1 if self.tie_embeddings else 2)
         attn = d * hd * (Hq + 2 * Hkv) + Hq * hd * d
         mlp = (3 if self.mlp_gated else 2) * d * f
+        if self.family == "moe":
+            mlp = self.num_experts * 3 * d * f + d * self.num_experts
         return int(emb + L * (attn + mlp))
+
+    @property
+    def active_param_count(self) -> int:
+        """Parameters a token runs through (MoE: its top-k experts only)."""
+        if self.family != "moe":
+            return self.param_count
+        d, f, L = self.d_model, self.d_ff, self.num_layers
+        unused = (self.num_experts - self.num_experts_per_tok) * 3 * d * f
+        return int(self.param_count - L * unused)

@@ -15,7 +15,7 @@ from torch import nn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import compute_weight, dense_init, pdtype_of
 
-_ACTS = {
+ACTIVATIONS = {
     "silu": F.silu,
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
     "relu": F.relu,
@@ -41,7 +41,7 @@ class MLP(nn.Module):
 
 def mlp_forward(params: MLP, x: torch.Tensor, cfg: ModelConfig
                 ) -> torch.Tensor:
-    act = _ACTS[cfg.act]
+    act = ACTIVATIONS[cfg.act]
     u = F.linear(x, compute_weight(params, "w_up", cfg))
     if cfg.mlp_gated:
         h = act(F.linear(x, compute_weight(params, "w_gate", cfg))) * u

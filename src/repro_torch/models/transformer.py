@@ -1,17 +1,20 @@
-"""Model assembly for the dense family (port of the dense branches of
-``repro/models/transformer.py``).
+"""Model assembly for the dense and MoE families (port of those branches
+of ``repro/models/transformer.py``).
 
 The parameters are an ``nn.Module`` tree (``Transformer``: ``embed``,
-``final_norm``, an optional untied ``head`` and one ``Block`` per layer)
-whose names follow the reference's parameter tree; the reference stacks
+``final_norm``, an optional untied ``head`` and one ``Block`` per layer,
+with ``mlp`` or, in the MoE family, ``moe``) whose names follow the
+reference's parameter tree; the reference stacks
 the blocks into ``[L, …]`` arrays for its scan, the port keeps one module
 per layer. The functions take the config separately, as the reference's
 do, so one set of weights runs under another ``attn_impl`` or compute
 dtype. Both the full-sequence forward and decode loop over the layers in
 Python; gemma3's local:global pattern (the reference's ``lax.cond`` on a
-per-layer flag) is ``cfg.layer_is_global(i)``. The reference's sharding
+per-layer flag) is ``cfg.layer_is_global(i)``. MoE layers attend
+globally, as the reference's do, and ``forward_train`` returns their mean
+load-balancing loss as ``aux["moe_aux_loss"]``. The reference's sharding
 constraints (``distributed.context.constrain``) are the identity on one
-device and are not ported.
+device and its MoE checkpoint is for training; neither is ported.
 """
 from __future__ import annotations
 
@@ -29,10 +32,12 @@ from repro_torch.models.layers import (Embedding, LMHead, RMSNorm,
                                        embed_tokens, pdtype_of, rmsnorm,
                                        unembed)
 from repro_torch.models.mlp import MLP, mlp_forward
+from repro_torch.models.moe import MoE, moe_forward
 
 
 class Block(nn.Module):
-    """One dense decoder block: ``ln1``, ``attn``, ``ln2``, ``mlp``."""
+    """One decoder block: ``ln1``, ``attn``, ``ln2`` and ``mlp``, or
+    ``moe`` in the MoE family."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device,
                  generator: Optional[torch.Generator]):
@@ -41,7 +46,10 @@ class Block(nn.Module):
         self.ln1 = RMSNorm(cfg.d_model, pd, device)
         self.attn = Attention(cfg, device, generator)
         self.ln2 = RMSNorm(cfg.d_model, pd, device)
-        self.mlp = MLP(cfg, device, generator)
+        if cfg.family == "moe":
+            self.moe = MoE(cfg, device, generator)
+        else:
+            self.mlp = MLP(cfg, device, generator)
 
 
 class Transformer(nn.Module):
@@ -80,22 +88,31 @@ def forward_train(params: Transformer, batch: Dict[str, torch.Tensor],
                   cfg: ModelConfig, remat: bool = False
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence forward: ``batch["tokens"] [B, S]`` → (logits
-    ``[B, S, V]`` in the compute dtype, aux losses ``{}``). It records
+    ``[B, S, V]`` in the compute dtype, aux losses: ``{}``, or for the MoE
+    family ``{"moe_aux_loss": the layers' mean}``). It records
     autograd history like any module call; serving callers run it under
     ``torch.inference_mode()``."""
     if remat:
         raise NotImplementedError(
             "remat=True is training, which is not ported to repro_torch yet "
             "(ROADMAP.md Queue 1 item 14: training/)")
+    moe = cfg.family == "moe"
     x = embed_tokens(params.embed, batch["tokens"], cfg)
+    aux_losses = []
     for i, bp in enumerate(params.blocks):
         h = rmsnorm(bp.ln1, x, cfg.norm_eps)
         x = x + attention_forward(bp.attn, h, cfg,
-                                  is_global=cfg.layer_is_global(i))
+                                  is_global=moe or cfg.layer_is_global(i))
         h2 = rmsnorm(bp.ln2, x, cfg.norm_eps)
-        x = x + mlp_forward(bp.mlp, h2, cfg)
+        if moe:
+            y, moe_aux = moe_forward(bp.moe, h2, cfg)
+            x = x + y
+            aux_losses.append(moe_aux["aux_loss"])
+        else:
+            x = x + mlp_forward(bp.mlp, h2, cfg)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
-    return unembed(params.embed, x, cfg, params.head), {}
+    aux = {"moe_aux_loss": torch.stack(aux_losses).mean()} if moe else {}
+    return unembed(params.embed, x, cfg, params.head), aux
 
 
 # ----------------------------------------------------------------------------
@@ -123,17 +140,22 @@ def decode_step(params: Transformer, state: DecodeState,
     """One autoregressive step for ``tokens int[B]`` → (logits ``[B, V]``,
     the state at ``pos + 1``), without autograd (decode is inference
     only). The caches are written in place: the returned state shares
-    them with the one given."""
+    them with the one given. An MoE layer routes each sequence's token as
+    a group of its own, whose capacity (8) no token exceeds."""
+    moe = cfg.family == "moe"
     pos = state.pos
     x = embed_tokens(params.embed, tokens[:, None], cfg)       # [B, 1, d]
     layers = []
     for i, bp in enumerate(params.blocks):
         h = rmsnorm(bp.ln1, x, cfg.norm_eps)
         a, lc = decode_attention(bp.attn, h, state.layers[i], pos, cfg,
-                                 is_global=cfg.layer_is_global(i))
+                                 is_global=moe or cfg.layer_is_global(i))
         x = x + a
         h2 = rmsnorm(bp.ln2, x, cfg.norm_eps)
-        x = x + mlp_forward(bp.mlp, h2, cfg)
+        if moe:
+            x = x + moe_forward(bp.moe, h2, cfg)[0]
+        else:
+            x = x + mlp_forward(bp.mlp, h2, cfg)
         layers.append(lc)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     logits = unembed(params.embed, x[:, 0], cfg, params.head)

@@ -48,7 +48,7 @@ M32 = 0xFFFFFFFF
 
 
 def _tkey(jkey):
-    return convert.key_from_jax(jax.random.key_data(jkey))
+    return convert.key_from_jax(jax.random.key_data(jkey), device="cpu")
 
 
 def _draws(key, impl):

@@ -51,7 +51,7 @@ def _graphs(n=500, deg=6.0, seed=1):
 
 def _keys(seed):
     key = jax.random.PRNGKey(seed)
-    return key, convert.key_from_jax(jax.random.key_data(key))
+    return key, convert.key_from_jax(jax.random.key_data(key), device="cpu")
 
 
 def _bytes_equal(want, got: torch.Tensor) -> None:
@@ -73,7 +73,7 @@ def _zero_degree_graph(n=41, seed=0):
     gj = jcsr.CSRGraph(n=n, row_ptr=jnp.asarray(row_ptr),
                        col_idx=jnp.asarray(col_idx),
                        out_deg=jnp.asarray(deg.astype(np.int32)))
-    return gj, convert.graph_from_numpy(n, row_ptr, col_idx)
+    return gj, convert.graph_from_numpy(n, row_ptr, col_idx, device="cpu")
 
 
 def test_hash_bits_and_coins_equal():

@@ -64,7 +64,7 @@ def test_frogwild_walks_byte_equal(N, t, seed, impl):
     got = tfw._frogwild_walks(
         gt, tconfig.FrogWildConfig(num_frogs=N, num_steps=t, step_impl=impl,
                                    tally_impl=impl),
-        convert.key_from_jax(jax.random.key_data(key)))
+        convert.key_from_jax(jax.random.key_data(key), device="cpu"))
     _bytes_equal(want.counts, got.counts)
     _bytes_equal(want.pi_hat, got.pi_hat)
     assert int(got.counts.sum()) == got.num_frogs == N
@@ -104,7 +104,8 @@ def test_service_pagerank_byte_equal(epsilon, k):
     _bytes_equal(jservice.batch_pagerank(gj, rc_j, key=key).counts,
                  tservice.batch_pagerank(
                      gt, rc_t, device="cpu",
-                     key=convert.key_from_jax(jax.random.key_data(key)))
+                     key=convert.key_from_jax(jax.random.key_data(key),
+                                          device="cpu"))
                  .counts)
 
 

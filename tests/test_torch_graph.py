@@ -81,7 +81,7 @@ def test_uniform_successor_and_transition_edges():
     # vertices 0 and 5 have out-degree 0 (a hand-made CSR, no repair)
     row_ptr = np.array([0, 0, 2, 5, 6, 8, 8], np.int32)
     col_idx = np.array([0, 3, 1, 2, 4, 5, 0, 2], np.int32)
-    g = convert.graph_from_numpy(6, row_ptr, col_idx)
+    g = convert.graph_from_numpy(6, row_ptr, col_idx, device="cpu")
     rng = np.random.default_rng(1)
     pos = rng.integers(0, 6, 500).astype(np.int32)
     bits = rng.integers(0, 1 << 30, 500).astype(np.int32)

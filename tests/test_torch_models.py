@@ -50,7 +50,8 @@ def _reference_pair(arch, **overrides):
         jcfg = dataclasses.replace(jcfg, mlp_gated=False, act="gelu")
     jp = jinit(jcfg, jax.random.PRNGKey(1))
     tcfg = convert.model_config_from_reference(dataclasses.asdict(jcfg))
-    tp = convert.model_params_from_numpy(jax.tree.map(np.asarray, jp), tcfg)
+    tp = convert.model_params_from_numpy(jax.tree.map(np.asarray, jp), tcfg,
+                                         device="cpu")
     return jcfg, jp, tcfg, tp
 
 
@@ -320,15 +321,30 @@ def test_param_count_matches_module_tree(arch):
         assert total == 1_235_814_400
 
 
+MOE = ["olmoe-1b-7b", "phi3.5-moe-42b-a6.6b"]
+
+
 def test_unported_names_raise():
+    """The families and configs still to port raise naming their item;
+    the MoE family and its two configs, ported since, build (an MoE
+    config without experts is refused)."""
     for fam in ("moe", "ssm", "hybrid", "encdec", "vlm"):
+        if fam == "moe":
+            with pytest.raises(ValueError, match="num_experts_per_tok"):
+                ModelConfig(family=fam)
+            with pytest.raises(ValueError, match="num_experts_per_tok"):
+                convert.model_config_from_reference({"family": fam})
+            continue
         with pytest.raises(NotImplementedError, match="item 14"):
             ModelConfig(family=fam)
         with pytest.raises(NotImplementedError, match="item 14"):
             convert.model_config_from_reference({"family": fam})
-    assert set(ARCHS) == set(DENSE)
+    assert set(ARCHS) == set(DENSE) | set(MOE)
     for arch in ("olmoe-1b-7b", "rwkv6-3b", "zamba2-1.2b", "whisper-medium",
                  "llava-next-mistral-7b", "phi3.5-moe-42b-a6.6b"):
+        if arch in MOE:
+            assert get_config(arch).family == "moe"
+            continue
         with pytest.raises(NotImplementedError, match="item 14"):
             get_config(arch)
     with pytest.raises(KeyError):
@@ -340,7 +356,7 @@ def test_unported_names_raise():
     with pytest.raises(NotImplementedError, match="item 8"):
         ModelConfig(attn_impl="cp_kv")
     with pytest.raises(TypeError):
-        ModelConfig(num_experts=8)
+        ModelConfig(ssm_state=64)
     cfg = TINY["dense"]
     params = init_params(cfg, 0, device="cpu")
     with pytest.raises(NotImplementedError, match="training"):
@@ -357,6 +373,36 @@ def test_model_config_from_reference_renames_attn_impl():
     with pytest.raises(NotImplementedError, match="item 8"):
         convert.model_config_from_reference(
             dataclasses.asdict(JConfig(attn_impl="cp_kv")))
+
+
+def test_convert_helpers_default_to_the_card(monkeypatch):
+    """Every helper puts its result on the card unless asked for the CPU:
+    with no card they raise, naming ``device='cpu'``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TINY["dense"]
+    i32 = np.zeros((2, 3), np.int32)
+    calls = {
+        "graph_from_numpy": lambda **kw: convert.graph_from_numpy(
+            2, [0, 1, 2], [1, 0], **kw),
+        "walk_index_from_numpy": lambda **kw: convert.walk_index_from_numpy(
+            i32, 4, 0, **kw),
+        "sharded_walk_index_from_numpy":
+            lambda **kw: convert.sharded_walk_index_from_numpy(
+                i32[None], 2, 4, 0, **kw),
+        "blocked_csr_from_numpy": lambda **kw: convert.blocked_csr_from_numpy(
+            3, i32, i32, i32, **kw),
+        "ell_from_numpy": lambda **kw: convert.ell_from_numpy(
+            2, 3, i32, i32.astype(bool), i32.astype(np.float32), [], [], [],
+            **kw),
+        "key_from_jax": lambda **kw: convert.key_from_jax([0, 1], **kw),
+        "model_params_from_numpy":
+            lambda **kw: convert.model_params_from_numpy({}, cfg, **kw),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+        if name != "model_params_from_numpy":
+            call(device="cpu")
 
 
 def test_init_draws_truncated_normals_from_a_generator():

@@ -91,7 +91,7 @@ def test_key_chain_like_the_scheduler():
 
 def test_key_data_round_trip_and_validation():
     kj = jax.random.fold_in(jax.random.PRNGKey(4), 77)
-    kt = convert.key_from_jax(jax.random.key_data(kj))
+    kt = convert.key_from_jax(jax.random.key_data(kj), device="cpu")
     assert (prng.key_data(kt).numpy() == _jk(kj)).all()
     assert torch.equal(prng.wrap_key_data(prng.key_data(kt)), kt)
     with pytest.raises(ValueError):

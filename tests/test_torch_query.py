@@ -46,7 +46,7 @@ def _graphs(n=500, deg=6.0, seed=1):
 
 
 def _tkey(key):
-    return convert.key_from_jax(jax.random.key_data(key))
+    return convert.key_from_jax(jax.random.key_data(key), device="cpu")
 
 
 def _eq(want, got: torch.Tensor) -> None:

@@ -37,7 +37,7 @@ def _pair(arch="h2o-danube-3-4b"):
     jp = jinit(jcfg, jax.random.PRNGKey(0))
     tcfg = convert.model_config_from_reference(dataclasses.asdict(jcfg))
     return jcfg, jp, tcfg, convert.model_params_from_numpy(
-        jax.tree.map(np.asarray, jp), tcfg)
+        jax.tree.map(np.asarray, jp), tcfg, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -73,7 +73,8 @@ def test_sample_token_temperature_matches_reference(temperature, top_k):
         want = jsample(jnp.asarray(lg), key, temperature=temperature,
                        top_k=top_k)
         got = sample_token(torch.from_numpy(lg),
-                           convert.key_from_jax(jax.random.key_data(key)),
+                           convert.key_from_jax(jax.random.key_data(key),
+                                                device="cpu"),
                            temperature=temperature, top_k=top_k)
         assert got.tolist() == np.asarray(want).tolist(), seed
         if top_k:

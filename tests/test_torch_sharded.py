@@ -45,7 +45,7 @@ def _graphs(n=250, deg=8.0, seed=2):
 
 
 def _tkey(key):
-    return convert.key_from_jax(jax.random.key_data(key))
+    return convert.key_from_jax(jax.random.key_data(key), device="cpu")
 
 
 def _eq(want, got: torch.Tensor) -> None:
@@ -79,7 +79,7 @@ def test_shard_walk_index_and_reassemble_byte_equal(n, S):
     _eq(ij.endpoints, st.reassemble().endpoints)
     # the reference's blocks carried across through numpy
     via = convert.sharded_walk_index_from_numpy(
-        np.asarray(sj.blocks), sj.n, sj.segment_len, sj.seed)
+        np.asarray(sj.blocks), sj.n, sj.segment_len, sj.seed, device="cpu")
     assert torch.equal(via.blocks, st.blocks)
     assert (via.n, via.segment_len, via.seed) == (st.n, st.segment_len,
                                                   st.seed)

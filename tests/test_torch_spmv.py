@@ -103,7 +103,7 @@ def test_to_ell_row_len(n, deg, K):
     assert (et.row_len.numpy()[:n] == np.minimum(in_deg, et.K)).all()
     assert not et.row_len[n:].any()
     back = convert.ell_from_numpy(ej.n_rows, ej.K, *(
-        np.asarray(getattr(ej, f)) for f in ELL_FIELDS))
+        np.asarray(getattr(ej, f)) for f in ELL_FIELDS), device="cpu")
     assert torch.equal(back.row_len, et.row_len)
 
 
@@ -135,7 +135,7 @@ def test_spmv_close_to_pallas_and_oracle(n, deg, K):
                                    err_msg=impl)
     # the layout carried across from the reference gives the same product
     back = convert.ell_from_numpy(ej.n_rows, ej.K, *(
-        np.asarray(getattr(ej, f)) for f in ELL_FIELDS))
+        np.asarray(getattr(ej, f)) for f in ELL_FIELDS), device="cpu")
     assert torch.equal(ops.spmv(back, torch.from_numpy(x)), got)
 
 

@@ -46,7 +46,7 @@ I32_MIN = np.iinfo(np.int32).min
 
 
 def _tkey(key):
-    return convert.key_from_jax(jax.random.key_data(key))
+    return convert.key_from_jax(jax.random.key_data(key), device="cpu")
 
 
 def _local_inputs(W, n, R, S, q_max, mode, seed):

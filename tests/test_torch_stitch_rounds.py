@@ -153,7 +153,7 @@ def test_wave_program_equal_reference(impl, lost_shard):
         tally_impl="auto", S=S, sz=sz))(
         torch.from_numpy(slab), gt.row_ptr, gt.col_idx, gt.out_deg,
         *map(torch.from_numpy, operands),
-        convert.key_from_jax(jax.random.key_data(key)),
+        convert.key_from_jax(jax.random.key_data(key), device="cpu"),
         None if lost_shard is None else torch.from_numpy(lost))
     assert ops.launch_counts() == before
     want = np.asarray(want)

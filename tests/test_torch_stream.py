@@ -58,7 +58,7 @@ def _hub_graph(n=200, hub=123, hub_deg=3000, seed=7):
 
 
 def _both(rp, col, n):
-    gt = convert.graph_from_numpy(n, rp, col)
+    gt = convert.graph_from_numpy(n, rp, col, device="cpu")
     return (jnp.asarray(rp, jnp.int32), jnp.asarray(col),
             jnp.asarray(np.diff(rp).astype(np.int32))), gt
 
@@ -87,7 +87,7 @@ def test_block_csr_arrays_equal_reference(n, bv, e_blk):
         assert tfss.round_e_blk(natural) == jfss.round_e_blk(natural)
     via = convert.blocked_csr_from_numpy(
         want.vertex_block, *(np.asarray(getattr(want, a))
-                             for a in ("row_off", "deg", "col")))
+                             for a in ("row_off", "deg", "col")), device="cpu")
     assert all(torch.equal(getattr(via, a), getattr(got, a))
                for a in ("row_off", "deg", "col"))
     with pytest.raises(ValueError, match="e_blk"):
@@ -211,7 +211,7 @@ def test_stream_kernel_schedule_covers_every_frog(n, N, bv):
     if n == "hub":
         rp, col, _ = _hub_graph()
         n = 200
-        gt = convert.graph_from_numpy(n, rp, col)
+        gt = convert.graph_from_numpy(n, rp, col, device="cpu")
         pos = np.where(np.arange(N) % 3 == 0, 123,
                        np.arange(N) % n).astype(np.int32)
         _, die, bits = _inputs(n, N, 1)

@@ -259,7 +259,7 @@ def test_superstep_replay_equals_plain(N, p_T, t):
     ``ops.frog_step`` on ``prng``'s draws; at p_T = 0.6 every frog is dead long before t = 30."""
     rp, col, deg = _graph()
     n = deg.shape[0]
-    g = convert.graph_from_numpy(n, rp, col)
+    g = convert.graph_from_numpy(n, rp, col, device="cpu")
     step_keys = _keys(t, 13)
     rng = np.random.default_rng(N)
     pos0 = rng.integers(0, n, N).astype(np.int32)
@@ -332,7 +332,7 @@ def test_stream_kernels_replay_equal_plain(N, bv):
     plain versions (sorting changes nothing)."""
     rp, col, deg = _graph()
     n = deg.shape[0]
-    g = convert.graph_from_numpy(n, rp, col)
+    g = convert.graph_from_numpy(n, rp, col, device="cpu")
     blocked = tfss.blocked_csr_of(g, bv)
     pos, alive = _stream_state(N, n, 4)
     tpos = torch.from_numpy(pos)
@@ -384,7 +384,7 @@ def _graph_pair(seed=0):
     gj = JCSRGraph(n=n, row_ptr=jax.numpy.asarray(rp, jax.numpy.int32),
                    col_idx=jax.numpy.asarray(col),
                    out_deg=jax.numpy.asarray(deg))
-    return gj, convert.graph_from_numpy(n, rp, col)
+    return gj, convert.graph_from_numpy(n, rp, col, device="cpu")
 
 
 def _eq(want, got):
@@ -409,7 +409,7 @@ def test_batch_walk_byte_equal_reference(N, t, p_T, seed, step_impl):
     got = tfw._frogwild_walks(
         gt, FrogWildConfig(num_frogs=N, num_steps=t, p_T=p_T,
                            step_impl=step_impl),
-        convert.key_from_jax(jax.random.key_data(key)), blocked)
+        convert.key_from_jax(jax.random.key_data(key), device="cpu"), blocked)
     _eq(want.counts, got.counts)
     _eq(want.pi_hat, got.pi_hat)
     assert int(got.counts.sum()) == N
