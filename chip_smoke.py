@@ -6,8 +6,9 @@
 Drives the port's main paths once through the entry points a user calls:
 FrogWild! at LiveJournal scale (n = 4,847,571, avg out-degree 14.2,
 θ = 2.2, seed 0; ``repro_torch.configs.LIVEJOURNAL_FULL``), the LM
-stack's dense serving path at llama3.2-1b's full width and its MoE family
-at olmoe-1b-7b's full width and depth. It checks every answer against its
+stack's dense serving path at llama3.2-1b's full width, its MoE family
+at olmoe-1b-7b's full width and depth, and its recurrent families at
+rwkv6-3b's and zamba2-1.2b's. It checks every answer against its
 guarantee:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
@@ -232,7 +233,36 @@ guarantee:
               ``moe.combine``) and the rest; phase 16 on the reduced
               olmoe; phi3.5-moe at full width cut from 32 to 2 layers,
               phase 14's prefill and gates at S = 4,096 (32/8 GQA heads of
-              128, top-2 of 16 experts at d_ff 6,400); the peak memory.
+              128, top-2 of 16 experts at d_ff 6,400); the peak memory;
+21. recurrent — (runs after phase 20 has released its models, the peak
+              memory counter reset) rwkv6-3b (32 layers, 40 heads of 64)
+              and zamba2-1.2b (38 Mamba-2 layers, 64 heads of 64 and a
+              state of 64; the shared attention block after every 6th)
+              at full width and depth, random, seed 0, each in turn:
+              ``param_count`` and the tree's count; the 32k prefill, first
+              call and warm (``wkv6_scan`` 32 or ``ssd_scan`` 38 launches,
+              ``flash_attention`` 0 or 6, asserted); the scan against its
+              plain version in float32 on layer 0's real inputs at S =
+              4,096, at the next step (S = 1) and at B = 4 from a nonzero
+              state, within 1e-5 relative Frobenius; the bf16 logits
+              within 5e-2 of the plain path's (per-step scans and chunked
+              attention) at S = 1,024; layer 0's recurrence over 2,048
+              tokens as two halves with the state carried, within 1e-5 of
+              one run, a gate a dropped carry must fail; phase 15's
+              launcher run and serving invariant (a dropped decode state
+              must fail the logits gate; zamba2's planted attention fault
+              the attention gate; each of its 6 sites its own cache);
+              ``init_decode_state`` at ``long_500k``'s 524,288 positions
+              (the state's and the site caches' bytes against the
+              analytic counts) and three ``serve_step`` there;
+              ``flash_attention`` at zamba2's shape (32 heads of 64, MHA)
+              against SDPA; the prefill and one ``serve_step`` under the
+              profiler, device ms by stage (``rwkv.time_mix``,
+              ``rwkv.scan``, ``rwkv.channel_mix``; ``mamba.proj``,
+              ``mamba.conv``, ``mamba.scan``, ``mamba.out``,
+              ``shared_attn``); the scan's row (ms at the prefill shape,
+              its bound, the plain loop's ms at S = 4,096); phase 16 on
+              the reduced model (a dropped state planted for rwkv6).
 
 Phases 14-16 run after phase 11 and before 12 and 13, which read them.
 Launch counts are reset just before phase 4 and read just after phase 5
@@ -248,7 +278,9 @@ and read just after each, and in phase 19 (the gateway's path) reset just
 before ``Gateway.open`` and read just after the HTTP requests, and reset
 just before ``Gateway.apply_mutations`` and read just after it, and in
 phase 20 reset just before each prefill forward and the launcher's run
-and read just after each;
+and read just after each, and in phase 21 reset just before each
+architecture's first prefill forward and the launcher's run and read just
+after each;
 phases 6, 11, 12 and 13 reset them around each run whose draw launches
 they count.
 The last line is ``{"ok": true, "device": {...}}``; any failed check or
@@ -257,6 +289,7 @@ launch raises and exits non-zero, as does a machine without CUDA.
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import json
 import os
@@ -308,6 +341,28 @@ MOE_ARCH = "olmoe-1b-7b"
 MOE_LAYER_GATE = dict(seq=4_096, tokens=256, tight_factor=1.0)
 MOE_PHI = dict(arch="phi3.5-moe-42b-a6.6b", layers=2, seq=4_096)
 MOE_STAGES = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine")
+# the recurrent families (phase 21): rwkv6-3b and zamba2-1.2b at full width
+# and depth (src/repro_torch/configs/rwkv6_3b.py, zamba2_1b.py), random
+# weights from seed 0, the prefill at LM_PREFILL's shape; each scan against
+# its plain version on layer 0's inputs at 4,096 steps (float32); the bf16
+# forward against the plain path at 1,024 tokens (its per-step loops rule
+# out 32k); the state carried over two halves of 2,048 tokens; the decode
+# state at long_500k's 524,288 positions
+RECURRENT_ARCHS = ("rwkv6-3b", "zamba2-1.2b")
+RECURRENT = dict(gate_seq=4_096, plain_seq=1_024, carry_seq=2_048,
+                 long_len=524_288)
+RECURRENT_STAGES = {"ssm": ("rwkv.time_mix", "rwkv.scan",
+                            "rwkv.channel_mix"),
+                    "hybrid": ("mamba.proj", "mamba.conv", "mamba.scan",
+                               "mamba.out", "shared_attn")}
+SCAN_KERNEL = {"ssm": "wkv6_scan", "hybrid": "ssd_scan"}
+SCAN_SOURCE = {"wkv6_scan": "wkv6.cu", "ssd_scan": "ssd_scan.cu"}
+# no TPU kernel: the reference's lax.scan each replaces
+SCAN_REPLACES = {"wkv6_scan": "src/repro/models/rwkv6.py:121 (lax.scan, "
+                 "no Pallas kernel)",
+                 "ssd_scan": "src/repro/models/mamba2.py:320 (lax.scan, "
+                 "no Pallas kernel)"}
+FP32_FLOP_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
 # flash_attention against attention_ref at S = 4,096 (a 32k oracle would
 # hold 137 GB of logits): B, Hq, Hkv, Sq, Skv, D, window, causal, cap,
 # q_offset, dtype, max abs tolerance (tests/test_kernels.py:153's)
@@ -2704,6 +2759,30 @@ def decode_newest_key_dropped(orig):
     return fn
 
 
+def scan_state_dropped(orig):
+    """Planted fault in a recurrence: the scan starts from a zero state
+    instead of the carried one (its sixth operand)."""
+    def fn(*a, **kw):
+        return orig(*a[:5], None, **kw)
+    return fn
+
+
+def decode_faults(cfg) -> list:
+    """``(run, patch target, fault)`` of the serving gates: the sound run,
+    the decode attention fault where the model attends, and a dropped
+    recurrent state where it has a time recurrence."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    runs = [("sound", None, None)]
+    if not cfg.is_attention_free:
+        runs.append(("fault", (kref, "decode_attention_ref"),
+                     decode_newest_key_dropped))
+    if cfg.family in SCAN_KERNEL:
+        runs.append(("state_fault", (ops, SCAN_KERNEL[cfg.family]),
+                     scan_state_dropped))
+    return runs
+
+
 @contextlib.contextmanager
 def lm_taps():
     """Record what the LM path computes: ``attn`` gets every layer's
@@ -2916,7 +2995,6 @@ def phase_lm_serve(params, cfg, dev, requests=LM_SERVE["requests"],
     import torch
     from repro_torch import prng
     from repro_torch.kernels import ops
-    from repro_torch.kernels import ref as kref
     from repro_torch.launch.serve import MAX_LEN, make_requests
     from repro_torch.models import (decode_step, forward_train,
                                     init_decode_state)
@@ -2966,32 +3044,44 @@ def phase_lm_serve(params, cfg, dev, requests=LM_SERVE["requests"],
     with lm_taps() as (want_attn, _), torch.inference_mode():
         want, _ = forward_train(params, {"tokens": toks}, f32)
     lim = ATTN_REL["float32"]
-    for what, fault in (("sound", None), ("fault", decode_newest_key_dropped)):
+    # one attention output a layer, or a shared-block site (zamba2), or
+    # none (rwkv6)
+    n_attn = len(want_attn)
+    for what, target, fault in decode_faults(cfg):
         with contextlib.ExitStack() as stack:
             attn, _ = stack.enter_context(lm_taps())
             if fault is not None:
-                stack.enter_context(patched(kref, "decode_attention_ref",
-                                            fault))
+                stack.enter_context(patched(*target, fault))
             st = init_decode_state(params, f32, 1, invariant_seq)
             rel = 0.0
             for t in range(invariant_seq):
                 got, st = decode_step(params, st, toks[:, t], f32)
                 w = want[:, t]
                 rel = max(rel, float((got - w).norm() / w.norm()))
-        L = cfg.num_layers
-        per_layer = [torch.cat(attn[i::L], dim=1) for i in range(L)]
-        att = max_layer_rel(per_layer, want_attn)
+        per_layer = [torch.cat(attn[i::n_attn], dim=1)
+                     for i in range(n_attn)]
+        att = max_layer_rel(per_layer, want_attn) if n_attn else (0.0, 0.0)
+        sites = {}
+        if st.shared is not None:
+            # each site's attention wrote its own cache
+            sites = dict(sites=len(st.shared), distinct_site_caches=len(
+                {c["k"].data_ptr() for c in st.shared}) == len(st.shared)
+                and all(not torch.equal(a["k"], b["k"])
+                        for a, b in zip(st.shared, st.shared[1:])))
         log(f"{tag} lm_serve_invariant", run=what, dtype="float32",
             seq=invariant_seq, max_rel_err=rel, limit=1e-3,
             logits_ok=rel <= 1e-3, attn_max_rel_frobenius=att[0],
             attn_max_rel_frobenius_last_eighth=att[1], attn_limit=lim,
-            attn_ok=max(att) <= lim)
+            attn_ok=max(att) <= lim if n_attn else "no attention", **sites)
         if fault is None:
             assert rel <= 1e-3, "decode logits stray from the forward's"
             assert max(att) <= lim, \
                 "decode attention outputs stray from the forward's"
-        else:
+            assert sites.get("distinct_site_caches", True), sites
+        elif what == "fault":
             assert max(att) > lim, "the attention gate misses a planted fault"
+        else:
+            assert rel > 1e-3, "the logits gate misses a dropped state"
     return state, cur
 
 
@@ -3006,17 +3096,17 @@ def phase_lm_cpu(cfg, dev, requests=LM_SERVE["requests"],
     lines."""
     import copy
     import torch
-    from repro_torch.kernels import ref as kref
     from repro_torch.launch.serve import MAX_LEN, make_requests
     from repro_torch.models import init_params
     from repro_torch.serving import BatchScheduler, prefill
     cpu_params = init_params(cfg, 0, device="cpu")
     runs, steps = {}, {}
+    # the attention fault where the model attends, else a dropped state
+    _, target, planted = decode_faults(cfg)[1]
     for where, params, fault in (
             ("cuda", copy.deepcopy(cpu_params).to(dev), None),
             ("cpu", cpu_params, None),
-            ("cuda_fault", copy.deepcopy(cpu_params).to(dev),
-             decode_newest_key_dropped)):
+            ("cuda_fault", copy.deepcopy(cpu_params).to(dev), planted)):
         sched = BatchScheduler(params, cfg, max_batch=max_batch,
                                max_len=MAX_LEN)
         for r in make_requests(cfg, requests, 0, max_new):
@@ -3024,8 +3114,7 @@ def phase_lm_cpu(cfg, dev, requests=LM_SERVE["requests"],
         with contextlib.ExitStack() as stack:
             _, steps[where] = stack.enter_context(lm_taps())
             if fault is not None:
-                stack.enter_context(patched(kref, "decode_attention_ref",
-                                            fault))
+                stack.enter_context(patched(*target, fault))
             t0 = time.perf_counter()
             runs[where] = sched.run()
             sync()
@@ -3043,8 +3132,9 @@ def phase_lm_cpu(cfg, dev, requests=LM_SERVE["requests"],
                 break
             n += 1
             lg = max(lg, float((la.cpu() - lb).norm() / lb.norm()))
-            att = max(att, max(float((x.cpu() - y).norm() / y.norm())
-                               for x, y in zip(aa, ab, strict=True)))
+            att = max(att, max((float((x.cpu() - y).norm() / y.norm())
+                                for x, y in zip(aa, ab, strict=True)),
+                               default=0.0))
         log(f"{tag} lm_cpu_steps", run=what, steps_compared=n,
             steps=len(steps["cpu"]), logits_max_rel_err=lg,
             attn_max_rel_err=att, limit=lim, logits_ok=lg <= lim,
@@ -3053,8 +3143,10 @@ def phase_lm_cpu(cfg, dev, requests=LM_SERVE["requests"],
         if what == "cuda":
             assert lg <= lim and att <= lim, \
                 "the card's decode steps stray from the CPU's"
-        else:
+        elif planted is decode_newest_key_dropped:
             assert att > lim, "the attention gate misses a planted fault"
+        else:
+            assert lg > lim, "the logits gate misses a dropped state"
     log(f"{tag} lm_cpu_fault_tokens", equal_cpu=all(
         a.output == b.output for a, b in zip(runs["cuda_fault"],
                                              runs["cpu"])))
@@ -3437,6 +3529,318 @@ def phase_moe(dev):
     return peak
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the recurrent families (rwkv6-3b, zamba2-1.2b at full width)
+# ---------------------------------------------------------------------------
+
+def scan_args(kernel: str, args, seq=None, dtype=None) -> list:
+    """A recorded scan call's operands, the sequence ones cut to ``seq``
+    steps and the floating ones cast to ``dtype`` (each as it is when
+    None); the starting state stays as recorded."""
+    out = []
+    for i, t in enumerate(args):
+        if t is not None and i < 5:
+            if seq is not None and t.dim() >= 3:
+                t = t[:, :seq]
+            if dtype is not None:
+                t = t.to(dtype)
+            t = t.contiguous()
+        out.append(t)
+    return out
+
+
+def scan_work(kernel: str, args) -> tuple:
+    """``(bytes, float32 operations)`` one scan call needs: each operand
+    read once, the output and the final state written once; a state
+    element costs a multiply and two FMAs a step (5 operations), plus
+    the per-step row terms (wkv6: the bonus sum and the readout, 5D a
+    head; ssd: Δ·x a row and the readout's sum, D a head)."""
+    def nb(t):
+        return 0 if t is None else t.numel() * t.element_size()
+
+    if kernel == "wkv6_scan":
+        r, k, v, w, u, S0 = args
+        B, S, H, D = r.shape
+        out = r.numel() * r.element_size() + B * H * D * D * 4
+        return (sum(nb(t) for t in args) + out,
+                B * S * H * (5 * D * D + 5 * D))
+    x, Bv, Cv, dt, a, h0 = args
+    B, S, H, D = x.shape
+    n = Bv.shape[-1]
+    out = x.numel() * 4 + B * H * D * n * 4
+    return sum(nb(t) for t in args) + out, B * S * H * D * (5 * n + 1)
+
+
+def scan_gates(kernel: str, args, tag: str) -> float:
+    """Kernel against plain version on layer 0's real inputs: first the
+    call as the main path makes it (the recorded operands, bf16 at the
+    prefill's full shape), then in float32 S = ``RECURRENT["gate_seq"]``
+    from a zero state, the next step (S = 1) from that run's state, and
+    B = 4 (the run's four quarters as rows) from it. Final states within
+    1e-5 relative Frobenius error; outputs within 1e-5, or 4e-3 where
+    they are written in bf16 (both sides round the same float32 values,
+    in a different order of sums). Returns the largest max abs output
+    error."""
+    import torch
+    from repro_torch.kernels import ops
+    fn = getattr(ops, kernel)
+    runs = [("path", *fn(*args, impl="cuda"), *fn(*args, impl="torch"))]
+    n = RECURRENT["gate_seq"]
+    f32 = scan_args(kernel, args, seq=n + 1, dtype=torch.float32)
+    head = scan_args(kernel, f32, seq=n)
+    o, st = fn(*head, impl="cuda")
+    want_o, want_st = fn(*head, impl="torch")
+    runs.append(("S4096", o, st, want_o, want_st))
+    step = [t[:, n:n + 1] if t is not None and i < 5 and t.dim() >= 3
+            else t for i, t in enumerate(f32)]
+    step[5] = want_st
+    runs.append(("S1", *fn(*step, impl="cuda"), *fn(*step, impl="torch")))
+    w = n // 4
+    batch = [torch.cat([t[:, j * w:(j + 1) * w] for j in range(4)])
+             if t is not None and i < 5 and t.dim() >= 3 else t
+             for i, t in enumerate(head)]
+    batch[5] = want_st.expand(4, *want_st.shape[1:]).contiguous()
+    runs.append(("B4", *fn(*batch, impl="cuda"), *fn(*batch, impl="torch")))
+    worst = 0.0
+    for what, o, st, want_o, want_st in runs:
+        rel_o, rel_s = rel_frobenius(o, want_o), rel_frobenius(st, want_st)
+        err = float((o.float() - want_o.float()).abs().max())
+        worst = max(worst, err)
+        limit = 4e-3 if o.dtype == torch.bfloat16 else 1e-5
+        ok = rel_o <= limit and rel_s <= 1e-5
+        log(f"{tag} scan_gate", kernel=kernel, run=what,
+            dtype=str(args[0].dtype if what == "path" else torch.float32),
+            out_dtype=str(o.dtype), shape=list(o.shape),
+            rel_frobenius_out=rel_o, rel_frobenius_state=rel_s,
+            max_abs_err=err, limit_out=limit, limit_state=1e-5, ok=ok)
+        assert ok, f"{kernel} strays ({what})"
+    return worst
+
+
+def scan_row(kernel: str, args, launches: int, err: float, tag: str
+             ) -> dict:
+    """The scan's ``kernels`` row: its event-timed ms on one layer at the
+    prefill's shape (layer 0's inputs as the path gives them), the bound
+    from :func:`scan_work`, and the plain version's ms at S = 4,096 (the
+    32k loop would be 32,768 Python steps); no PyTorch call computes the
+    recurrence."""
+    from repro_torch.kernels import ops
+    fn = getattr(ops, kernel)
+    ms, reps = time_ms_auto(lambda: fn(*args, impl="cuda"))
+    short = scan_args(kernel, args, seq=RECURRENT["gate_seq"])
+    ms_short, _ = time_ms_auto(lambda: fn(*short, impl="cuda"))
+    plain_ms = time_ms(lambda: fn(*short, impl="torch"), reps=1)
+    nbytes, flops = scan_work(kernel, args)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    r = dict(name=kernel, route="cuda",
+             source=f"src/repro_torch/kernels/csrc/{SCAN_SOURCE[kernel]}",
+             replaces=SCAN_REPLACES[kernel], launches=launches,
+             max_abs_err=err, ms=ms, plain_ms=plain_ms,
+             bound_ms=max(t_bytes, t_ops),
+             bound_by="operations" if t_ops >= t_bytes else "bytes",
+             library_ms=None)
+    log(f"{tag} kernel", **{k: v for k, v in r.items()
+                           if k not in ("source", "replaces", "route")},
+        reps=reps, bytes=nbytes, flop=flops, bytes_ms=t_bytes,
+        operations_ms=t_ops, shape=list(args[0].shape),
+        dtype=str(args[0].dtype), ms_at_4096=ms_short,
+        plain=f"the per-step loop at S={RECURRENT['gate_seq']}, "
+        f"{args[0].dtype}", library="none (no PyTorch call computes "
+        "the recurrence)")
+    return r
+
+
+def phase_recurrent_arch(arch: str, dev) -> dict:
+    """One recurrent architecture at full width and depth: the 32k
+    prefill (first call and warm, the scan launched once a layer,
+    ``flash_attention`` once a shared-block site), the scan gates on layer
+    0's inputs, the bf16 forward against the plain path at S = 1,024, the
+    state carried over two halves of 2,048 tokens, the launcher's
+    requests and the serving invariant, the reduced model on the card
+    against the CPU, ``long_500k``'s state bytes and step time, zamba2's
+    ``flash_attention`` shape, and traces. Returns the scan's row."""
+    import dataclasses
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import (forward_train, init_decode_state,
+                                    transformer)
+    from repro_torch.serving import serve_step
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    kernel = SCAN_KERNEL[cfg.family]
+    sites = (cfg.num_layers // cfg.shared_attn_every
+             if cfg.family == "hybrid" else 0)
+    params = lm_model(cfg, dev)
+    sync()
+    log("21 config", arch=arch, family=cfg.family, layers=cfg.num_layers,
+        d_model=cfg.d_model, param_count=cfg.param_count,
+        tree_params=sum(p.numel() for p in params.parameters()),
+        shared_attn_sites=sites, init_s=time.perf_counter() - t0)
+    B, S = LM_PREFILL["batch"], LM_PREFILL["seq"]
+    toks = prng.randint(prng.PRNGKey(1, dev), (B, S), 0, cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    sync()
+    t1 = time.perf_counter()
+    with torch.inference_mode():
+        logits, _ = forward_train(params, {"tokens": toks}, cfg)
+    sync()
+    wall = time.perf_counter() - t1
+    launches = ops.launch_counts()
+    log("launches", path=f"{arch}_prefill", **launches)
+    assert launches[kernel] == cfg.num_layers, launches
+    assert launches["flash_attention"] == sites, launches
+    assert logits.shape == (B, S, cfg.vocab_size), logits.shape
+    finite = all(bool(torch.isfinite(logits[:, s0:s0 + 4096]).all())
+                 for s0 in range(0, S, 4096))
+    del logits
+    # again, warm; then once more with layer 0's inputs recorded
+    sync()
+    t1 = time.perf_counter()
+    with torch.inference_mode():
+        forward_train(params, {"tokens": toks}, cfg)
+    sync()
+    warm = time.perf_counter() - t1
+    log("21 prefill", arch=arch, batch=B, seq=S, wall_s=wall,
+        tokens_per_s=B * S / wall, warm_wall_s=warm,
+        warm_tokens_per_s=B * S / warm,
+        peak_mem_bytes=torch.cuda.max_memory_allocated(), finite=finite)
+    assert finite, "non-finite prefill logits"
+    layer_fn = {"ssm": "rwkv_time_mix", "hybrid": "mamba2_forward"}[
+        cfg.family]
+    seen = {}
+
+    def first_call(key):
+        def tap(orig):
+            def fn(*a, **kw):
+                seen.setdefault(key, a)
+                return orig(*a, **kw)
+            return fn
+        return tap
+
+    with patched(ops, kernel, first_call("scan")), \
+            patched(transformer, layer_fn, first_call("layer")), \
+            torch.inference_mode():
+        forward_train(params, {"tokens": toks}, cfg)
+    scan_in, layer_in = list(seen["scan"]), seen["layer"][1]
+    with torch.inference_mode():
+        err = scan_gates(kernel, scan_in, "21")
+        # the bf16 forward against the plain path (scans and attention)
+        short = {"tokens": toks[:, :RECURRENT["plain_seq"]]}
+        plain = dataclasses.replace(cfg, attn_impl="torch")
+        got, _ = forward_train(params, short, cfg)
+        sync()
+        t1 = time.perf_counter()
+        with patched(ops, kernel, lambda orig: functools.partial(
+                orig, impl="torch")):
+            want, _ = forward_train(params, short, plain)
+        sync()
+        rel = rel_frobenius(got, want)
+        log("21 prefill_gate", arch=arch, dtype=cfg.dtype,
+            seq=RECURRENT["plain_seq"], plain_wall_s=time.perf_counter() - t1,
+            rel_frobenius=rel, limit=5e-2, ok=rel <= 5e-2)
+        assert rel <= 5e-2, "bf16 logits stray from the plain path"
+        del got, want
+        recurrent_carry(params, cfg, layer_fn, layer_in)
+    state, cur = phase_lm_serve(params, cfg, dev, tag="21",
+                                path=f"{arch}_serve")
+    # long_500k: the decode state at 524,288 positions, and one step
+    st = init_decode_state(params, cfg, 1, RECURRENT["long_len"])
+    got_bytes = [sum(t.numel() * t.element_size() for t in c.values())
+                 for c in st.layers]
+    got_shared = sum(t.numel() * t.element_size()
+                     for c in (st.shared or ()) for t in c.values())
+    want_layers, want_shared = long_state_bytes(cfg)
+    cur1 = cur[:1]
+    step_ms = []
+    for i in range(3):
+        sync()
+        t1 = time.perf_counter()
+        cur1, st = serve_step(params, st, cur1, cfg)
+        sync()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    log("21 long_500k", arch=arch, max_len=RECURRENT["long_len"],
+        state_bytes=sum(got_bytes), analytic_state_bytes=want_layers,
+        shared_kv_bytes=got_shared, analytic_shared_kv_bytes=want_shared,
+        equal=sum(got_bytes) == want_layers and got_shared == want_shared,
+        serve_step_ms=json.dumps(step_ms),
+        peak_mem_bytes=torch.cuda.max_memory_allocated())
+    assert sum(got_bytes) == want_layers and got_shared == want_shared
+    del st, cur1
+    if sites:
+        flash_attention_row(sites, cfg, dev, checks=False, tag="21")
+    phase_lm_profile(params, cfg, toks, state, cur, tag="21",
+                     stages=RECURRENT_STAGES[cfg.family])
+    row = scan_row(kernel, scan_in, launches[kernel], err, "21")
+    peak = torch.cuda.max_memory_allocated()
+    del params, toks, state, cur, scan_in, layer_in, seen
+    log("21 arch_done", arch=arch, seconds=time.perf_counter() - t0,
+        peak_mem_bytes=peak, **free_device_memory())
+    phase_lm_cpu(reduced_config(cfg), dev, tag="21")
+    return row
+
+
+def long_state_bytes(cfg) -> tuple:
+    """(the recurrent state's bytes, the shared KV caches') at
+    ``long_500k``: rwkv6 a layer two compute-dtype token-shift rows and a
+    float32 ``[H, D, D]`` state; zamba2 a layer a ``[W − 1, 2d]`` conv
+    buffer and a float32 ``[H, D, n]`` state, and a ``[2, Hkv, len, hd]``
+    cache a site."""
+    el = 2 if cfg.dtype == "bfloat16" else 4
+    d, L = cfg.d_model, cfg.num_layers
+    if cfg.family == "ssm":
+        H, D = cfg.ssm_heads, cfg.ssm_head_dim
+        return L * (2 * d * el + H * D * D * 4), 0
+    d_inner, D, n = 2 * d, cfg.ssm_head_dim, cfg.ssm_state
+    H = d_inner // D
+    layer = (cfg.conv_width - 1) * d_inner * el + H * D * n * 4
+    sites = L // cfg.shared_attn_every
+    kv = 2 * RECURRENT["long_len"] * cfg.num_kv_heads * cfg.head_dim * el
+    return L * layer, sites * kv
+
+
+def recurrent_carry(params, cfg, layer_fn: str, x) -> None:
+    """Layer 0's recurrence in float32 through the kernels on its real
+    input, ``RECURRENT["carry_seq"]`` tokens as two halves with the state
+    carried, against one run (the twin of the reference's
+    ``tests/test_models.py`` state-carry tests): outputs and final state
+    within 1e-5, a gate a dropped carry must fail."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    block = params.blocks[0]
+    layer = block.time_mix if cfg.family == "ssm" else block.mamba
+    fn = getattr(transformer, layer_fn)
+    n = RECURRENT["carry_seq"]
+    x = x[:, :n].float()
+    full, (_, st_full) = fn(layer, x, f32)
+    a, st = fn(layer, x[:, :n // 2], f32)
+    for what, carry in (("sound", st), ("fault", None)):
+        b, (_, st_b) = fn(layer, x[:, n // 2:], f32, state=carry)
+        rel = max(rel_frobenius(torch.cat([a, b], 1), full),
+                  rel_frobenius(st_b, st_full))
+        log("21 state_carry", arch=cfg.name, run=what, seq=n,
+            dtype="float32", max_rel_frobenius=rel, limit=1e-5,
+            ok=rel <= 1e-5)
+        if carry is None:
+            assert rel > 1e-5, "the carry gate misses a dropped state"
+        else:
+            assert rel <= 1e-5, "the carried state strays from one run"
+
+
+def phase_recurrent(dev) -> list:
+    """Phase 21: rwkv6-3b, then zamba2-1.2b (:func:`phase_recurrent_arch`);
+    returns the two scans' rows."""
+    t0 = time.perf_counter()
+    rows = [phase_recurrent_arch(arch, dev) for arch in RECURRENT_ARCHS]
+    log("21 done", seconds=time.perf_counter() - t0, **free_device_memory())
+    return rows
+
+
 # the port's CUDA kernels by their function names in a trace
 PORT_KERNELS = ("fa_wgmma_kernel", "flash_attention_kernel",
                 "frog_step_stream_kernel", "frog_step_kernel",
@@ -3449,7 +3853,8 @@ PORT_KERNELS = ("fa_wgmma_kernel", "flash_attention_kernel",
                 "stitch_step_rounds_kernel", "stitch_gather_kernel",
                 "stitch_step_kernel", "spmv_ell_kernel",
                 "threefry_draw_kernel", "threefry_randint_kernel",
-                "threefry_split_kernel", "threefry_fold_in_kernel")
+                "threefry_split_kernel", "threefry_fold_in_kernel",
+                "wkv6_scan_kernel", "ssd_scan_kernel")
 
 
 def port_kernel_times(events) -> dict:
@@ -3752,8 +4157,11 @@ def main() -> int:
     log("20 released", **free_device_memory())
     torch.cuda.reset_peak_memory_stats()
     moe_peak = phase_moe(dev)
+    # the recurrent families, once the MoE models are gone
+    torch.cuda.reset_peak_memory_stats()
+    rows.extend(phase_recurrent(dev))
     log("done", seconds=time.perf_counter() - t_all,
-        peak_mem_bytes=max(peak, moe_peak))
+        peak_mem_bytes=max(peak, moe_peak, torch.cuda.max_memory_allocated()))
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,10 +11,12 @@ caller passes ``device="cpu"``. The batch estimate runs the plain walk
 (p_s = 1) and the partial-synchronization walks (``erasure=
 "independent"`` or ``"channel"`` with p_s < 1); the GraphLab-PR baseline,
 ``core.power_iteration(spmv="ell")``, runs through the hand-written ELL
-SpMV kernel. The LM stack's dense family (``repro_torch.models``,
-``configs``, ``serving``, ``launch.serve``) runs its full-sequence
-forward through the hand-written ``flash_attention`` kernel and serves
-through a KV cache.
+SpMV kernel. The LM stack (``repro_torch.models``, ``configs``,
+``serving``, ``launch.serve``: the dense, MoE, RWKV-6 and Mamba-2 hybrid
+families) runs its attention through the hand-written
+``flash_attention`` kernel and its time recurrences through the
+hand-written ``wkv6_scan`` and ``ssd_scan``, and serves through KV
+caches and constant-size recurrent states.
 
 Dynamic graphs (``repro_torch.dynamic``): edge mutation batches compact
 into a new graph epoch, and the walk index is refreshed in place of a

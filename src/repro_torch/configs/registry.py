@@ -7,9 +7,9 @@ The LLM architecture registry below (``ARCHS``, ``get_config``,
 surface (``__all__``), as in the reference: the model tests and
 ``launch/serve.py`` import it from this module by name.
 
-The four dense architectures and the two MoE ones are ported;
-``get_config`` of the other four raises ``NotImplementedError`` naming
-their ``ROADMAP.md`` item. The
+The four dense architectures, the two MoE ones, rwkv6-3b (``"ssm"``) and
+zamba2-1.2b (``"hybrid"``) are ported; ``get_config`` of the other two
+raises ``NotImplementedError`` naming their ``ROADMAP.md`` item. The
 reference's ``input_specs`` / ``param_specs`` are ``eval_shape`` tooling
 and come with the launch tools (Queue 1 item 15).
 
@@ -63,12 +63,12 @@ _ARCH_MODULES = {
     "llama3.2-1b": "repro_torch.configs.llama32_1b",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi35_moe",
+    "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1b",
 }
 _NOT_PORTED = {
     "llava-next-mistral-7b": "14 (the vlm branch)",
     "whisper-medium": "14 (the encdec branch)",
-    "rwkv6-3b": "14 (models/rwkv6.py)",
-    "zamba2-1.2b": "14 (models/mamba2.py and the hybrid branch)",
 }
 ARCHS = tuple(_ARCH_MODULES)
 
@@ -111,7 +111,8 @@ def shape_applicable(cfg: ModelConfig, shape: str) -> Tuple[bool, str]:
 
 def reduced_config(cfg: ModelConfig) -> ModelConfig:
     """Same wiring, toy width: one forward/decode runs on a CPU. The
-    reference's rules for the dense and MoE families."""
+    reference's rules for the dense, MoE, ``"ssm"`` and ``"hybrid"``
+    families."""
     kw: Dict[str, Any] = dict(
         name=cfg.name + "-smoke",
         family=cfg.family,
@@ -135,4 +136,8 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
     if cfg.family == "moe":
         kw.update(num_experts=8, num_experts_per_tok=min(
             cfg.num_experts_per_tok, 2), d_ff=64, moe_capacity_factor=2.0)
+    if cfg.family in ("ssm", "hybrid"):
+        kw.update(ssm_head_dim=32, ssm_state=16, num_kv_heads=4)
+    if cfg.family == "hybrid":
+        kw.update(shared_attn_every=2, num_layers=4)
     return ModelConfig(**kw)

@@ -2,9 +2,10 @@
 
 The reference (``repro``) hands out graphs, walk-index slabs (dense or as
 per-shard blocks), streamed-step slab layouts, hybrid ELL layouts, PRNG
-keys and LM parameter trees as JAX or numpy arrays; ``np.asarray`` of them
-gives plain arrays, and these helpers turn those into the port's objects,
-so both packages compute on the same graph, slab, layout, key and weights.
+keys and LM parameter trees (every ported family) as JAX or numpy arrays;
+``np.asarray`` of them gives plain arrays, and these helpers turn those
+into the port's objects, so both packages compute on the same graph,
+slab, layout, key and weights.
 Each puts its result on ``device``, the card unless the caller asks for
 the CPU (``device="cpu"``), as every entry point of the port does: with
 no card and no ``device`` they raise.
@@ -116,12 +117,12 @@ def key_from_jax(key_data, device: DeviceLike = None) -> torch.Tensor:
 
 def model_config_from_reference(fields: Mapping[str, Any]) -> ModelConfig:
     """The port's ``ModelConfig`` for the reference config whose
-    ``dataclasses.asdict`` is ``fields``: the fields the dense and MoE
-    paths read (the four MoE fields among them), with ``attn_impl``
+    ``dataclasses.asdict`` is ``fields``: the fields the ported paths read
+    (the MoE, SSM and hybrid fields among them), with ``attn_impl``
     renamed (``"pallas"`` → ``"auto"``, ``"jnp_flash"`` → ``"torch"``).
-    The fields of the families not ported are dropped (no ported path
-    reads them), so such a family raises ``ModelConfig``'s
-    ``NotImplementedError``."""
+    The other fields (``ssm_state_sharding``, the families not ported)
+    are dropped (no ported path reads them), so such a family raises
+    ``ModelConfig``'s ``NotImplementedError``."""
     names = {f.name for f in dataclasses.fields(ModelConfig)}
     kw = {k: v for k, v in fields.items() if k in names}
     impl = kw.get("attn_impl", "auto")
@@ -129,16 +130,38 @@ def model_config_from_reference(fields: Mapping[str, Any]) -> ModelConfig:
     return ModelConfig(**kw)
 
 
+# matrices the reference applies as ``x @ W`` (``[in, out]``), transposed to
+# the port's ``[out, in]``; every other leaf keeps its layout
+_TIME_MIX_MATRICES = ("w_r", "w_k", "w_v", "w_g", "w_o", "w_lora_a",
+                      "w_lora_b")
+_MAMBA_MATRICES = ("w_in_z", "w_in_x", "w_in_B", "w_in_C", "w_in_dt",
+                   "w_out")
+
+
+def _leaves(prefix: str, tree: Mapping[str, Any], i=None,
+            transpose=()) -> Dict[str, np.ndarray]:
+    """``{prefix + name: leaf}`` for a module's leaves, layer ``i`` of a
+    stacked tree (or the whole leaf when None), the ``transpose`` names
+    from ``[in, out]`` to ``[out, in]``."""
+    out = {}
+    for name, leaf in tree.items():
+        a = np.asarray(leaf)
+        a = a if i is None else a[i]
+        out[prefix + name] = a.T if name in transpose else a
+    return out
+
+
 def model_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
                             device: DeviceLike = None) -> Transformer:
     """The port's parameter modules from the reference's tree (``embed``,
-    ``final_norm``, optional ``head``, and ``blocks`` stacked ``[L, …]``
-    with ``mlp`` or, for the MoE family, ``moe``), each leaf taken through
+    ``final_norm``, optional ``head``, ``blocks`` stacked ``[L, …]`` and,
+    for the hybrid family, ``shared_attn``), each leaf taken through
     ``np.asarray``. The dense matrices (``head``, the attention and MLP
-    weights and the MoE ``router [L, d, E]``) are transposed from the
-    reference's ``[in, out]`` to ``[out, in]``; the expert weights
-    (``w_gate`` / ``w_up [L, E, d, f]``, ``w_down [L, E, f, d]``) keep the
-    reference's layout, which the batched products take."""
+    weights, the MoE ``router [L, d, E]``, the RWKV-6 and Mamba-2
+    projections applied as ``x @ W``) are transposed from the reference's
+    ``[in, out]`` to ``[out, in]``; the expert weights (``w_gate`` /
+    ``w_up [L, E, d, f]``, ``w_down [L, E, f, d]``), the vectors and the
+    conv taps ``conv_w [W, C]`` keep the reference's layout."""
     dev = resolve_device(device)
     params = init_params(cfg, device="meta")
     blocks = tree["blocks"]
@@ -148,22 +171,38 @@ def model_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
     }
     if params.head is not None:
         state["head.kernel"] = np.asarray(tree["head"]["kernel"]).T
+    attn = ("wq", "wk", "wv", "wo")
+    mlp = ("w_up", "w_gate", "w_down")
     for i in range(cfg.num_layers):
         pre = f"blocks.{i}."
-        for ln in ("ln1", "ln2"):
-            state[pre + ln + ".scale"] = np.asarray(blocks[ln]["scale"])[i]
-        for w in ("wq", "wk", "wv", "wo"):
-            state[pre + "attn." + w] = np.asarray(blocks["attn"][w])[i].T
+        for ln in ("ln1", "ln2", "ln"):
+            if ln in blocks:
+                state[pre + ln + ".scale"] = np.asarray(
+                    blocks[ln]["scale"])[i]
+        if cfg.family == "ssm":
+            state.update(_leaves(pre + "time_mix.", blocks["time_mix"], i,
+                                 _TIME_MIX_MATRICES))
+            state.update(_leaves(pre + "channel_mix.",
+                                 blocks["channel_mix"], i,
+                                 ("w_in", "w_out")))
+            continue
+        if cfg.family == "hybrid":
+            state.update(_leaves(pre + "mamba.", blocks["mamba"], i,
+                                 _MAMBA_MATRICES))
+            continue
+        state.update(_leaves(pre + "attn.", blocks["attn"], i, attn))
         if cfg.family == "moe":
-            moe = blocks["moe"]
-            state[pre + "moe.router"] = np.asarray(moe["router"])[i].T
-            for w in ("w_gate", "w_up", "w_down"):
-                state[pre + "moe." + w] = np.asarray(moe[w])[i]
+            state.update(_leaves(pre + "moe.", blocks["moe"], i, ("router",)))
         else:
-            for w in ("w_up", "w_gate", "w_down"):
-                if w in blocks["mlp"]:
-                    state[pre + "mlp." + w] = \
-                        np.asarray(blocks["mlp"][w])[i].T
+            state.update(_leaves(pre + "mlp.", blocks["mlp"], i, mlp))
+    if cfg.family == "hybrid":
+        shared = tree["shared_attn"]
+        for ln in ("ln", "ln2"):
+            state[f"shared_attn.{ln}.scale"] = shared[ln]["scale"]
+        state.update(_leaves("shared_attn.attn.", shared["attn"],
+                             transpose=attn))
+        state.update(_leaves("shared_attn.mlp.", shared["mlp"],
+                             transpose=mlp))
     tensors = {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(
         dev, pdtype_of(cfg))
         for k, v in state.items()}

@@ -75,6 +75,10 @@ SIGNATURES = {
                             _c_void_p],
     "fw_flash_attention": [_c_void_p] * 4 + [_c_int64] * 9 + [_c_int32] * 10
     + [_c_float, _c_int32, _c_float, _c_int32, _c_void_p],
+    "fw_wkv6_scan": [_c_void_p] * 8 + [_c_int32, _c_int64] + [_c_int32] * 3
+    + [_c_void_p],
+    "fw_ssd_scan": [_c_void_p] * 8 + [_c_int32, _c_int64] + [_c_int32] * 4
+    + [_c_void_p],
 }
 
 _LOCK = threading.Lock()

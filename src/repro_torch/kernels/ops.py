@@ -50,6 +50,12 @@ the bits through ``ref.slot_bits`` and run the caller-mode oracle.
 ``attention`` also takes ``"ref"`` (the O(S²)-memory oracle); its
 ``"torch"`` is the plain chunked version.
 
+``wkv6_scan`` and ``ssd_scan`` are the port's own kernels for the RWKV-6
+and Mamba-2 time recurrences, which the reference runs as ``lax.scan``
+(no Pallas kernel): the whole sequence, prefill or one decode step, in
+one launch; their plain versions are the reference's step functions
+looped over time.
+
 A CUDA tensor never falls back to the plain version: the kernel launches
 or the wrapper raises. Each wrapper adds one to ``LAUNCHES[name]`` where it
 launches its kernel, and nowhere else, so a run can show which kernels its
@@ -80,6 +86,7 @@ LAUNCHES: Dict[str, int] = {"frog_step": 0, "frog_count": 0,
                             "frog_superstep_stream_sorted": 0,
                             "frog_hop_stream_sorted": 0,
                             "spmv_ell_slab": 0, "flash_attention": 0,
+                            "wkv6_scan": 0, "ssd_scan": 0,
                             "threefry_bits": 0, "threefry_randint": 0,
                             "threefry_uniform": 0, "threefry_bernoulli": 0,
                             "threefry_split": 0, "threefry_fold_in": 0}
@@ -1156,3 +1163,137 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 float(soft_cap) if soft_cap is not None else 0.0,
                 int(q.dtype == torch.bfloat16))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families' time recurrences (csrc/wkv6.cu, csrc/ssd_scan.cu)
+# ---------------------------------------------------------------------------
+
+SCAN_DTYPES = (torch.float32, torch.bfloat16)
+# a CTA holds 32 columns (wkv6) or rows (ssd) of one head's state, a lane
+# each, their N state elements split over the CTA's warps
+SCAN_COLS = 32
+WKV6_HEAD_DIMS = (32, 64, 128)
+SSD_STATES = (16, 32, 64, 128)
+
+
+def _scan_operand(name: str, arg: str, t: torch.Tensor, shape,
+                  dtypes) -> torch.Tensor:
+    """Checks an operand's shape and dtype; returns it contiguous and
+    16-byte aligned (the kernels stage rows with 16-byte async copies)."""
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: {arg} has shape {list(t.shape)}, wanted "
+                         f"{list(shape)}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: {arg} must be one of {dtypes}, got "
+                        f"{t.dtype}")
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor,
+              S0: Optional[torch.Tensor] = None, impl: str = "auto"
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6's time recurrence over a whole sequence → (``o [B, S, H,
+    D]`` in ``r``'s dtype, ``S_last [B, H, D, D]`` float32): per (batch,
+    head), ``o_t = r_tᵀ(S_{t−1} + diag(u)·k_t v_tᵀ)``, ``S_t =
+    diag(w_t)·S_{t−1} + k_t v_tᵀ`` (``ref.wkv6_scan_ref``). ``r``, ``k``,
+    ``v`` ``[B, S, H, D]`` float32 or bfloat16 (one dtype; the kernel
+    widens them in registers, as the reference's cast does), ``w`` the
+    float32 decay, ``u [H, D]``, ``S0 [B, H, D, D]`` float32 (key row,
+    value column) or None for zeros. The kernel writes a new ``S_last``
+    and leaves ``S0`` as it was. A decode step is the same call at S =
+    1."""
+    name = "wkv6_scan"
+    use = _use_kernel(name, impl, r, k, v, w, u,
+                      *(() if S0 is None else (S0,)))
+    if r.dim() != 4:
+        raise ValueError(f"{name}: r must be [B, S, H, D], got "
+                         f"{list(r.shape)}")
+    B, S, H, D = r.shape
+    if not use:
+        for arg, t in (("k", k), ("v", v), ("w", w)):
+            if t.shape != r.shape:
+                raise ValueError(f"{name}: {arg} has shape {list(t.shape)},"
+                                 f" wanted {list(r.shape)}")
+        return kref.wkv6_scan_ref(r, k, v, w, u, S0)
+    if D not in WKV6_HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {D} not in {WKV6_HEAD_DIMS}")
+    io = (r.dtype,) if r.dtype in SCAN_DTYPES else SCAN_DTYPES
+    r = _scan_operand(name, "r", r, (B, S, H, D), io)
+    k, v = (_scan_operand(name, a, t, (B, S, H, D), (r.dtype,))
+            for a, t in (("k", k), ("v", v)))
+    f32 = (torch.float32,)
+    w = _scan_operand(name, "w", w, (B, S, H, D), f32)
+    u = _scan_operand(name, "u", u, (H, D), f32)
+    if S0 is not None:
+        S0 = _scan_operand(name, "S0", S0, (B, H, D, D), f32)
+    o = torch.empty((B, S, H, D), dtype=r.dtype, device=r.device)
+    S_last = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
+    if S == 0 or B == 0 or H == 0:
+        if S0 is None:
+            S_last.zero_()
+        else:
+            S_last.copy_(S0)
+        return o, S_last
+    _launch(name, r.device, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+            w.data_ptr(), u.data_ptr(),
+            None if S0 is None else S0.data_ptr(), o.data_ptr(),
+            S_last.data_ptr(), B, S, H, D, int(r.dtype == torch.bfloat16))
+    return o, S_last
+
+
+def ssd_scan(x: torch.Tensor, Bv: torch.Tensor, Cv: torch.Tensor,
+             dt: torch.Tensor, a: torch.Tensor,
+             h0: Optional[torch.Tensor] = None, impl: str = "auto"
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2's selective scan over a whole sequence → (``y [B, S, H,
+    D]`` float32, ``h_last [B, H, D, n]`` float32): per (batch, head),
+    ``h_t = exp(Δ_t·a)·h_{t−1} + Δ_t·(x_t ⊗ B_t)``, ``y_t = h_t·C_t``
+    (``ref.ssd_scan_ref``; the ``D`` skip, the gate and the norm are the
+    caller's). ``x [B, S, H, D]``, ``Bv`` / ``Cv [B, S, n]`` float32 or
+    bfloat16 (one dtype, widened in registers), ``dt [B, S, H]`` float32
+    (Δ after its softplus), ``a [H]`` float32 (negative), ``h0 [B, H, D,
+    n]`` float32 or None for zeros. The kernel writes a new ``h_last``
+    and leaves ``h0`` as it was. A decode step is the same call at S =
+    1."""
+    name = "ssd_scan"
+    use = _use_kernel(name, impl, x, Bv, Cv, dt, a,
+                      *(() if h0 is None else (h0,)))
+    if x.dim() != 4 or Bv.dim() != 3:
+        raise ValueError(f"{name}: x must be [B, S, H, D] and Bv [B, S, n],"
+                         f" got {list(x.shape)}, {list(Bv.shape)}")
+    B, S, H, D = x.shape
+    n = Bv.shape[-1]
+    if not use:
+        if Cv.shape != Bv.shape or tuple(dt.shape) != (B, S, H):
+            raise ValueError(f"{name}: Cv {list(Cv.shape)} or dt "
+                             f"{list(dt.shape)} disagree with x and Bv")
+        return kref.ssd_scan_ref(x, Bv, Cv, dt, a, h0)
+    if D % SCAN_COLS or n not in SSD_STATES:
+        raise ValueError(f"{name}: head_dim {D} must be a multiple of "
+                         f"{SCAN_COLS} and the state {n} in {SSD_STATES}")
+    io = (x.dtype,) if x.dtype in SCAN_DTYPES else SCAN_DTYPES
+    x = _scan_operand(name, "x", x, (B, S, H, D), io)
+    Bv, Cv = (_scan_operand(name, arg, t, (B, S, n), (x.dtype,))
+              for arg, t in (("Bv", Bv), ("Cv", Cv)))
+    f32 = (torch.float32,)
+    dt = _scan_operand(name, "dt", dt, (B, S, H), f32)
+    a = _scan_operand(name, "a", a, (H,), f32)
+    if h0 is not None:
+        h0 = _scan_operand(name, "h0", h0, (B, H, D, n), f32)
+    y = torch.empty((B, S, H, D), dtype=torch.float32, device=x.device)
+    h_last = torch.empty((B, H, D, n), dtype=torch.float32, device=x.device)
+    if S == 0 or B == 0 or H == 0:
+        if h0 is None:
+            h_last.zero_()
+        else:
+            h_last.copy_(h0)
+        return y, h_last
+    _launch(name, x.device, x.data_ptr(), Bv.data_ptr(), Cv.data_ptr(),
+            dt.data_ptr(), a.data_ptr(),
+            None if h0 is None else h0.data_ptr(), y.data_ptr(),
+            h_last.data_ptr(), B, S, H, D, n,
+            int(x.dtype == torch.bfloat16))
+    return y, h_last

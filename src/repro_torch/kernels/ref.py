@@ -10,7 +10,9 @@ the outputs are integers, except ``spmv_ref``'s float32, which sums in the
 kernel's own order with separately rounded products and sums. The
 attention versions (``attention_ref``, ``attention_chunked``,
 ``decode_attention_ref``) compute in float32 and are held to the
-reference and to the ``flash_attention`` kernel within stated tolerances.
+reference and to the ``flash_attention`` kernel within stated tolerances,
+as are the two time recurrences (``wkv6_scan_ref``, ``ssd_scan_ref``):
+the reference's ``lax.scan`` step functions looped over time.
 """
 from __future__ import annotations
 
@@ -501,3 +503,57 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
         mask &= kpos >= length - window
     out = _attend(q, k_cache, v_cache, mask[None, :], logit_soft_cap)
     return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families' time recurrences (no Pallas kernel in the
+# reference: its lax.scan step functions, looped over time)
+# ---------------------------------------------------------------------------
+
+def wkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor,
+                  S0: Optional[torch.Tensor] = None):
+    """RWKV-6's recurrence, ``repro/models/rwkv6.py``'s step per time step
+    in float32: per (batch, head), ``o_t = r_tᵀ(S_{t−1} + diag(u)·k_t
+    v_tᵀ)`` and ``S_t = diag(w_t)·S_{t−1} + k_t v_tᵀ``. ``r``, ``k``,
+    ``v``, ``w`` ``[B, S, H, D]``, ``u [H, D]``, ``S0 [B, H, D, D]`` (key
+    row, value column; zeros when None) → (``o [B, S, H, D]`` in ``r``'s
+    dtype, ``S_last`` float32)."""
+    B, S, H, D = r.shape
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    uh = u.float().reshape(H, D)[None, :, :, None]
+    st = (torch.zeros(B, H, D, D, dtype=torch.float32, device=r.device)
+          if S0 is None else S0.float())
+    outs = []
+    for t in range(S):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        outs.append(torch.einsum("bhi,bhij->bhj", rf[:, t], st + uh * kv))
+        st = wf[:, t, :, :, None] * st + kv
+    o = torch.stack(outs, 1) if outs else rf.new_zeros(B, 0, H, D)
+    return o.to(r.dtype), st
+
+
+def ssd_scan_ref(x: torch.Tensor, Bv: torch.Tensor, Cv: torch.Tensor,
+                 dt: torch.Tensor, a: torch.Tensor,
+                 h0: Optional[torch.Tensor] = None):
+    """Mamba-2's selective scan, ``repro/models/mamba2.py``'s step per
+    time step in float32: per (batch, head), ``h_t = exp(Δ_t·a)·h_{t−1}
+    + Δ_t·(x_t ⊗ B_t)`` and ``y_t = h_t·C_t``. ``x [B, S, H, D]``, ``Bv``,
+    ``Cv [B, S, n]``, ``dt [B, S, H]``, ``a [H]``, ``h0 [B, H, D, n]``
+    (zeros when None) → (``y [B, S, H, D]`` float32, ``h_last``
+    float32). The ``D`` skip, the gate and the norm are the caller's."""
+    B, S, H, D = x.shape
+    n = Bv.shape[-1]
+    xf, Bf, Cf, df = x.float(), Bv.float(), Cv.float(), dt.float()
+    af = a.float()
+    h = (torch.zeros(B, H, D, n, dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(S):
+        dlt = df[:, t]
+        decay = torch.exp(dlt * af[None, :])
+        dBx = torch.einsum("bhd,bn,bh->bhdn", xf[:, t], Bf[:, t], dlt)
+        h = decay[..., None, None] * h + dBx
+        ys.append(torch.einsum("bhdn,bn->bhd", h, Cf[:, t]))
+    y = torch.stack(ys, 1) if ys else xf.new_zeros(B, 0, H, D)
+    return y, h

@@ -3,12 +3,17 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --smoke --device cpu --requests 6 --max-new 16
 
-``--arch`` is any ported architecture: the four dense ones and the MoE
+``--arch`` is any ported architecture: the four dense ones, the MoE
 olmoe-1b-7b and phi3.5-moe-42b-a6.6b (whose 41.9 B parameters outgrow one
-card at full width; ``--smoke`` runs it). It runs on the card unless
+card at full width; ``--smoke`` runs it), the attention-free rwkv6-3b and
+the Mamba-2 hybrid zamba2-1.2b (whose decode carries a constant-size
+state a layer and, for zamba2, one KV cache a shared-block site). It runs
+on the card unless
 ``--device`` says otherwise, at the architecture's full width unless
 ``--smoke`` asks for the reduced config.
 Weights are random, from ``torch.Generator`` seed ``--seed``. The prompts

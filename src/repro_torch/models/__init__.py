@@ -1,16 +1,20 @@
-"""The LM stack's dense and MoE families on PyTorch (port of
-``repro/models``).
+"""The LM stack's dense, MoE, RWKV-6 and Mamba-2 hybrid families on
+PyTorch (port of ``repro/models``).
 
 Parameters are ``nn.Module`` trees built by ``init_params``; the
 functions take them with a ``ModelConfig``, as the reference's take its
 parameter dicts. ``forward_train`` is the full-sequence forward (the
 prefill program), whose attention runs the hand-written CUDA
 ``flash_attention`` kernel on the card; ``init_decode_state`` and
-``decode_step`` are the KV-cache serving path. MoE layers
-(``models/moe.py``) route each token to its top-k experts under the
-reference's capacity dispatch. The other families (RWKV6, Mamba2 and the
-hybrid, encoder-decoder and VLM branches) raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item.
+``decode_step`` are the serving path (KV caches, and the recurrent
+families' constant-size states). MoE layers (``models/moe.py``) route
+each token to its top-k experts under the reference's capacity dispatch.
+The RWKV-6 time mix (``models/rwkv6.py``, ``family="ssm"``) and the
+Mamba-2 layer (``models/mamba2.py``, ``family="hybrid"``, with zamba2's
+weight-shared attention block) run their time recurrences in the
+hand-written CUDA scans ``wkv6_scan`` and ``ssd_scan`` on the card. The
+encoder-decoder and VLM branches raise ``NotImplementedError`` naming
+their ``ROADMAP.md`` item.
 """
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (DecodeState, Transformer,

@@ -1,12 +1,14 @@
 """The model configuration of the port's LM stack (port of
 ``repro/models/config.py``).
 
-Only the fields the ported families read exist here (the dense and MoE
-families): a field arrives with the slice that reads it, so passing one of
-the reference's other fields (``ssm_state``, ``encoder_layers``, …) is a
-``TypeError``, not a setting silently ignored. A ``family`` other than
-``"dense"`` or ``"moe"`` raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item.
+Only the fields the ported families read exist here (dense, MoE, the
+RWKV-6 ``"ssm"`` family and the Mamba-2 ``"hybrid"`` one): a field arrives
+with the slice that reads it, so passing one of the reference's other
+fields (``encoder_layers``, ``num_prefix_embeddings``, …) is a
+``TypeError``, not a setting silently ignored. The reference's
+``ssm_state_sharding`` is a mesh knob (``ROADMAP.md`` Queue 1 item 8) and
+is not a field. A ``family`` of ``"encdec"`` or ``"vlm"`` raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item.
 
 ``attn_impl`` takes the port's names:
 
@@ -25,10 +27,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 FAMILIES_NOT_PORTED = {
-    "ssm": "14 (models/rwkv6.py)",
-    "hybrid": "14 (models/mamba2.py and the hybrid branch)",
     "encdec": "14 (the encdec branch)",
     "vlm": "14 (the vlm branch)",
 }
@@ -60,6 +60,15 @@ class ModelConfig:
     num_experts_per_tok: int = 0
     moe_capacity_factor: float = 1.25
     moe_dispatch_chunks: int = 8       # batch sub-chunks per dispatch pass
+
+    # --- SSM (rwkv6 / mamba2) ---
+    ssm_state: int = 64
+    ssm_heads: Optional[int] = None        # default d_model // ssm_head_dim
+    ssm_head_dim: int = 64
+    conv_width: int = 4                    # mamba2 depthwise conv
+
+    # --- hybrid (zamba2) ---
+    shared_attn_every: int = 0             # shared attention block period
 
     # --- numerics / misc ---
     act: str = "silu"
@@ -110,11 +119,22 @@ class ModelConfig:
         if self.head_dim is None:
             object.__setattr__(self, "head_dim",
                                self.d_model // self.num_heads)
+        if self.ssm_heads is None:
+            object.__setattr__(self, "ssm_heads",
+                               max(1, self.d_model // self.ssm_head_dim))
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
 
     @property
     def subquadratic(self) -> bool:
-        """Can this arch decode at 500k context? Dense archs can only with
-        a sliding window (danube's SWA, gemma3's local layers)."""
+        """Can this arch decode at 500k context? The recurrent families
+        can (constant-size state; zamba2's shared block keeps one KV cache
+        a site); dense archs only with a sliding window (danube's SWA,
+        gemma3's local layers)."""
+        if self.family in ("ssm", "hybrid"):
+            return True
         return self.sliding_window is not None
 
     def layer_is_global(self, i: int) -> bool:
@@ -125,9 +145,15 @@ class ModelConfig:
 
     @property
     def param_count(self) -> int:
-        """Analytic parameter count (embeddings, attention and MLP or
-        expert matrices and the router; the norm scales are left out, as
-        in the reference)."""
+        """Analytic parameter count, the reference's formula as written:
+        embeddings, attention and MLP or expert matrices and the router
+        (the norm scales left out); for the ``"ssm"`` family five d×d
+        time-mix matrices, the decay LoRA and the two channel-mix
+        matrices a layer; for the ``"hybrid"`` family ``6d² + 2d·n + 2d``
+        a Mamba-2 layer plus one shared attention + MLP block. The two
+        recurrent families' module trees hold more than the formula (the
+        mix and decay vectors, the Δ projection, the conv); the tests
+        compare the trees with the reference's trees, not with it."""
         d, f, V, L = self.d_model, self.d_ff, self.vocab_size, self.num_layers
         hd, Hq, Hkv = self.head_dim, self.num_heads, self.num_kv_heads
         emb = V * d * (1 if self.tie_embeddings else 2)
@@ -135,7 +161,16 @@ class ModelConfig:
         mlp = (3 if self.mlp_gated else 2) * d * f
         if self.family == "moe":
             mlp = self.num_experts * 3 * d * f + d * self.num_experts
-        return int(emb + L * (attn + mlp))
+        if self.family == "ssm":
+            per_layer = 5 * d * d + d * 64 + 64 * d + 2 * d * f
+        elif self.family == "hybrid":
+            per_layer = 6 * d * d + 2 * d * self.ssm_state + d * 2
+        else:
+            per_layer = attn + mlp
+        total = emb + L * per_layer
+        if self.family == "hybrid" and self.shared_attn_every:
+            total += attn + 3 * d * f
+        return int(total)
 
     @property
     def active_param_count(self) -> int:

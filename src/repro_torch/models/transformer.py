@@ -1,38 +1,56 @@
-"""Model assembly for the dense and MoE families (port of those branches
-of ``repro/models/transformer.py``).
+"""Model assembly for the dense, MoE, RWKV-6 (``"ssm"``) and Mamba-2
+hybrid (``"hybrid"``) families (port of those branches of
+``repro/models/transformer.py``).
 
 The parameters are an ``nn.Module`` tree (``Transformer``: ``embed``,
-``final_norm``, an optional untied ``head`` and one ``Block`` per layer,
-with ``mlp`` or, in the MoE family, ``moe``) whose names follow the
-reference's parameter tree; the reference stacks
-the blocks into ``[L, …]`` arrays for its scan, the port keeps one module
-per layer. The functions take the config separately, as the reference's
-do, so one set of weights runs under another ``attn_impl`` or compute
-dtype. Both the full-sequence forward and decode loop over the layers in
-Python; gemma3's local:global pattern (the reference's ``lax.cond`` on a
-per-layer flag) is ``cfg.layer_is_global(i)``. MoE layers attend
-globally, as the reference's do, and ``forward_train`` returns their mean
-load-balancing loss as ``aux["moe_aux_loss"]``. The reference's sharding
+``final_norm``, an optional untied ``head`` and one block per layer)
+whose names follow the reference's parameter tree:
+
+* dense and MoE: ``Block`` with ``ln1``, ``attn``, ``ln2`` and ``mlp``
+  (or ``moe``);
+* ``"ssm"`` (rwkv6): ``RWKVBlock`` with ``ln1``, ``time_mix``, ``ln2``
+  and ``channel_mix``, and no attention (rwkv6-3b's ``num_heads`` is
+  informational);
+* ``"hybrid"`` (zamba2): ``MambaBlock`` with ``ln`` and ``mamba``, and one
+  weight-shared ``shared_attn`` (``ln``, ``attn``, ``ln2``, ``mlp``)
+  applied after every ``shared_attn_every`` Mamba layers.
+
+The reference stacks the blocks into ``[L, …]`` arrays for its scan, the
+port keeps one module per layer. The functions take the config
+separately, as the reference's do, so one set of weights runs under
+another ``attn_impl`` or compute dtype. Both the
+full-sequence forward and decode loop over the layers in Python; gemma3's
+local:global pattern (the reference's ``lax.cond`` on a per-layer flag) is
+``cfg.layer_is_global(i)``. MoE layers attend globally, as the
+reference's do, and ``forward_train`` returns their mean load-balancing
+loss as ``aux["moe_aux_loss"]``. The hybrid forward runs ``L // period``
+groups of ``period`` Mamba layers, each followed by the shared block, then
+the ``L − groups·period`` tail layers without it. The reference's sharding
 constraints (``distributed.context.constrain``) are the identity on one
-device and its MoE checkpoint is for training; neither is ported.
+device and its checkpoints (``remat``, ``scan_utils.chunked_scan``'s) are
+for training; neither is ported.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import (Attention, attention_forward,
                                           decode_attention, init_kv_cache)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (Embedding, LMHead, RMSNorm,
-                                       embed_tokens, pdtype_of, rmsnorm,
-                                       unembed)
+                                       dtype_of, embed_tokens, pdtype_of,
+                                       rmsnorm, unembed)
+from repro_torch.models.mamba2 import Mamba2, _dims, mamba2_forward
 from repro_torch.models.mlp import MLP, mlp_forward
 from repro_torch.models.moe import MoE, moe_forward
+from repro_torch.models.rwkv6 import (RWKVChannelMix, RWKVTimeMix,
+                                      rwkv_channel_mix, rwkv_time_mix)
 
 
 class Block(nn.Module):
@@ -52,6 +70,47 @@ class Block(nn.Module):
             self.mlp = MLP(cfg, device, generator)
 
 
+class RWKVBlock(nn.Module):
+    """One RWKV-6 block: ``ln1``, ``time_mix``, ``ln2``, ``channel_mix``."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device,
+                 generator: Optional[torch.Generator]):
+        super().__init__()
+        pd = pdtype_of(cfg)
+        self.ln1 = RMSNorm(cfg.d_model, pd, device)
+        self.time_mix = RWKVTimeMix(cfg, device, generator)
+        self.ln2 = RMSNorm(cfg.d_model, pd, device)
+        self.channel_mix = RWKVChannelMix(cfg, device, generator)
+
+
+class MambaBlock(nn.Module):
+    """One Mamba-2 block: ``ln`` and ``mamba``."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device,
+                 generator: Optional[torch.Generator]):
+        super().__init__()
+        self.ln = RMSNorm(cfg.d_model, pdtype_of(cfg), device)
+        self.mamba = Mamba2(cfg, device, generator)
+
+
+class SharedAttn(nn.Module):
+    """zamba2's weight-shared transformer block: ``ln``, ``attn``,
+    ``ln2``, ``mlp``."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device,
+                 generator: Optional[torch.Generator]):
+        super().__init__()
+        pd = pdtype_of(cfg)
+        self.ln = RMSNorm(cfg.d_model, pd, device)
+        self.attn = Attention(cfg, device, generator)
+        self.ln2 = RMSNorm(cfg.d_model, pd, device)
+        self.mlp = MLP(cfg, device, generator)
+
+
+BLOCKS = {"dense": Block, "moe": Block, "ssm": RWKVBlock,
+          "hybrid": MambaBlock}
+
+
 class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, device: torch.device,
                  generator: Optional[torch.Generator]):
@@ -60,8 +119,11 @@ class Transformer(nn.Module):
         self.final_norm = RMSNorm(cfg.d_model, pdtype_of(cfg), device)
         self.head = (None if cfg.tie_embeddings
                      else LMHead(cfg, device, generator))
-        self.blocks = nn.ModuleList(Block(cfg, device, generator)
+        block = BLOCKS[cfg.family]
+        self.blocks = nn.ModuleList(block(cfg, device, generator)
                                     for _ in range(cfg.num_layers))
+        if cfg.family == "hybrid":
+            self.shared_attn = SharedAttn(cfg, device, generator)
 
     @property
     def device(self) -> torch.device:
@@ -84,20 +146,12 @@ def init_params(cfg: ModelConfig,
     return Transformer(cfg, dev, generator)
 
 
-def forward_train(params: Transformer, batch: Dict[str, torch.Tensor],
-                  cfg: ModelConfig, remat: bool = False
-                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Full-sequence forward: ``batch["tokens"] [B, S]`` → (logits
-    ``[B, S, V]`` in the compute dtype, aux losses: ``{}``, or for the MoE
-    family ``{"moe_aux_loss": the layers' mean}``). It records
-    autograd history like any module call; serving callers run it under
-    ``torch.inference_mode()``."""
-    if remat:
-        raise NotImplementedError(
-            "remat=True is training, which is not ported to repro_torch yet "
-            "(ROADMAP.md Queue 1 item 14: training/)")
+def _attention_forward(params: Transformer, x: torch.Tensor,
+                       cfg: ModelConfig
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The dense and MoE blocks; the MoE layers' mean load-balancing
+    loss as ``aux["moe_aux_loss"]``."""
     moe = cfg.family == "moe"
-    x = embed_tokens(params.embed, batch["tokens"], cfg)
     aux_losses = []
     for i, bp in enumerate(params.blocks):
         h = rmsnorm(bp.ln1, x, cfg.norm_eps)
@@ -110,8 +164,76 @@ def forward_train(params: Transformer, batch: Dict[str, torch.Tensor],
             aux_losses.append(moe_aux["aux_loss"])
         else:
             x = x + mlp_forward(bp.mlp, h2, cfg)
-    x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     aux = {"moe_aux_loss": torch.stack(aux_losses).mean()} if moe else {}
+    return x, aux
+
+
+def _rwkv_forward(params: Transformer, x: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """The RWKV-6 blocks, each recurrence from a zero state."""
+    for bp in params.blocks:
+        h = rmsnorm(bp.ln1, x, cfg.norm_eps)
+        x = x + rwkv_time_mix(bp.time_mix, h, cfg)[0]
+        h2 = rmsnorm(bp.ln2, x, cfg.norm_eps)
+        x = x + rwkv_channel_mix(bp.channel_mix, h2, cfg)[0]
+    return x
+
+
+def _period(cfg: ModelConfig) -> int:
+    """The hybrid's shared-block period (every layer's depth when 0)."""
+    return cfg.shared_attn_every or cfg.num_layers
+
+
+def _shared_block(sp: SharedAttn, x: torch.Tensor, cfg: ModelConfig,
+                  attend: Callable[[torch.Tensor], torch.Tensor]
+                  ) -> torch.Tensor:
+    """zamba2's shared block at one site; ``attend`` is its attention on
+    the normed input (the full sequence, or one decode step through the
+    site's cache)."""
+    with record_function("shared_attn"):
+        x = x + attend(rmsnorm(sp.ln, x, cfg.norm_eps))
+        h2 = rmsnorm(sp.ln2, x, cfg.norm_eps)
+        return x + mlp_forward(sp.mlp, h2, cfg)
+
+
+def _hybrid_forward(params: Transformer, x: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """zamba2: groups of ``period`` Mamba-2 blocks, the shared block after
+    each group (after layer i where ``(i + 1) % period == 0``), then the
+    tail blocks without it."""
+    period = _period(cfg)
+    for i, bp in enumerate(params.blocks):
+        h = rmsnorm(bp.ln, x, cfg.norm_eps)
+        x = x + mamba2_forward(bp.mamba, h, cfg)[0]
+        if (i + 1) % period == 0:
+            x = _shared_block(
+                params.shared_attn, x, cfg,
+                lambda h: attention_forward(params.shared_attn.attn, h, cfg,
+                                            is_global=True))
+    return x
+
+
+def forward_train(params: Transformer, batch: Dict[str, torch.Tensor],
+                  cfg: ModelConfig, remat: bool = False
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence forward: ``batch["tokens"] [B, S]`` → (logits
+    ``[B, S, V]`` in the compute dtype, aux losses: ``{}``, or for the MoE
+    family ``{"moe_aux_loss": the layers' mean}``). It records
+    autograd history like any module call; serving callers run it under
+    ``torch.inference_mode()``."""
+    if remat:
+        raise NotImplementedError(
+            "remat=True is training, which is not ported to repro_torch yet "
+            "(ROADMAP.md Queue 1 item 14: training/)")
+    x = embed_tokens(params.embed, batch["tokens"], cfg)
+    aux: Dict[str, torch.Tensor] = {}
+    if cfg.family == "ssm":
+        x = _rwkv_forward(params, x, cfg)
+    elif cfg.family == "hybrid":
+        x = _hybrid_forward(params, x, cfg)
+    else:
+        x, aux = _attention_forward(params, x, cfg)
+    x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     return unembed(params.embed, x, cfg, params.head), aux
 
 
@@ -122,29 +244,49 @@ def forward_train(params: Transformer, batch: Dict[str, torch.Tensor],
 @dataclasses.dataclass
 class DecodeState:
     pos: int                                  # next position to write
-    layers: List[Dict[str, Any]]              # per-layer KV cache
+    layers: List[Dict[str, Any]]              # per-layer cache / SSM state
+    shared: Optional[List[Dict[str, Any]]] = None   # zamba2: a KV cache a site
 
 
 def init_decode_state(params: Transformer, cfg: ModelConfig, batch: int,
                       max_len: int) -> DecodeState:
-    layers = [init_kv_cache(cfg, batch, max_len, cfg.layer_is_global(i),
-                            params.device)
+    """The decode state at position 0: a KV cache a layer (dense, MoE);
+    ``x_prev_tm``, ``S`` and ``x_prev_cm`` a layer (``"ssm"``);
+    ``conv_buf`` and ``h`` a layer and one KV cache for each application
+    site of the shared block (``"hybrid"``: weights shared, histories
+    not). SSM states are float32, the token-shift and conv carries in the
+    compute dtype."""
+    dev, dt, B = params.device, dtype_of(cfg), batch
+    if cfg.family == "ssm":
+        d, H, D = cfg.d_model, cfg.ssm_heads, cfg.ssm_head_dim
+        layers = [{"x_prev_tm": torch.zeros(B, d, dtype=dt, device=dev),
+                   "S": torch.zeros(B, H, D, D, dtype=torch.float32,
+                                    device=dev),
+                   "x_prev_cm": torch.zeros(B, d, dtype=dt, device=dev)}
+                  for _ in range(cfg.num_layers)]
+        return DecodeState(pos=0, layers=layers)
+    if cfg.family == "hybrid":
+        d_inner, H, D, n = _dims(cfg)
+        W = cfg.conv_width
+        layers = [{"conv_buf": torch.zeros(B, W - 1, d_inner, dtype=dt,
+                                           device=dev),
+                   "h": torch.zeros(B, H, D, n, dtype=torch.float32,
+                                    device=dev)}
+                  for _ in range(cfg.num_layers)]
+        shared = [init_kv_cache(cfg, B, max_len, True, dev)
+                  for _ in range(cfg.num_layers // _period(cfg))]
+        return DecodeState(pos=0, layers=layers, shared=shared)
+    layers = [init_kv_cache(cfg, B, max_len, cfg.layer_is_global(i), dev)
               for i in range(cfg.num_layers)]
     return DecodeState(pos=0, layers=layers)
 
 
-@torch.no_grad()
-def decode_step(params: Transformer, state: DecodeState,
-                tokens: torch.Tensor, cfg: ModelConfig
-                ) -> Tuple[torch.Tensor, DecodeState]:
-    """One autoregressive step for ``tokens int[B]`` → (logits ``[B, V]``,
-    the state at ``pos + 1``), without autograd (decode is inference
-    only). The caches are written in place: the returned state shares
-    them with the one given. An MoE layer routes each sequence's token as
-    a group of its own, whose capacity (8) no token exceeds."""
+def _attention_decode(params: Transformer, state: DecodeState,
+                      x: torch.Tensor, cfg: ModelConfig
+                      ) -> Tuple[torch.Tensor, DecodeState]:
+    """The dense and MoE layers of one decode step."""
     moe = cfg.family == "moe"
     pos = state.pos
-    x = embed_tokens(params.embed, tokens[:, None], cfg)       # [B, 1, d]
     layers = []
     for i, bp in enumerate(params.blocks):
         h = rmsnorm(bp.ln1, x, cfg.norm_eps)
@@ -157,6 +299,63 @@ def decode_step(params: Transformer, state: DecodeState,
         else:
             x = x + mlp_forward(bp.mlp, h2, cfg)
         layers.append(lc)
+    return x, DecodeState(pos=pos + 1, layers=layers)
+
+
+def _recurrent_decode(params: Transformer, state: DecodeState,
+                      x: torch.Tensor, cfg: ModelConfig
+                      ) -> Tuple[torch.Tensor, DecodeState]:
+    """The ``"ssm"`` and ``"hybrid"`` layers of one decode step: each
+    recurrence is its scan at S = 1 from the carried state (new state
+    tensors); a hybrid site's shared attention writes its own cache in
+    place."""
+    pos, layers = state.pos, []
+    shared = None if state.shared is None else list(state.shared)
+    period = _period(cfg)
+    for i, bp in enumerate(params.blocks):
+        lc = state.layers[i]
+        if cfg.family == "ssm":
+            h = rmsnorm(bp.ln1, x, cfg.norm_eps)
+            y, (x_tm, S) = rwkv_time_mix(bp.time_mix, h, cfg,
+                                         state=(lc["x_prev_tm"], lc["S"]))
+            x = x + y
+            h2 = rmsnorm(bp.ln2, x, cfg.norm_eps)
+            y2, x_cm = rwkv_channel_mix(bp.channel_mix, h2, cfg,
+                                        x_prev=lc["x_prev_cm"])
+            x = x + y2
+            layers.append({"x_prev_tm": x_tm, "S": S, "x_prev_cm": x_cm})
+            continue
+        h = rmsnorm(bp.ln, x, cfg.norm_eps)
+        y, (cb, hst) = mamba2_forward(bp.mamba, h, cfg,
+                                      state=(lc["conv_buf"], lc["h"]))
+        x = x + y
+        layers.append({"conv_buf": cb, "h": hst})
+        if (i + 1) % period == 0:
+            site = (i + 1) // period - 1
+
+            def attend(h):
+                a, shared[site] = decode_attention(
+                    params.shared_attn.attn, h, shared[site], pos, cfg)
+                return a
+
+            x = _shared_block(params.shared_attn, x, cfg, attend)
+    return x, DecodeState(pos=pos + 1, layers=layers, shared=shared)
+
+
+@torch.no_grad()
+def decode_step(params: Transformer, state: DecodeState,
+                tokens: torch.Tensor, cfg: ModelConfig
+                ) -> Tuple[torch.Tensor, DecodeState]:
+    """One autoregressive step for ``tokens int[B]`` → (logits ``[B, V]``,
+    the state at ``pos + 1``), without autograd (decode is inference
+    only). The KV caches are written in place: the returned state shares
+    them with the one given; the recurrent families' states are new
+    tensors. An MoE layer routes each sequence's token as a group of its
+    own, whose capacity (8) no token exceeds."""
+    x = embed_tokens(params.embed, tokens[:, None], cfg)       # [B, 1, d]
+    if cfg.family in ("ssm", "hybrid"):
+        x, new_state = _recurrent_decode(params, state, x, cfg)
+    else:
+        x, new_state = _attention_decode(params, state, x, cfg)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
-    logits = unembed(params.embed, x[:, 0], cfg, params.head)
-    return logits, DecodeState(pos=pos + 1, layers=layers)
+    return unembed(params.embed, x[:, 0], cfg, params.head), new_state

@@ -326,8 +326,8 @@ MOE = ["olmoe-1b-7b", "phi3.5-moe-42b-a6.6b"]
 
 def test_unported_names_raise():
     """The families and configs still to port raise naming their item;
-    the MoE family and its two configs, ported since, build (an MoE
-    config without experts is refused)."""
+    the MoE, ``"ssm"`` and ``"hybrid"`` families and their configs,
+    ported since, build (an MoE config without experts is refused)."""
     for fam in ("moe", "ssm", "hybrid", "encdec", "vlm"):
         if fam == "moe":
             with pytest.raises(ValueError, match="num_experts_per_tok"):
@@ -335,15 +335,24 @@ def test_unported_names_raise():
             with pytest.raises(ValueError, match="num_experts_per_tok"):
                 convert.model_config_from_reference({"family": fam})
             continue
+        if fam in ("ssm", "hybrid"):
+            assert ModelConfig(family=fam).family == fam
+            assert convert.model_config_from_reference(
+                {"family": fam}).family == fam
+            continue
         with pytest.raises(NotImplementedError, match="item 14"):
             ModelConfig(family=fam)
         with pytest.raises(NotImplementedError, match="item 14"):
             convert.model_config_from_reference({"family": fam})
-    assert set(ARCHS) == set(DENSE) | set(MOE)
+    assert set(ARCHS) == set(DENSE) | set(MOE) | {"rwkv6-3b", "zamba2-1.2b"}
     for arch in ("olmoe-1b-7b", "rwkv6-3b", "zamba2-1.2b", "whisper-medium",
                  "llava-next-mistral-7b", "phi3.5-moe-42b-a6.6b"):
         if arch in MOE:
             assert get_config(arch).family == "moe"
+            continue
+        if arch in ("rwkv6-3b", "zamba2-1.2b"):
+            assert get_config(arch).family == {
+                "rwkv6-3b": "ssm", "zamba2-1.2b": "hybrid"}[arch]
             continue
         with pytest.raises(NotImplementedError, match="item 14"):
             get_config(arch)
@@ -356,7 +365,9 @@ def test_unported_names_raise():
     with pytest.raises(NotImplementedError, match="item 8"):
         ModelConfig(attn_impl="cp_kv")
     with pytest.raises(TypeError):
-        ModelConfig(ssm_state=64)
+        ModelConfig(encoder_layers=2)
+    with pytest.raises(TypeError):
+        ModelConfig(ssm_state_sharding=True)
     cfg = TINY["dense"]
     params = init_params(cfg, 0, device="cpu")
     with pytest.raises(NotImplementedError, match="training"):
