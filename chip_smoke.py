@@ -360,9 +360,11 @@ SCAN_SOURCE = {"wkv6_scan": "wkv6.cu", "ssd_scan": "ssd_scan.cu"}
 # no TPU kernel: the reference's lax.scan each replaces
 SCAN_REPLACES = {"wkv6_scan": "src/repro/models/rwkv6.py:121 (lax.scan, "
                  "no Pallas kernel)",
-                 "ssd_scan": "src/repro/models/mamba2.py:320 (lax.scan, "
+                 "ssd_scan": "src/repro/models/mamba2.py:110 (lax.scan, "
                  "no Pallas kernel)"}
 FP32_FLOP_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12           # H100 SXM dense TF32 tensor-core peak
+SSD_CHUNK = 32                     # csrc/ssd_scan.cu's chunk L
 # flash_attention against attention_ref at S = 4,096 (a 32k oracle would
 # hold 137 GB of logits): B, Hq, Hkv, Sq, Skv, D, window, causal, cap,
 # q_offset, dtype, max abs tolerance (tests/test_kernels.py:153's)
@@ -3550,11 +3552,17 @@ def scan_args(kernel: str, args, seq=None, dtype=None) -> list:
 
 
 def scan_work(kernel: str, args) -> tuple:
-    """``(bytes, float32 operations)`` one scan call needs: each operand
-    read once, the output and the final state written once; a state
-    element costs a multiply and two FMAs a step (5 operations), plus
-    the per-step row terms (wkv6: the bonus sum and the readout, 5D a
-    head; ssd: Δ·x a row and the readout's sum, D a head)."""
+    """``(bytes, serial operations, chunked operations)`` one scan call
+    needs: each operand read once, the output and the final state written
+    once. The serial form's float32 operations: a state element costs a
+    multiply and two FMAs a step (5 operations), plus the per-step row
+    terms (wkv6: the bonus sum and the readout, 5D a head; ssd: Δ·x a row
+    and the readout's sum, D a head). The chunked form's (ssd only, None
+    for wkv6, which runs the serial form): its products over chunks of L
+    steps, on the tensor cores, the causal triangles counted once — C·Bᵀ
+    once a batch row (no head axis), L(L + 1)/2 · 2n a chunk; a head's
+    M·x, L(L + 1)/2 · 2D; C·hᵀ and the state update's xᵀ·B, 2LnD each:
+    (L + 1)·n + H·D·(L + 1 + 4n) a step."""
     def nb(t):
         return 0 if t is None else t.numel() * t.element_size()
 
@@ -3563,12 +3571,14 @@ def scan_work(kernel: str, args) -> tuple:
         B, S, H, D = r.shape
         out = r.numel() * r.element_size() + B * H * D * D * 4
         return (sum(nb(t) for t in args) + out,
-                B * S * H * (5 * D * D + 5 * D))
+                B * S * H * (5 * D * D + 5 * D), None)
     x, Bv, Cv, dt, a, h0 = args
     B, S, H, D = x.shape
     n = Bv.shape[-1]
     out = x.numel() * 4 + B * H * D * n * 4
-    return sum(nb(t) for t in args) + out, B * S * H * D * (5 * n + 1)
+    L = SSD_CHUNK
+    return (sum(nb(t) for t in args) + out, B * S * H * D * (5 * n + 1),
+            B * S * ((L + 1) * n + H * D * (L + 1 + 4 * n)))
 
 
 def scan_gates(kernel: str, args, tag: str) -> float:
@@ -3621,29 +3631,34 @@ def scan_row(kernel: str, args, launches: int, err: float, tag: str
              ) -> dict:
     """The scan's ``kernels`` row: its event-timed ms on one layer at the
     prefill's shape (layer 0's inputs as the path gives them), the bound
-    from :func:`scan_work`, and the plain version's ms at S = 4,096 (the
-    32k loop would be 32,768 Python steps); no PyTorch call computes the
-    recurrence."""
+    from :func:`scan_work` (the bytes against the form the kernel runs:
+    wkv6's serial operations at the float32 rate, ssd's chunked products
+    at the TF32 tensor-core rate; ``serial_ops_ms``: the serial form's
+    operations at the float32 rate, for both),
+    and the plain version's ms at S = 4,096 (the 32k loop would be 32,768
+    Python steps); no PyTorch call computes the recurrence."""
     from repro_torch.kernels import ops
     fn = getattr(ops, kernel)
     ms, reps = time_ms_auto(lambda: fn(*args, impl="cuda"))
     short = scan_args(kernel, args, seq=RECURRENT["gate_seq"])
     ms_short, _ = time_ms_auto(lambda: fn(*short, impl="cuda"))
     plain_ms = time_ms(lambda: fn(*short, impl="torch"), reps=1)
-    nbytes, flops = scan_work(kernel, args)
+    nbytes, serial, chunked = scan_work(kernel, args)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_serial = serial / FP32_FLOP_PER_S * 1e3
+    t_ops = (t_serial if chunked is None
+             else chunked / TF32_FLOP_PER_S * 1e3)
     r = dict(name=kernel, route="cuda",
              source=f"src/repro_torch/kernels/csrc/{SCAN_SOURCE[kernel]}",
              replaces=SCAN_REPLACES[kernel], launches=launches,
              max_abs_err=err, ms=ms, plain_ms=plain_ms,
              bound_ms=max(t_bytes, t_ops),
              bound_by="operations" if t_ops >= t_bytes else "bytes",
-             library_ms=None)
+             library_ms=None, serial_ops_ms=t_serial)
     log(f"{tag} kernel", **{k: v for k, v in r.items()
                            if k not in ("source", "replaces", "route")},
-        reps=reps, bytes=nbytes, flop=flops, bytes_ms=t_bytes,
-        operations_ms=t_ops, shape=list(args[0].shape),
+        reps=reps, bytes=nbytes, flop=chunked or serial, serial_flop=serial,
+        bytes_ms=t_bytes, operations_ms=t_ops, shape=list(args[0].shape),
         dtype=str(args[0].dtype), ms_at_4096=ms_short,
         plain=f"the per-step loop at S={RECURRENT['gate_seq']}, "
         f"{args[0].dtype}", library="none (no PyTorch call computes "

@@ -2,20 +2,26 @@
 // ssd_scan.cu (sm_90a).
 //
 // Both scans keep one head's state on the chip for the whole sequence and
-// split it the same way. A CTA owns SCAN_COLS = 32 state columns (RWKV-6:
-// value columns j of S[i, j]; Mamba-2: rows d of h[d, m]), one a lane, and
-// each column's N state elements are cut into P parts of Q, one a warp:
-// warp p holds elements p·Q … p·Q + Q − 1 of all 32 columns in registers.
-// So every lane of a warp reads the same staged elements of a step's
-// vectors (a shared-memory broadcast), and a step's readout, a sum over
-// the column's N elements, is P partial sums that each warp stores in
-// shared memory; the parts are added once the chunk's steps are done, so
-// nothing in the serial loop waits on another warp or lane. The time loop
-// runs in chunks of SCAN_T steps: the chunk's per-step vectors are copied
-// into shared memory with 16-byte asynchronous copies (cp.async), widened
-// to float32 by all threads, element by element along a row, and the
-// serial loop then reads only shared memory and registers while the next
-// chunk's copies are in flight.
+// give a CTA SCAN_COLS = 32 of its state columns (RWKV-6: value columns j
+// of S[i, j]; Mamba-2: rows d of h[d, m]). Each has two kernels, and a call
+// launches one of them:
+//
+// * the serial kernel, for a call shorter than one chunk of SCAN_T steps
+//   (a decode step): a lane a column, the column's N state elements cut
+//   into P parts of Q, one a warp (ScanShape); the chunk's per-step
+//   vectors are copied into shared memory with 16-byte asynchronous copies
+//   (cp.async), widened to float32 by all threads, and the serial loop
+//   reads only shared memory and registers; the warps' readout parts are
+//   summed after the chunk.
+// * the pipelined kernel, for a call of one chunk or more: one producer
+//   warp copies each chunk as it arrives into one of three stages, two
+//   chunks ahead, while the consumer warps compute the current one (the
+//   inputs widened in registers), and the two sides hand stages over with
+//   named barriers (bar.sync / bar.arrive with an id and a thread count:
+//   scan_bar_sync, scan_bar_arrive); no CTA-wide __syncthreads runs inside
+//   the time loop. wkv6.cu's consumers run the serial step on 4 × 4 tiles
+//   of the state; ssd_scan.cu's run Mamba-2's chunked form on the tensor
+//   cores.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,12 +49,30 @@ __device__ __forceinline__ void scan_cp_async16(void* smem,
                : "memory");
 }
 
+// a 4-byte asynchronous copy (one float)
+__device__ __forceinline__ void scan_cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
 __device__ __forceinline__ void scan_cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void scan_cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// waits for all but the most recent group (or for all of them when
+// ``all``)
+__device__ __forceinline__ void scan_cp_async_wait_prior(bool all) {
+  if (all) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  } else {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  }
 }
 
 // Copies ``steps`` rows of VEC 16-byte words, row s at src + s · stride
@@ -60,6 +84,43 @@ __device__ __forceinline__ void scan_copy_rows(unsigned char* dst,
                                                int tid, int threads) {
   for (int c = tid; c < steps * VEC; c += threads) {
     scan_cp_async16(dst + c * 16, src + (c / VEC) * stride + (c % VEC) * 16);
+  }
+}
+
+// Named barrier ``id`` (1-15; 0 is __syncthreads'): bar.sync waits until
+// ``count`` threads (a multiple of 32) have arrived, bar.arrive arrives
+// without waiting. Both order the calling thread's earlier shared-memory
+// writes before the barrier for the threads that wait on it; a warp meets
+// them converged (the instructions are .aligned).
+__device__ __forceinline__ void scan_bar_sync(int id, int count) {
+  __syncwarp();
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void scan_bar_arrive(int id, int count) {
+  __syncwarp();
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// One warp's copy of ``steps`` rows of VEC 16-byte words (VEC ≤ 32; row s
+// at src + s · stride bytes) into dst, rows back to back: lane l takes
+// word l % VEC of rows l / VEC, l / VEC + 32 / VEC, …, its pointers
+// advanced by a pass's rows, so that a copy costs a few instructions.
+template <int VEC>
+__device__ __forceinline__ void scan_copy_rows_warp(unsigned char* dst,
+                                                    const unsigned char* src,
+                                                    int64_t stride, int steps,
+                                                    int lane) {
+  static_assert(VEC >= 1 && VEC <= 32 && 32 % VEC == 0, "row words");
+  constexpr int PASS = 32 / VEC;   // rows a pass
+  const int row = lane / VEC, col = (lane % VEC) * 16;
+  const unsigned char* s = src + row * stride + col;
+  unsigned char* d = dst + row * VEC * 16 + col;
+  const int64_t s_pass = PASS * stride;
+  for (int r = row; r < steps; r += PASS) {
+    scan_cp_async16(d, s);
+    s += s_pass;
+    d += PASS * VEC * 16;
   }
 }
 

@@ -1170,8 +1170,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 SCAN_DTYPES = (torch.float32, torch.bfloat16)
-# a CTA holds 32 columns (wkv6) or rows (ssd) of one head's state, a lane
-# each, their N state elements split over the CTA's warps
+# a CTA holds 32 columns (wkv6) or rows (ssd) of one head's state; a call
+# shorter than a 32-step chunk runs the serial kernel, a longer one the
+# pipelined kernel (csrc/scan.cuh)
 SCAN_COLS = 32
 WKV6_HEAD_DIMS = (32, 64, 128)
 SSD_STATES = (16, 32, 64, 128)

@@ -14,9 +14,11 @@ Then decode against the forward, a sequence cut in two with its state
 carried against one run, the configs, ``param_count``, the ``meta`` tree
 against the reference's tree, the decode state's layout (one KV cache a
 site) and the launcher's tokens against the reference launcher's. Marker
-``cuda``: ``ssd_scan`` against its plain version (S = 1, 33 and 4,096;
-B = 1 and 4; float32 and bf16 inputs; a nonzero state) and the reduced
-models through the kernels against the plain path. JAX is imported inside
+``cuda``: ``ssd_scan`` against its plain version (S = 1, 32, 33, 4,096 and
+4,097; B = 1 and 4; float32 and bf16 inputs; a nonzero state; mild and
+strong decays) and the reduced models through the kernels against the
+plain path. The chunked form the kernel computes is checked on the CPU
+too, in plain torch against the reference's step. JAX is imported inside
 the reference comparisons only.
 """
 import dataclasses
@@ -144,7 +146,7 @@ def test_causal_conv_and_gated_rmsnorm_match_reference(with_buf):
 
 
 def _jax_ssd(x, Bv, Cv, dt, a, h0):
-    """The reference's step (``repro/models/mamba2.py:320-328``) through
+    """The reference's step (``repro/models/mamba2.py:110-122``) through
     ``lax.scan`` over time-major inputs."""
     jax, jnp = _jax()
     aj = jnp.asarray(a)
@@ -180,6 +182,97 @@ def test_ssd_scan_ref_matches_reference_step(S):
     assert torch.equal(y2, y3) and torch.equal(h2, h3)
     with pytest.raises(ValueError, match="impl='cuda'"):
         ops.ssd_scan(*t, impl="cuda")
+
+
+def _segsum(da):
+    """``seg[..., i, j]`` = the sum of ``da[..., k]`` over k = j + 1 … i
+    (−inf above the diagonal): each a running sum over its own segment,
+    Mamba-2's ``segsum`` (arXiv:2405.21060, its listing of the SSD
+    minimal code)."""
+    T = da.shape[-1]
+    x = da[..., :, None].expand(*da.shape, T)       # x[..., i, j] = da_i
+    x = x.masked_fill(~torch.tril(torch.ones(T, T, dtype=torch.bool), -1),
+                      0.0)
+    seg = torch.cumsum(x, dim=-2)
+    return seg.masked_fill(~torch.tril(torch.ones(T, T, dtype=torch.bool)),
+                           -torch.inf)
+
+
+def _chunked_ssd(x, Bv, Cv, dt, a, h0, L=32, stable=True):
+    """Mamba-2's chunked (state-space dual) form of the selective scan in
+    plain torch, as ``csrc/ssd_scan.cu``'s chunked kernel computes it:
+    per chunk of ``L`` steps the causal G = C·Bᵀ weighted by exp(segment
+    sums)·dt, the inter-chunk output exp(prefix)·C·hᵀ, and one state
+    update exp(total)·h + Σ_s exp(suffix_s)·dt_s·x_s ⊗ B_s. ``stable``
+    False takes every decay as a difference of the chunk's cumulative
+    sums instead (the form the kernel must not use)."""
+    B, S, H, D = x.shape
+    h, ys = h0.clone(), []
+    for t0 in range(0, S, L):
+        xs, bs, cs = x[:, t0:t0 + L], Bv[:, t0:t0 + L], Cv[:, t0:t0 + L]
+        da = (dt[:, t0:t0 + L] * a).transpose(1, 2)        # [B, H, T]
+        dth = dt[:, t0:t0 + L].transpose(1, 2)
+        pre = torch.cumsum(da, -1)                         # steps 0 … s
+        if stable:
+            seg = _segsum(da)
+            suf = torch.flip(torch.cumsum(torch.flip(da, [-1]), -1), [-1])
+            suf = torch.cat([suf[..., 1:], torch.zeros_like(suf[..., :1])],
+                            -1)                            # steps s + 1 …
+        else:
+            seg = (pre[..., :, None] - pre[..., None, :]).masked_fill(
+                ~torch.tril(torch.ones(da.shape[-1], da.shape[-1],
+                                       dtype=torch.bool)), -torch.inf)
+            suf = pre[..., -1:] - pre
+        m = (torch.einsum("bin,bjn->bij", cs, bs)[:, None]
+             * torch.exp(seg) * dth[..., None, :])          # [B, H, i, j]
+        y = (torch.einsum("bhij,bjhd->bihd", m, xs)
+             + torch.einsum("bin,bhdn->bihd", cs, h)
+             * torch.exp(pre).transpose(1, 2)[..., None])
+        wgt = (torch.exp(suf) * dth).transpose(1, 2)        # [B, T, H]
+        h = (torch.exp(pre[..., -1])[..., None, None] * h
+             + torch.einsum("bshd,bsn->bhdn", xs * wgt[..., None], bs))
+        ys.append(y)
+    return torch.cat(ys, 1), h
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("S", [1, 32, 33, 200])
+@pytest.mark.parametrize("decay", ["mild", "strong"])
+def test_chunked_ssd_matches_reference_step(S, B, decay):
+    """The chunked algorithm of the card's kernel (chunks of 32 steps, so
+    S = 1, one chunk, one and a step, and 6¼ chunks) against the
+    reference's step through ``lax.scan``, from a nonzero state, within
+    1e-5 relative Frobenius error. ``strong``: a = −16 and Δ ≈ 8 over
+    the first 16 steps of every 32, so that a chunk's sum of Δ·a passes
+    −87 (it reaches about −2,048), then Δ ≈ 0.002: the later steps'
+    decays are near 1 and matter, and taken as differences of two
+    cumulative sums near −2,048 they cancel to about 1e-4 and miss the
+    same limit, so the test tells the two forms apart. (At Δ ≈ 2 on every
+    step only decays formed exactly would matter, and both forms pass.)"""
+    H, D, n = 3, 4, 8
+    x = _rand((B, S, H, D), 20)
+    Bv, Cv = _rand((B, S, n), 21), _rand((B, S, n), 22)
+    if decay == "strong":
+        burst = (np.arange(S) % 32 < 16)[None, :, None]
+        dt = np.where(burst, 8.0, 0.002) * (1 + 0.1 * _rand((B, S, H), 23))
+        dt = dt.astype(np.float32)
+        a = np.full(H, -16.0, np.float32)
+    else:
+        dt = np.log1p(np.exp(_rand((B, S, H), 23) - 2)).astype(np.float32)
+        a = -np.linspace(1, 16, H).astype(np.float32)
+    h0 = _rand((B, H, D, n), 24)
+    want_y, want_h = (np.asarray(v) for v in _jax_ssd(x, Bv, Cv, dt, a, h0))
+    t = [torch.from_numpy(v) for v in (x, Bv, Cv, dt, a, h0)]
+    got_y, got_h = _chunked_ssd(*t)
+
+    def rel(got, want):
+        return float(np.linalg.norm(got.numpy() - want)
+                     / np.linalg.norm(want))
+
+    assert rel(got_y, want_y) <= 1e-5 and rel(got_h, want_h) <= 1e-5
+    if decay == "strong" and S >= 32:
+        dy, dh = _chunked_ssd(*t, stable=False)
+        assert max(rel(dy, want_y), rel(dh, want_h)) > 1e-5
 
 
 @pytest.mark.parametrize("name", list(HYBRIDS))
@@ -379,23 +472,25 @@ def _rel(a, b):
     return float((a - b).norm() / b.norm())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B", [1, 4])
-@pytest.mark.parametrize("S", [1, 33, 4096])
-def test_cuda_ssd_scan_matches_plain(cuda, S, B, dtype):
+def _check_ssd_scan(cuda, B, S, H, D, n, dtype, decay, seed):
     """The kernel against its plain version on the same inputs (x, B, C in
-    ``dtype``, a nonzero state, zamba2-1.2b's head shape): the outputs
-    and the final state within 1e-5 relative Frobenius error (float32
-    sums in another order)."""
-    H, D, n = 64, 64, 64
-    g = torch.Generator(device=cuda).manual_seed(S + B)
+    ``dtype``, a nonzero state and a zero one): the outputs and the final
+    state within 1e-5 relative Frobenius error (float32 sums in another
+    order). ``strong``: Δ ≈ 8 over the first 16 steps of every 32, then
+    Δ ≈ 0.002, so that a chunk's sum of Δ·a passes −87 at every head and
+    the later steps' decays, near 1, would cancel if taken as differences
+    of cumulative sums (``test_chunked_ssd_matches_reference_step``)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
     dt = getattr(torch, dtype)
     x = torch.randn(B, S, H, D, generator=g, device=cuda).to(dt)
     Bv, Cv = (torch.randn(B, S, n, generator=g, device=cuda).to(dt)
               for _ in range(2))
-    delta = torch.nn.functional.softplus(
-        torch.randn(B, S, H, generator=g, device=cuda) - 2)
+    noise = torch.randn(B, S, H, generator=g, device=cuda)
+    if decay == "strong":
+        burst = (torch.arange(S, device=cuda) % 32 < 16)[None, :, None]
+        delta = torch.where(burst, 8.0, 0.002) * (1 + 0.1 * noise)
+    else:
+        delta = torch.nn.functional.softplus(noise - 2)
     a = -torch.linspace(1, 16, H, device=cuda)
     h0 = torch.randn(B, H, D, n, generator=g, device=cuda)
     before = ops.launch_counts()["ssd_scan"]
@@ -407,6 +502,30 @@ def test_cuda_ssd_scan_matches_plain(cuda, S, B, dtype):
     assert _rel(y, want_y) <= 1e-5 and _rel(h_last, want_h) <= 1e-5
     y0, _ = ops.ssd_scan(x, Bv, Cv, delta, a, None, impl="cuda")
     assert _rel(y0, kref.ssd_scan_ref(x, Bv, Cv, delta, a)[0]) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decay", ["mild", "strong"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("S", [1, 32, 33, 4096, 4097])
+def test_cuda_ssd_scan_matches_plain(cuda, S, B, dtype, decay):
+    """:func:`_check_ssd_scan` at zamba2-1.2b's head shape. S = 1 runs the
+    serial kernel, the rest the chunked one: one chunk of 32 steps, one
+    and a step, whole chunks and a last chunk of one step."""
+    _check_ssd_scan(cuda, B, S, 64, 64, 64, dtype, decay, seed=S + B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [1, 33, 4097])
+@pytest.mark.parametrize("n", ops.SSD_STATES)
+def test_cuda_ssd_scan_every_state_size(cuda, n, S, dtype):
+    """:func:`_check_ssd_scan` at every state size the wrapper accepts
+    (the chunked kernel gives a consumer warp n / 32 state tiles of 8
+    columns, at least one, and at n = 16 some warps none), 4 heads of
+    64."""
+    _check_ssd_scan(cuda, 2, S, 4, 64, n, dtype, "mild", seed=S + n)
 
 
 @pytest.mark.cuda

@@ -12,9 +12,9 @@ reduced rwkv6-3b. Then decode against the forward, a sequence cut in two
 with its state carried against one run, the configs, ``param_count``, the
 ``meta`` tree against the reference's tree, and the launcher's tokens
 against the reference launcher's. Marker ``cuda``: ``wkv6_scan`` against
-its plain version (S = 1, 33 and 4,096; B = 1 and 4; float32 and bf16
-inputs; a nonzero state) and the reduced model through the kernel against
-the plain path. JAX is imported inside the reference comparisons only.
+its plain version (S = 1, 32, 33, 4,096 and 4,097; B = 1 and 4; float32
+and bf16 inputs; a nonzero state) and the reduced model through the kernel
+against the plain path. JAX is imported inside the reference comparisons only.
 """
 import dataclasses
 import functools
@@ -352,17 +352,12 @@ def _rel(a, b):
     return float((a - b).norm() / b.norm())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B", [1, 4])
-@pytest.mark.parametrize("S", [1, 33, 4096])
-def test_cuda_wkv6_scan_matches_plain(cuda, S, B, dtype):
+def _check_wkv6_scan(cuda, B, S, H, D, dtype, seed):
     """The kernel against its plain version on the same inputs (r, k, v in
-    ``dtype``, a nonzero state, rwkv6-3b's head shape): the outputs and
-    the final state within 1e-5 relative Frobenius error (float32 sums in
-    another order; bf16 outputs within one rounding)."""
-    H, D = 40, 64
-    g = torch.Generator(device=cuda).manual_seed(S + B)
+    ``dtype``, w, u, a nonzero state and a zero one): the outputs and the
+    final state within 1e-5 relative Frobenius error (float32 sums in
+    another order; bf16 outputs within one rounding, 4e-3)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
     dt = getattr(torch, dtype)
     r, k, v = (torch.randn(B, S, H, D, generator=g, device=cuda).to(dt)
                for _ in range(3))
@@ -383,6 +378,28 @@ def test_cuda_wkv6_scan_matches_plain(cuda, S, B, dtype):
     want0, _ = kref.wkv6_scan_ref(r, k, v, w, u, None)
     assert _rel(o0.float(), want0.float()) <= (1e-5 if dtype == "float32"
                                                else 4e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("S", [1, 32, 33, 4096, 4097])
+def test_cuda_wkv6_scan_matches_plain(cuda, S, B, dtype):
+    """:func:`_check_wkv6_scan` at rwkv6-3b's head shape. S = 1 runs the
+    serial kernel, the rest the pipelined one: one chunk of 32 steps, one
+    and a step, whole chunks, and a last chunk of one step."""
+    _check_wkv6_scan(cuda, B, S, 40, 64, dtype, seed=S + B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [1, 33, 4097])
+@pytest.mark.parametrize("D", ops.WKV6_HEAD_DIMS)
+def test_cuda_wkv6_scan_every_head_dim(cuda, D, S, dtype):
+    """:func:`_check_wkv6_scan` at every head dim the wrapper accepts (the
+    kernel's lanes are D / 4 row groups × 128 / D column groups, and
+    D = 128 sums its readout with one more shuffle stage), 4 heads."""
+    _check_wkv6_scan(cuda, 2, S, 4, D, dtype, seed=S + D)
 
 
 @pytest.mark.cuda
