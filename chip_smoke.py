@@ -7,9 +7,10 @@ Drives the port's main paths once through the entry points a user calls:
 FrogWild! at LiveJournal scale (n = 4,847,571, avg out-degree 14.2,
 θ = 2.2, seed 0; ``repro_torch.configs.LIVEJOURNAL_FULL``), the LM
 stack's dense serving path at llama3.2-1b's full width, its MoE family
-at olmoe-1b-7b's full width and depth, and its recurrent families at
-rwkv6-3b's and zamba2-1.2b's. It checks every answer against its
-guarantee:
+at olmoe-1b-7b's full width and depth, its recurrent families at
+rwkv6-3b's and zamba2-1.2b's, and its encoder-decoder and VLM families at
+whisper-medium's and llava-next-mistral-7b's. It checks every answer
+against its guarantee:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
 2. build    — the CUDA kernels, compiled from ``csrc/`` with nvcc
@@ -262,7 +263,42 @@ guarantee:
               ``mamba.conv``, ``mamba.scan``, ``mamba.out``,
               ``shared_attn``); the scan's row (ms at the prefill shape,
               its bound, the plain loop's ms at S = 4,096); phase 16 on
-              the reduced model (a dropped state planted for rwkv6).
+              the reduced model (a dropped state planted for rwkv6);
+22. encdec  — (runs after phase 21 has released its models, the peak
+              memory counter reset) whisper-medium at full width and
+              depth (24 + 24 layers, d 1,024, 16 heads of 64, random,
+              seed 0): the tree's count against ``param_count``; phase
+              14's prefill and gates on 32,768 decoder tokens over 1,500
+              frames (``flash_attention`` launched 72 times, counted by
+              shape in that forward: 24 encoder, non-causal, 24 decoder
+              self, 24 cross at 32,768 × 1,500; the float32 gate's
+              planted fault the reference's K/V padded to the 64-key
+              tile); the launcher's 4 requests through
+              ``BatchScheduler``, its wave's ``prefill`` handed the frames
+              by this script (``prefill(encoder_frames=)``; no user path
+              serves whisper: the scheduler passes none and raises, as
+              the reference's), 16 greedy ``serve_step``s, ms
+              per ``serve_step`` at B = 4, the encoder's time in
+              ``init_decode_state``, the cross caches' bytes against the
+              analytic 589,824,000, and phase 15's invariant over the
+              decoder's self- and cross-attention outputs (a zeroed cross
+              K/V must fail it); ``flash_attention`` at the encoder, cross
+              and decoder-self shapes (rows) and non-causal at 1,000 and
+              1 × 1,500 (checks) against the chunked version and SDPA;
+              the prefill and a ``serve_step`` profiled by stage
+              (``encdec.encoder``, ``encdec.cross``, and attention inside
+              each); phase 16 on the reduced whisper;
+23. vlm     — (after phase 22, the peak memory counter reset)
+              llava-next-mistral-7b at full width and depth (32 layers,
+              32/8 heads of 128, d_ff 14,336, random, seed 0): the tree's
+              count; phase 14's prefill and gates on 2,880 patch
+              embeddings + 29,888 tokens (32 launches, every gate over
+              the prefix positions too; float32 at 2,880 + 1,216); phase
+              15's launcher run (text only) and invariant against a
+              forward with an empty prefix; ``flash_attention`` at its
+              shape against SDPA; the prefill and a ``serve_step``
+              profiled; the peak memory (under 80 GB); phase 16 on the
+              reduced llava.
 
 Phases 14-16 run after phase 11 and before 12 and 13, which read them.
 Launch counts are reset just before phase 4 and read just after phase 5
@@ -280,7 +316,8 @@ just before ``Gateway.apply_mutations`` and read just after it, and in
 phase 20 reset just before each prefill forward and the launcher's run
 and read just after each, and in phase 21 reset just before each
 architecture's first prefill forward and the launcher's run and read just
-after each;
+after each, and in phases 22 and 23 reset just before the first prefill
+forward and the serving run and read just after each;
 phases 6, 11, 12 and 13 reset them around each run whose draw launches
 they count.
 The last line is ``{"ok": true, "device": {...}}``; any failed check or
@@ -365,6 +402,28 @@ SCAN_REPLACES = {"wkv6_scan": "src/repro/models/rwkv6.py:121 (lax.scan, "
 FP32_FLOP_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12           # H100 SXM dense TF32 tensor-core peak
 SSD_CHUNK = 32                     # csrc/ssd_scan.cu's chunk L
+# the encoder-decoder and VLM families (phases 22, 23): whisper-medium and
+# llava-next-mistral-7b at full width and depth
+# (src/repro_torch/configs/whisper_medium.py, llava_next_mistral_7b.py),
+# random weights from seed 0, the prefill at LM_PREFILL's shape: whisper's
+# 32,768 decoder tokens over 1,500 frames, llava's 2,880 patch embeddings
+# and 29,888 tokens (the reference's S − num_prefix_embeddings); their
+# float32 gates at 4,096 positions (llava: 2,880 + 1,216)
+ENCDEC_ARCH = "whisper-medium"
+VLM_ARCH = "llava-next-mistral-7b"
+ENCDEC_STAGES = ("encdec.encoder", "encdec.cross")
+# flash_attention at whisper's non-causal shapes (bf16): B, Hq, Hkv, Sq,
+# Skv, D; the path's (the encoder over 1,500 frames, the decoder's
+# cross-attention at prefill_32k's length) and two checks: a length off
+# the 64-key tile too, and one query over the frames
+FA_ENCDEC = {"whisper_encoder": (1, 16, 16, 1500, 1500, 64),
+             "whisper_cross": (1, 16, 16, 32_768, 1500, 64)}
+FA_ENCDEC_CHECKS = {"noncausal_1000": (1, 16, 16, 1000, 1000, 64),
+                    "cross_1_1500": (1, 16, 16, 1, 1500, 64)}
+# those rows' device time alone (queued_ms): calls queued behind a spin of
+# SPIN_CYCLES clock cycles (about 25 ms on an H100)
+FA_QUEUED_CALLS = 20
+SPIN_CYCLES = 50_000_000
 # flash_attention against attention_ref at S = 4,096 (a 32k oracle would
 # hold 137 GB of logits): B, Hq, Hkv, Sq, Skv, D, window, causal, cap,
 # q_offset, dtype, max abs tolerance (tests/test_kernels.py:153's)
@@ -389,11 +448,11 @@ def log(phase: str, **kw) -> None:
           flush=True)
 
 
-def time_ms(fn, reps: int = REPS) -> float:
+def time_ms(fn, reps: int = REPS, warmups: int = 3) -> float:
     """Mean device time of ``fn()`` over ``reps`` launches (CUDA events,
-    after three warm-up calls)."""
+    after ``warmups`` warm-up calls)."""
     import torch
-    for _ in range(3):
+    for _ in range(warmups):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -404,6 +463,30 @@ def time_ms(fn, reps: int = REPS) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, calls: int = FA_QUEUED_CALLS) -> tuple:
+    """``(ms, host ms, spin ms)``: the device time a call of ``fn()``
+    with the host's launch path hidden. The card spins
+    (``torch.cuda._sleep``) while the host queues ``calls`` calls behind
+    the spin; events time the queue. The reading holds only where the
+    host's queueing time is under the spin's."""
+    import torch
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    mid = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    mid.record()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    return mid.elapsed_time(end) / calls, host, start.elapsed_time(mid)
 
 
 def time_ms_auto(fn) -> tuple:
@@ -2718,7 +2801,8 @@ def rel_rows(a, b, dim: int) -> tuple:
     eighth): a fault in late rows, whose outputs are small, shows in the
     second."""
     n = a.shape[dim]
-    return rel_frobenius(a, b, dim), rel_frobenius(a, b, dim, n - n // 8)
+    return (rel_frobenius(a, b, dim),
+            rel_frobenius(a, b, dim, n - max(n // 8, 1)))
 
 
 @contextlib.contextmanager
@@ -2769,16 +2853,38 @@ def scan_state_dropped(orig):
     return fn
 
 
+def cross_kv_zeroed(layer: int, layers: int):
+    """Planted fault in whisper's decode: decoder layer ``layer``'s cached
+    cross K/V read as zeros (of ``layers`` calls a step)."""
+    import torch
+    calls = [0]
+
+    def make(orig):
+        def fn(params, x, k, v, cfg):
+            i = calls[0] % layers
+            calls[0] += 1
+            if i == layer:
+                k, v = torch.zeros_like(k), torch.zeros_like(v)
+            return orig(params, x, k, v, cfg)
+        return fn
+    return make
+
+
 def decode_faults(cfg) -> list:
     """``(run, patch target, fault)`` of the serving gates: the sound run,
-    the decode attention fault where the model attends, and a dropped
-    recurrent state where it has a time recurrence."""
+    the decode attention fault where the model attends, whisper's zeroed
+    cross K/V in its middle layer, and a dropped recurrent state where it
+    has a time recurrence."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref as kref
+    from repro_torch.models import transformer
     runs = [("sound", None, None)]
     if not cfg.is_attention_free:
         runs.append(("fault", (kref, "decode_attention_ref"),
                      decode_newest_key_dropped))
+    if cfg.family == "encdec":
+        runs.append(("cross_fault", (transformer, "_cross_decode"),
+                     cross_kv_zeroed(cfg.num_layers // 2, cfg.num_layers)))
     if cfg.family in SCAN_KERNEL:
         runs.append(("state_fault", (ops, SCAN_KERNEL[cfg.family]),
                      scan_state_dropped))
@@ -2788,10 +2894,10 @@ def decode_faults(cfg) -> list:
 @contextlib.contextmanager
 def lm_taps():
     """Record what the LM path computes: ``attn`` gets every layer's
-    attention output (``attention_forward`` and ``decode_attention``,
-    after ``wo``, in call order), ``steps`` one ``(tokens, logits, that
-    step's attention outputs)`` for each ``decode_step`` that ``prefill``
-    and ``serve_step`` call."""
+    attention output (``attention_forward``, ``decode_attention`` and
+    whisper's ``_cross_decode``, after ``wo``, in call order), ``steps``
+    one ``(tokens, logits, that step's attention outputs)`` for each
+    ``decode_step`` that ``prefill`` and ``serve_step`` call."""
     import importlib
     from repro_torch.models import transformer
     attn, steps = [], []
@@ -2822,6 +2928,7 @@ def lm_taps():
         for mod, name, make in (
                 (transformer, "attention_forward", forward),
                 (transformer, "decode_attention", decode),
+                (transformer, "_cross_decode", forward),
                 (importlib.import_module("repro_torch.serving.decode"),
                  "decode_step", step),
                 (importlib.import_module("repro_torch.serving.prefill"),
@@ -2837,21 +2944,77 @@ def max_layer_rel(got, want, dim: int = 1) -> tuple:
     return max(p[0] for p in pairs), max(p[1] for p in pairs)
 
 
+def attention_launches(cfg) -> int:
+    """``flash_attention`` launches of one forward: one a layer; whisper
+    one an encoder layer and two a decoder layer (self and cross)."""
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.num_layers
+    return cfg.num_layers
+
+
+def prefix_len(cfg) -> int:
+    """Positions before the text: the VLM's patch embeddings."""
+    return cfg.num_prefix_embeddings if cfg.family == "vlm" else 0
+
+
+def lm_inputs(cfg, dev, batch: int, seq: int) -> dict:
+    """A forward's batch at ``seq`` positions: ``batch × (seq − P)``
+    tokens from ``randint(PRNGKey(1))`` (P: :func:`prefix_len`), and, as
+    the reference's ``input_specs`` shapes them, whisper's
+    ``encoder_frames [batch, encoder_seq, d]`` or llava's
+    ``prefix_embeds [batch, P, d]``, float32 normals from generator
+    seed 3."""
+    import torch
+    from repro_torch import prng
+    P = prefix_len(cfg)
+    out = {"tokens": prng.randint(prng.PRNGKey(1, dev), (batch, seq - P), 0,
+                                  cfg.vocab_size)}
+    if cfg.family == "encdec":
+        out["encoder_frames"] = frames_of(cfg, batch, dev, seed=3)
+    if cfg.family == "vlm":
+        gen = torch.Generator(device=dev).manual_seed(3)
+        out["prefix_embeds"] = torch.randn((batch, P, cfg.d_model),
+                                           generator=gen, device=dev)
+    return out
+
+
+def lm_cut(cfg, inputs: dict, seq: int) -> dict:
+    """``inputs`` at their first ``seq`` positions: the text cut, the
+    prefix and the frames whole."""
+    return {**inputs, "tokens": inputs["tokens"][:, :seq - prefix_len(cfg)]}
+
+
+def kv_padded_to_tile(orig):
+    """Planted fault, the reference's Pallas wrapper's (ROADMAP Queue 3
+    item 4): K/V zero-padded to a multiple of the 64-key tile and passed
+    on, so a non-causal call reads the padding as live keys."""
+    import torch.nn.functional as F
+
+    def fn(q, k, v, **kw):
+        pad = -k.shape[2] % 64
+        return orig(q, F.pad(k, (0, 0, 0, pad)), F.pad(v, (0, 0, 0, pad)),
+                    **kw)
+    return fn
+
+
 def phase_lm_prefill(cfg, dev, batch=LM_PREFILL["batch"],
                      seq=LM_PREFILL["seq"],
                      gate2_seq=LM_PREFILL["gate2_seq"], tag="14",
-                     path="lm_prefill"):
-    """``forward_train`` at full width and depth on ``[batch, seq]``
-    tokens through the ``flash_attention`` kernel (one launch a layer),
-    then gate 1 (bf16: relative Frobenius error against the same forward
-    under ``attn_impl="torch"`` ≤ 5e-2), gate 1b (each launch against the
-    chunked version on its own inputs, ``ATTN_REL``) and gate 2 (float32
-    at ``gate2_seq``: max abs error ≤ 1e-3 · max |logits|, and each
-    layer's attention output within ``ATTN_REL``, which a planted fault
-    must fail). ``tag`` and ``path`` label its lines."""
+                     path="lm_prefill", gate2_fault=late_keys_dropped):
+    """``forward_train`` at full width and depth on :func:`lm_inputs` at
+    ``[batch, seq]`` through the ``flash_attention`` kernel
+    (:func:`attention_launches`), then gate 1 (bf16: relative Frobenius
+    error against the same forward under ``attn_impl="torch"`` ≤ 5e-2),
+    gate 1b (the kernel run again on each of that plain forward's
+    attention inputs against its chunked output, ``ATTN_REL``) and gate 2
+    (float32 at ``gate2_seq`` positions: max abs error ≤ 1e-3 · max
+    |logits|, and each attention output within ``ATTN_REL``, which the
+    planted ``gate2_fault`` must fail). ``tag`` and ``path`` label its
+    lines. Returns the parameters, the inputs, the first forward's kernel
+    launches, its peak memory and those launches by ``(q shape, k shape,
+    causal)``."""
     import dataclasses
     import torch
-    from repro_torch import prng
     from repro_torch.kernels import ops
     from repro_torch.models import forward_train
     t0 = time.perf_counter()
@@ -2863,20 +3026,37 @@ def phase_lm_prefill(cfg, dev, batch=LM_PREFILL["batch"],
         param_bytes=sum(p.numel() * p.element_size()
                         for p in params.parameters()),
         init_s=time.perf_counter() - t0)
-    toks = prng.randint(prng.PRNGKey(1, dev), (batch, seq), 0,
-                        cfg.vocab_size)
+    inputs = lm_inputs(cfg, dev, batch, seq)
+    n_attn = attention_launches(cfg)
+    # the kernel's launches by (q shape, k shape, causal), each call's
+    # difference in the wrapper's own count
+    by_shape = {}
+
+    def count(orig):
+        def fn(q, k, v, **kw):
+            n0 = ops.launch_counts()["flash_attention"]
+            out = orig(q, k, v, **kw)
+            key = (tuple(q.shape), tuple(k.shape), kw.get("causal", True))
+            by_shape[key] = (by_shape.get(key, 0)
+                             + ops.launch_counts()["flash_attention"] - n0)
+            return out
+        return fn
+
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     sync()
     t0 = time.perf_counter()
-    with torch.inference_mode():
-        logits, _ = forward_train(params, {"tokens": toks}, cfg)
+    with patched(ops, "attention", count), torch.inference_mode():
+        logits, _ = forward_train(params, inputs, cfg)
     sync()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     log("launches", path=path, **launches)
-    assert launches["flash_attention"] == cfg.num_layers, launches
+    log(f"{tag} launches_by_shape", path=path,
+        shapes=json.dumps(sorted([*key, n] for key, n in by_shape.items())))
+    assert launches["flash_attention"] == n_attn, launches
+    assert sum(by_shape.values()) == n_attn, by_shape
     assert logits.shape == (batch, seq, cfg.vocab_size), logits.shape
     assert logits.dtype == torch.bfloat16
     finite = all(bool(torch.isfinite(logits[:, s0:s0 + 4096]).all())
@@ -2887,7 +3067,7 @@ def phase_lm_prefill(cfg, dev, batch=LM_PREFILL["batch"],
     sync()
     t0 = time.perf_counter()
     with torch.inference_mode():
-        logits, _ = forward_train(params, {"tokens": toks}, cfg)
+        logits, _ = forward_train(params, inputs, cfg)
     sync()
     warm = time.perf_counter() - t0
     log(f"{tag} lm_prefill", batch=batch, seq=seq, wall_s=wall,
@@ -2895,57 +3075,53 @@ def phase_lm_prefill(cfg, dev, batch=LM_PREFILL["batch"],
         warm_tokens_per_s=batch * seq / warm, peak_mem_bytes=peak,
         finite=finite)
     assert finite, "non-finite prefill logits"
-    plain = dataclasses.replace(cfg, attn_impl="torch")
-    sync()
-    t0 = time.perf_counter()
-    with torch.inference_mode():
-        logits_t, _ = forward_train(params, {"tokens": toks}, plain)
-    sync()
-    t_plain = time.perf_counter() - t0
-    rel = rel_frobenius(logits, logits_t)
-    log(f"{tag} lm_prefill_gate1", dtype=cfg.dtype, plain_wall_s=t_plain,
-        rel_frobenius=rel, limit=5e-2, ok=rel <= 5e-2)
-    assert rel <= 5e-2, "bf16 prefill logits stray from the plain path"
-    del logits, logits_t
-    # Gate 1b: the residual stream (|x| ~ √d_model) rounds small attention
-    # outputs away in bf16 and the tied embedding dominates the logits, so
-    # gate 1 barely sees attention. Each of the forward's 16 launches is
-    # held instead to the plain chunked version on its own (strided) inputs.
-    calls = []
+    # Gate 1b rides on gate 1's plain forward. The residual stream
+    # (|x| ~ √d_model) rounds small attention outputs away in bf16 and the
+    # tied embedding dominates the logits, so gate 1 barely sees
+    # attention: each of the plain forward's attention calls also runs the
+    # kernel on its own (strided) inputs, the layer's real activations,
+    # held to the chunked output.
+    worst = [0.0, 0.0]
 
-    def record(orig):
+    def check(orig):
         def fn(q, k, v, **kw):
             out = orig(q, k, v, **kw)
-            calls.append((q, k, v, kw, out))
+            got = orig(q, k, v, **{**kw, "impl": "cuda"})
+            worst[:] = map(max, worst, rel_rows(got, out, dim=2))
             return out
         return fn
 
-    with patched(ops, "attention", record), torch.inference_mode():
-        forward_train(params, {"tokens": toks}, cfg)
-    assert len(calls) == cfg.num_layers, len(calls)
-    worst = (0.0, 0.0)
-    with torch.inference_mode():
-        for q, k, v, kw, out in calls:
-            want = ops.attention(q, k, v, **{**kw, "impl": "torch"})
-            worst = tuple(map(max, worst, rel_rows(out, want, dim=2)))
-            del want
+    plain = dataclasses.replace(cfg, attn_impl="torch")
+    ops.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    with patched(ops, "attention", check), torch.inference_mode():
+        logits_t, _ = forward_train(params, inputs, plain)
+    sync()
+    t_plain = time.perf_counter() - t0
+    rel = rel_frobenius(logits, logits_t)
+    log(f"{tag} lm_prefill_gate1", dtype=cfg.dtype,
+        plain_and_gate1b_wall_s=t_plain, rel_frobenius=rel, limit=5e-2,
+        ok=rel <= 5e-2)
+    assert rel <= 5e-2, "bf16 prefill logits stray from the plain path"
+    del logits, logits_t
+    checked = ops.launch_counts()["flash_attention"]
+    assert checked == n_attn, checked
     lim = ATTN_REL[cfg.dtype]
-    log(f"{tag} lm_prefill_gate1b", dtype=cfg.dtype, launches=len(calls),
+    log(f"{tag} lm_prefill_gate1b", dtype=cfg.dtype, launches=checked,
         max_rel_frobenius=worst[0], max_rel_frobenius_last_eighth=worst[1],
         limit=lim, ok=max(worst) <= lim)
     assert max(worst) <= lim, "a launch strays from the chunked version"
-    del calls
-    # Gate 2: float32 at gate2_seq; the logits and each layer's attention
-    # output against the plain path's, then the same with a planted fault
-    # (the kernel drops the keys more than S/2 back) to show which of the
-    # two gates sees it.
+    # Gate 2: float32 at gate2_seq; the logits and each attention output
+    # against the plain path's, then the same with a planted fault to
+    # show which of the two gates sees it.
     f32 = dataclasses.replace(cfg, dtype="float32")
-    short = {"tokens": toks[:, :gate2_seq]}
+    short = lm_cut(cfg, inputs, gate2_seq)
     runs = {}
     for what, c, fault in (
             ("kernel", f32, None),
             ("torch", dataclasses.replace(f32, attn_impl="torch"), None),
-            ("fault", f32, late_keys_dropped)):
+            ("fault", f32, gate2_fault)):
         with contextlib.ExitStack() as stack:
             attn, _ = stack.enter_context(lm_taps())
             if fault is not None:
@@ -2961,7 +3137,8 @@ def phase_lm_prefill(cfg, dev, batch=LM_PREFILL["batch"],
         err = float((got - b).abs().max())
         att = max_layer_rel(got_attn, b_attn)
         log(f"{tag} lm_prefill_gate2", run=what, dtype="float32",
-            seq=gate2_seq,
+            seq=gate2_seq, fault=gate2_fault.__name__ if what == "fault"
+            else None,
             max_abs_err=err, max_abs_logit=scale, ratio=err / scale,
             limit=1e-3, logits_ok=err <= 1e-3 * scale,
             attn_max_rel_frobenius=att[0],
@@ -2975,7 +3152,38 @@ def phase_lm_prefill(cfg, dev, batch=LM_PREFILL["batch"],
         else:
             assert max(att) > lim, "the attention gate misses a planted fault"
     del runs, a, b, a_attn, b_attn
-    return params, toks, launches["flash_attention"], peak
+    return params, inputs, launches["flash_attention"], peak, by_shape
+
+
+def frames_of(cfg, batch: int, dev, seed: int = 5):
+    """whisper's ``encoder_frames [batch, encoder_seq, d]`` (float32
+    normals from generator ``seed``), or None for the other families."""
+    import torch
+    if cfg.family != "encdec":
+        return None
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((batch, cfg.encoder_seq, cfg.d_model), generator=gen,
+                       device=dev)
+
+
+@contextlib.contextmanager
+def scheduler_frames(frames):
+    """whisper's ``frames`` handed to each ``BatchScheduler`` wave's
+    ``prefill`` (the first B rows for a wave of B, on the wave's device):
+    the scheduler passes none, as the reference's does, and whisper's
+    decode needs them. Nothing changes when ``frames`` is None."""
+    from repro_torch.serving import scheduler
+
+    def make(orig):
+        def fn(params, cfg, toks, max_len):
+            return orig(params, cfg, toks, max_len, encoder_frames=(
+                frames[:toks.shape[0]].to(toks.device)))
+        return fn
+
+    with contextlib.ExitStack() as stack:
+        if frames is not None:
+            stack.enter_context(patched(scheduler, "prefill", make))
+        yield
 
 
 def phase_lm_serve(params, cfg, dev, requests=LM_SERVE["requests"],
@@ -2987,12 +3195,16 @@ def phase_lm_serve(params, cfg, dev, requests=LM_SERVE["requests"],
     ``launch.serve.make_requests``, greedy), ms per ``serve_step`` at
     B = ``max_batch``, and the serving invariant in float32: decode logits
     at each of ``invariant_seq`` positions against ``forward_train``'s,
-    relative error ≤ 1e-3, and each layer's attention output within
-    ``ATTN_REL``, which a planted decode fault must fail. An MoE forward
-    runs the invariant at capacity factor E / k, whose capacity is the
-    group's length, so no pair can drop (a token picks an expert once;
-    decode, one token a group of capacity 8, drops none). ``tag`` and
-    ``path`` label its lines."""
+    relative error ≤ 1e-3, and each attention output within ``ATTN_REL``,
+    which a planted decode fault must fail. whisper's waves get
+    :func:`frames_of`'s frames through :func:`scheduler_frames`, and the
+    encoder's time in ``init_decode_state`` and the cross caches' bytes
+    are logged; its invariant holds the decoder's self- and
+    cross-attention outputs. The VLM serves text: its invariant's forward
+    has an empty prefix. An MoE forward runs the invariant at capacity
+    factor E / k, whose capacity is the group's length, so no pair can
+    drop (a token picks an expert once; decode, one token a group of
+    capacity 8, drops none). ``tag`` and ``path`` label its lines."""
     import dataclasses
     import torch
     from repro_torch import prng
@@ -3001,14 +3213,16 @@ def phase_lm_serve(params, cfg, dev, requests=LM_SERVE["requests"],
     from repro_torch.models import (decode_step, forward_train,
                                     init_decode_state)
     from repro_torch.serving import BatchScheduler, prefill, serve_step
-    sched = BatchScheduler(params, cfg, max_batch=max_batch, max_len=MAX_LEN)
     reqs = make_requests(cfg, requests, 0, max_new)
+    frames = frames_of(cfg, max_batch, dev)
+    sched = BatchScheduler(params, cfg, max_batch=max_batch, max_len=MAX_LEN)
     for r in reqs:
         sched.submit(r)
     ops.reset_launch_counts()
     sync()
     t0 = time.perf_counter()
-    done = sched.run()
+    with scheduler_frames(frames):
+        done = sched.run()
     sync()
     wall = time.perf_counter() - t0
     log("launches", path=path, **ops.launch_counts())
@@ -3016,10 +3230,29 @@ def phase_lm_serve(params, cfg, dev, requests=LM_SERVE["requests"],
     assert len(done) == requests and all(
         r.done and 1 <= len(r.output) <= max_new for r in done)
     assert all(0 <= t < cfg.vocab_size for r in done for t in r.output)
-    # ms per serve_step at B = max_batch, from a prefilled wave
+    # ms per serve_step at B = max_batch, from a prefilled wave; whisper's
+    # encoder runs once, in init_decode_state
+    extra = {}
+    if frames is not None:
+        sync()
+        t0 = time.perf_counter()
+        init_decode_state(params, cfg, max_batch, MAX_LEN,
+                          encoder_frames=frames)
+        sync()
+        extra["init_decode_state_encoder_ms"] = (
+            time.perf_counter() - t0) * 1e3
     prompts = torch.stack([torch.tensor(r.prompt[:3], device=dev)
                            for r in reqs[:max_batch]])
-    logits, state = prefill(params, cfg, prompts, MAX_LEN)
+    logits, state = prefill(params, cfg, prompts, MAX_LEN,
+                            encoder_frames=frames)
+    if frames is not None:
+        got = sum(t.numel() * t.element_size()
+                  for kv in state.cross for t in kv)
+        want = (cfg.num_layers * 2 * max_batch * cfg.num_kv_heads
+                * cfg.encoder_seq * cfg.head_dim * logits.element_size())
+        extra.update(cross_cache_bytes=got, analytic_cross_cache_bytes=want,
+                     cross_bytes_equal=got == want)
+        assert got == want, extra
     cur = torch.argmax(logits, -1).to(torch.int32)
     steps = 8
     sync()
@@ -3032,37 +3265,46 @@ def phase_lm_serve(params, cfg, dev, requests=LM_SERVE["requests"],
     log(f"{tag} lm_serve", requests=requests, max_batch=max_batch,
         max_len=MAX_LEN, tokens=total, wall_s=wall,
         tokens_per_s=total / wall, serve_step_ms=step_ms, batch=max_batch,
-        outputs=json.dumps([r.output for r in done]))
+        **extra, outputs=json.dumps([r.output for r in done]))
     # the serving invariant at full width, float32: the decode logits and
-    # each layer's attention output against the forward's, then the same
-    # with a planted decode fault (the newest key left out) to show which
-    # of the two gates sees it
+    # each attention output against the forward's, then the same with each
+    # planted decode fault to show which of the two gates sees it
     f32 = dataclasses.replace(cfg, dtype="float32")
     if cfg.family == "moe":
         f32 = dataclasses.replace(f32, moe_capacity_factor=(
             cfg.num_experts / cfg.num_experts_per_tok))
     toks = prng.randint(prng.PRNGKey(2, dev), (1, invariant_seq), 0,
                         cfg.vocab_size)
+    fr1 = frames_of(cfg, 1, dev)
+    batch = {"tokens": toks}
+    if fr1 is not None:
+        batch["encoder_frames"] = fr1
+    if cfg.family == "vlm":
+        batch["prefix_embeds"] = torch.zeros(1, 0, cfg.d_model, device=dev)
     with lm_taps() as (want_attn, _), torch.inference_mode():
-        want, _ = forward_train(params, {"tokens": toks}, f32)
+        want, _ = forward_train(params, batch, f32)
     lim = ATTN_REL["float32"]
-    # one attention output a layer, or a shared-block site (zamba2), or
-    # none (rwkv6)
-    n_attn = len(want_attn)
     for what, target, fault in decode_faults(cfg):
         with contextlib.ExitStack() as stack:
             attn, _ = stack.enter_context(lm_taps())
             if fault is not None:
                 stack.enter_context(patched(*target, fault))
-            st = init_decode_state(params, f32, 1, invariant_seq)
+            st = init_decode_state(params, f32, 1, invariant_seq,
+                                   encoder_frames=fr1)
+            del attn[:]                    # the encoder's, in the state
             rel = 0.0
             for t in range(invariant_seq):
                 got, st = decode_step(params, st, toks[:, t], f32)
                 w = want[:, t]
                 rel = max(rel, float((got - w).norm() / w.norm()))
+        # attention outputs a step: one a layer (self, and whisper's
+        # cross), a shared-block site (zamba2), or none (rwkv6); the
+        # forward's last ones (whisper's encoder runs first)
+        n_attn = len(attn) // invariant_seq
         per_layer = [torch.cat(attn[i::n_attn], dim=1)
                      for i in range(n_attn)]
-        att = max_layer_rel(per_layer, want_attn) if n_attn else (0.0, 0.0)
+        att = (max_layer_rel(per_layer, want_attn[len(want_attn) - n_attn:])
+               if n_attn else (0.0, 0.0))
         sites = {}
         if st.shared is not None:
             # each site's attention wrote its own cache
@@ -3072,7 +3314,8 @@ def phase_lm_serve(params, cfg, dev, requests=LM_SERVE["requests"],
                         for a, b in zip(st.shared, st.shared[1:])))
         log(f"{tag} lm_serve_invariant", run=what, dtype="float32",
             seq=invariant_seq, max_rel_err=rel, limit=1e-3,
-            logits_ok=rel <= 1e-3, attn_max_rel_frobenius=att[0],
+            logits_ok=rel <= 1e-3, attn_outputs_a_step=n_attn,
+            attn_max_rel_frobenius=att[0],
             attn_max_rel_frobenius_last_eighth=att[1], attn_limit=lim,
             attn_ok=max(att) <= lim if n_attn else "no attention", **sites)
         if fault is None:
@@ -3080,7 +3323,7 @@ def phase_lm_serve(params, cfg, dev, requests=LM_SERVE["requests"],
             assert max(att) <= lim, \
                 "decode attention outputs stray from the forward's"
             assert sites.get("distinct_site_caches", True), sites
-        elif what == "fault":
+        elif what in ("fault", "cross_fault"):
             assert max(att) > lim, "the attention gate misses a planted fault"
         else:
             assert rel > 1e-3, "the logits gate misses a dropped state"
@@ -3094,14 +3337,16 @@ def phase_lm_cpu(cfg, dev, requests=LM_SERVE["requests"],
     set of weights: equal tokens (a differing token fails unless the CPU's
     top-2 logit margin at that step is below 1e-4, printed), and each
     decode step's logits and attention outputs within ``ATTN_REL``, which
-    a planted decode fault on the card must fail. ``tag`` labels its
-    lines."""
+    a planted decode fault on the card must fail. whisper's waves get
+    :func:`frames_of`'s frames, made on the CPU, through
+    :func:`scheduler_frames`. ``tag`` labels its lines."""
     import copy
     import torch
     from repro_torch.launch.serve import MAX_LEN, make_requests
     from repro_torch.models import init_params
     from repro_torch.serving import BatchScheduler, prefill
     cpu_params = init_params(cfg, 0, device="cpu")
+    frames = frames_of(cfg, max_batch, "cpu")
     runs, steps = {}, {}
     # the attention fault where the model attends, else a dropped state
     _, target, planted = decode_faults(cfg)[1]
@@ -3115,6 +3360,7 @@ def phase_lm_cpu(cfg, dev, requests=LM_SERVE["requests"],
             sched.submit(r)
         with contextlib.ExitStack() as stack:
             _, steps[where] = stack.enter_context(lm_taps())
+            stack.enter_context(scheduler_frames(frames))
             if fault is not None:
                 stack.enter_context(patched(*target, fault))
             t0 = time.perf_counter()
@@ -3161,7 +3407,9 @@ def phase_lm_cpu(cfg, dev, requests=LM_SERVE["requests"],
         wave = runs["cpu"][i - i % max_batch: i - i % max_batch + max_batch]
         width = max(len(r.prompt) for r in wave)
         seq = [1] * (width - len(b.prompt)) + b.prompt + b.output[:j]
-        logits, _ = prefill(cpu_params, cfg, torch.tensor([seq]), MAX_LEN)
+        row = None if frames is None else frames[i % max_batch][None]
+        logits, _ = prefill(cpu_params, cfg, torch.tensor([seq]), MAX_LEN,
+                            encoder_frames=row)
         top = torch.topk(logits[0].float(), 2).values
         margin = float(top[0] - top[1])
         log(f"{tag} lm_cpu_differ", rid=b.rid, step=j, cuda=a.output[j],
@@ -3232,8 +3480,8 @@ def flash_attention_row(launches, cfg, dev, batch=LM_PREFILL["batch"],
     one SDPA call computes the same function. SDPA's own reading at 32k
     under the same gate is logged as information. The bf16 calls must run
     the tensor-core kernel, the float32 call the SIMT one. ``checks=False``
-    leaves the three check shapes out (and so the plain ms); ``tag``
-    labels the lines."""
+    leaves the three check shapes out, and the plain ms is then the
+    chunked version's at 32k; ``tag`` labels the lines."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -3289,6 +3537,10 @@ def flash_attention_row(launches, cfg, dev, batch=LM_PREFILL["batch"],
     nbytes = 2 * (2 * B * Hq * S * D + 2 * B * Hkv * S * D)
     bound = max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
     errs, plain_ms, plain_reps = [], None, None
+    if not checks:
+        # the plain version takes 0.4-0.9 s at 32k: one call, warm
+        plain_ms, plain_reps = time_ms(lambda: kref.attention_chunked(
+            q, k, v), reps=1, warmups=1), 1
     for what, (b, hq, hkv, sq, skv, d, window, causal, cap, qo, dt,
                tol) in (FA_CHECKS.items() if checks else ()):
         dtype = getattr(torch, dt)
@@ -3335,25 +3587,27 @@ def flash_attention_row(launches, cfg, dev, batch=LM_PREFILL["batch"],
         reps=reps, library_reps=lib_reps, plain_reps=plain_reps,
         max_abs_err_32k_vs_chunked=err32k,
         plain="attention_ref at S=4096 (llama heads); at 32k it would "
-        "hold 137 GB of logits" if checks else "not measured",
+        "hold 137 GB of logits" if checks else
+        "attention_chunked at the row's shape",
         library="SDPA flash backend, enable_gqa", flop=flops, bytes=nbytes,
         shape=f"B={B} Hq={Hq} Hkv={Hkv} S={S} D={D}")
     return r
 
 
-def phase_lm_profile(params, cfg, toks, state, cur, tag="13", stages=()):
-    """Where one 32k prefill forward and one ``serve_step`` at B = 4 spend
-    their time: wall, device-busy and idle share, the port's kernels,
-    ``flash_attention``'s share, the five costliest kernels, and the
-    device ms split by :func:`stage_ms` into attention, ``stages`` (the
-    MoE layer's ``record_function`` ranges) and the rest."""
+def phase_lm_profile(params, cfg, inputs, state, cur, tag="13", stages=()):
+    """Where one 32k prefill forward (on the batch ``inputs``) and one
+    ``serve_step`` at B = 4 spend their time: wall, device-busy and idle
+    share, the port's kernels, ``flash_attention``'s share, the five
+    costliest kernels, and the device ms split by :func:`stage_ms` into
+    attention, ``stages`` (the models' ``record_function`` ranges) and the
+    rest."""
     import torch
     from repro_torch.models import forward_train
     from repro_torch.serving import serve_step
 
     def prefill_fwd():
         with torch.inference_mode():
-            forward_train(params, {"tokens": toks}, cfg)
+            forward_train(params, inputs, cfg)
 
     for what, fn in (("lm_prefill_32k", prefill_fwd),
                      ("lm_serve_step", lambda: serve_step(params, state, cur,
@@ -3504,23 +3758,24 @@ def phase_moe(dev):
         active_param_count=cfg.active_param_count,
         experts=cfg.num_experts, top_k=cfg.num_experts_per_tok,
         capacity_factor=cfg.moe_capacity_factor)
-    params, toks, fa_launches, _ = phase_lm_prefill(
+    params, inputs, fa_launches, _, _ = phase_lm_prefill(
         cfg, dev, tag="20", path="moe_prefill")
     assert fa_launches == cfg.num_layers == 16, fa_launches
+    toks = inputs["tokens"]
     phase_moe_layer(params, cfg, toks)
     state, cur = phase_lm_serve(params, cfg, dev, tag="20",
                                 path="moe_serve")
     flash_attention_row(fa_launches, cfg, dev, checks=False, tag="20")
-    phase_lm_profile(params, cfg, toks, state, cur, tag="20",
+    phase_lm_profile(params, cfg, inputs, state, cur, tag="20",
                      stages=MOE_STAGES)
     peak = torch.cuda.max_memory_allocated()
-    del params, toks, state, cur
+    del params, toks, inputs, state, cur
     log("20 olmoe_done", seconds=time.perf_counter() - t0,
         peak_mem_bytes=peak, **free_device_memory())
     phase_lm_cpu(reduced_config(cfg), dev, tag="20")
     phi = dataclasses.replace(get_config(MOE_PHI["arch"]),
                               num_layers=MOE_PHI["layers"])
-    params, _, launches, _ = phase_lm_prefill(
+    params, _, launches, _, _ = phase_lm_prefill(
         phi, dev, seq=MOE_PHI["seq"], gate2_seq=MOE_PHI["seq"],
         tag="20 phi", path="moe_phi_prefill")
     assert launches == MOE_PHI["layers"], launches
@@ -3787,7 +4042,7 @@ def phase_recurrent_arch(arch: str, dev) -> dict:
     del st, cur1
     if sites:
         flash_attention_row(sites, cfg, dev, checks=False, tag="21")
-    phase_lm_profile(params, cfg, toks, state, cur, tag="21",
+    phase_lm_profile(params, cfg, {"tokens": toks}, state, cur, tag="21",
                      stages=RECURRENT_STAGES[cfg.family])
     row = scan_row(kernel, scan_in, launches[kernel], err, "21")
     peak = torch.cuda.max_memory_allocated()
@@ -3854,6 +4109,185 @@ def phase_recurrent(dev) -> list:
     rows = [phase_recurrent_arch(arch, dev) for arch in RECURRENT_ARCHS]
     log("21 done", seconds=time.perf_counter() - t0, **free_device_memory())
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 22 and 23: the encoder-decoder (whisper-medium) and VLM
+# (llava-next-mistral-7b) families at full width and depth
+# ---------------------------------------------------------------------------
+
+def log_tree(cfg, params, tag: str) -> None:
+    """The config's analytic ``param_count`` beside the module tree's
+    count: the tree less its norm scales equals it."""
+    total = sum(p.numel() for p in params.parameters())
+    norms = sum(p.numel() for n, p in params.named_parameters()
+                if n.endswith(".scale"))
+    log(f"{tag} config", arch=cfg.name, family=cfg.family,
+        layers=cfg.num_layers, encoder_layers=cfg.encoder_layers,
+        d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim, param_count=cfg.param_count,
+        tree_params=total, norm_params=norms,
+        equal=total - norms == cfg.param_count)
+    assert total - norms == cfg.param_count
+
+
+def flash_attention_shape_row(name: str, shape, launches: int, dev,
+                              tag: str) -> dict:
+    """``flash_attention`` non-causal at ``shape`` (B, Hq, Hkv, Sq, Skv,
+    D; bf16, random q, k and v): against the chunked version (max abs
+    error ≤ 2e-2; relative Frobenius over all rows and the last eighth
+    within ``ATTN_REL``), a gate the reference's padding fault
+    (:func:`kv_padded_to_tile`) must fail where Skv is off the 64-key
+    tile; the kernel's ms, its bound (the live pairs' operations at 989
+    TFLOP/s, or the bytes at 3.35 TB/s, the larger), the plain chunked
+    version's ms and SDPA's, and the kernel's and SDPA's device ms alone
+    (logged only). Returns its row of the ``kernels`` line."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    B, Hq, Hkv, Sq, Skv, D = shape
+    gen = torch.Generator(device=dev).manual_seed(Sq + Skv)
+    q, k, v = (torch.randn((B, h, n, D), generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+               for h, n in ((Hq, Sq), (Hkv, Skv), (Hkv, Skv)))
+    kern = lambda: ops.attention(q, k, v, causal=False,  # noqa: E731
+                                 impl="cuda")
+    out = kern()
+    want = kref.attention_chunked(q, k, v, causal=False)
+    err = float((out.float() - want.float()).abs().max())
+    rel = rel_rows(out, want, dim=2)
+    lim = ATTN_REL["bfloat16"]
+    ok = err <= 2e-2 and max(rel) <= lim
+    bad = kv_padded_to_tile(lambda *a, **kw: ops.attention(
+        *a, impl="cuda", **kw))(q, k, v, causal=False)
+    ctl = rel_rows(bad, want, dim=2)
+    del bad, want
+    ms, reps = time_ms_auto(kern)
+    plain_ms, plain_reps = time_ms_auto(
+        lambda: kref.attention_chunked(q, k, v, causal=False))
+    lib = sdpa_call(q, k, v, False, None, None, 0)
+    lib_ms, lib_reps = time_ms_auto(lib)
+    # at the short shapes the events above may time the host's launch
+    # path: the device time alone, each call queued behind a spin
+    dev_ms, host_ms, spin_ms = queued_ms(kern)
+    lib_dev_ms, lib_host_ms, lib_spin_ms = queued_ms(lib)
+    design = kernel_design(kern)
+    flops = 4 * B * Hq * live_pairs(Sq, Skv, False, None, 0) * D
+    nbytes = 2 * (2 * B * Hq * Sq * D + 2 * B * Hkv * Skv * D)
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    r = dict(name=f"flash_attention:{name}", route="cuda",
+             source="src/repro_torch/kernels/csrc/fa_hopper.cuh",
+             replaces="src/repro/kernels/flash_attention.py:110",
+             launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+             bound_ms=max(t_ops, t_bytes),
+             bound_by="operations" if t_ops >= t_bytes else "bytes",
+             library_ms=lib_ms)
+    log(f"{tag} flash_attention_shape", **{
+        k: v for k, v in r.items() if k not in ("source", "replaces",
+                                                "route")},
+        shape=f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} D={D} "
+        "causal=False", dtype="bfloat16", design=design,
+        rel_frobenius=rel[0], rel_frobenius_last_eighth=rel[1], limit=lim,
+        ok=ok, padded_fault_rel_frobenius=ctl[0],
+        padded_fault_caught=max(ctl) > lim, tflop_per_s=flops / ms / 1e9,
+        flop=flops, bytes=nbytes, operations_ms=t_ops, bytes_ms=t_bytes,
+        reps=reps, plain_reps=plain_reps, library_reps=lib_reps,
+        device_ms=dev_ms, library_device_ms=lib_dev_ms,
+        queue_host_ms=host_ms, library_queue_host_ms=lib_host_ms,
+        spin_ms=spin_ms, spin_covers_queue=max(host_ms, lib_host_ms) < min(
+            spin_ms, lib_spin_ms),
+        plain="attention_chunked at the row's shape",
+        library="SDPA, enable_gqa, is_causal=False")
+    assert ok, f"flash_attention strays from the chunked version ({name})"
+    assert design in ("wgmma", "not measured"), design
+    if Skv % 64:
+        assert max(ctl) > lim, f"the gate misses the padding fault ({name})"
+    return r
+
+
+def phase_encdec(dev) -> list:
+    """Phase 22: whisper-medium at full width and depth (24 + 24 layers,
+    random, seed 0): the tree's count; phase 14's prefill and gates on
+    32,768 decoder tokens over 1,500 frames (72 ``flash_attention``
+    launches: 24 encoder, 24 self, 24 cross; the float32 gate's planted
+    fault the reference's K/V padding); phase 15 with the launcher's 4
+    requests, their wave's ``prefill`` given the frames, and its
+    invariant (self- and cross-attention outputs; a zeroed cross K/V
+    planted);
+    ``flash_attention`` at the encoder, cross and decoder-self shapes and
+    two checks; a trace of the prefill and a ``serve_step`` by stage;
+    phase 16 on the reduced whisper. Returns its three ``kernels``
+    rows."""
+    import torch
+    from repro_torch.configs.registry import get_config, reduced_config
+    t0 = time.perf_counter()
+    cfg = get_config(ENCDEC_ARCH)
+    params, inputs, _, _, by_shape = phase_lm_prefill(
+        cfg, dev, tag="22", path="encdec_prefill",
+        gate2_fault=kv_padded_to_tile)
+    log_tree(cfg, params, "22")
+    # each row's launches: the prefill's count at the row's shape
+    B, S = LM_PREFILL["batch"], LM_PREFILL["seq"]
+    shapes = {**FA_ENCDEC, "whisper_self": (B, cfg.num_heads, cfg.num_kv_heads,
+                                            S, S, cfg.head_dim)}
+    per = {name: by_shape.get(((b, hq, sq, d), (b, hkv, skv, d),
+                               name == "whisper_self"), 0)
+           for name, (b, hq, hkv, sq, skv, d) in shapes.items()}
+    want = {"whisper_encoder": cfg.encoder_layers,
+            "whisper_cross": cfg.num_layers, "whisper_self": cfg.num_layers}
+    log("22 launches_by_row", **per, equal=per == want)
+    assert per == want, per
+    state, cur = phase_lm_serve(params, cfg, dev, tag="22",
+                                path="encdec_serve",
+                                requests=LM_SERVE["max_batch"])
+    rows = [flash_attention_shape_row(name, shape, per[name], dev, "22")
+            for name, shape in FA_ENCDEC.items()]
+    for name, shape in FA_ENCDEC_CHECKS.items():
+        flash_attention_shape_row(name, shape, 0, dev, "22")
+    self_row = flash_attention_row(per["whisper_self"], cfg, dev,
+                                   checks=False, tag="22")
+    rows.append({**self_row, "name": "flash_attention:whisper_self"})
+    phase_lm_profile(params, cfg, inputs, state, cur, tag="22",
+                     stages=ENCDEC_STAGES)
+    peak = torch.cuda.max_memory_allocated()
+    del params, inputs, state, cur
+    log("22 whisper_done", seconds=time.perf_counter() - t0,
+        peak_mem_bytes=peak, **free_device_memory())
+    phase_lm_cpu(reduced_config(cfg), dev, tag="22")
+    log("22 done", seconds=time.perf_counter() - t0, **free_device_memory())
+    return rows
+
+
+def phase_vlm(dev) -> list:
+    """Phase 23: llava-next-mistral-7b at full width and depth (32 layers,
+    32/8 heads of 128, random, seed 0): the tree's count; phase 14's
+    prefill and gates on 2,880 patch embeddings + 29,888 tokens (32
+    launches, the prefix positions in every gate; float32 at 2,880 +
+    1,216); phase 15's launcher run (text only) and invariant against a
+    forward with an empty prefix; ``flash_attention`` at its shape
+    against SDPA; a trace of the prefill and a ``serve_step``; the peak
+    memory, under the card's 80 GB; phase 16 on the reduced llava.
+    Returns its ``kernels`` row."""
+    import torch
+    from repro_torch.configs.registry import get_config, reduced_config
+    t0 = time.perf_counter()
+    cfg = get_config(VLM_ARCH)
+    params, inputs, fa_launches, _, _ = phase_lm_prefill(
+        cfg, dev, tag="23", path="vlm_prefill")
+    log_tree(cfg, params, "23")
+    state, cur = phase_lm_serve(params, cfg, dev, tag="23",
+                                path="vlm_serve")
+    row = flash_attention_row(fa_launches, cfg, dev, checks=False, tag="23")
+    phase_lm_profile(params, cfg, inputs, state, cur, tag="23")
+    peak = torch.cuda.max_memory_allocated()
+    del params, inputs, state, cur
+    log("23 llava_done", seconds=time.perf_counter() - t0,
+        peak_mem_bytes=peak, under_80gb=peak < 80e9, **free_device_memory())
+    assert peak < 80e9, peak
+    phase_lm_cpu(reduced_config(cfg), dev, tag="23")
+    log("23 done", seconds=time.perf_counter() - t0, **free_device_memory())
+    return [{**row, "name": "flash_attention:llava"}]
 
 
 # the port's CUDA kernels by their function names in a trace
@@ -3941,7 +4375,9 @@ def stage_ms(events, stages) -> dict:
     ``flash_attention`` kernels, by name), each of ``stages`` (the kernels
     whose launch, by its correlation id, lies inside a
     ``record_function`` range of that name on the launching thread; the
-    innermost range wins) and ``other`` (the rest)."""
+    innermost range wins) and ``other`` (the rest); and ``attention@s``
+    for the attention kernels launched inside stage ``s``, where any
+    are."""
     ranges = [(e.get("tid"), float(e["ts"]),
                float(e["ts"]) + float(e.get("dur", 0)), e["name"])
               for e in events if e.get("cat") == "user_annotation"
@@ -3955,10 +4391,6 @@ def stage_ms(events, stages) -> dict:
         if e.get("cat") != "kernel":
             continue
         ms = float(e.get("dur", 0)) / 1e3
-        if any(k in e.get("name", "") for k in ("fa_wgmma_kernel",
-                                                 "flash_attention_kernel")):
-            out["attention"] += ms
-            continue
         stage = "other"
         where = launches.get(e.get("args", {}).get("correlation"))
         if where is not None:
@@ -3966,6 +4398,13 @@ def stage_ms(events, stages) -> dict:
                       if r[0] == where[0] and r[1] <= where[1] <= r[2]]
             if inside:
                 stage = min(inside, key=lambda r: r[2] - r[1])[3]
+        if any(k in e.get("name", "") for k in ("fa_wgmma_kernel",
+                                                 "flash_attention_kernel")):
+            out["attention"] += ms
+            if stage != "other":
+                key = "attention@" + stage
+                out[key] = out.get(key, 0.0) + ms
+            continue
         out[stage] += ms
     return out
 
@@ -4153,7 +4592,7 @@ def main() -> int:
     # and the reduced model's tokens against the CPU's
     from repro_torch.configs.registry import get_config, reduced_config
     lm_cfg = get_config(LM_ARCH)
-    params, toks, fa_launches, lm_peak = phase_lm_prefill(lm_cfg, dev)
+    params, inputs, fa_launches, lm_peak, _ = phase_lm_prefill(lm_cfg, dev)
     state, cur = phase_lm_serve(params, lm_cfg, dev)
     phase_lm_cpu(reduced_config(lm_cfg), dev)
     rows = kernel_rows(svc, index, hubs, launches, dev,
@@ -4161,13 +4600,13 @@ def main() -> int:
                        sharded["fused"].ensure_index(), ell, pi)
     rows.append(flash_attention_row(fa_launches, lm_cfg, dev))
     phase_profile(svc, stream_svc, sharded["loop"], erasure_svc, g)
-    phase_lm_profile(params, lm_cfg, toks, state, cur)
+    phase_lm_profile(params, lm_cfg, inputs, state, cur)
     for s in (svc, stream_svc, erasure_svc, *sharded.values()):
         s.close()
     # the MoE family, once the llama model and the FrogWild! tensors are
     # gone
     peak = max(peak, erasure_peak, lm_peak, torch.cuda.max_memory_allocated())
-    del (params, toks, state, cur, svc, stream_svc, erasure_svc, sharded,
+    del (params, inputs, state, cur, svc, stream_svc, erasure_svc, sharded,
          index, res, pi, results, hubs, ell, erasure_runs, g, s)
     log("20 released", **free_device_memory())
     torch.cuda.reset_peak_memory_stats()
@@ -4175,8 +4614,16 @@ def main() -> int:
     # the recurrent families, once the MoE models are gone
     torch.cuda.reset_peak_memory_stats()
     rows.extend(phase_recurrent(dev))
+    peak = max(peak, moe_peak, torch.cuda.max_memory_allocated())
+    # the encoder-decoder and VLM families, once the recurrent models are
+    # gone
+    torch.cuda.reset_peak_memory_stats()
+    rows.extend(phase_encdec(dev))
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    rows.extend(phase_vlm(dev))
     log("done", seconds=time.perf_counter() - t_all,
-        peak_mem_bytes=max(peak, moe_peak, torch.cuda.max_memory_allocated()))
+        peak_mem_bytes=max(peak, torch.cuda.max_memory_allocated()))
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,11 +7,13 @@ The LLM architecture registry below (``ARCHS``, ``get_config``,
 surface (``__all__``), as in the reference: the model tests and
 ``launch/serve.py`` import it from this module by name.
 
-The four dense architectures, the two MoE ones, rwkv6-3b (``"ssm"``) and
-zamba2-1.2b (``"hybrid"``) are ported; ``get_config`` of the other two
-raises ``NotImplementedError`` naming their ``ROADMAP.md`` item. The
+Every architecture of the reference is ported: the four dense ones, the
+two MoE ones, rwkv6-3b (``"ssm"``), zamba2-1.2b (``"hybrid"``),
+whisper-medium (``"encdec"``) and llava-next-mistral-7b (``"vlm"``). The
 reference's ``input_specs`` / ``param_specs`` are ``eval_shape`` tooling
-and come with the launch tools (Queue 1 item 15).
+and come with the launch tools (Queue 1 item 15); a vlm batch's text is
+``S − num_prefix_embeddings`` tokens and an encdec batch carries
+``encoder_seq`` frames, as its ``input_specs`` gives them.
 
 Shape semantics:
   * train_4k     — train_step   (tokens+labels, seq 4096, global batch 256)
@@ -61,14 +63,12 @@ _ARCH_MODULES = {
     "starcoder2-7b": "repro_torch.configs.starcoder2_7b",
     "gemma3-4b": "repro_torch.configs.gemma3_4b",
     "llama3.2-1b": "repro_torch.configs.llama32_1b",
+    "llava-next-mistral-7b": "repro_torch.configs.llava_next_mistral_7b",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi35_moe",
+    "whisper-medium": "repro_torch.configs.whisper_medium",
     "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
     "zamba2-1.2b": "repro_torch.configs.zamba2_1b",
-}
-_NOT_PORTED = {
-    "llava-next-mistral-7b": "14 (the vlm branch)",
-    "whisper-medium": "14 (the encdec branch)",
 }
 ARCHS = tuple(_ARCH_MODULES)
 
@@ -90,13 +90,9 @@ SHAPES: Dict[str, ShapeSpec] = {
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch} is not ported to repro_torch yet (ROADMAP.md Queue 1 "
-            f"item {_NOT_PORTED[arch]})")
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: "
-                       f"{sorted(_ARCH_MODULES) + sorted(_NOT_PORTED)}")
+                       f"{sorted(_ARCH_MODULES)}")
     return importlib.import_module(_ARCH_MODULES[arch]).CONFIG
 
 
@@ -106,13 +102,14 @@ def shape_applicable(cfg: ModelConfig, shape: str) -> Tuple[bool, str]:
     if spec.name == "long_500k" and not cfg.subquadratic:
         return False, ("pure full-attention arch — 500k decode needs "
                        "sub-quadratic attention (skip per brief)")
+    if cfg.family == "encdec" and spec.name == "long_500k":
+        return False, "enc-dec ASR: 30s audio yields no 500k decode context"
     return True, ""
 
 
 def reduced_config(cfg: ModelConfig) -> ModelConfig:
     """Same wiring, toy width: one forward/decode runs on a CPU. The
-    reference's rules for the dense, MoE, ``"ssm"`` and ``"hybrid"``
-    families."""
+    reference's rules for every family."""
     kw: Dict[str, Any] = dict(
         name=cfg.name + "-smoke",
         family=cfg.family,
@@ -140,4 +137,9 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
         kw.update(ssm_head_dim=32, ssm_state=16, num_kv_heads=4)
     if cfg.family == "hybrid":
         kw.update(shared_attn_every=2, num_layers=4)
+    if cfg.family == "encdec":
+        kw.update(encoder_layers=2, encoder_seq=16, num_layers=2,
+                  num_kv_heads=4)
+    if cfg.family == "vlm":
+        kw.update(num_prefix_embeddings=4)
     return ModelConfig(**kw)

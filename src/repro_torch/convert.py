@@ -2,7 +2,7 @@
 
 The reference (``repro``) hands out graphs, walk-index slabs (dense or as
 per-shard blocks), streamed-step slab layouts, hybrid ELL layouts, PRNG
-keys and LM parameter trees (every ported family) as JAX or numpy arrays;
+keys and LM parameter trees (every family) as JAX or numpy arrays;
 ``np.asarray`` of them gives plain arrays, and these helpers turn those
 into the port's objects, so both packages compute on the same graph,
 slab, layout, key and weights.
@@ -118,11 +118,11 @@ def key_from_jax(key_data, device: DeviceLike = None) -> torch.Tensor:
 def model_config_from_reference(fields: Mapping[str, Any]) -> ModelConfig:
     """The port's ``ModelConfig`` for the reference config whose
     ``dataclasses.asdict`` is ``fields``: the fields the ported paths read
-    (the MoE, SSM and hybrid fields among them), with ``attn_impl``
-    renamed (``"pallas"`` → ``"auto"``, ``"jnp_flash"`` → ``"torch"``).
-    The other fields (``ssm_state_sharding``, the families not ported)
-    are dropped (no ported path reads them), so such a family raises
-    ``ModelConfig``'s ``NotImplementedError``."""
+    (the MoE, SSM, hybrid, encoder-decoder and VLM fields among them),
+    with ``attn_impl`` renamed (``"pallas"`` → ``"auto"``,
+    ``"jnp_flash"`` → ``"torch"``). The reference's other fields
+    (``ssm_state_sharding``, ``attn_bf16_probs``) are dropped: no ported
+    path reads them."""
     names = {f.name for f in dataclasses.fields(ModelConfig)}
     kw = {k: v for k, v in fields.items() if k in names}
     impl = kw.get("attn_impl", "auto")
@@ -132,6 +132,8 @@ def model_config_from_reference(fields: Mapping[str, Any]) -> ModelConfig:
 
 # matrices the reference applies as ``x @ W`` (``[in, out]``), transposed to
 # the port's ``[out, in]``; every other leaf keeps its layout
+_ATTN_MATRICES = ("wq", "wk", "wv", "wo")
+_MLP_MATRICES = ("w_up", "w_gate", "w_down")
 _TIME_MIX_MATRICES = ("w_r", "w_k", "w_v", "w_g", "w_o", "w_lora_a",
                       "w_lora_b")
 _MAMBA_MATRICES = ("w_in_z", "w_in_x", "w_in_B", "w_in_C", "w_in_dt",
@@ -151,58 +153,75 @@ def _leaves(prefix: str, tree: Mapping[str, Any], i=None,
     return out
 
 
+def _block_leaves(pre: str, blocks: Mapping[str, Any], i: int,
+                  cfg: ModelConfig) -> Dict[str, np.ndarray]:
+    """Layer ``i`` of a stacked block tree: its norm scales and its
+    family's modules (whisper's ``cross_attn`` where the block has one)."""
+    state = {pre + ln + ".scale": np.asarray(blocks[ln]["scale"])[i]
+             for ln in ("ln1", "ln2", "ln", "ln_cross") if ln in blocks}
+    if cfg.family == "ssm":
+        state.update(_leaves(pre + "time_mix.", blocks["time_mix"], i,
+                             _TIME_MIX_MATRICES))
+        state.update(_leaves(pre + "channel_mix.", blocks["channel_mix"], i,
+                             ("w_in", "w_out")))
+        return state
+    if cfg.family == "hybrid":
+        state.update(_leaves(pre + "mamba.", blocks["mamba"], i,
+                             _MAMBA_MATRICES))
+        return state
+    for attn in ("attn", "cross_attn"):
+        if attn in blocks:
+            state.update(_leaves(f"{pre}{attn}.", blocks[attn], i,
+                                 _ATTN_MATRICES))
+    if cfg.family == "moe":
+        state.update(_leaves(pre + "moe.", blocks["moe"], i, ("router",)))
+    else:
+        state.update(_leaves(pre + "mlp.", blocks["mlp"], i, _MLP_MATRICES))
+    return state
+
+
 def model_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
                             device: DeviceLike = None) -> Transformer:
     """The port's parameter modules from the reference's tree (``embed``,
-    ``final_norm``, optional ``head``, ``blocks`` stacked ``[L, …]`` and,
-    for the hybrid family, ``shared_attn``), each leaf taken through
-    ``np.asarray``. The dense matrices (``head``, the attention and MLP
-    weights, the MoE ``router [L, d, E]``, the RWKV-6 and Mamba-2
-    projections applied as ``x @ W``) are transposed from the reference's
-    ``[in, out]`` to ``[out, in]``; the expert weights (``w_gate`` /
-    ``w_up [L, E, d, f]``, ``w_down [L, E, f, d]``), the vectors and the
-    conv taps ``conv_w [W, C]`` keep the reference's layout."""
+    ``final_norm``, optional ``head``, ``blocks`` stacked ``[L, …]`` —
+    or whisper's ``enc_blocks``, ``dec_blocks`` and ``enc_final_norm`` —
+    and, for the hybrid family, ``shared_attn``, for the VLM
+    ``vision_proj``), each leaf taken through ``np.asarray``. The dense
+    matrices (``head``, the attention, cross-attention and MLP weights,
+    the VLM's square projector, the MoE ``router [L, d, E]``, the RWKV-6
+    and Mamba-2 projections applied as ``x @ W``) are transposed from the
+    reference's ``[in, out]`` to ``[out, in]``; the expert weights
+    (``w_gate`` / ``w_up [L, E, d, f]``, ``w_down [L, E, f, d]``), the
+    vectors and the conv taps ``conv_w [W, C]`` keep the reference's
+    layout."""
     dev = resolve_device(device)
     params = init_params(cfg, device="meta")
-    blocks = tree["blocks"]
     state: Dict[str, np.ndarray] = {
         "embed.embedding": tree["embed"]["embedding"],
         "final_norm.scale": tree["final_norm"]["scale"],
     }
     if params.head is not None:
         state["head.kernel"] = np.asarray(tree["head"]["kernel"]).T
-    attn = ("wq", "wk", "wv", "wo")
-    mlp = ("w_up", "w_gate", "w_down")
-    for i in range(cfg.num_layers):
-        pre = f"blocks.{i}."
-        for ln in ("ln1", "ln2", "ln"):
-            if ln in blocks:
-                state[pre + ln + ".scale"] = np.asarray(
-                    blocks[ln]["scale"])[i]
-        if cfg.family == "ssm":
-            state.update(_leaves(pre + "time_mix.", blocks["time_mix"], i,
-                                 _TIME_MIX_MATRICES))
-            state.update(_leaves(pre + "channel_mix.",
-                                 blocks["channel_mix"], i,
-                                 ("w_in", "w_out")))
-            continue
-        if cfg.family == "hybrid":
-            state.update(_leaves(pre + "mamba.", blocks["mamba"], i,
-                                 _MAMBA_MATRICES))
-            continue
-        state.update(_leaves(pre + "attn.", blocks["attn"], i, attn))
-        if cfg.family == "moe":
-            state.update(_leaves(pre + "moe.", blocks["moe"], i, ("router",)))
-        else:
-            state.update(_leaves(pre + "mlp.", blocks["mlp"], i, mlp))
+    if cfg.family == "encdec":
+        stacks = (("enc_blocks", cfg.encoder_layers),
+                  ("dec_blocks", cfg.num_layers))
+        state["enc_final_norm.scale"] = tree["enc_final_norm"]["scale"]
+    else:
+        stacks = (("blocks", cfg.num_layers),)
+    for name, n in stacks:
+        for i in range(n):
+            state.update(_block_leaves(f"{name}.{i}.", tree[name], i, cfg))
     if cfg.family == "hybrid":
         shared = tree["shared_attn"]
         for ln in ("ln", "ln2"):
             state[f"shared_attn.{ln}.scale"] = shared[ln]["scale"]
         state.update(_leaves("shared_attn.attn.", shared["attn"],
-                             transpose=attn))
+                             transpose=_ATTN_MATRICES))
         state.update(_leaves("shared_attn.mlp.", shared["mlp"],
-                             transpose=mlp))
+                             transpose=_MLP_MATRICES))
+    if cfg.family == "vlm":
+        state["vision_proj.kernel"] = np.asarray(
+            tree["vision_proj"]["kernel"]).T
     tensors = {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(
         dev, pdtype_of(cfg))
         for k, v in state.items()}

@@ -8,12 +8,15 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --smoke --device cpu --requests 6 --max-new 16
 
-``--arch`` is any ported architecture: the four dense ones, the MoE
-olmoe-1b-7b and phi3.5-moe-42b-a6.6b (whose 41.9 B parameters outgrow one
-card at full width; ``--smoke`` runs it), the attention-free rwkv6-3b and
+``--arch`` is any architecture of the registry: the four dense ones, the
+MoE olmoe-1b-7b and phi3.5-moe-42b-a6.6b (whose 41.9 B parameters outgrow
+one card at full width; ``--smoke`` runs it), the attention-free rwkv6-3b,
 the Mamba-2 hybrid zamba2-1.2b (whose decode carries a constant-size
-state a layer and, for zamba2, one KV cache a shared-block site). It runs
-on the card unless
+state a layer and, for zamba2, one KV cache a shared-block site) and
+llava-next-mistral-7b, served text only, as the reference's launcher
+serves it. whisper-medium's decode needs encoder frames, which the
+scheduler does not pass: it raises the reference's ``ValueError``. It
+runs on the card unless
 ``--device`` says otherwise, at the architecture's full width unless
 ``--smoke`` asks for the reduced config.
 Weights are random, from ``torch.Generator`` seed ``--seed``. The prompts

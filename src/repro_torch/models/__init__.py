@@ -1,5 +1,5 @@
-"""The LM stack's dense, MoE, RWKV-6 and Mamba-2 hybrid families on
-PyTorch (port of ``repro/models``).
+"""The LM stack's dense, MoE, RWKV-6, Mamba-2 hybrid, whisper
+encoder-decoder and LLaVA families on PyTorch (port of ``repro/models``).
 
 Parameters are ``nn.Module`` trees built by ``init_params``; the
 functions take them with a ``ModelConfig``, as the reference's take its
@@ -12,9 +12,11 @@ each token to its top-k experts under the reference's capacity dispatch.
 The RWKV-6 time mix (``models/rwkv6.py``, ``family="ssm"``) and the
 Mamba-2 layer (``models/mamba2.py``, ``family="hybrid"``, with zamba2's
 weight-shared attention block) run their time recurrences in the
-hand-written CUDA scans ``wkv6_scan`` and ``ssd_scan`` on the card. The
-encoder-decoder and VLM branches raise ``NotImplementedError`` naming
-their ``ROADMAP.md`` item.
+hand-written CUDA scans ``wkv6_scan`` and ``ssd_scan`` on the card.
+whisper's encoder (``batch["encoder_frames"]``, non-causal) and its
+decoder's cross-attention run ``flash_attention`` too, and its decode
+state holds the encoder's K/V a layer; the VLM puts the projected
+``batch["prefix_embeds"]`` before the text (a stub vision frontend).
 """
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (DecodeState, Transformer,

@@ -1,14 +1,16 @@
 """The model configuration of the port's LM stack (port of
 ``repro/models/config.py``).
 
-Only the fields the ported families read exist here (dense, MoE, the
-RWKV-6 ``"ssm"`` family and the Mamba-2 ``"hybrid"`` one): a field arrives
-with the slice that reads it, so passing one of the reference's other
-fields (``encoder_layers``, ``num_prefix_embeddings``, …) is a
-``TypeError``, not a setting silently ignored. The reference's
-``ssm_state_sharding`` is a mesh knob (``ROADMAP.md`` Queue 1 item 8) and
-is not a field. A ``family`` of ``"encdec"`` or ``"vlm"`` raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item.
+Every family of the reference is ported: dense, MoE, the RWKV-6
+``"ssm"`` family, the Mamba-2 ``"hybrid"`` one, the encoder-decoder
+``"encdec"`` (whisper: ``encoder_layers`` blocks over ``encoder_seq``
+precomputed frame embeddings) and the ``"vlm"`` one (llava:
+``num_prefix_embeddings`` precomputed patch embeddings before the text).
+Only the fields a ported path reads exist here: passing one of the
+reference's others is a ``TypeError``, not a setting silently ignored.
+Its ``ssm_state_sharding`` is a mesh knob (``ROADMAP.md`` Queue 1 item 8)
+and its ``attn_bf16_probs`` a probability dtype of its ``cp_kv`` path;
+neither is a field.
 
 ``attn_impl`` takes the port's names:
 
@@ -27,11 +29,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
-FAMILIES_NOT_PORTED = {
-    "encdec": "14 (the encdec branch)",
-    "vlm": "14 (the vlm branch)",
-}
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 ATTN_IMPLS = ("auto", "cuda", "torch", "ref")
 ATTN_RENAMED = {"pallas": "auto", "jnp_flash": "torch"}
 ACTS = ("silu", "gelu", "relu")
@@ -70,6 +68,13 @@ class ModelConfig:
     # --- hybrid (zamba2) ---
     shared_attn_every: int = 0             # shared attention block period
 
+    # --- encoder-decoder (whisper) ---
+    encoder_layers: int = 0
+    encoder_seq: int = 1500                # precomputed frame embeddings
+
+    # --- frontend stubs ---
+    num_prefix_embeddings: int = 0         # VLM: precomputed patch embeds
+
     # --- numerics / misc ---
     act: str = "silu"
     mlp_gated: bool = True                 # False: classic 2-matrix MLP
@@ -82,11 +87,6 @@ class ModelConfig:
     kv_cache_dtype: str = "compute"        # "compute" (=dtype) | "int8"
 
     def __post_init__(self):
-        if self.family in FAMILIES_NOT_PORTED:
-            raise NotImplementedError(
-                f"family {self.family!r} is not ported to repro_torch yet "
-                f"(ROADMAP.md Queue 1 item "
-                f"{FAMILIES_NOT_PORTED[self.family]})")
         if self.family not in FAMILIES:
             raise ValueError(f"unknown family {self.family!r}")
         if self.family == "moe" and not (
@@ -150,10 +150,13 @@ class ModelConfig:
         (the norm scales left out); for the ``"ssm"`` family five d×d
         time-mix matrices, the decay LoRA and the two channel-mix
         matrices a layer; for the ``"hybrid"`` family ``6d² + 2d·n + 2d``
-        a Mamba-2 layer plus one shared attention + MLP block. The two
-        recurrent families' module trees hold more than the formula (the
-        mix and decay vectors, the Δ projection, the conv); the tests
-        compare the trees with the reference's trees, not with it."""
+        a Mamba-2 layer plus one shared attention + MLP block; for
+        ``"encdec"`` also the encoder's attention + MLP blocks and a
+        cross-attention a decoder layer; for ``"vlm"`` also the d×d
+        projector. The two recurrent families' module trees hold more
+        than the formula (the mix and decay vectors, the Δ projection,
+        the conv); the tests compare the trees with the reference's
+        trees, not with it."""
         d, f, V, L = self.d_model, self.d_ff, self.vocab_size, self.num_layers
         hd, Hq, Hkv = self.head_dim, self.num_heads, self.num_kv_heads
         emb = V * d * (1 if self.tie_embeddings else 2)
@@ -168,8 +171,12 @@ class ModelConfig:
         else:
             per_layer = attn + mlp
         total = emb + L * per_layer
+        if self.family == "encdec":
+            total += self.encoder_layers * (attn + mlp) + L * attn
         if self.family == "hybrid" and self.shared_attn_every:
             total += attn + 3 * d * f
+        if self.family == "vlm":
+            total += d * d
         return int(total)
 
     @property

@@ -1,19 +1,24 @@
-"""Model assembly for the dense, MoE, RWKV-6 (``"ssm"``) and Mamba-2
-hybrid (``"hybrid"``) families (port of those branches of
-``repro/models/transformer.py``).
+"""Model assembly for every family: dense, MoE, RWKV-6 (``"ssm"``),
+Mamba-2 hybrid (``"hybrid"``), encoder-decoder (``"encdec"``, whisper) and
+VLM (``"vlm"``, llava) (port of ``repro/models/transformer.py``).
 
 The parameters are an ``nn.Module`` tree (``Transformer``: ``embed``,
 ``final_norm``, an optional untied ``head`` and one block per layer)
 whose names follow the reference's parameter tree:
 
-* dense and MoE: ``Block`` with ``ln1``, ``attn``, ``ln2`` and ``mlp``
-  (or ``moe``);
+* dense, MoE and VLM: ``Block`` with ``ln1``, ``attn``, ``ln2`` and
+  ``mlp`` (or ``moe``); the VLM adds ``vision_proj.kernel``, the d×d
+  projector of the precomputed patch embeddings;
 * ``"ssm"`` (rwkv6): ``RWKVBlock`` with ``ln1``, ``time_mix``, ``ln2``
   and ``channel_mix``, and no attention (rwkv6-3b's ``num_heads`` is
   informational);
 * ``"hybrid"`` (zamba2): ``MambaBlock`` with ``ln`` and ``mamba``, and one
   weight-shared ``shared_attn`` (``ln``, ``attn``, ``ln2``, ``mlp``)
-  applied after every ``shared_attn_every`` Mamba layers.
+  applied after every ``shared_attn_every`` Mamba layers;
+* ``"encdec"`` (whisper): ``enc_blocks`` and ``dec_blocks`` of
+  ``EncDecBlock`` (``ln1``, ``attn``, ``ln2``, ``mlp``; a decoder block
+  also ``ln_cross`` and ``cross_attn``) and ``enc_final_norm``, in place
+  of ``blocks``.
 
 The reference stacks the blocks into ``[L, …]`` arrays for its scan, the
 port keeps one module per layer. The functions take the config
@@ -25,10 +30,17 @@ local:global pattern (the reference's ``lax.cond`` on a per-layer flag) is
 reference's do, and ``forward_train`` returns their mean load-balancing
 loss as ``aux["moe_aux_loss"]``. The hybrid forward runs ``L // period``
 groups of ``period`` Mamba layers, each followed by the shared block, then
-the ``L − groups·period`` tail layers without it. The reference's sharding
-constraints (``distributed.context.constrain``) are the identity on one
-device and its checkpoints (``remat``, ``scan_utils.chunked_scan``'s) are
-for training; neither is ported.
+the ``L − groups·period`` tail layers without it. whisper's encoder runs
+non-causal self-attention without RoPE over ``batch["encoder_frames"]``
+plus a sinusoidal table; its decoder runs causal self-attention without
+RoPE, then cross-attention to the encoder's output, then the MLP. Decode
+runs the encoder once, in ``init_decode_state``, and keeps one ``(k, v)``
+a decoder layer. The VLM projects ``batch["prefix_embeds"]`` and puts
+them before the text's embeddings, RoPE positions running over both;
+its decode is the dense path over text alone, as the reference's is. The
+reference's sharding constraints (``distributed.context.constrain``) are
+the identity on one device and its checkpoints (``remat``,
+``scan_utils.chunked_scan``'s) are for training; neither is ported.
 """
 from __future__ import annotations
 
@@ -36,16 +48,21 @@ import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.attention import (Attention, attention_forward,
-                                          decode_attention, init_kv_cache)
+from repro_torch.kernels import ref as kref
+from repro_torch.models.attention import (Attention, _project_q,
+                                          attention_forward,
+                                          decode_attention, init_kv_cache,
+                                          project_kv)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (Embedding, LMHead, RMSNorm,
-                                       dtype_of, embed_tokens, pdtype_of,
-                                       rmsnorm, unembed)
+                                       compute_weight, dense_init, dtype_of,
+                                       embed_tokens, pdtype_of, rmsnorm,
+                                       unembed)
 from repro_torch.models.mamba2 import Mamba2, _dims, mamba2_forward
 from repro_torch.models.mlp import MLP, mlp_forward
 from repro_torch.models.moe import MoE, moe_forward
@@ -107,7 +124,30 @@ class SharedAttn(nn.Module):
         self.mlp = MLP(cfg, device, generator)
 
 
-BLOCKS = {"dense": Block, "moe": Block, "ssm": RWKVBlock,
+class EncDecBlock(Block):
+    """One whisper block: :class:`Block`'s ``ln1``, ``attn``, ``ln2`` and
+    ``mlp``; a decoder block (``cross``) also ``ln_cross`` and
+    ``cross_attn``."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device,
+                 generator: Optional[torch.Generator], cross: bool):
+        super().__init__(cfg, device, generator)
+        if cross:
+            self.ln_cross = RMSNorm(cfg.d_model, pdtype_of(cfg), device)
+            self.cross_attn = Attention(cfg, device, generator)
+
+
+class VisionProj(nn.Module):
+    """The VLM's projector stub, ``kernel [d, d]`` (``[out, in]``)."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device,
+                 generator: Optional[torch.Generator]):
+        super().__init__()
+        self.kernel = dense_init((cfg.d_model, cfg.d_model),
+                                 pdtype_of(cfg), device, generator)
+
+
+BLOCKS = {"dense": Block, "moe": Block, "vlm": Block, "ssm": RWKVBlock,
           "hybrid": MambaBlock}
 
 
@@ -119,11 +159,23 @@ class Transformer(nn.Module):
         self.final_norm = RMSNorm(cfg.d_model, pdtype_of(cfg), device)
         self.head = (None if cfg.tie_embeddings
                      else LMHead(cfg, device, generator))
+        if cfg.family == "encdec":
+            self.enc_blocks = nn.ModuleList(
+                EncDecBlock(cfg, device, generator, cross=False)
+                for _ in range(cfg.encoder_layers))
+            self.dec_blocks = nn.ModuleList(
+                EncDecBlock(cfg, device, generator, cross=True)
+                for _ in range(cfg.num_layers))
+            self.enc_final_norm = RMSNorm(cfg.d_model, pdtype_of(cfg),
+                                          device)
+            return
         block = BLOCKS[cfg.family]
         self.blocks = nn.ModuleList(block(cfg, device, generator)
                                     for _ in range(cfg.num_layers))
         if cfg.family == "hybrid":
             self.shared_attn = SharedAttn(cfg, device, generator)
+        if cfg.family == "vlm":
+            self.vision_proj = VisionProj(cfg, device, generator)
 
     @property
     def device(self) -> torch.device:
@@ -213,12 +265,77 @@ def _hybrid_forward(params: Transformer, x: torch.Tensor,
     return x
 
 
+def _sinusoidal_at(pos: torch.Tensor, d: int,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """whisper's sinusoidal embedding at ``pos`` (any shape) →
+    ``[*pos.shape, d]``: ``[sin, cos]`` of ``pos / 10000^(2i/d)``,
+    concatenated, in float32, then cast to ``dtype``. The divisor is the
+    float32 power rounded correctly (taken in float64, then rounded), as
+    the reference's float32 ``pow`` gives it: torch's is an ulp off at
+    some exponents, which moves the table by 3e-5 at position 1,500."""
+    dim = torch.arange(d // 2, dtype=torch.float32, device=pos.device)
+    div = torch.pow(10000.0, (2.0 * dim / d).double()).float()
+    ang = pos.float()[..., None] / div
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+def _sinusoidal(S: int, d: int, dtype: torch.dtype,
+                device: torch.device) -> torch.Tensor:
+    """The table at positions ``0 … S − 1``, ``[S, d]``."""
+    return _sinusoidal_at(torch.arange(S, dtype=torch.float32,
+                                       device=device), d, dtype)
+
+
+def _encdec_block(bp: EncDecBlock, x: torch.Tensor, cfg: ModelConfig,
+                  enc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One whisper block without RoPE: self-attention (causal in the
+    decoder, not in the encoder), then, in a decoder block, cross-attention
+    to ``enc``, then the MLP."""
+    h = rmsnorm(bp.ln1, x, cfg.norm_eps)
+    x = x + attention_forward(bp.attn, h, cfg, causal=enc is not None,
+                              use_rope=False)
+    if enc is not None:
+        with record_function("encdec.cross"):
+            hc = rmsnorm(bp.ln_cross, x, cfg.norm_eps)
+            x = x + attention_forward(bp.cross_attn, hc, cfg, causal=False,
+                                      kv_source=enc)
+    h2 = rmsnorm(bp.ln2, x, cfg.norm_eps)
+    return x + mlp_forward(bp.mlp, h2, cfg)
+
+
+def _encoder_forward(params: Transformer, frames: torch.Tensor,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """whisper's encoder over precomputed frame embeddings ``[B, T, d]``
+    (the conv frontend is a stub): the sinusoidal table added, the
+    encoder blocks, ``enc_final_norm``."""
+    with record_function("encdec.encoder"):
+        dt = dtype_of(cfg)
+        x = frames.to(dt)
+        x = x + _sinusoidal(x.shape[1], cfg.d_model, dt, x.device)[None]
+        for bp in params.enc_blocks:
+            x = _encdec_block(bp, x, cfg)
+        return rmsnorm(params.enc_final_norm, x, cfg.norm_eps)
+
+
+def _encdec_forward(params: Transformer, x: torch.Tensor,
+                    frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The encoder over ``frames``, then the decoder blocks over the
+    token embeddings ``x`` plus the sinusoidal table."""
+    enc = _encoder_forward(params, frames, cfg)
+    x = x + _sinusoidal(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
+    for bp in params.dec_blocks:
+        x = _encdec_block(bp, x, cfg, enc)
+    return x
+
+
 def forward_train(params: Transformer, batch: Dict[str, torch.Tensor],
                   cfg: ModelConfig, remat: bool = False
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence forward: ``batch["tokens"] [B, S]`` → (logits
     ``[B, S, V]`` in the compute dtype, aux losses: ``{}``, or for the MoE
-    family ``{"moe_aux_loss": the layers' mean}``). It records
+    family ``{"moe_aux_loss": the layers' mean}``). The VLM also takes
+    ``batch["prefix_embeds"] [B, P, d]`` and returns ``[B, P + S, V]``;
+    whisper takes ``batch["encoder_frames"] [B, T, d]``. It records
     autograd history like any module call; serving callers run it under
     ``torch.inference_mode()``."""
     if remat:
@@ -227,10 +344,17 @@ def forward_train(params: Transformer, batch: Dict[str, torch.Tensor],
             "(ROADMAP.md Queue 1 item 14: training/)")
     x = embed_tokens(params.embed, batch["tokens"], cfg)
     aux: Dict[str, torch.Tensor] = {}
+    if cfg.family == "vlm":
+        dt = dtype_of(cfg)
+        prefix = F.linear(batch["prefix_embeds"].to(dt),
+                          compute_weight(params.vision_proj, "kernel", cfg))
+        x = torch.cat([prefix, x], dim=1)
     if cfg.family == "ssm":
         x = _rwkv_forward(params, x, cfg)
     elif cfg.family == "hybrid":
         x = _hybrid_forward(params, x, cfg)
+    elif cfg.family == "encdec":
+        x = _encdec_forward(params, x, batch["encoder_frames"], cfg)
     else:
         x, aux = _attention_forward(params, x, cfg)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
@@ -245,17 +369,24 @@ def forward_train(params: Transformer, batch: Dict[str, torch.Tensor],
 class DecodeState:
     pos: int                                  # next position to write
     layers: List[Dict[str, Any]]              # per-layer cache / SSM state
+    # whisper: one (k, v) ``[B, Hkv, T, hd]`` a decoder layer, from the
+    # encoder's output
+    cross: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None
     shared: Optional[List[Dict[str, Any]]] = None   # zamba2: a KV cache a site
 
 
 def init_decode_state(params: Transformer, cfg: ModelConfig, batch: int,
-                      max_len: int) -> DecodeState:
-    """The decode state at position 0: a KV cache a layer (dense, MoE);
-    ``x_prev_tm``, ``S`` and ``x_prev_cm`` a layer (``"ssm"``);
-    ``conv_buf`` and ``h`` a layer and one KV cache for each application
-    site of the shared block (``"hybrid"``: weights shared, histories
-    not). SSM states are float32, the token-shift and conv carries in the
-    compute dtype."""
+                      max_len: int,
+                      encoder_frames: Optional[torch.Tensor] = None
+                      ) -> DecodeState:
+    """The decode state at position 0: a KV cache a layer (dense, MoE,
+    VLM; whisper's, all global, and the encoder run once over
+    ``encoder_frames [B, T, d]``, its output projected to one cross
+    ``(k, v)`` a decoder layer); ``x_prev_tm``, ``S`` and ``x_prev_cm`` a
+    layer (``"ssm"``); ``conv_buf`` and ``h`` a layer and one KV cache for
+    each application site of the shared block (``"hybrid"``: weights
+    shared, histories not). SSM states are float32, the token-shift and
+    conv carries in the compute dtype."""
     dev, dt, B = params.device, dtype_of(cfg), batch
     if cfg.family == "ssm":
         d, H, D = cfg.d_model, cfg.ssm_heads, cfg.ssm_head_dim
@@ -276,6 +407,16 @@ def init_decode_state(params: Transformer, cfg: ModelConfig, batch: int,
         shared = [init_kv_cache(cfg, B, max_len, True, dev)
                   for _ in range(cfg.num_layers // _period(cfg))]
         return DecodeState(pos=0, layers=layers, shared=shared)
+    if cfg.family == "encdec":
+        if encoder_frames is None:
+            raise ValueError("whisper decode needs encoder_frames")
+        layers = [init_kv_cache(cfg, B, max_len, True, dev)
+                  for _ in range(cfg.num_layers)]
+        with torch.no_grad():
+            enc = _encoder_forward(params, encoder_frames, cfg)
+            cross = [project_kv(bp.cross_attn, enc, cfg)
+                     for bp in params.dec_blocks]
+        return DecodeState(pos=0, layers=layers, cross=cross)
     layers = [init_kv_cache(cfg, B, max_len, cfg.layer_is_global(i), dev)
               for i in range(cfg.num_layers)]
     return DecodeState(pos=0, layers=layers)
@@ -342,6 +483,43 @@ def _recurrent_decode(params: Transformer, state: DecodeState,
     return x, DecodeState(pos=pos + 1, layers=layers, shared=shared)
 
 
+def _cross_decode(params: Attention, x: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Cross-attention of one decode token ``x [B, 1, d]`` over the
+    cached encoder K/V: the plain oracle, non-causal, as in the
+    reference."""
+    B = x.shape[0]
+    q = _project_q(params, x, cfg)
+    out = kref.attention_ref(q, k, v, causal=False,
+                             logit_soft_cap=cfg.logit_soft_cap)
+    out = out.transpose(1, 2).reshape(B, 1, cfg.num_heads * cfg.head_dim)
+    return F.linear(out, compute_weight(params, "wo", cfg))
+
+
+def _encdec_decode(params: Transformer, state: DecodeState,
+                   x: torch.Tensor, cfg: ModelConfig
+                   ) -> Tuple[torch.Tensor, DecodeState]:
+    """whisper's decoder layers at one step: the sinusoid at ``pos``,
+    self-attention through the cache without RoPE, cross-attention over
+    the layer's cached encoder K/V, the MLP."""
+    pos = state.pos
+    p = torch.full((), pos, dtype=torch.float32, device=x.device)
+    x = x + _sinusoidal_at(p, cfg.d_model, x.dtype)
+    layers = []
+    for i, bp in enumerate(params.dec_blocks):
+        h = rmsnorm(bp.ln1, x, cfg.norm_eps)
+        a, lc = decode_attention(bp.attn, h, state.layers[i], pos, cfg,
+                                 use_rope=False)
+        x = x + a
+        with record_function("encdec.cross"):
+            hc = rmsnorm(bp.ln_cross, x, cfg.norm_eps)
+            x = x + _cross_decode(bp.cross_attn, hc, *state.cross[i], cfg)
+        h2 = rmsnorm(bp.ln2, x, cfg.norm_eps)
+        x = x + mlp_forward(bp.mlp, h2, cfg)
+        layers.append(lc)
+    return x, DecodeState(pos=pos + 1, layers=layers, cross=state.cross)
+
+
 @torch.no_grad()
 def decode_step(params: Transformer, state: DecodeState,
                 tokens: torch.Tensor, cfg: ModelConfig
@@ -355,6 +533,8 @@ def decode_step(params: Transformer, state: DecodeState,
     x = embed_tokens(params.embed, tokens[:, None], cfg)       # [B, 1, d]
     if cfg.family in ("ssm", "hybrid"):
         x, new_state = _recurrent_decode(params, state, x, cfg)
+    elif cfg.family == "encdec":
+        x, new_state = _encdec_decode(params, state, x, cfg)
     else:
         x, new_state = _attention_decode(params, state, x, cfg)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)

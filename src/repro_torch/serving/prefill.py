@@ -9,7 +9,7 @@ forward (``models.forward_train``), which is where the port's
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -19,11 +19,14 @@ from repro_torch.models.transformer import (DecodeState, Transformer,
 
 
 def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
-            max_len: int) -> Tuple[torch.Tensor, DecodeState]:
+            max_len: int, encoder_frames: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, DecodeState]:
     """``tokens int[B, S_prompt]`` → (logits of the last prompt token
-    ``[B, V]``, the state after it)."""
+    ``[B, V]``, the state after it). whisper's decode state needs
+    ``encoder_frames [B, T, d]``."""
     B, S = tokens.shape
-    state = init_decode_state(params, cfg, B, max_len)
+    state = init_decode_state(params, cfg, B, max_len,
+                              encoder_frames=encoder_frames)
     logits = None
     for t in range(S):
         logits, state = decode_step(params, state, tokens[:, t], cfg)

@@ -78,7 +78,7 @@ def _close(got, want, atol=ATOL):
 def test_reduced_configs_match_reference():
     from repro.configs.registry import get_config as jget
     from repro.configs.registry import reduced_config as jreduced
-    for arch in DENSE:
+    for arch in DENSE + ["whisper-medium", "llava-next-mistral-7b"]:
         for full in (False, True):
             jc = jget(arch) if full else jreduced(jget(arch))
             tc = get_config(arch) if full else reduced_config(get_config(arch))
@@ -322,12 +322,15 @@ def test_param_count_matches_module_tree(arch):
 
 
 MOE = ["olmoe-1b-7b", "phi3.5-moe-42b-a6.6b"]
+RECURRENT = {"rwkv6-3b": "ssm", "zamba2-1.2b": "hybrid"}
+ENCDEC_VLM = {"whisper-medium": "encdec", "llava-next-mistral-7b": "vlm"}
 
 
 def test_unported_names_raise():
-    """The families and configs still to port raise naming their item;
-    the MoE, ``"ssm"`` and ``"hybrid"`` families and their configs,
-    ported since, build (an MoE config without experts is refused)."""
+    """Every family and config of the reference is ported and builds (an
+    MoE config without experts is refused); what is still to port raises
+    naming its item, and a field of the reference the port lacks is a
+    ``TypeError``."""
     for fam in ("moe", "ssm", "hybrid", "encdec", "vlm"):
         if fam == "moe":
             with pytest.raises(ValueError, match="num_experts_per_tok"):
@@ -335,27 +338,15 @@ def test_unported_names_raise():
             with pytest.raises(ValueError, match="num_experts_per_tok"):
                 convert.model_config_from_reference({"family": fam})
             continue
-        if fam in ("ssm", "hybrid"):
-            assert ModelConfig(family=fam).family == fam
-            assert convert.model_config_from_reference(
-                {"family": fam}).family == fam
-            continue
-        with pytest.raises(NotImplementedError, match="item 14"):
-            ModelConfig(family=fam)
-        with pytest.raises(NotImplementedError, match="item 14"):
-            convert.model_config_from_reference({"family": fam})
-    assert set(ARCHS) == set(DENSE) | set(MOE) | {"rwkv6-3b", "zamba2-1.2b"}
+        assert ModelConfig(family=fam).family == fam
+        assert convert.model_config_from_reference(
+            {"family": fam}).family == fam
+    assert set(ARCHS) == set(DENSE) | set(MOE) | set(RECURRENT) | set(
+        ENCDEC_VLM)
     for arch in ("olmoe-1b-7b", "rwkv6-3b", "zamba2-1.2b", "whisper-medium",
                  "llava-next-mistral-7b", "phi3.5-moe-42b-a6.6b"):
-        if arch in MOE:
-            assert get_config(arch).family == "moe"
-            continue
-        if arch in ("rwkv6-3b", "zamba2-1.2b"):
-            assert get_config(arch).family == {
-                "rwkv6-3b": "ssm", "zamba2-1.2b": "hybrid"}[arch]
-            continue
-        with pytest.raises(NotImplementedError, match="item 14"):
-            get_config(arch)
+        assert get_config(arch).family == {
+            **dict.fromkeys(MOE, "moe"), **RECURRENT, **ENCDEC_VLM}[arch]
     with pytest.raises(KeyError):
         get_config("gpt-5")
     with pytest.raises(ValueError, match="attn_impl='auto'"):
@@ -364,8 +355,9 @@ def test_unported_names_raise():
         ModelConfig(attn_impl="jnp_flash")
     with pytest.raises(NotImplementedError, match="item 8"):
         ModelConfig(attn_impl="cp_kv")
+    assert ModelConfig(encoder_layers=2).encoder_layers == 2
     with pytest.raises(TypeError):
-        ModelConfig(encoder_layers=2)
+        ModelConfig(attn_bf16_probs=True)
     with pytest.raises(TypeError):
         ModelConfig(ssm_state_sharding=True)
     cfg = TINY["dense"]
