@@ -9,7 +9,8 @@ FrogWild! at LiveJournal scale (n = 4,847,571, avg out-degree 14.2,
 stack's dense serving path at llama3.2-1b's full width, its MoE family
 at olmoe-1b-7b's full width and depth, its recurrent families at
 rwkv6-3b's and zamba2-1.2b's, and its encoder-decoder and VLM families at
-whisper-medium's and llava-next-mistral-7b's. It checks every answer
+whisper-medium's and llava-next-mistral-7b's, and its training, with
+llama3.2-1b trained at full width and depth. It checks every answer
 against its guarantee:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
@@ -298,7 +299,34 @@ against its guarantee:
               forward with an empty prefix; ``flash_attention`` at its
               shape against SDPA; the prefill and a ``serve_step``
               profiled; the peak memory (under 80 GB); phase 16 on the
-              reduced llava.
+              reduced llava;
+24. training — (after phase 23, the peak memory counter reset) the
+              ``flash_attention_bwd`` kernel against its plain version
+              (``ref.attention_bwd_ref``): float32 at S = 4,096 with
+              llama's heads (relative Frobenius of dq, dk and dv ≤ 1e-5,
+              a gate that two planted faults must fail: Δ left out, the
+              GQA sum over one head of each group), bf16 at 1 × 32,768
+              (≤ 1e-2 against the plain backward in float32 on the same
+              inputs), head dims 120, 128 and 256, a window, a soft cap,
+              non-causal 1,500², cross 4,096 × 1,500 and rows with no
+              live key (gradient 0); its ms (events and a trace), bound
+              and SDPA's backward ms at the 32k shape, and the forward's
+              ms with and without the LSE; then llama3.2-1b trained at
+              full width and depth (bf16 compute, float32 master
+              weights, AdamW with weight decay 0.1, ``SyntheticTokens``
+              at B = 2, S = 4,096): two runs of the first step's
+              gradients byte-equal, 4 steps without ``remat`` and 2 with
+              (loss, grad norm, s a step, tokens/s, peak memory, 16
+              ``flash_attention`` and 16 ``flash_attention_bwd``
+              launches a step, 32 forwards under ``remat``), the step's
+              gradients through the kernels against the plain path's
+              (``attn_impl="torch"``: every leaf within 5e-2 in bf16 at
+              1 × 1,024; within 1e-4 in float32 at 2 layers, ``remat``
+              within 1e-6 of no ``remat``), a planted fault (the
+              kernel's output detached, the fault the port had before
+              its backward) that the float32 gate must fail, and the
+              peak memory (under 80 GB); one more step traced (device
+              busy and idle share, the attention kernels' share).
 
 Phases 14-16 run after phase 11 and before 12 and 13, which read them.
 Launch counts are reset just before phase 4 and read just after phase 5
@@ -317,7 +345,9 @@ phase 20 reset just before each prefill forward and the launcher's run
 and read just after each, and in phase 21 reset just before each
 architecture's first prefill forward and the launcher's run and read just
 after each, and in phases 22 and 23 reset just before the first prefill
-forward and the serving run and read just after each;
+forward and the serving run and read just after each, and in phase 24
+reset just before the first of the 6 training steps and read just after
+the last;
 phases 6, 11, 12 and 13 reset them around each run whose draw launches
 they count.
 The last line is ``{"ok": true, "device": {...}}``; any failed check or
@@ -557,12 +587,17 @@ def host_us(fn) -> float:
     return us
 
 
-def phase_device():
-    import torch
-    smi = subprocess.run(
+def card_name_power() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def phase_device():
+    import torch
+    smi = card_name_power()
     print(smi, flush=True)
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -4044,7 +4079,11 @@ def phase_recurrent_arch(arch: str, dev) -> dict:
         flash_attention_row(sites, cfg, dev, checks=False, tag="21")
     phase_lm_profile(params, cfg, {"tokens": toks}, state, cur, tag="21",
                      stages=RECURRENT_STAGES[cfg.family])
-    row = scan_row(kernel, scan_in, launches[kernel], err, "21")
+    # the recorded operands include parameters (rwkv's u, zamba2's a),
+    # and the scans refuse autograd on the card: time them without it,
+    # as the prefill runs them
+    with torch.inference_mode():
+        row = scan_row(kernel, scan_in, launches[kernel], err, "21")
     peak = torch.cuda.max_memory_allocated()
     del params, toks, state, cur, scan_in, layer_in, seen
     log("21 arch_done", arch=arch, seconds=time.perf_counter() - t0,
@@ -4290,8 +4329,395 @@ def phase_vlm(dev) -> list:
     return [{**row, "name": "flash_attention:llava"}]
 
 
+# phase 24: training, and the attention backward kernel
+TRAIN = dict(batch=2, seq=4_096, steps=4, remat_steps=2, gate_seq=1_024,
+             f32_layers=2)
+# the backward kernel's checks: B, Hq, Hkv, Sq, Skv, D, causal, window,
+# q_offset, soft cap
+FA_BWD_CHECKS = {
+    "d120": (1, 8, 2, 1_000, 1_000, 120, True, None, 0, None),
+    "d128_window": (1, 8, 8, 1_000, 1_000, 128, True, 256, 0, None),
+    "d256_soft_cap": (1, 8, 4, 1_000, 1_000, 256, True, None, 0, 50.0),
+    "window": (1, 32, 8, 2_048, 2_048, 64, True, 512, 0, None),
+    "soft_cap": (1, 32, 8, 2_048, 2_048, 64, True, None, 0, 30.0),
+    "noncausal_1500": (1, 16, 16, 1_500, 1_500, 64, False, None, 0, None),
+    "cross_4096x1500": (1, 16, 16, 4_096, 1_500, 64, False, None, 0, None),
+    "masked_rows": (1, 8, 2, 256, 200, 64, True, 16, 150, None),
+}
+# relative Frobenius limits of dq, dk and dv against the plain backward
+FA_BWD_REL = {"float32": 1e-5, "bfloat16": 1e-2}
+# a training step's gradients, every leaf against the plain path's
+TRAIN_GRAD_REL = {"bfloat16": 5e-2, "float32": 1e-4, "remat": 1e-6}
+
+
+def attention_bwd_inputs(shape, dtype, dev, seed: int) -> tuple:
+    """Random q, k, v and dO at ``shape`` and the forward kernel's output
+    and LSE on them."""
+    import torch
+    from repro_torch.kernels import ops
+    B, Hq, Hkv, Sq, Skv, D, causal, window, qo, cap = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(s, generator=gen, device=dev, dtype=dtype)
+                   for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D),
+                             (B, Hkv, Skv, D), (B, Hq, Sq, D)))
+    o, lse = ops._attention_kernel(q, k, v, causal, window, qo, cap,
+                                   with_lse=True)
+    return q, k, v, o, lse, do
+
+
+def bwd_errors(got, want) -> list:
+    """Relative Frobenius errors of (dq, dk, dv) against the plain ones."""
+    return [rel_frobenius(a, b, dim=2) for a, b in zip(got, want)]
+
+
+def attention_bwd_check(name: str, shape, dtype: str, dev) -> float:
+    """The backward kernel against ``attention_bwd_ref`` (float32, on the
+    same inputs, output and LSE) at ``shape``; asserts ``FA_BWD_REL`` and,
+    for rows with no live key, a zero dq. Returns the worst error."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    B, Hq, Hkv, Sq, Skv, D, causal, window, qo, cap = shape
+    q, k, v, o, lse, do = attention_bwd_inputs(shape, getattr(torch, dtype),
+                                               dev, seed=Sq + D)
+    kw = dict(causal=causal, window=window, q_offset=qo, soft_cap=cap)
+    got = ops.attention_bwd(q, k, v, o, lse, do, impl="cuda", **kw)
+    want = kref.attention_bwd_ref(*(t.float() for t in (q, k, v, o)), lse,
+                                  do.float(), **kw)
+    errs = bwd_errors(got, want)
+    dead = torch.isinf(lse[0, 0])
+    dead_zero = bool((got[0][:, :, dead] == 0).all()) if bool(
+        dead.any()) else None
+    ok = max(errs) <= FA_BWD_REL[dtype] and dead_zero in (None, True)
+    log("24 flash_attention_bwd_check", shape=name, dtype=dtype, Sq=Sq,
+        Skv=Skv, D=D, causal=causal, window=window, q_offset=qo,
+        soft_cap=cap, rel_dq=errs[0], rel_dk=errs[1], rel_dv=errs[2],
+        limit=FA_BWD_REL[dtype], rows_without_keys=int(dead.sum()),
+        their_dq_zero=dead_zero, ok=ok)
+    assert ok, f"flash_attention_bwd strays from its plain version ({name})"
+    return max(errs)
+
+
+def sdpa_backward_ms(q, k, v, do) -> tuple:
+    """``(SDPA forward+backward ms, its forward ms under autograd)`` at
+    llama's causal shape (flash backend, ``enable_gqa``): the yardstick
+    of the backward kernel; the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def fwd():
+        return F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                              enable_gqa=True)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qq, kk, vv), do)
+
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        return time_ms_auto(fwd_bwd)[0], time_ms_auto(fwd)[0]
+
+
+def flash_attention_bwd_row(launches: int, cfg, dev) -> dict:
+    """The backward kernel's gates and row: float32 at S = 4,096 with
+    ``cfg``'s heads (and the two planted faults), bf16 at 1 × 32,768, the
+    ``FA_BWD_CHECKS`` in both types; then at the 32k shape its ms
+    (events) and device ms (a trace, by kernel), its bound (operations:
+    10 · B · Hq · pairs · D at 989 TFLOP/s, or bytes, the larger), the
+    plain version's ms (one warm call), SDPA's backward ms (forward and
+    backward less forward), and the forward's ms with the LSE and
+    without."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    lim = FA_BWD_REL["float32"]
+    # float32 at 4,096, and the planted faults the same gate must fail
+    shape = (1, Hq, Hkv, 4_096, 4_096, D, True, None, 0, None)
+    q, k, v, o, lse, do = attention_bwd_inputs(shape, torch.float32, dev, 1)
+    got = ops.attention_bwd(q, k, v, o, lse, do, impl="cuda")
+    want = kref.attention_bwd_ref(q, k, v, o, lse, do)
+    errs = bwd_errors(got, want)
+    log("24 flash_attention_bwd_f32", S=4_096, rel_dq=errs[0],
+        rel_dk=errs[1], rel_dv=errs[2], limit=lim, ok=max(errs) <= lim)
+    assert max(errs) <= lim, f"flash_attention_bwd strays in float32: {errs}"
+    # Δ left out: the kernel's Δ is rowsum(dO ∘ O), so a zero O gives it
+    no_delta = ops.attention_bwd(q, k, v, torch.zeros_like(o), lse, do,
+                                 impl="cuda")
+    # the GQA sum over one head of each group: the kernel on the group's
+    # first query heads alone
+    G = Hq // Hkv
+    one = ops.attention_bwd(q[:, ::G], k, v, o[:, ::G], lse[:, ::G],
+                            do[:, ::G], impl="cuda")
+    for what, bad in (("delta_left_out", no_delta),
+                      ("gqa_sum_over_one_head", (got[0],) + one[1:])):
+        e = bwd_errors(bad, want)
+        log("24 flash_attention_bwd_control", fault=what, rel_dq=e[0],
+            rel_dk=e[1], rel_dv=e[2], limit=lim, caught=max(e) > lim)
+        assert max(e) > lim, f"the float32 gate misses a planted fault " \
+            f"({what})"
+    del q, k, v, o, lse, do, got, want, no_delta, one
+    worst = max(errs)
+    for name, check in FA_BWD_CHECKS.items():
+        for dtype in ("float32", "bfloat16"):
+            worst_dt = attention_bwd_check(name, check, dtype, dev)
+            if dtype == "float32":
+                worst = max(worst, worst_dt)
+    # bf16 at the 32k shape: the gate, then the times
+    B, S = LM_PREFILL["batch"], LM_PREFILL["seq"]
+    shape = (B, Hq, Hkv, S, S, D, True, None, 0, None)
+    q, k, v, o, lse, do = attention_bwd_inputs(shape, torch.bfloat16, dev, 2)
+    kern = lambda: ops.attention_bwd(q, k, v, o, lse, do,  # noqa: E731
+                                     impl="cuda")
+    got = kern()
+    plain = lambda: kref.attention_bwd_ref(  # noqa: E731
+        *(t.float() for t in (q, k, v, o)), lse, do.float())
+    want = plain()
+    errs32k = bwd_errors(got, want)
+    lim16 = FA_BWD_REL["bfloat16"]
+    max_abs = max(float((a.float() - b).abs().max())
+                  for a, b in zip(got, want))
+    log("24 flash_attention_bwd_32k", dtype="bfloat16", S=S,
+        rel_dq=errs32k[0], rel_dk=errs32k[1], rel_dv=errs32k[2],
+        limit=lim16, max_abs_err=max_abs, ok=max(errs32k) <= lim16)
+    assert max(errs32k) <= lim16, f"flash_attention_bwd strays at 32k: " \
+        f"{errs32k}"
+    del got, want
+    ms, reps = time_ms_auto(kern)
+    _, _, _, by_kernel, top = device_busy_ms(kern, by_kernel=True)
+    # a trace may drop the ctypes launches (PERF.md §7)
+    dev_ms = sum(by_kernel.get(n, (0, 0.0))[1]
+                 for n in ("delta_kernel", "dkdv_kernel", "dq_kernel")
+                 ) if by_kernel else "not measured"
+    plain_ms = time_ms(plain, reps=1, warmups=1)
+    lib_ms, lib_fwd_ms = sdpa_backward_ms(q, k, v, do)
+    fwd_lse = lambda: ops._attention_kernel(  # noqa: E731
+        q, k, v, True, None, 0, None, with_lse=True)
+    fwd = lambda: ops._attention_kernel(  # noqa: E731
+        q, k, v, True, None, 0, None, with_lse=False)
+    fwd_ms = [time_ms_auto(f)[0] for f in (fwd, fwd_lse, fwd_lse, fwd)]
+    same = torch.equal(fwd()[0], fwd_lse()[0])
+    pairs = live_pairs(S, S, True, None, 0)
+    flops = 10 * B * Hq * pairs * D
+    nbytes = 2 * (4 * B * Hq * S * D + 4 * B * Hkv * S * D) + 4 * B * Hq * S
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    r = dict(name="flash_attention_bwd", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             replaces="src/repro/kernels/flash_attention.py:110",
+             launches=launches, max_abs_err=max_abs, ms=ms,
+             plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+             bound_by="operations" if t_ops >= t_bytes else "bytes",
+             library_ms=lib_ms - lib_fwd_ms)
+    log("24 kernel", **{k: v for k, v in r.items()
+                        if k not in ("source", "replaces", "route")},
+        card=repr(card_name_power()),
+        device_ms=dev_ms, by_kernel=json.dumps(by_kernel),
+        top_kernels=json.dumps(top), tflop_per_s=flops / ms / 1e9,
+        reps=reps, flop=flops, bytes=nbytes, worst_f32_rel=worst,
+        sdpa_fwd_bwd_ms=lib_ms, sdpa_fwd_ms=lib_fwd_ms,
+        forward_ms_without_lse=[fwd_ms[0], fwd_ms[3]],
+        forward_ms_with_lse=[fwd_ms[1], fwd_ms[2]],
+        forward_output_equal_with_lse=same,
+        shape=f"B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} causal bf16",
+        plain="attention_bwd_ref, float32, one warm call",
+        library="SDPA flash backend, enable_gqa: forward+backward less "
+        "forward")
+    assert same, "the forward's output changes when it writes the LSE"
+    return r
+
+
+def grad_errors(got: dict, want: dict) -> dict:
+    """Each leaf's relative Frobenius error of ``got`` against ``want``
+    (0 where both are 0)."""
+    out = {}
+    for k, w in want.items():
+        den = float(w.double().norm())
+        num = float((got[k].double() - w.double()).norm())
+        out[k] = num / den if den else num
+    return out
+
+
+def step_gradients(params, batch, cfg, remat: bool) -> tuple:
+    """``(loss, metrics, gradients by name)`` of one training step's loss
+    (``train_step``'s own function, no update)."""
+    from repro_torch.training import TrainStepConfig
+    from repro_torch.training.train_step import _value_and_grad
+    return _value_and_grad(params, batch, cfg, TrainStepConfig(remat=remat))
+
+
+def detached_output(orig):
+    """Planted fault: the attention kernel's output with no autograd
+    history, as ``ops.attention`` returned it on the card before its
+    backward existed."""
+    def fn(*a, **kw):
+        return orig(*a, **kw).detach()
+    return fn
+
+
+def train_grad_gates(params, cfg, dev) -> None:
+    """The step's gradients through the kernels against the plain path's
+    (``attn_impl="torch"``): bf16 at B = 1, S = ``TRAIN["gate_seq"]`` on
+    the full model, every leaf within 5e-2; float32 at
+    ``TRAIN["f32_layers"]`` layers, every leaf within 1e-4, ``remat``
+    within 1e-6 of none, and the detached-output fault caught."""
+    import dataclasses
+    import torch
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import attention as mattn
+    from repro_torch.models import init_params
+    data = SyntheticTokens(vocab_size=cfg.vocab_size,
+                           seq_len=TRAIN["gate_seq"], global_batch=1, seed=3)
+    batch = data.batch(0, device=dev)
+    plain_cfg = dataclasses.replace(cfg, attn_impl="torch")
+    lim = TRAIN_GRAD_REL["bfloat16"]
+    got = step_gradients(params, batch, cfg, False)[2]
+    want = step_gradients(params, batch, plain_cfg, False)[2]
+    errs = grad_errors(got, want)
+    worst = max(errs, key=errs.get)
+    log("24 train_grad_gate", dtype="bfloat16", S=TRAIN["gate_seq"],
+        leaves=len(errs), worst_leaf=worst, worst_rel=errs[worst],
+        wq_rel=errs["blocks.0.attn.wq"], limit=lim,
+        ok=errs[worst] <= lim)
+    assert errs[worst] <= lim, f"bf16 gradients stray: {worst} {errs[worst]}"
+    del got, want
+    f32 = dataclasses.replace(cfg, num_layers=TRAIN["f32_layers"],
+                              dtype="float32")
+    small = init_params(f32, torch.Generator(device=dev).manual_seed(1),
+                        device=dev)
+    want = step_gradients(small, batch, dataclasses.replace(
+        f32, attn_impl="torch"), False)[2]
+    got = step_gradients(small, batch, f32, False)[2]
+    remat = step_gradients(small, batch, f32, True)[2]
+    errs = grad_errors(got, want)
+    rerr = grad_errors(remat, got)
+    with patched(mattn.kops, "attention", detached_output):
+        bad = grad_errors(step_gradients(small, batch, f32, False)[2], want)
+    lim32 = TRAIN_GRAD_REL["float32"]
+    worst, rworst, bworst = (max(e, key=e.get) for e in (errs, rerr, bad))
+    log("24 train_grad_gate", dtype="float32", layers=f32.num_layers,
+        S=TRAIN["gate_seq"], worst_leaf=worst, worst_rel=errs[worst],
+        limit=lim32, ok=errs[worst] <= lim32, remat_worst_leaf=rworst,
+        remat_worst_rel=rerr[rworst], remat_limit=TRAIN_GRAD_REL["remat"],
+        remat_ok=rerr[rworst] <= TRAIN_GRAD_REL["remat"])
+    log("24 train_grad_control", fault="kernel_output_detached",
+        worst_leaf=bworst, worst_rel=bad[bworst], limit=lim32,
+        caught=bad[bworst] > lim32)
+    assert errs[worst] <= lim32, f"f32 gradients stray: {worst}"
+    assert rerr[rworst] <= TRAIN_GRAD_REL["remat"], f"remat: {rworst}"
+    assert bad[bworst] > lim32, "the float32 gate misses a detached output"
+
+
+def phase_training(dev) -> list:
+    """Phase 24: the attention backward kernel's gates and row, then
+    llama3.2-1b trained at full width and depth on the synthetic stream
+    (4 steps, then 2 under ``remat``), each step's numbers, its launches,
+    repeat gradients byte-equal, and the gradient gates. Returns the
+    ``kernels`` row of ``flash_attention_bwd``."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import ops
+    from repro_torch.training import (AdamWConfig, TrainStepConfig,
+                                      make_train_step)
+    from repro_torch.training.train_step import init_train_state
+    t0 = time.perf_counter()
+    card = card_name_power()
+    log("24 device", card=repr(card))
+    cfg = get_config(LM_ARCH)
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    data = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=S,
+                           global_batch=B, seed=0)
+    first = data.batch(0, device=dev)
+    # two runs of the first step's gradients: the same bytes
+    g1 = step_gradients(state["params"], first, cfg, False)[2]
+    g2 = step_gradients(state["params"], first, cfg, False)[2]
+    equal = all(torch.equal(g1[k], g2[k]) for k in g1)
+    log("24 repeat_gradients", leaves=len(g1), byte_equal=equal)
+    assert equal, "the first step's gradients differ run to run"
+    del g1, g2
+    opt = AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=100,
+                      weight_decay=0.1)
+    steps = [(False, make_train_step(cfg, TrainStepConfig(opt=opt,
+                                                          remat=False)))
+             ] * TRAIN["steps"] + [
+        (True, make_train_step(cfg, TrainStepConfig(opt=opt, remat=True)))
+    ] * TRAIN["remat_steps"]
+    free_device_memory()
+    sync()
+    ops.reset_launch_counts()
+    runs = []
+    for i, (remat, step) in enumerate(steps):
+        batch = data.batch(i, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        before = ops.launch_counts()
+        sync()
+        t1 = time.perf_counter()
+        state, metrics = step(state, batch)
+        sync()
+        sec = time.perf_counter() - t1
+        after = ops.launch_counts()
+        n = {k: after[k] - before[k]
+             for k in ("flash_attention", "flash_attention_bwd")}
+        runs.append(dict(step=i, remat=remat, loss=float(metrics["loss"]),
+                         grad_norm=float(metrics["grad_norm"]),
+                         seconds=sec, tokens_per_s=B * S / sec,
+                         peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                         **n))
+        log("24 train_step", **runs[-1])
+    launches = ops.launch_counts()
+    log("launches", path="training", **launches)
+    L = cfg.num_layers
+    assert launches["flash_attention_bwd"] == L * len(steps), launches
+    for r in runs:
+        assert r["flash_attention"] == L * (2 if r["remat"] else 1), r
+        assert r["flash_attention_bwd"] == L, r
+        assert all(map(lambda x: x == x and abs(x) < float("inf"),
+                       (r["loss"], r["grad_norm"]))), r
+    peak = max(r["peak_mem_bytes"] for r in runs)
+    plain = [r for r in runs if not r["remat"]][1:]     # after the first
+    with_remat = [r for r in runs if r["remat"]][1:]
+    log("24 train_summary", card=repr(card), arch=cfg.name, batch=B, seq=S,
+        params=sum(p.numel() for p in state["params"].parameters()),
+        s_a_step=sum(r["seconds"] for r in plain) / len(plain),
+        tokens_per_s=sum(r["tokens_per_s"] for r in plain) / len(plain),
+        s_a_step_remat=with_remat[0]["seconds"],
+        tokens_per_s_remat=with_remat[0]["tokens_per_s"],
+        peak_mem_bytes=peak, peak_mem_bytes_remat=max(
+            r["peak_mem_bytes"] for r in runs if r["remat"]),
+        under_80gb=peak < 80e9,
+        losses=[r["loss"] for r in runs])
+    assert peak < 80e9, peak
+    # one more step (no remat) under the profiler: where its time goes
+    out = {}
+
+    def traced():
+        out["state"] = steps[0][1](state, data.batch(len(steps), device=dev))
+
+    wall, busy, n_k, by_kernel, top = device_busy_ms(traced, by_kernel=True)
+    state = out["state"][0]
+    fwd_ms = by_kernel.get("fa_wgmma_kernel", (0, 0.0))[1]
+    bwd_ms = sum(by_kernel.get(k, (0, 0.0))[1]
+                 for k in ("delta_kernel", "dkdv_kernel", "dq_kernel"))
+    log("24 profile", wall_ms=wall, device_busy_ms=busy,
+        idle_share=1.0 - busy / wall, kernels=n_k,
+        flash_attention_ms=fwd_ms, flash_attention_bwd_ms=bwd_ms,
+        attention_share_of_busy=(fwd_ms + bwd_ms) / busy if busy else
+        "not measured",
+        port_kernels=json.dumps(by_kernel), top_kernels=json.dumps(top))
+    train_grad_gates(state["params"], cfg, dev)
+    del state, out
+    free_device_memory()
+    row = flash_attention_bwd_row(launches["flash_attention_bwd"], cfg, dev)
+    log("24 done", seconds=time.perf_counter() - t0, **free_device_memory())
+    return [row]
+
+
 # the port's CUDA kernels by their function names in a trace
 PORT_KERNELS = ("fa_wgmma_kernel", "flash_attention_kernel",
+                "dkdv_kernel", "dq_kernel", "delta_kernel",
                 "frog_step_stream_kernel", "frog_step_kernel",
                 "frog_superstep_stream_kernel", "frog_superstep_kernel",
                 "frog_hop_stream_kernel", "frog_hop_kernel",
@@ -4622,6 +5048,10 @@ def main() -> int:
     peak = max(peak, torch.cuda.max_memory_allocated())
     torch.cuda.reset_peak_memory_stats()
     rows.extend(phase_vlm(dev))
+    # training, once the VLM is gone
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    rows.extend(phase_training(dev))
     log("done", seconds=time.perf_counter() - t_all,
         peak_mem_bytes=max(peak, torch.cuda.max_memory_allocated()))
     print(smi, flush=True)

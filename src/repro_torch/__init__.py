@@ -16,7 +16,9 @@ SpMV kernel. The LM stack (``repro_torch.models``, ``configs``,
 families) runs its attention through the hand-written
 ``flash_attention`` kernel and its time recurrences through the
 hand-written ``wkv6_scan`` and ``ssd_scan``, and serves through KV
-caches and constant-size recurrent states.
+caches and constant-size recurrent states. Its attention families train
+(``repro_torch.training``, ``data``, ``launch.train``), the attention's
+backward a hand-written kernel too.
 
 Dynamic graphs (``repro_torch.dynamic``): edge mutation batches compact
 into a new graph epoch, and the walk index is refreshed in place of a

@@ -227,3 +227,24 @@ def model_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
         for k, v in state.items()}
     params.load_state_dict(tensors, strict=True, assign=True)
     return params
+
+
+def train_state_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
+                           device: DeviceLike = None) -> Dict[str, Any]:
+    """The port's train state (``training.train_step.init_train_state``'s
+    layout) from the reference's ``{"params", "opt": {"m", "v",
+    "step"}}``: the parameters through :func:`model_params_from_numpy`,
+    and each moment tree through it too (the same names and transposes),
+    as float32 tensors by parameter name; ``step`` an int32 scalar. Both
+    packages then start a step from the same numbers."""
+    dev = resolve_device(device)
+    params = model_params_from_numpy(tree["params"], cfg, device=dev)
+    f32 = dataclasses.replace(cfg, param_dtype="float32")
+    opt = tree["opt"]
+    moments = {
+        name: {k: p.detach().float() for k, p in model_params_from_numpy(
+            opt[name], f32, device=dev).named_parameters()}
+        for name in ("m", "v")}
+    step = torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int32,
+                        device=dev)
+    return {"params": params, "opt": dict(moments, step=step)}

@@ -73,7 +73,9 @@ SIGNATURES = {
     "fw_threefry_fold_in": [_c_void_p, _c_int64, _c_void_p, _c_int64,
                             _c_int32, _c_uint32, _c_void_p, _c_int64,
                             _c_void_p],
-    "fw_flash_attention": [_c_void_p] * 4 + [_c_int64] * 9 + [_c_int32] * 10
+    "fw_flash_attention": [_c_void_p] * 5 + [_c_int64] * 9 + [_c_int32] * 10
+    + [_c_float, _c_int32, _c_float, _c_int32, _c_void_p],
+    "fw_flash_attention_bwd": [_c_void_p] * 10 + [_c_int32] * 10
     + [_c_float, _c_int32, _c_float, _c_int32, _c_void_p],
     "fw_wkv6_scan": [_c_void_p] * 8 + [_c_int32, _c_int64] + [_c_int32] * 3
     + [_c_void_p],

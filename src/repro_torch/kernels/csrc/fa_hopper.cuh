@@ -229,6 +229,7 @@ constexpr int BK = 64;   // keys a tile
 
 struct Params {
   __nv_bfloat16* o;
+  float* lse;   // the rows' natural log-sum-exp [B, Hq, Sq], or null
   int32_t B, Hq, Hkv, Sq, Skv, D, n_qt;
   int32_t causal, has_window, window, q_offset, has_cap;
   float scale, scale_log2, cap;
@@ -260,6 +261,7 @@ struct Cfg {
 };
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // S = q · kᵀ for one key tile into a fresh sum, issued (not awaited): the
 // first step only writes sc, so sc holds no registers between tiles.
@@ -375,7 +377,9 @@ __device__ __forceinline__ void softmax_any(
   }
 }
 
-template <int D_PAD, int NWG, int NST>
+// LSE: also store the rows' log-sum-exp to p.lse (a separate build, so
+// the forward without it is the kernel it was)
+template <int D_PAD, int NWG, int NST, bool LSE>
 __global__ void __launch_bounds__(Cfg<D_PAD, NWG, NST>::THREADS, 1)
 fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
@@ -534,16 +538,29 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int it = it_hi; it < n_tiles; ++it) { wait_full(it); release(it); }
 
     // the row sums are split over the 4 lanes that share a row
-    float inv[2];
+    float inv[2], lsum[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float l = l_run[r];
       l += __shfl_xor_sync(0xffffffffu, l, 1);
       l += __shfl_xor_sync(0xffffffffu, l, 2);
+      lsum[r] = l;
       inv[r] = l > 0.0f ? 1.0f / l : 0.0f;   // a fully masked row gives 0
     }
     __nv_bfloat16* ob = p.o + ((int64_t)b * p.Hq + head) * p.Sq * p.D;
     const int grow = q0 + 64 * wg + r0;
+    // the LSE for the backward: m_run and the sum are in log2 units, so
+    // ln(sum e^s) = (m + log2 l) · ln 2; a fully masked row stores +inf,
+    // for which exp(s − lse) is 0
+    if (LSE && (lane & 3) == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = grow + 8 * r;
+        if (row < p.Sq)
+          p.lse[((int64_t)b * p.Hq + head) * p.Sq + row] =
+              lsum[r] > 0.0f ? (m_run[r] + log2f(lsum[r])) * kLn2 : INFINITY;
+      }
+    }
 #pragma unroll
     for (int i = 0; i < D_PAD / 2; i += 2) {
       const int col = 8 * (i / 4) + cq;
@@ -565,6 +582,18 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 // ---------------------------------------------------------------------------
 // host: tensor maps and launch
 // ---------------------------------------------------------------------------
+
+__global__ void fill_inf_kernel(float* x, int64_t n) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) x[i] = INFINITY;
+}
+
+// x[0:n] = +inf (the LSE of rows with no key)
+static int fill_inf(float* x, int64_t n, cudaStream_t stream) {
+  if (n == 0) return 0;
+  fill_inf_kernel<<<(unsigned int)((n + 255) / 256), 256, 0, stream>>>(x, n);
+  return (int)cudaGetLastError();
+}
 
 // Returned when cuTensorMapEncodeTiled refuses a map: kEncodeError + its
 // CUresult.
@@ -624,8 +653,13 @@ static int make_map(CUtensorMap* map, const void* ptr, int64_t sb, int64_t sh,
 
 template <int D_PAD, int NWG, int NST>
 static int launch_cfg(const void* q, const void* k, const void* v, void* o,
-                      const int64_t* st, Params p, cudaStream_t stream) {
+                      float* lse, const int64_t* st, Params p,
+                      cudaStream_t stream) {
   using C = Cfg<D_PAD, NWG, NST>;
+  void (*kernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap,
+                 const Params) =
+      lse != nullptr ? fa_wgmma_kernel<D_PAD, NWG, NST, true>
+                     : fa_wgmma_kernel<D_PAD, NWG, NST, false>;
   CUtensorMap tq, tk, tv;
   int rc = make_map(&tq, q, st[0], st[1], st[2], p.B, p.Hq, p.Sq, p.D, C::BQ);
   if (rc == 0)
@@ -634,25 +668,24 @@ static int launch_cfg(const void* q, const void* k, const void* v, void* o,
     rc = make_map(&tv, v, st[6], st[7], st[8], p.B, p.Hkv, p.Skv, p.D, BK);
   if (rc != 0) return rc;
   cudaError_t err = cudaFuncSetAttribute(
-      fa_wgmma_kernel<D_PAD, NWG, NST>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
   {
     // setmaxnreg.inc waits for registers that only the CTA's own pool can
     // give: refuse a build whose pool is short rather than hang
     cudaFuncAttributes fa;
-    err = cudaFuncGetAttributes(&fa, fa_wgmma_kernel<D_PAD, NWG, NST>);
+    err = cudaFuncGetAttributes(&fa, kernel);
     if (err != cudaSuccess) return (int)err;
     if (fa.numRegs * C::THREADS <
         128 * C::PRODUCER_REGS + NWG * 128 * C::CONSUMER_REGS)
       return (int)cudaErrorInvalidConfiguration;
   }
   p.o = (__nv_bfloat16*)o;
+  p.lse = lse;
   p.n_qt = (p.Sq + C::BQ - 1) / C::BQ;
   const long long grid = (long long)p.n_qt * p.B * p.Hq;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  fa_wgmma_kernel<D_PAD, NWG, NST>
-      <<<(unsigned int)grid, C::THREADS, C::SMEM, stream>>>(tq, tk, tv, p);
+  kernel<<<(unsigned int)grid, C::THREADS, C::SMEM, stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
 
@@ -660,13 +693,18 @@ static int launch_cfg(const void* q, const void* k, const void* v, void* o,
 // sequence), each a multiple of 8 and each base 16-byte aligned (the
 // wrapper copies an operand that is not).
 static int launch(const void* q, const void* k, const void* v, void* o,
-                  const int64_t* st, int32_t B, int32_t Hq, int32_t Hkv,
-                  int32_t Sq, int32_t Skv, int32_t D, int32_t causal,
-                  int32_t has_window, int32_t window, int32_t q_offset,
-                  float scale, int32_t has_cap, float cap,
+                  float* lse, const int64_t* st, int32_t B, int32_t Hq,
+                  int32_t Hkv, int32_t Sq, int32_t Skv, int32_t D,
+                  int32_t causal, int32_t has_window, int32_t window,
+                  int32_t q_offset, float scale, int32_t has_cap, float cap,
                   cudaStream_t stream) {
-  if (Skv == 0)   // no keys: every row is fully masked
+  if (Skv == 0) {  // no keys: every row is fully masked (lse +inf)
+    if (lse != nullptr) {
+      const int rc = fill_inf(lse, (int64_t)B * Hq * Sq, stream);
+      if (rc != 0) return rc;
+    }
     return (int)cudaMemsetAsync(o, 0, (size_t)B * Hq * Sq * D * 2, stream);
+  }
   Params p{};
   p.B = B; p.Hq = Hq; p.Hkv = Hkv; p.Sq = Sq; p.Skv = Skv; p.D = D;
   p.causal = causal; p.has_window = has_window; p.window = window;
@@ -675,9 +713,10 @@ static int launch(const void* q, const void* k, const void* v, void* o,
   // tiles chosen on the card (PERF.md), 64 keys each: at head_dim 64,
   // three consumer warpgroups (192 query rows) and 6 stages; at 128 and
   // 256, two warpgroups (128 rows) and 3 and 2 stages
-  if (D <= 64) return launch_cfg<64, 3, 6>(q, k, v, o, st, p, stream);
-  if (D <= 128) return launch_cfg<128, 2, 3>(q, k, v, o, st, p, stream);
-  return launch_cfg<256, 2, 2>(q, k, v, o, st, p, stream);
+  if (D <= 64) return launch_cfg<64, 3, 6>(q, k, v, o, lse, st, p, stream);
+  if (D <= 128)
+    return launch_cfg<128, 2, 3>(q, k, v, o, lse, st, p, stream);
+  return launch_cfg<256, 2, 2>(q, k, v, o, lse, st, p, stream);
 }
 
 }  // namespace fa_hopper

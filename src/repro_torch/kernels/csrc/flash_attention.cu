@@ -22,7 +22,12 @@
 // and o take 0.10 ms at 3.35 TB/s.
 //
 // Two kernels, one per input type (a rule by type, not a fallback: a bf16
-// call that cannot launch its kernel returns the CUDA error).
+// call that cannot launch its kernel returns the CUDA error). Under autograd
+// the wrapper also asks for each row's log-sum-exp, which the backward
+// (flash_attention_bwd.cu) reads: a second build of each kernel stores it
+// (natural log; +inf for a row with no live key), and the one without it is
+// the kernel as it was, so prefill and serving pay nothing for it. The
+// output is the same bytes either way.
 //
 // bfloat16: fa_hopper.cuh, on the tensor cores. One CTA per (b, h, query
 // tile), heaviest (diagonal) tiles first, the Hq / Hkv query heads of one
@@ -109,10 +114,13 @@ __device__ __forceinline__ void fa_stage(float* dst, const T* src,
   }
 }
 
-template <typename T, int D_PAD>
+// LSE: also store the rows' log-sum-exp to lse (a separate build, so the
+// forward without it is the kernel it was)
+template <typename T, int D_PAD, bool LSE>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse,
                        int64_t q_sb, int64_t q_sh, int64_t q_ss,
                        int64_t k_sb, int64_t k_sh, int64_t k_ss,
                        int64_t v_sb, int64_t v_sh, int64_t v_ss,
@@ -263,6 +271,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int32_t row = q0 + ty + 16 * i;
     if (row >= Sq) continue;
+    // the LSE for the backward (natural log of the scaled, capped
+    // scores); a fully masked row stores +inf, for which exp(s − lse) is 0
+    if (LSE && tx == 0)
+      lse[((int64_t)b * Hq + h) * Sq + row] =
+          l_run[i] > 0.0f ? m_run[i] + logf(l_run[i]) : INFINITY;
     const float denom = fmaxf(l_run[i], 1e-30f);
     T* orow = o + (((int64_t)b * Hq + h) * Sq + row) * D;
 #pragma unroll
@@ -277,22 +290,28 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D_PAD>
 static int fa_launch(const void* q, const void* k, const void* v, void* o,
-                     const int64_t* st, int32_t B, int32_t Hq, int32_t Hkv,
-                     int32_t Sq, int32_t Skv, int32_t D, int32_t causal,
-                     int32_t has_window, int32_t window, int32_t q_offset,
-                     float scale, int32_t has_cap, float cap,
-                     cudaStream_t stream) {
+                     float* lse, const int64_t* st, int32_t B, int32_t Hq,
+                     int32_t Hkv, int32_t Sq, int32_t Skv, int32_t D,
+                     int32_t causal, int32_t has_window, int32_t window,
+                     int32_t q_offset, float scale, int32_t has_cap,
+                     float cap, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)(FA_BQ + 2 * FA_BK) * (D_PAD + 4) +
                        (size_t)FA_BQ * FA_PS);
+  void (*kernel)(const T*, const T*, const T*, T*, float*, int64_t, int64_t,
+                 int64_t, int64_t, int64_t, int64_t, int64_t, int64_t,
+                 int64_t, int32_t, int32_t, int32_t, int32_t, int32_t,
+                 int32_t, int32_t, int32_t, int32_t, float, int32_t,
+                 float) =
+      lse != nullptr ? flash_attention_kernel<T, D_PAD, true>
+                     : flash_attention_kernel<T, D_PAD, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D_PAD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned int)((Sq + FA_BQ - 1) / FA_BQ),
                   (unsigned int)Hq, (unsigned int)B);
-  flash_attention_kernel<T, D_PAD><<<grid, FA_THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, st[0], st[1], st[2],
+  kernel<<<grid, FA_THREADS, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, st[0], st[1], st[2],
       st[3], st[4], st[5], st[6], st[7], st[8], Hq, Hkv, Sq, Skv, D, causal,
       has_window, window, q_offset, scale, has_cap, cap);
   return (int)cudaGetLastError();
@@ -300,37 +319,39 @@ static int fa_launch(const void* q, const void* k, const void* v, void* o,
 
 template <typename T>
 static int fa_dispatch(const void* q, const void* k, const void* v, void* o,
-                       const int64_t* st, int32_t B, int32_t Hq, int32_t Hkv,
-                       int32_t Sq, int32_t Skv, int32_t D, int32_t causal,
-                       int32_t has_window, int32_t window, int32_t q_offset,
-                       float scale, int32_t has_cap, float cap,
-                       cudaStream_t stream) {
+                       float* lse, const int64_t* st, int32_t B, int32_t Hq,
+                       int32_t Hkv, int32_t Sq, int32_t Skv, int32_t D,
+                       int32_t causal, int32_t has_window, int32_t window,
+                       int32_t q_offset, float scale, int32_t has_cap,
+                       float cap, cudaStream_t stream) {
   if (D <= 64)
-    return fa_launch<T, 64>(q, k, v, o, st, B, Hq, Hkv, Sq, Skv, D, causal,
-                            has_window, window, q_offset, scale, has_cap,
-                            cap, stream);
+    return fa_launch<T, 64>(q, k, v, o, lse, st, B, Hq, Hkv, Sq, Skv, D,
+                            causal, has_window, window, q_offset, scale,
+                            has_cap, cap, stream);
   if (D <= 128)
-    return fa_launch<T, 128>(q, k, v, o, st, B, Hq, Hkv, Sq, Skv, D, causal,
-                             has_window, window, q_offset, scale, has_cap,
-                             cap, stream);
-  return fa_launch<T, 256>(q, k, v, o, st, B, Hq, Hkv, Sq, Skv, D, causal,
-                           has_window, window, q_offset, scale, has_cap, cap,
-                           stream);
+    return fa_launch<T, 128>(q, k, v, o, lse, st, B, Hq, Hkv, Sq, Skv, D,
+                             causal, has_window, window, q_offset, scale,
+                             has_cap, cap, stream);
+  return fa_launch<T, 256>(q, k, v, o, lse, st, B, Hq, Hkv, Sq, Skv, D,
+                           causal, has_window, window, q_offset, scale,
+                           has_cap, cap, stream);
 }
 
 // Strides are in elements: q's, k's and v's (batch, head, sequence), the
 // last dimension contiguous; for bfloat16 each a multiple of 8 and each
 // base 16-byte aligned (TMA's rule). is_bf16 picks bfloat16 (the tensor-core
-// kernel) or float32 (the SIMT kernel). Returns a CUDA error, or
+// kernel) or float32 (the SIMT kernel). lse, when not null, receives the
+// rows' natural log-sum-exp (float32 [B, Hq, Sq]) for the backward; the
+// output is the same with it or without. Returns a CUDA error, or
 // fa_hopper::kEncodeError + the CUresult where cuTensorMapEncodeTiled
 // refuses a tensor map.
 extern "C" int fw_flash_attention(
-    const void* q, const void* k, const void* v, void* o, int64_t q_sb,
-    int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss,
-    int64_t v_sb, int64_t v_sh, int64_t v_ss, int32_t B, int32_t Hq,
-    int32_t Hkv, int32_t Sq, int32_t Skv, int32_t D, int32_t causal,
-    int32_t has_window, int32_t window, int32_t q_offset, float scale,
-    int32_t has_cap, float cap, int32_t is_bf16, void* stream) {
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh,
+    int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss, int32_t B,
+    int32_t Hq, int32_t Hkv, int32_t Sq, int32_t Skv, int32_t D,
+    int32_t causal, int32_t has_window, int32_t window, int32_t q_offset,
+    float scale, int32_t has_cap, float cap, int32_t is_bf16, void* stream) {
   if (D < 1 || D > 256 || Hkv < 1 || Hq % Hkv != 0 || B > 65535 ||
       Hq > 65535)
     return (int)cudaErrorInvalidValue;
@@ -339,10 +360,10 @@ extern "C" int fw_flash_attention(
                          v_sb, v_sh, v_ss};
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
-    return fa_hopper::launch(q, k, v, o, st, B, Hq, Hkv, Sq, Skv, D, causal,
-                             has_window, window, q_offset, scale, has_cap,
-                             cap, s);
-  return fa_dispatch<float>(q, k, v, o, st, B, Hq, Hkv, Sq, Skv, D, causal,
-                            has_window, window, q_offset, scale, has_cap, cap,
-                            s);
+    return fa_hopper::launch(q, k, v, o, lse, st, B, Hq, Hkv, Sq, Skv, D,
+                             causal, has_window, window, q_offset, scale,
+                             has_cap, cap, s);
+  return fa_dispatch<float>(q, k, v, o, lse, st, B, Hq, Hkv, Sq, Skv, D,
+                            causal, has_window, window, q_offset, scale,
+                            has_cap, cap, s);
 }

@@ -48,7 +48,12 @@ stream, so the two modes give the same bytes. Their plain versions draw
 the bits through ``ref.slot_bits`` and run the caller-mode oracle.
 
 ``attention`` also takes ``"ref"`` (the O(S²)-memory oracle); its
-``"torch"`` is the plain chunked version.
+``"torch"`` is the plain chunked version. Under autograd it runs an
+autograd Function whose forward also writes the rows' log-sum-exp and
+whose backward is :func:`attention_bwd` (the ``flash_attention_bwd``
+kernel on CUDA tensors), so no kernel output on the card lacks autograd
+history. The scan kernels have no backward yet, and the ELL slab
+product has none: on CUDA tensors they raise under autograd.
 
 ``wkv6_scan`` and ``ssd_scan`` are the port's own kernels for the RWKV-6
 and Mamba-2 time recurrences, which the reference runs as ``lax.scan``
@@ -86,6 +91,7 @@ LAUNCHES: Dict[str, int] = {"frog_step": 0, "frog_count": 0,
                             "frog_superstep_stream_sorted": 0,
                             "frog_hop_stream_sorted": 0,
                             "spmv_ell_slab": 0, "flash_attention": 0,
+                            "flash_attention_bwd": 0,
                             "wkv6_scan": 0, "ssd_scan": 0,
                             "threefry_bits": 0, "threefry_randint": 0,
                             "threefry_uniform": 0, "threefry_bernoulli": 0,
@@ -129,6 +135,25 @@ def _use_kernel(name: str, impl: str, *tensors: torch.Tensor) -> bool:
         raise ValueError(f"{name}: impl='cuda' needs CUDA tensors, got "
                          f"{dev}")
     return False
+
+
+def _refuse_autograd(name: str, why: str,
+                     *tensors: Optional[torch.Tensor]) -> None:
+    """A kernel without a backward, called under grad mode with an input
+    that requires grad, raises (``why`` says what is missing) rather than
+    return an output without autograd history."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the kernel has no backward{why}. Run under "
+            f"torch.no_grad() or with impl='torch'")
+
+
+# the scans' refusal: their backward kernels come with the recurrent
+# families' training
+SCAN_NO_BACKWARD = (" yet; training the recurrent families (the wkv6_scan "
+                    "and ssd_scan backward kernels, models/scan_utils.py) "
+                    "is the next slice of ROADMAP.md Queue 1 item 14")
 
 
 def _check_i32(name: str, arg: str, t: torch.Tensor, ndim: int = 1,
@@ -1039,6 +1064,9 @@ def spmv_ell_slab(idx: torch.Tensor, weight: torch.Tensor, x: torch.Tensor,
     name = "spmv_ell_slab"
     tensors = (idx, weight, x) + (() if row_len is None else (row_len,))
     use = _use_kernel(name, impl, *tensors)
+    if use:
+        _refuse_autograd(name, " (nor has the reference's Pallas kernel)",
+                         weight, x)
     _check_i32(name, "idx", idx, ndim=2)
     if row_len is not None:
         _check_i32(name, "row_len", row_len, numel=idx.shape[0])
@@ -1114,12 +1142,38 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     operand that fails it is copied, the same kernel on the copy) and
     takes ``Skv`` as it is: keys at or past it are
     masked, so nothing is padded (the reference's wrapper pads K/V with
-    zero keys that only its causal mask hides)."""
+    zero keys that only its causal mask hides).
+
+    With grad mode on and q, k or v requiring grad, the call goes through
+    an autograd Function: the forward also writes the rows' log-sum-exp
+    (the kernel's optional output, or ``attention_chunked``'s), and the
+    backward is :func:`attention_bwd`, the ``flash_attention_bwd`` kernel
+    on the kernel's route and ``ref.attention_bwd_ref`` on the plain one.
+    Without grad the call is the forward alone, with no LSE written.
+    Under autograd ``"ref"`` takes the plain route (the oracle computes
+    in place and records no history)."""
     name = "flash_attention"
-    if impl == "ref":
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
+    if impl == "ref" and not grad:
         return kref.attention_ref(q, k, v, causal=causal, window=window,
                                   q_offset=q_offset, logit_soft_cap=soft_cap)
-    use = _use_kernel(name, impl, q, k, v)
+    use = impl != "ref" and _use_kernel(name, impl, q, k, v)
+    _check_attention(name, q, k, v, soft_cap)
+    if use:
+        _check_attention_kernel(name, q, k, v, q_offset)
+    if grad:
+        return _Attention.apply(q, k, v, causal, window, q_offset, soft_cap,
+                                use, chunk)
+    if not use:
+        return kref.attention_chunked(q, k, v, causal=causal, window=window,
+                                      q_offset=q_offset,
+                                      logit_soft_cap=soft_cap, chunk=chunk)
+    return _attention_kernel(q, k, v, causal, window, q_offset, soft_cap,
+                             with_lse=False)[0]
+
+
+def _check_attention(name: str, q, k, v, soft_cap) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"{name}: q must be [B, Hq, Sq, D] and k, v one "
                          f"[B, Hkv, Skv, D] shape; got {list(q.shape)}, "
@@ -1132,37 +1186,141 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"multiple of Hkv")
     if soft_cap is not None and soft_cap <= 0:
         raise ValueError(f"{name}: soft_cap must be > 0, got {soft_cap}")
-    if not use:
-        return kref.attention_chunked(q, k, v, causal=causal, window=window,
-                                      q_offset=q_offset,
-                                      logit_soft_cap=soft_cap, chunk=chunk)
+
+
+def _check_attention_kernel(name: str, q, k, v, q_offset: int) -> None:
     if q.dtype not in ATTN_DTYPES or k.dtype != q.dtype or \
             v.dtype != q.dtype:
         raise TypeError(f"{name}: q, k and v must all be float32 or "
                         f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    D, Sq, Skv = q.shape[3], q.shape[2], k.shape[2]
     if D > ATTN_MAX_HEAD_DIM:
         raise ValueError(f"{name}: head_dim {D} > {ATTN_MAX_HEAD_DIM}")
     if not 0 <= q_offset < 2 ** 30 or Sq >= 2 ** 30 or Skv >= 2 ** 31:
         raise ValueError(f"{name}: q_offset {q_offset}, Sq {Sq} or Skv "
                          f"{Skv} out of the kernel's int32 range")
-    # a window wider than every query's reach masks nothing
-    has_window = window is not None and window <= q_offset + Sq - 1
+
+
+def _window_args(window: Optional[int], q_offset: int, Sq: int
+                 ) -> Tuple[int, int]:
+    """``(has_window, window)`` as the kernels take them: a window wider
+    than every query's reach masks nothing."""
+    has = window is not None and window <= q_offset + Sq - 1
+    return int(has), int(window) if has else 0
+
+
+def _attention_kernel(q, k, v, causal: bool, window: Optional[int],
+                      q_offset: int, soft_cap: Optional[float],
+                      with_lse: bool
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One ``flash_attention`` launch → ``(out, lse or None)``; ``lse``
+    (float32 ``[B, Hq, Sq]``, natural log) is written only when asked, and
+    the output is the same either way."""
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Skv, _ = k.shape
     if q.dtype == torch.bfloat16:
         q, k, v = (t if tma_ready(t) else _tma_copy(t) for t in (q, k, v))
     else:
         q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
                    for t in (q, k, v))
     out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32,
+                      device=q.device) if with_lse else None
     if out.numel():
-        _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), *q.stride()[:3], *k.stride()[:3],
-                *v.stride()[:3], B, Hq, Hkv, Sq, Skv, D, int(causal),
-                int(has_window), int(window) if has_window else 0,
+        _launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(),
+                lse.data_ptr() if with_lse else None, *q.stride()[:3],
+                *k.stride()[:3], *v.stride()[:3], B, Hq, Hkv, Sq, Skv, D,
+                int(causal), *_window_args(window, q_offset, Sq),
                 int(q_offset), kref.attention_scale(D),
                 int(soft_cap is not None),
                 float(soft_cap) if soft_cap is not None else 0.0,
                 int(q.dtype == torch.bfloat16))
-    return out
+    elif with_lse:
+        lse.fill_(float("inf"))
+    return out, lse
+
+
+class _Attention(torch.autograd.Function):
+    """``attention`` under autograd: the forward with its LSE, saved with
+    q, k, v and the output; the backward through :func:`attention_bwd`
+    on the same route (kernel or plain) as the forward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, soft_cap, use,
+                chunk):
+        if use:
+            out, lse = _attention_kernel(q, k, v, causal, window, q_offset,
+                                         soft_cap, with_lse=True)
+        else:
+            out, lse = kref.attention_chunked(
+                q, k, v, causal=causal, window=window, q_offset=q_offset,
+                logit_soft_cap=soft_cap, chunk=chunk, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = dict(causal=causal, window=window, q_offset=q_offset,
+                        soft_cap=soft_cap, chunk=chunk,
+                        impl="cuda" if use else "torch")
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, out, lse, do, **ctx.args)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                  causal: bool = True, window: Optional[int] = None,
+                  q_offset: int = 0, soft_cap: Optional[float] = None,
+                  impl: str = "auto", chunk: int = 512
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients ``(dq, dk, dv)`` of :func:`attention` from its
+    inputs, output ``o``, LSE and the output's gradient ``do`` (``o`` and
+    ``do`` q's shape, ``lse`` float32 ``[B, Hq, Sq]``), in q's, k's and
+    v's dtypes: the ``flash_attention_bwd`` kernel for CUDA tensors (one
+    launch: Δ = rowsum(dO ∘ O), the key-tile pass for dK and dV, the
+    query-tile pass for dQ; ``csrc/flash_attention_bwd.cu``), the plain
+    ``ref.attention_bwd_ref`` for CPU tensors or ``impl="torch"``."""
+    name = "flash_attention_bwd"
+    use = _use_kernel(name, impl, q, k, v, o, lse, do)
+    _check_attention(name, q, k, v, soft_cap)
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Skv, _ = k.shape
+    if o.shape != q.shape or do.shape != q.shape or \
+            tuple(lse.shape) != (B, Hq, Sq):
+        raise ValueError(f"{name}: o {list(o.shape)} and do "
+                         f"{list(do.shape)} must be q's shape and lse "
+                         f"{list(lse.shape)} [B, Hq, Sq]")
+    if not use:
+        return kref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                      window=window, q_offset=q_offset,
+                                      soft_cap=soft_cap, chunk=chunk)
+    _check_attention_kernel(name, q, k, v, q_offset)
+    if o.dtype != q.dtype or do.dtype != q.dtype or \
+            lse.dtype != torch.float32:
+        raise TypeError(f"{name}: o and do must be q's dtype {q.dtype} and "
+                        f"lse float32; got {o.dtype}, {do.dtype}, "
+                        f"{lse.dtype}")
+    q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if Skv == 0:
+        dq.zero_()
+    if dq.numel() and dk.numel():
+        delta = torch.empty((B, Hq, Sq), dtype=torch.float32,
+                            device=q.device)
+        _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), B, Hq, Hkv, Sq, Skv, D, int(causal),
+                *_window_args(window, q_offset, Sq), int(q_offset),
+                kref.attention_scale(D), int(soft_cap is not None),
+                float(soft_cap) if soft_cap is not None else 0.0,
+                int(q.dtype == torch.bfloat16))
+    elif dk.numel():
+        dk.zero_()
+        dv.zero_()
+    return dq, dk, dv
 
 
 # ---------------------------------------------------------------------------
@@ -1209,6 +1367,8 @@ def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     name = "wkv6_scan"
     use = _use_kernel(name, impl, r, k, v, w, u,
                       *(() if S0 is None else (S0,)))
+    if use:
+        _refuse_autograd(name, SCAN_NO_BACKWARD, r, k, v, w, u, S0)
     if r.dim() != 4:
         raise ValueError(f"{name}: r must be [B, S, H, D], got "
                          f"{list(r.shape)}")
@@ -1262,6 +1422,8 @@ def ssd_scan(x: torch.Tensor, Bv: torch.Tensor, Cv: torch.Tensor,
     name = "ssd_scan"
     use = _use_kernel(name, impl, x, Bv, Cv, dt, a,
                       *(() if h0 is None else (h0,)))
+    if use:
+        _refuse_autograd(name, SCAN_NO_BACKWARD, x, Bv, Cv, dt, a, h0)
     if x.dim() != 4 or Bv.dim() != 3:
         raise ValueError(f"{name}: x must be [B, S, H, D] and Bv [B, S, n],"
                          f" got {list(x.shape)}, {list(Bv.shape)}")

@@ -400,11 +400,13 @@ def attention_scale(D: int) -> float:
     return float(np.float32(1.0) / np.sqrt(np.float32(D)))
 
 
-def _attend(q, k, v, mask, logit_soft_cap):
+def _attend(q, k, v, mask, logit_soft_cap, want_lse: bool = False):
     """Softmax attention of ``q [B, Hq, Sq, D]`` over ``k``/``v [B, Hkv,
     Skv, D]`` in float32 under a ``[Sq, Skv]`` boolean mask; query head h
     reads KV head ``h // (Hq / Hkv)`` through a reshape (K and V are never
-    repeated); fully-masked rows give 0. Returns float32 ``[B, Hq, Sq, D]``.
+    repeated); fully-masked rows give 0. Returns float32 ``[B, Hq, Sq, D]``
+    and, with ``want_lse``, the rows' natural log-sum-exp ``[B, Hq, Sq]``
+    (+inf for a fully-masked row, so that ``exp(s − lse)`` is 0 there).
     """
     B, Hq, Sq, D = q.shape
     Hkv = k.shape[1]
@@ -417,11 +419,16 @@ def _attend(q, k, v, mask, logit_soft_cap):
     if logit_soft_cap is not None:
         logits = torch.tanh(logits / logit_soft_cap).mul_(logit_soft_cap)
     logits.masked_fill_(~mask, float("-inf"))
+    lse = None
+    if want_lse:
+        lse = torch.logsumexp(logits, dim=-1)
+        lse = lse.masked_fill_(torch.isneginf(lse), float("inf"))
     probs = torch.softmax(logits, dim=-1)
     del logits
     probs = torch.nan_to_num_(probs, nan=0.0)
     out = torch.matmul(probs.view(B, Hkv, g * Sq, -1), v.float())
-    return out.view(B, Hq, Sq, D)
+    out = out.view(B, Hq, Sq, D)
+    return (out, lse) if want_lse else out
 
 
 def _mask(qpos, kpos, causal: bool, window: Optional[int]):
@@ -454,7 +461,7 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       causal: bool = True, window: Optional[int] = None,
                       q_offset: int = 0,
                       logit_soft_cap: Optional[float] = None,
-                      chunk: int = 512) -> torch.Tensor:
+                      chunk: int = 512, return_lse: bool = False):
     """Memory-bounded attention: a loop over query chunks, float32 math.
 
     Peak live logits are ``[B, Hq, chunk, Skv]``. With a causal sliding
@@ -462,7 +469,9 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``⌈(window + chunk) / chunk⌉ · chunk``, at most ``Skv``), so windowed
     work is O(S·window), as in the reference. A ragged last chunk is run
     short, where the reference pads it and strips the padding: the rows
-    kept are the same.
+    kept are the same. ``return_lse`` also returns the rows' float32
+    log-sum-exp ``[B, Hq, Sq]`` (natural log, +inf for a fully-masked
+    row), what :func:`attention_bwd_ref` takes.
     """
     B, Hq, Sq, D = q.shape
     Skv = k.shape[2]
@@ -471,6 +480,8 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if banded:
         band = min(-(-(window + chunk) // chunk) * chunk, Skv)
     out = torch.empty(q.shape, dtype=q.dtype, device=dev)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+           if return_lse else None)
     for c0 in range(0, Sq, chunk):
         c1 = min(c0 + chunk, Sq)
         q0 = c0 + q_offset                       # absolute q start
@@ -482,10 +493,70 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             kc, vc = k, v
             kpos = torch.arange(Skv, device=dev)
         qpos = q0 + torch.arange(c1 - c0, device=dev)
-        out[:, :, c0:c1] = _attend(q[:, :, c0:c1], kc, vc,
-                                   _mask(qpos, kpos, causal, window),
-                                   logit_soft_cap)
-    return out
+        res = _attend(q[:, :, c0:c1], kc, vc,
+                      _mask(qpos, kpos, causal, window), logit_soft_cap,
+                      want_lse=return_lse)
+        if return_lse:
+            out[:, :, c0:c1], lse[:, :, c0:c1] = res
+        else:
+            out[:, :, c0:c1] = res
+    return (out, lse) if return_lse else out
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                      causal: bool = True, window: Optional[int] = None,
+                      q_offset: int = 0,
+                      soft_cap: Optional[float] = None, chunk: int = 512):
+    """The attention backward written out in float32, a loop over query
+    chunks (the plain version of the ``flash_attention_bwd`` kernel):
+    ``q``, ``o``, ``do [B, Hq, Sq, D]``, ``k``, ``v [B, Hkv, Skv, D]``,
+    ``lse [B, Hq, Sq]`` from the forward (natural log; +inf on a
+    fully-masked row) → ``(dq, dk, dv)`` in q's, k's and v's dtypes.
+
+    With ``s`` the scaled (and capped) score, ``P = exp(s − lse)`` on the
+    live pairs and 0 elsewhere, ``Δ = rowsum(dO ∘ O)``, ``dS = P ∘ (dO·Vᵀ
+    − Δ)`` (times ``1 − tanh²(raw·scale/cap)`` under the cap): ``dV = Pᵀ
+    dO``, ``dK = scale · dSᵀ Q`` and ``dQ = scale · dS K``, the query
+    heads of a group summed into their KV head. Peak live scores are
+    ``[B, Hq, chunk, Skv]``."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    scale = attention_scale(D)
+    dev = q.device
+    kf, vf = k.float(), v.float()
+    dq = torch.empty((B, Hq, Sq, D), dtype=torch.float32, device=dev)
+    dk = torch.zeros((B, Hkv, Skv, D), dtype=torch.float32, device=dev)
+    dv = torch.zeros((B, Hkv, Skv, D), dtype=torch.float32, device=dev)
+    kpos = torch.arange(Skv, device=dev)
+    for c0 in range(0, Sq, chunk):
+        c1 = min(c0 + chunk, Sq)
+        n = c1 - c0
+        qpos = q_offset + c0 + torch.arange(n, device=dev)
+        mask = _mask(qpos, kpos, causal, window)
+        qc = q[:, :, c0:c1].float().reshape(B, Hkv, g * n, D)
+        doc = do[:, :, c0:c1].float()
+        delta = (doc * o[:, :, c0:c1].float()).sum(-1)       # [B, Hq, n]
+        doc = doc.reshape(B, Hkv, g * n, D)
+        raw = torch.matmul(qc, kf.transpose(-1, -2)).view(B, Hq, n, Skv)
+        raw = raw * scale
+        if soft_cap is not None:
+            t = torch.tanh(raw / soft_cap)
+            s = t * soft_cap
+        else:
+            s = raw
+        p = torch.exp(s - lse[:, :, c0:c1, None]).masked_fill_(~mask, 0.0)
+        dp = torch.matmul(doc, vf.transpose(-1, -2)).view(B, Hq, n, Skv)
+        ds = p * (dp - delta[..., None])
+        if soft_cap is not None:
+            ds = ds * (1.0 - t * t)
+        ds = ds * scale
+        pv, dsv = (x.view(B, Hkv, g * n, Skv) for x in (p, ds))
+        dq[:, :, c0:c1] = torch.matmul(dsv, kf).view(B, Hq, n, D)
+        dk += torch.matmul(dsv.transpose(-1, -2), qc)
+        dv += torch.matmul(pv.transpose(-1, -2), doc)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,

@@ -17,6 +17,9 @@ whisper's encoder (``batch["encoder_frames"]``, non-causal) and its
 decoder's cross-attention run ``flash_attention`` too, and its decode
 state holds the encoder's K/V a layer; the VLM puts the projected
 ``batch["prefix_embeds"]`` before the text (a stub vision frontend).
+``forward_train`` is also the training forward (``repro_torch.training``):
+on the card its attention's backward is the hand-written
+``flash_attention_bwd`` kernel.
 """
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (DecodeState, Transformer,

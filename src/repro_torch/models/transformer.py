@@ -39,16 +39,21 @@ a decoder layer. The VLM projects ``batch["prefix_embeds"]`` and puts
 them before the text's embeddings, RoPE positions running over both;
 its decode is the dense path over text alone, as the reference's is. The
 reference's sharding constraints (``distributed.context.constrain``) are
-the identity on one device and its checkpoints (``remat``,
-``scan_utils.chunked_scan``'s) are for training; neither is ported.
+the identity on one device. ``forward_train(remat=True)`` recomputes each
+block in the backward (``torch.utils.checkpoint``), as the reference's
+``_maybe_remat`` does; ``scan_utils.chunked_scan``'s checkpoints come with
+the recurrent families' training, the next slice of ``ROADMAP.md`` Queue 1
+item 14.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 from torch.profiler import record_function
 
@@ -198,36 +203,62 @@ def init_params(cfg: ModelConfig,
     return Transformer(cfg, dev, generator)
 
 
+def _maybe_remat(fn: Callable, remat: bool) -> Callable:
+    """``fn`` as it is, or, under ``remat`` with autograd recording, ``fn``
+    through ``torch.utils.checkpoint`` (non-reentrant): the block keeps
+    only its inputs for the backward and runs again there, attention
+    kernel and weight casts included (``compute_weight`` casts anew under
+    grad, so the recompute casts again). The reference's policy, which
+    also keeps the block's matrix products, changes memory only."""
+    if not remat or not torch.is_grad_enabled():
+        return fn
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                             use_reentrant=False)
+
+
+def _attention_block(bp: Block, x: torch.Tensor, cfg: ModelConfig,
+                     is_global: bool
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One dense or MoE block → (x, the MoE layer's load-balancing loss or
+    None)."""
+    h = rmsnorm(bp.ln1, x, cfg.norm_eps)
+    x = x + attention_forward(bp.attn, h, cfg, is_global=is_global)
+    h2 = rmsnorm(bp.ln2, x, cfg.norm_eps)
+    if cfg.family == "moe":
+        y, moe_aux = moe_forward(bp.moe, h2, cfg)
+        return x + y, moe_aux["aux_loss"]
+    return x + mlp_forward(bp.mlp, h2, cfg), None
+
+
 def _attention_forward(params: Transformer, x: torch.Tensor,
-                       cfg: ModelConfig
+                       cfg: ModelConfig, remat: bool = False
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The dense and MoE blocks; the MoE layers' mean load-balancing
     loss as ``aux["moe_aux_loss"]``."""
     moe = cfg.family == "moe"
+    block = _maybe_remat(_attention_block, remat)
     aux_losses = []
     for i, bp in enumerate(params.blocks):
-        h = rmsnorm(bp.ln1, x, cfg.norm_eps)
-        x = x + attention_forward(bp.attn, h, cfg,
-                                  is_global=moe or cfg.layer_is_global(i))
-        h2 = rmsnorm(bp.ln2, x, cfg.norm_eps)
-        if moe:
-            y, moe_aux = moe_forward(bp.moe, h2, cfg)
-            x = x + y
-            aux_losses.append(moe_aux["aux_loss"])
-        else:
-            x = x + mlp_forward(bp.mlp, h2, cfg)
+        x, aux_loss = block(bp, x, cfg, moe or cfg.layer_is_global(i))
+        aux_losses.append(aux_loss)
     aux = {"moe_aux_loss": torch.stack(aux_losses).mean()} if moe else {}
     return x, aux
 
 
+def _rwkv_block(bp: RWKVBlock, x: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    h = rmsnorm(bp.ln1, x, cfg.norm_eps)
+    x = x + rwkv_time_mix(bp.time_mix, h, cfg)[0]
+    h2 = rmsnorm(bp.ln2, x, cfg.norm_eps)
+    return x + rwkv_channel_mix(bp.channel_mix, h2, cfg)[0]
+
+
 def _rwkv_forward(params: Transformer, x: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
+                  cfg: ModelConfig, remat: bool = False) -> torch.Tensor:
     """The RWKV-6 blocks, each recurrence from a zero state."""
+    block = _maybe_remat(_rwkv_block, remat)
     for bp in params.blocks:
-        h = rmsnorm(bp.ln1, x, cfg.norm_eps)
-        x = x + rwkv_time_mix(bp.time_mix, h, cfg)[0]
-        h2 = rmsnorm(bp.ln2, x, cfg.norm_eps)
-        x = x + rwkv_channel_mix(bp.channel_mix, h2, cfg)[0]
+        x = block(bp, x, cfg)
     return x
 
 
@@ -248,20 +279,31 @@ def _shared_block(sp: SharedAttn, x: torch.Tensor, cfg: ModelConfig,
         return x + mlp_forward(sp.mlp, h2, cfg)
 
 
+def _mamba_block(bp: MambaBlock, x: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    return x + mamba2_forward(bp.mamba, rmsnorm(bp.ln, x, cfg.norm_eps),
+                              cfg)[0]
+
+
+def _shared_site(sp: SharedAttn, x: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """The shared block at one site of the full-sequence forward."""
+    return _shared_block(sp, x, cfg, lambda h: attention_forward(
+        sp.attn, h, cfg, is_global=True))
+
+
 def _hybrid_forward(params: Transformer, x: torch.Tensor,
-                    cfg: ModelConfig) -> torch.Tensor:
+                    cfg: ModelConfig, remat: bool = False) -> torch.Tensor:
     """zamba2: groups of ``period`` Mamba-2 blocks, the shared block after
     each group (after layer i where ``(i + 1) % period == 0``), then the
     tail blocks without it."""
     period = _period(cfg)
+    block = _maybe_remat(_mamba_block, remat)
+    shared = _maybe_remat(_shared_site, remat)
     for i, bp in enumerate(params.blocks):
-        h = rmsnorm(bp.ln, x, cfg.norm_eps)
-        x = x + mamba2_forward(bp.mamba, h, cfg)[0]
+        x = block(bp, x, cfg)
         if (i + 1) % period == 0:
-            x = _shared_block(
-                params.shared_attn, x, cfg,
-                lambda h: attention_forward(params.shared_attn.attn, h, cfg,
-                                            is_global=True))
+            x = shared(params.shared_attn, x, cfg)
     return x
 
 
@@ -304,7 +346,7 @@ def _encdec_block(bp: EncDecBlock, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _encoder_forward(params: Transformer, frames: torch.Tensor,
-                     cfg: ModelConfig) -> torch.Tensor:
+                     cfg: ModelConfig, remat: bool = False) -> torch.Tensor:
     """whisper's encoder over precomputed frame embeddings ``[B, T, d]``
     (the conv frontend is a stub): the sinusoidal table added, the
     encoder blocks, ``enc_final_norm``."""
@@ -312,19 +354,22 @@ def _encoder_forward(params: Transformer, frames: torch.Tensor,
         dt = dtype_of(cfg)
         x = frames.to(dt)
         x = x + _sinusoidal(x.shape[1], cfg.d_model, dt, x.device)[None]
+        block = _maybe_remat(_encdec_block, remat)
         for bp in params.enc_blocks:
-            x = _encdec_block(bp, x, cfg)
+            x = block(bp, x, cfg)
         return rmsnorm(params.enc_final_norm, x, cfg.norm_eps)
 
 
 def _encdec_forward(params: Transformer, x: torch.Tensor,
-                    frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+                    frames: torch.Tensor, cfg: ModelConfig,
+                    remat: bool = False) -> torch.Tensor:
     """The encoder over ``frames``, then the decoder blocks over the
     token embeddings ``x`` plus the sinusoidal table."""
-    enc = _encoder_forward(params, frames, cfg)
+    enc = _encoder_forward(params, frames, cfg, remat)
     x = x + _sinusoidal(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
+    block = _maybe_remat(_encdec_block, remat)
     for bp in params.dec_blocks:
-        x = _encdec_block(bp, x, cfg, enc)
+        x = block(bp, x, cfg, enc)
     return x
 
 
@@ -336,12 +381,13 @@ def forward_train(params: Transformer, batch: Dict[str, torch.Tensor],
     family ``{"moe_aux_loss": the layers' mean}``). The VLM also takes
     ``batch["prefix_embeds"] [B, P, d]`` and returns ``[B, P + S, V]``;
     whisper takes ``batch["encoder_frames"] [B, T, d]``. It records
-    autograd history like any module call; serving callers run it under
-    ``torch.inference_mode()``."""
-    if remat:
-        raise NotImplementedError(
-            "remat=True is training, which is not ported to repro_torch yet "
-            "(ROADMAP.md Queue 1 item 14: training/)")
+    autograd history like any module call, on the card too (the attention
+    kernel runs under an autograd Function with its backward kernel;
+    the scan kernels raise under autograd); serving callers run it under
+    ``torch.inference_mode()``. ``remat=True`` checkpoints each block
+    (:func:`_maybe_remat`): the backward keeps each block's input and
+    recomputes the rest, so a step launches the attention forward twice
+    a layer."""
     x = embed_tokens(params.embed, batch["tokens"], cfg)
     aux: Dict[str, torch.Tensor] = {}
     if cfg.family == "vlm":
@@ -350,13 +396,13 @@ def forward_train(params: Transformer, batch: Dict[str, torch.Tensor],
                           compute_weight(params.vision_proj, "kernel", cfg))
         x = torch.cat([prefix, x], dim=1)
     if cfg.family == "ssm":
-        x = _rwkv_forward(params, x, cfg)
+        x = _rwkv_forward(params, x, cfg, remat)
     elif cfg.family == "hybrid":
-        x = _hybrid_forward(params, x, cfg)
+        x = _hybrid_forward(params, x, cfg, remat)
     elif cfg.family == "encdec":
-        x = _encdec_forward(params, x, batch["encoder_frames"], cfg)
+        x = _encdec_forward(params, x, batch["encoder_frames"], cfg, remat)
     else:
-        x, aux = _attention_forward(params, x, cfg)
+        x, aux = _attention_forward(params, x, cfg, remat)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     return unembed(params.embed, x, cfg, params.head), aux
 
