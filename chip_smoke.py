@@ -303,22 +303,28 @@ against its guarantee:
 24. training — (after phase 23, the peak memory counter reset) the
               ``flash_attention_bwd`` kernel against its plain version
               (``ref.attention_bwd_ref``): float32 at S = 4,096 with
-              llama's heads (relative Frobenius of dq, dk and dv ≤ 1e-5,
-              a gate that two planted faults must fail: Δ left out, the
-              GQA sum over one head of each group), bf16 at 1 × 32,768
-              (≤ 1e-2 against the plain backward in float32 on the same
-              inputs), head dims 120, 128 and 256, a window, a soft cap,
+              llama's heads on the SIMT route (relative Frobenius of dq,
+              dk and dv ≤ 1e-5, a gate that two planted faults must
+              fail: Δ left out, the GQA sum over one head of each
+              group), the same in bf16 on the tensor-core route (≤ 1e-2,
+              the same two faults caught), bf16 at 1 × 32,768 and at
+              the training shape 2 × 4,096 (≤ 1e-2 against the plain
+              backward in float32 on the same inputs),
+              head dims 120, 128 and 256, a window, a soft cap,
               non-causal 1,500², cross 4,096 × 1,500 and rows with no
-              live key (gradient 0); its ms (events and a trace), bound
-              and SDPA's backward ms at the 32k shape, and the forward's
-              ms with and without the LSE; then llama3.2-1b trained at
+              live key (gradient 0); its ms (events and a trace, device
+              ms and TFLOP/s by pass), bound and SDPA's backward ms at
+              the 32k shape and at the training shape (2 × 4,096), and
+              the forward's ms with and without the LSE; then
+              llama3.2-1b trained at
               full width and depth (bf16 compute, float32 master
               weights, AdamW with weight decay 0.1, ``SyntheticTokens``
               at B = 2, S = 4,096): two runs of the first step's
               gradients byte-equal, 4 steps without ``remat`` and 2 with
               (loss, grad norm, s a step, tokens/s, peak memory, 16
               ``flash_attention`` and 16 ``flash_attention_bwd``
-              launches a step, 32 forwards under ``remat``), the step's
+              launches a step, 32 forwards under ``remat``, every
+              backward on the tensor-core route), the step's
               gradients through the kernels against the plain path's
               (``attn_impl="torch"``: every leaf within 5e-2 in bf16 at
               1 × 1,024; within 1e-4 in float32 at 2 layers, ``remat``
@@ -4457,6 +4463,35 @@ def flash_attention_bwd_row(launches: int, cfg, dev) -> dict:
         assert max(e) > lim, f"the float32 gate misses a planted fault " \
             f"({what})"
     del q, k, v, o, lse, do, got, want, no_delta, one
+    # the same faults on the bf16 tensor-core route, at the bf16 limit
+    lim16 = FA_BWD_REL["bfloat16"]
+    q, k, v, o, lse, do = attention_bwd_inputs(shape, torch.bfloat16, dev, 1)
+    before = dict(ops.BWD_ROUTES)
+    got = ops.attention_bwd(q, k, v, o, lse, do, impl="cuda")
+    want = kref.attention_bwd_ref(*(t.float() for t in (q, k, v, o)), lse,
+                                  do.float())
+    errs16 = bwd_errors(got, want)
+    log("24 flash_attention_bwd_bf16", S=4_096, route="wgmma",
+        rel_dq=errs16[0], rel_dk=errs16[1], rel_dv=errs16[2], limit=lim16,
+        ok=max(errs16) <= lim16)
+    assert max(errs16) <= lim16, f"flash_attention_bwd strays in bf16: " \
+        f"{errs16}"
+    no_delta = ops.attention_bwd(q, k, v, torch.zeros_like(o), lse, do,
+                                 impl="cuda")
+    one = ops.attention_bwd(q[:, ::G], k, v, o[:, ::G], lse[:, ::G],
+                            do[:, ::G], impl="cuda")
+    wgmma_calls = ops.BWD_ROUTES["wgmma"] - before["wgmma"]
+    for what, bad in (("delta_left_out", no_delta),
+                      ("gqa_sum_over_one_head", (got[0],) + one[1:])):
+        e = bwd_errors(bad, want)
+        log("24 flash_attention_bwd_control", route="wgmma",
+            dtype="bfloat16", fault=what, rel_dq=e[0], rel_dk=e[1],
+            rel_dv=e[2], limit=lim16, caught=max(e) > lim16)
+        assert max(e) > lim16, f"the bf16 gate misses a planted fault " \
+            f"({what})"
+    assert wgmma_calls == 3, f"the bf16 calls left the tensor-core route: " \
+        f"{ops.BWD_ROUTES}"
+    del q, k, v, o, lse, do, got, want, no_delta, one
     worst = max(errs)
     for name, check in FA_BWD_CHECKS.items():
         for dtype in ("float32", "bfloat16"):
@@ -4474,7 +4509,6 @@ def flash_attention_bwd_row(launches: int, cfg, dev) -> dict:
         *(t.float() for t in (q, k, v, o)), lse, do.float())
     want = plain()
     errs32k = bwd_errors(got, want)
-    lim16 = FA_BWD_REL["bfloat16"]
     max_abs = max(float((a.float() - b).abs().max())
                   for a, b in zip(got, want))
     log("24 flash_attention_bwd_32k", dtype="bfloat16", S=S,
@@ -4486,9 +4520,7 @@ def flash_attention_bwd_row(launches: int, cfg, dev) -> dict:
     ms, reps = time_ms_auto(kern)
     _, _, _, by_kernel, top = device_busy_ms(kern, by_kernel=True)
     # a trace may drop the ctypes launches (PERF.md §7)
-    dev_ms = sum(by_kernel.get(n, (0, 0.0))[1]
-                 for n in ("delta_kernel", "dkdv_kernel", "dq_kernel")
-                 ) if by_kernel else "not measured"
+    dev_ms = bwd_device_ms(by_kernel)
     plain_ms = time_ms(plain, reps=1, warmups=1)
     lib_ms, lib_fwd_ms = sdpa_backward_ms(q, k, v, do)
     fwd_lse = lambda: ops._attention_kernel(  # noqa: E731
@@ -4499,6 +4531,7 @@ def flash_attention_bwd_row(launches: int, cfg, dev) -> dict:
     same = torch.equal(fwd()[0], fwd_lse()[0])
     pairs = live_pairs(S, S, True, None, 0)
     flops = 10 * B * Hq * pairs * D
+    train = bwd_train_shape(cfg, dev)
     nbytes = 2 * (4 * B * Hq * S * D + 4 * B * Hkv * S * D) + 4 * B * Hq * S
     t_ops = flops / BF16_FLOP_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -4513,6 +4546,7 @@ def flash_attention_bwd_row(launches: int, cfg, dev) -> dict:
                         if k not in ("source", "replaces", "route")},
         card=repr(card_name_power()),
         device_ms=dev_ms, by_kernel=json.dumps(by_kernel),
+        tflop_per_s_by_pass=json.dumps(pass_tflop_per_s(by_kernel, flops)),
         top_kernels=json.dumps(top), tflop_per_s=flops / ms / 1e9,
         reps=reps, flop=flops, bytes=nbytes, worst_f32_rel=worst,
         sdpa_fwd_bwd_ms=lib_ms, sdpa_fwd_ms=lib_fwd_ms,
@@ -4523,8 +4557,73 @@ def flash_attention_bwd_row(launches: int, cfg, dev) -> dict:
         plain="attention_bwd_ref, float32, one warm call",
         library="SDPA flash backend, enable_gqa: forward+backward less "
         "forward")
+    log("24 kernel_train_shape", **train, card=repr(card_name_power()))
     assert same, "the forward's output changes when it writes the LSE"
     return r
+
+
+# the backward's kernels by their names in a trace: the bf16 tensor-core
+# route's Δ, key-tile and query-tile passes, then the SIMT route's
+BWD_KERNELS = ("bwd_prep_kernel", "dkdv_wgmma_kernel", "dq_wgmma_kernel",
+               "delta_kernel", "dkdv_kernel", "dq_kernel")
+# the algorithm's products a pass runs on the tensor-core route (the query
+# pass recomputes S and dP)
+BWD_PASS_PRODUCTS = {"dkdv_wgmma_kernel": 4, "dq_wgmma_kernel": 3}
+
+
+def bwd_device_ms(by_kernel: dict):
+    """The backward's device ms in a trace's ``port_kernel_times``, or
+    "not measured" when the trace holds none of its kernels."""
+    found = [by_kernel[n][1] for n in BWD_KERNELS if n in by_kernel]
+    return sum(found) if found else "not measured"
+
+
+def pass_tflop_per_s(by_kernel: dict, flops: int) -> dict:
+    """Each tensor-core pass's TFLOP/s of its products over the live
+    pairs (``flops`` is the algorithm's five products'), from a trace."""
+    return {n: k * flops / 5 / by_kernel[n][1] / 1e9
+            for n, k in BWD_PASS_PRODUCTS.items()
+            if by_kernel.get(n, (0, 0.0))[1] > 0}
+
+
+def bwd_train_shape(cfg, dev) -> dict:
+    """The bf16 backward at the training step's shape (``TRAIN``'s batch
+    and sequence, ``cfg``'s heads, causal): held against
+    ``attention_bwd_ref`` at ``FA_BWD_REL`` (the only gate with B > 1 on
+    the tensor-core route), then its ms (events), device ms by pass (a
+    trace) and SDPA's backward on the same inputs."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    shape = (B, Hq, Hkv, S, S, D, True, None, 0, None)
+    q, k, v, o, lse, do = attention_bwd_inputs(shape, torch.bfloat16, dev, 4)
+    kern = lambda: ops.attention_bwd(q, k, v, o, lse, do,  # noqa: E731
+                                     impl="cuda")
+    got = kern()
+    want = kref.attention_bwd_ref(*(t.float() for t in (q, k, v, o)), lse,
+                                  do.float())
+    errs = bwd_errors(got, want)
+    lim = FA_BWD_REL["bfloat16"]
+    ok = max(errs) <= lim
+    log("24 flash_attention_bwd_train_shape", dtype="bfloat16", B=B, S=S,
+        rel_dq=errs[0], rel_dk=errs[1], rel_dv=errs[2], limit=lim, ok=ok)
+    assert ok, f"flash_attention_bwd strays at the training shape: {errs}"
+    del got, want
+    ms, reps = time_ms_auto(kern)
+    _, _, _, by_kernel, _ = device_busy_ms(kern, by_kernel=True)
+    lib_ms, lib_fwd_ms = sdpa_backward_ms(q, k, v, do)
+    flops = 10 * B * Hq * live_pairs(S, S, True, None, 0) * D
+    return dict(shape=f"B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} causal bf16",
+                ms=ms, reps=reps, device_ms=bwd_device_ms(by_kernel),
+                by_kernel=json.dumps({n: by_kernel[n] for n in BWD_KERNELS
+                                      if n in by_kernel}),
+                tflop_per_s=flops / ms / 1e9,
+                bound_ms=flops / BF16_FLOP_PER_S * 1e3, rel_dq=errs[0],
+                rel_dk=errs[1], rel_dv=errs[2], ok=ok,
+                library_ms=lib_ms - lib_fwd_ms, sdpa_fwd_bwd_ms=lib_ms,
+                sdpa_fwd_ms=lib_fwd_ms, a_step_ms=ms * cfg.num_layers)
 
 
 def grad_errors(got: dict, want: dict) -> dict:
@@ -4669,8 +4768,11 @@ def phase_training(dev) -> list:
         log("24 train_step", **runs[-1])
     launches = ops.launch_counts()
     log("launches", path="training", **launches)
+    log("24 backward_routes", **ops.BWD_ROUTES)
     L = cfg.num_layers
     assert launches["flash_attention_bwd"] == L * len(steps), launches
+    assert ops.BWD_ROUTES == {"wgmma": L * len(steps), "simt": 0}, \
+        f"the step's backward left the tensor-core route: {ops.BWD_ROUTES}"
     for r in runs:
         assert r["flash_attention"] == L * (2 if r["remat"] else 1), r
         assert r["flash_attention_bwd"] == L, r
@@ -4699,12 +4801,13 @@ def phase_training(dev) -> list:
     wall, busy, n_k, by_kernel, top = device_busy_ms(traced, by_kernel=True)
     state = out["state"][0]
     fwd_ms = by_kernel.get("fa_wgmma_kernel", (0, 0.0))[1]
-    bwd_ms = sum(by_kernel.get(k, (0, 0.0))[1]
-                 for k in ("delta_kernel", "dkdv_kernel", "dq_kernel"))
+    bwd_ms = bwd_device_ms(by_kernel)
+    measured = busy and fwd_ms and bwd_ms != "not measured"
     log("24 profile", wall_ms=wall, device_busy_ms=busy,
         idle_share=1.0 - busy / wall, kernels=n_k,
-        flash_attention_ms=fwd_ms, flash_attention_bwd_ms=bwd_ms,
-        attention_share_of_busy=(fwd_ms + bwd_ms) / busy if busy else
+        flash_attention_ms=fwd_ms if fwd_ms else "not measured",
+        flash_attention_bwd_ms=bwd_ms,
+        attention_share_of_busy=(fwd_ms + bwd_ms) / busy if measured else
         "not measured",
         port_kernels=json.dumps(by_kernel), top_kernels=json.dumps(top))
     train_grad_gates(state["params"], cfg, dev)
@@ -4717,6 +4820,7 @@ def phase_training(dev) -> list:
 
 # the port's CUDA kernels by their function names in a trace
 PORT_KERNELS = ("fa_wgmma_kernel", "flash_attention_kernel",
+                "dkdv_wgmma_kernel", "dq_wgmma_kernel", "bwd_prep_kernel",
                 "dkdv_kernel", "dq_kernel", "delta_kernel",
                 "frog_step_stream_kernel", "frog_step_kernel",
                 "frog_superstep_stream_kernel", "frog_superstep_kernel",

@@ -3,223 +3,9 @@
 // it computes and why it is built so. Included by that file alone.
 #pragma once
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace fa_hopper {
-
-// ---------------------------------------------------------------------------
-// PTX: mbarriers, TMA, wgmma
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Returns once the barrier's phase of the given parity has completed. A
-// wait that never ends (a schedule fault) traps after 2^30 polls, so the
-// launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done, polls = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (!done && ++polls == (1u << 30)) __trap();
-  } while (!done);
-}
-
-// One TMA box of a 4-d tensor map into shared memory; completion (its
-// bytes) goes to the barrier.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// Moves registers between warpgroups (the producer gives, the consumers
-// take); every warp of the warpgroup executes it.
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of wgmma's registers
-// across the asynchronous product.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// Shared-memory matrix descriptor of a 128-byte-swizzled tile (layout
-// type 1): groups of 8 rows 1024 bytes apart. The step between 64-column
-// chunks of an MN-major operand (the leading byte offset, here 16) is
-// unused: every product reads one chunk.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// d[0:32] += A·B, m64n64k16, A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// d[0:32] += A·B, m64n64k16, A from registers (a, bf16 pairs), B
-// MN-major in shared memory (transpose bit set)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d[0:32] = A·B (the sum starts afresh; d is only written), m64n64k16,
-// A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss_n64_first(float (&d)[32],
-                                                   uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
-        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
-        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
-        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
-        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
-        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
-        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
-        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
-      : "l"(da), "l"(db), "r"(0));
-}
-
-// d[0:32] = A·B (the sum starts afresh; d is only written), m64n64k16,
-// A from registers, B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs_n64_first(float (&d)[32],
-                                                   const uint32_t (&a)[4],
-                                                   uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
-        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
-        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
-        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
-        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
-        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
-        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
-        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0));
-}
-
-// 2^x (MUFU.EX2; results below 2^-126 flush to zero)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
 
 // ---------------------------------------------------------------------------
 // the kernel
@@ -238,48 +24,19 @@ struct Params {
 // D_PAD: head_dim padded (64, 128, 256); NWG consumer warpgroups of 64
 // query rows each; a ring of NST K and V stages.
 template <int D_PAD, int NWG, int NST>
-struct Cfg {
+struct Cfg : RegSplit<NWG> {
   static constexpr int BQ = 64 * NWG;
   static constexpr int NCH = D_PAD / 64;          // 128-byte column chunks
   static constexpr int Q_BYTES = BQ * D_PAD * 2;
   static constexpr int KV_BYTES = BK * D_PAD * 2;  // one K or V tile
   static constexpr int STAGES = NST;
-  // + the producer warpgroup, whose registers setmaxnreg moves to the
-  // consumers
-  static constexpr int THREADS = (NWG + 1) * 128;
-  // the CTA's register pool at one CTA an SM, split by setmaxnreg
-  static constexpr int POOL = 65536 / THREADS / 8 * 8 * THREADS;
-  static constexpr int PRODUCER_REGS = NWG > 2 ? 32 : 24;
-  static constexpr int CONSUMER_REGS_FIT =
-      (POOL - 128 * PRODUCER_REGS) / (NWG * 128) / 8 * 8;
-  static constexpr int CONSUMER_REGS =
-      CONSUMER_REGS_FIT < 240 ? CONSUMER_REGS_FIT : 240;
   // 1024 for aligning the swizzled tiles; the full and empty barrier of
   // each stage and q's
   static constexpr int SMEM =
       1024 + Q_BYTES + STAGES * 2 * KV_BYTES + 8 * (2 * STAGES + 1);
 };
 
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-// S = q · kᵀ for one key tile into a fresh sum, issued (not awaited): the
-// first step only writes sc, so sc holds no registers between tiles.
-// D_PAD / 16 steps of 16 columns, both operands K-major in
-// 128-byte-swizzled chunks of 64 columns (a step advances 32 bytes inside
-// its chunk).
-template <int D_PAD, int BQ>
-__device__ __forceinline__ void issue_s(float (&sc)[BK / 2], uint32_t sQw,
-                                        uint32_t sK) {
-#pragma unroll
-  for (int kk = 0; kk < D_PAD / 16; ++kk) {
-    const uint32_t off = (kk % 4) * 32;
-    const uint64_t da = desc_sw128(sQw + (kk / 4) * BQ * 128 + off);
-    const uint64_t db = desc_sw128(sK + (kk / 4) * BK * 128 + off);
-    if (kk == 0) wgmma_ss_n64_first(sc, da, db);
-    else wgmma_ss_n64(sc, da, db);
-  }
-}
 
 // ot = P_hi · V[:, chunk] + P_lo · V[:, chunk] for one 64-column chunk of
 // V, into a fresh accumulator (the first step overwrites it), issued (not
@@ -506,7 +263,9 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         wait_full(it);
         float sc[BK / 2];   // written afresh by the first step
         wgmma_fence();
-        issue_s<D_PAD, C::BQ>(sc, sQw, k_tile(it));
+        // S = q · kᵀ for the key tile into a fresh sum: the first step only
+        // writes sc, so sc holds no registers between tiles
+        issue_nt<D_PAD, C::BQ>(sc, sQw, k_tile(it));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(sc);
@@ -580,7 +339,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---------------------------------------------------------------------------
-// host: tensor maps and launch
+// host: launch
 // ---------------------------------------------------------------------------
 
 __global__ void fill_inf_kernel(float* x, int64_t n) {
@@ -593,62 +352,6 @@ static int fill_inf(float* x, int64_t n, cudaStream_t stream) {
   if (n == 0) return 0;
   fill_inf_kernel<<<(unsigned int)((n + 255) / 256), 256, 0, stream>>>(x, n);
   return (int)cudaGetLastError();
-}
-
-// Returned when cuTensorMapEncodeTiled refuses a map: kEncodeError + its
-// CUresult.
-constexpr int kEncodeError = 10000;
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in libcuda; it is fetched through the
-// runtime's entry-point query, so the library links no libcuda.
-static EncodeTiledFn encode_fn() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                            cudaEnableDefault, &q);
-#endif
-    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = (EncodeTiledFn)ptr;
-  }
-  return fn;
-}
-
-// A [B, H, S, D] bf16 tensor read through its element strides (batch,
-// head, sequence; the last dimension contiguous), in boxes of 64 columns
-// by `rows` rows, 128-byte swizzled. Columns past D and rows past S read
-// as zeros. A dimension of size 1 is never stepped, so its stride is
-// replaced by 16 bytes.
-static int make_map(CUtensorMap* map, const void* ptr, int64_t sb, int64_t sh,
-                    int64_t ss, int B, int H, int S, int D, int rows) {
-  EncodeTiledFn enc = encode_fn();
-  if (enc == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {S > 1 ? (cuuint64_t)ss * 2 : 16,
-                                 H > 1 ? (cuuint64_t)sh * 2 : 16,
-                                 B > 1 ? (cuuint64_t)sb * 2 : 16};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                         const_cast<void*>(ptr), dims, strides, box, estr,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;
 }
 
 template <int D_PAD, int NWG, int NST>
@@ -666,20 +369,8 @@ static int launch_cfg(const void* q, const void* k, const void* v, void* o,
     rc = make_map(&tk, k, st[3], st[4], st[5], p.B, p.Hkv, p.Skv, p.D, BK);
   if (rc == 0)
     rc = make_map(&tv, v, st[6], st[7], st[8], p.B, p.Hkv, p.Skv, p.D, BK);
+  if (rc == 0) rc = prepare<C>(kernel);
   if (rc != 0) return rc;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-  if (err != cudaSuccess) return (int)err;
-  {
-    // setmaxnreg.inc waits for registers that only the CTA's own pool can
-    // give: refuse a build whose pool is short rather than hang
-    cudaFuncAttributes fa;
-    err = cudaFuncGetAttributes(&fa, kernel);
-    if (err != cudaSuccess) return (int)err;
-    if (fa.numRegs * C::THREADS <
-        128 * C::PRODUCER_REGS + NWG * 128 * C::CONSUMER_REGS)
-      return (int)cudaErrorInvalidConfiguration;
-  }
   p.o = (__nv_bfloat16*)o;
   p.lse = lse;
   p.n_qt = (p.Sq + C::BQ - 1) / C::BQ;

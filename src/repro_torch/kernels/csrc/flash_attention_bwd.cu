@@ -1,17 +1,17 @@
 // flash_attention_bwd: the gradients of GQA flash attention (sm_90a).
 //
 // The backward of src/repro/kernels/flash_attention.py:110
-// ``flash_attention``. The TPU kernel has no backward of its own: the
-// reference trains through its chunked jnp attention, which XLA
-// differentiates (``jax.value_and_grad``). The port's forward on the card is
-// the hand-written ``flash_attention`` kernel, so its gradient is a kernel of
-// the port's own. Its plain version is ``ref.attention_bwd_ref``
+// ``flash_attention`` (pallas_call at :138). The TPU kernel has no backward
+// of its own: the reference trains through its chunked jnp attention, which
+// XLA differentiates (``jax.value_and_grad``). The port's forward on the
+// card is the hand-written ``flash_attention`` kernel, so its gradient is a
+// kernel of the port's own. Its plain version is ``ref.attention_bwd_ref``
 // (kernels/ref.py); its answer is that function's within float tolerance.
 //
-// FlashAttention-2's algorithm in a simple form. With s the scaled score
-// raw · scale (and under the cap s = cap · tanh(raw · scale / cap)), the
-// forward's log-sum-exp lse of each row (natural log, +inf for a row with
-// no live key) and P = exp(s − lse) on the live pairs (0 elsewhere):
+// FlashAttention-2's algorithm. With s the scaled score raw · scale (under
+// the cap s = cap · tanh(raw · scale / cap)), the forward's log-sum-exp lse
+// of each row (natural log, +inf for a row with no live key) and P =
+// exp(s − lse) on the live pairs (0 elsewhere):
 //
 //   Δ   = rowsum(dO ∘ O)                         (float32, one pass)
 //   dS  = P ∘ (dO · Vᵀ − Δ)   (· (1 − tanh²) under the cap)
@@ -19,39 +19,83 @@
 //
 // The live pairs are the forward's: keys below Skv, at or before the query
 // under causal (query i at q_offset + i), within the window; rows past Sq
-// take no part. Three kernels, launched on one stream by one C entry point:
+// take no part. One C entry point launches three kernels on one stream: a
+// Δ pass, a key-tile pass that owns dK and dV, and a query-tile pass that
+// owns dQ. Each CTA's sums stay inside it: the GQA sum over a group's query
+// heads runs inside the key-tile CTA, nothing is added with atomics, and
+// dq, dk and dv are the same bytes run to run.
 //
-// 1. delta: one warp per row, Δ in float32.
-// 2. the key-tile pass, one CTA per (b, kv head, key tile): K and V of the
-//    tile are staged once; the CTA loops over the G = Hq / Hkv query heads
-//    of its group and over every query tile that reaches the key tile
-//    (causal: none before it; window: none past its reach), recomputes S,
-//    P and dS for the pair of tiles, and accumulates dK and dV in
-//    registers. The group's sum stays inside the CTA: no atomics, and the
-//    gradients are the same bytes run to run.
-// 3. the query-tile pass, one CTA per (b, q head, query tile): the live key
-//    tiles (the forward's range), S, P and dS again, dQ in registers.
+// Bound (operations): the algorithm's five products, 10 · B · Hq · (live
+// pairs) · D flops; at llama3.2-1b's 32k shape (B 1, Hq 32, D 64, causal)
+// 11.0 TFLOP, 11.1 ms at 989 TFLOP/s bf16. Both designs below recompute S
+// and dP in the query pass, seven products: their own floor is 15.6 ms.
 //
-// 256 threads, a 16 x 16 grid: thread (ty, tx) owns the scores of rows
-// ty + 16i and keys tx + 16j of a tile, and rows ty + 16i and columns
-// 64m + 4tx + {0..3} of an accumulator. Tiles are BT x BT (64 at head_dim
-// <= 128, 32 at 256, so that the four staged tiles fit in shared memory),
-// staged as float32 with rows padded by 4 floats; head_dim pads to D_PAD
-// in {64, 128, 256} with zeros. Every product is a float32 FMA on the SIMT
-// cores, for float32 and bfloat16 inputs alike (bf16 is widened as it is
-// staged); dq, dk and dv are rounded once to the input type at the store.
+// Two routes by input type and head_dim (a rule, not a fallback: a call
+// that cannot launch its kernel returns the CUDA error, and the wrapper
+// names the route it asks for).
 //
-// Bound (operations): the five products of the algorithm, 10 · B · Hq ·
-// (live pairs) · D flops; for llama3.2-1b's 32k shape (B 1, Hq 32, D 64,
-// causal) 11.0 TFLOP, 11.1 ms at 989 TFLOP/s bf16. This kernel recomputes
-// S and dP in its second pass (seven products) and runs them on the SIMT
-// cores (67 TFLOP/s float32 at most), so its own floor is some 16x the
-// bound: mma.sync or wgmma tiles, dQ by atomics in one pass, and a
-// producer warp are the later work.
+// bfloat16 at head_dim <= 128: fa_bwd_hopper.cuh, on the tensor cores.
+// Every product is wgmma in bf16 with a float32 sum. A producer warpgroup
+// (one thread issuing TMA loads, 128-byte swizzle, completion on mbarriers;
+// setmaxnreg moves its registers to the consumers) feeds consumer
+// warpgroups of 64 rows each. q, k, v and dO are read through their
+// strides, so the model's transposed views need no copy.
+// - Δ pass: one warp a row writes Δ and lse · log2(e) into buffers padded
+//   to 64-row tiles, whose pad rows read Δ = 0 and lse = +inf (so P = 0
+//   there, with no mask).
+// - Key-tile pass, one CTA per (b, KV head, 64 · KNWG keys), key tile 0
+//   (the heaviest) first: K and V loaded once; the producer streams the
+//   group's (Q, dO, lse, Δ) query tiles, 64 rows each, through a ring of
+//   stages, only the live ones (causal: none before the keys; window:
+//   none past their reach). Each warpgroup takes Sᵀ = K · Qᵀ and dPᵀ =
+//   V · dOᵀ (both operands in shared memory), forms Pᵀ and dSᵀ in
+//   registers (the scale after the product, in log2 units; the mask only
+//   on tiles that cross the diagonal, the window's edge or Skv), then
+//   dV += Pᵀ · dO and dK += dSᵀ · Q with Pᵀ and dSᵀ as the register A
+//   operand and dO and Q read MN-major (the transpose bit, as the
+//   forward's P · V reads V), issued together. A warpgroup skips the
+//   tiles wholly outside its keys' reach.
+// - Query-tile pass, one CTA per (b, q head, 64 · QNWG rows), the last
+//   (heaviest) tiles first: Q and dO loaded once, the forward's live
+//   (K, V) tiles streamed; S = Q · Kᵀ, dP = dO · Vᵀ, dS in registers,
+//   dQ += dS · K. Each row's lse and Δ stay in registers.
+// P and dS are rounded once to bf16 before their products (FlashAttention
+// 2's choice; tests/test_torch_attention_bwd_tc.py replays the schedule
+// on the CPU within the 1e-2 gate); dq, dk and dv are rounded once at the
+// store. Columns past D and rows past Sq or Skv read as zeros (TMA); keys
+// at or past Skv are masked. Registers decide the tiles: ptxas holds
+// every thread to the launch's budget, 65,536 over the CTA's threads
+// (setmaxnreg moves registers at run time but does not raise it), so
+// a key-pass warpgroup, which keeps dK and dV, Sᵀ and dPᵀ and both bf16
+// operands, forms both operands before issuing either product. Tiles,
+// chosen on the card (scripts/torch_attention_bwd_probe.py, PERF.md): at
+// head_dim 64 the key pass runs two consumer warpgroups (128 keys, 168
+// registers, no spill) and 4 stages, the query pass three (192 rows, 128
+// registers) and 4 stages; at 128 the key pass one warpgroup (64 keys:
+// its 192 accumulator registers spill at two warpgroups' 168, and run at
+// half the rate) and 4 stages, the query pass two and 3 stages.
+//
+// float32, and bfloat16 at head_dim 256 (gemma3-4b's local layers, which
+// no card path trains; its accumulators would not fit in registers): the
+// SIMT kernels below. float32 stays off the tensor cores because its gate
+// is 1e-5 (they would take float32 as TF32). 256 threads, a 16 x 16 grid:
+// thread (ty, tx) owns the scores of rows ty + 16i and keys tx + 16j of a
+// tile, and rows ty + 16i and columns 64m + 4tx + {0..3} of an
+// accumulator. Tiles are BT x BT (64 at head_dim <= 128, 32 at 256),
+// staged as float32 with rows padded by 4 floats; every product a float32
+// FMA; the inputs contiguous. The key-tile pass stages K and V once and
+// loops over the group's heads and the query tiles that reach it; the
+// query-tile pass recomputes S and dP over the forward's live key tiles.
+//
+// Left on the table (bf16): overlapping one tile's S and dP with the last
+// tile's dK / dQ products, ping-pong of the warpgroups, a persistent grid,
+// TMA stores, and dQ in one pass (atomics would break the byte-equal
+// repeats; a fixed order behind per-tile counters would keep them).
 #include <cuda_bf16.h>
 #include <math.h>
 
 #include "common.cuh"
+#include "fa_bwd_hopper.cuh"
 
 namespace fa_bwd {
 
@@ -451,24 +495,59 @@ static int dispatch(const void* q, const void* k, const void* v,
 
 }  // namespace fa_bwd
 
-// Every tensor contiguous: q, o, dout and dq [B, Hq, Sq, D], k, v, dk and dv
-// [B, Hkv, Skv, D], all of one type (float32, or bfloat16 when is_bf16),
-// lse the forward's float32 [B, Hq, Sq] and delta float32 [B, Hq, Sq]
-// scratch that this call fills. Sq and Skv > 0. Returns a CUDA error.
+// The route, chosen by the wrapper (ops.attention_bwd_route): the SIMT
+// kernels or the bf16 tensor-core kernels.
+constexpr int kRouteSimt = 0, kRouteWgmma = 1;
+
+// Whether a [B, H, S, D] tensor's (batch, head, row) element strides are
+// those of contiguous storage (a dimension of size 1 is never stepped).
+static bool packed(const int64_t* st, int32_t B, int32_t H, int32_t S,
+                   int32_t D) {
+  return (S < 2 || st[2] == D) && (H < 2 || st[1] == (int64_t)S * D) &&
+         (B < 2 || st[0] == (int64_t)H * S * D);
+}
+
+// q, o and dout [B, Hq, Sq, D], k and v [B, Hkv, Skv, D], all of one type
+// (float32, or bfloat16 when is_bf16), read through their element strides
+// st (q's, k's, v's, o's, dout's batch, head and row; the last dimension
+// contiguous); dq [B, Hq, Sq, D] and dk, dv [B, Hkv, Skv, D] contiguous,
+// written; lse the forward's float32 [B, Hq, Sq], contiguous. Sq and Skv >
+// 0. route kRouteWgmma (bf16 at head_dim <= 128): delta and lse2 float32
+// [B, Hq, Sq_pad] scratch, Sq_pad = Sq rounded up to 64, and q, k, v and
+// dout as TMA reads them (fa_bwd_tc::launch). kRouteSimt: every input
+// contiguous, delta float32 [B, Hq, Sq] scratch, lse2 unused. Returns a
+// CUDA error, or fa_hopper::kEncodeError + the CUresult where
+// cuTensorMapEncodeTiled refuses a tensor map.
 extern "C" int fw_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const float* lse, float* delta, void* dq, void* dk,
-    void* dv, int32_t B, int32_t Hq, int32_t Hkv, int32_t Sq, int32_t Skv,
-    int32_t D, int32_t causal, int32_t has_window, int32_t window,
-    int32_t q_offset, float scale, int32_t has_cap, float cap,
-    int32_t is_bf16, void* stream) {
+    const void* dout, const float* lse, float* delta, float* lse2, void* dq,
+    void* dk, void* dv, int64_t q_sb, int64_t q_sh, int64_t q_ss,
+    int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh,
+    int64_t v_ss, int64_t o_sb, int64_t o_sh, int64_t o_ss, int64_t d_sb,
+    int64_t d_sh, int64_t d_ss, int32_t B, int32_t Hq, int32_t Hkv,
+    int32_t Sq, int32_t Skv, int32_t D, int32_t causal, int32_t has_window,
+    int32_t window, int32_t q_offset, float scale, int32_t has_cap,
+    float cap, int32_t is_bf16, int32_t route, void* stream) {
   if (D < 1 || D > 256 || Hkv < 1 || Hq % Hkv != 0 || B > 65535 ||
       Hq > 65535 || Sq < 1 || Skv < 1)
+    return (int)cudaErrorInvalidValue;
+  const int64_t st[15] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
+                          v_ss, o_sb, o_sh, o_ss, d_sb, d_sh, d_ss};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (route == kRouteWgmma) {
+    if (!is_bf16 || D > 128 || lse2 == nullptr)
+      return (int)cudaErrorInvalidValue;
+    return fa_bwd_tc::launch(q, k, v, o, dout, lse, delta, lse2, dq, dk, dv,
+                             st, B, Hq, Hkv, Sq, Skv, D, causal, has_window,
+                             window, q_offset, scale, has_cap, cap, s);
+  }
+  if (route != kRouteSimt || !packed(st, B, Hq, Sq, D) ||
+      !packed(st + 3, B, Hkv, Skv, D) || !packed(st + 6, B, Hkv, Skv, D) ||
+      !packed(st + 9, B, Hq, Sq, D) || !packed(st + 12, B, Hq, Sq, D))
     return (int)cudaErrorInvalidValue;
   const fa_bwd::Args a{B,      Hq,         Hkv,    Sq,       Skv,
                        D,      causal,     has_window, window, q_offset,
                        has_cap, scale,     cap};
-  cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
     return fa_bwd::dispatch<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq,
                                            dk, dv, a, s);

@@ -114,8 +114,9 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, BWD_ROUTES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _use_kernel(name: str, impl: str, *tensors: torch.Tensor) -> bool:
@@ -1104,6 +1105,14 @@ def spmv(ell: EllGraph, x: torch.Tensor, impl: str = "auto"
 
 ATTN_DTYPES = (torch.float32, torch.bfloat16)
 ATTN_MAX_HEAD_DIM = 256
+# the backward's tensor-core route: bf16 at head_dim up to this; its Δ and
+# lse scratch padded to whole 64-row tiles (csrc/fa_bwd_hopper.cuh)
+ATTN_BWD_TC_MAX_HEAD_DIM = 128
+ATTN_BWD_TILE = 64
+# the backward's launches by route (``attention_bwd_route``), and the codes
+# its C entry point takes
+BWD_ROUTES: Dict[str, int] = {"wgmma": 0, "simt": 0}
+BWD_ROUTE_CODES = {"simt": 0, "wgmma": 1}
 
 
 def tma_ready(t: torch.Tensor) -> bool:
@@ -1269,6 +1278,17 @@ class _Attention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None, None
 
 
+def attention_bwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The ``flash_attention_bwd`` kernels a CUDA call runs, a rule by
+    type and head_dim: ``"wgmma"`` (bf16 at head_dim ≤ 128: the tensor-core
+    passes of ``csrc/fa_bwd_hopper.cuh``, q, k, v and dO read through their
+    strides) or ``"simt"`` (float32, whose gate is 1e-5, and bf16 at
+    head_dim 256: the float32 FMA passes, on contiguous inputs)."""
+    if dtype == torch.bfloat16 and head_dim <= ATTN_BWD_TC_MAX_HEAD_DIM:
+        return "wgmma"
+    return "simt"
+
+
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                   causal: bool = True, window: Optional[int] = None,
@@ -1278,10 +1298,12 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradients ``(dq, dk, dv)`` of :func:`attention` from its
     inputs, output ``o``, LSE and the output's gradient ``do`` (``o`` and
     ``do`` q's shape, ``lse`` float32 ``[B, Hq, Sq]``), in q's, k's and
-    v's dtypes: the ``flash_attention_bwd`` kernel for CUDA tensors (one
-    launch: Δ = rowsum(dO ∘ O), the key-tile pass for dK and dV, the
-    query-tile pass for dQ; ``csrc/flash_attention_bwd.cu``), the plain
-    ``ref.attention_bwd_ref`` for CPU tensors or ``impl="torch"``."""
+    v's dtypes (contiguous): the ``flash_attention_bwd`` kernels for CUDA
+    tensors (one launch: Δ = rowsum(dO ∘ O), the key-tile pass for dK and
+    dV, the query-tile pass for dQ; ``csrc/flash_attention_bwd.cu``) on
+    the route :func:`attention_bwd_route` names, counted in
+    ``BWD_ROUTES``; the plain ``ref.attention_bwd_ref`` for CPU tensors
+    or ``impl="torch"``."""
     name = "flash_attention_bwd"
     use = _use_kernel(name, impl, q, k, v, o, lse, do)
     _check_attention(name, q, k, v, soft_cap)
@@ -1302,21 +1324,37 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"{name}: o and do must be q's dtype {q.dtype} and "
                         f"lse float32; got {o.dtype}, {do.dtype}, "
                         f"{lse.dtype}")
-    q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    route = attention_bwd_route(q.dtype, D)
+    if route == "wgmma":
+        q, k, v, do = (t if tma_ready(t) else _tma_copy(t)
+                       for t in (q, k, v, do))
+        o = o if o.stride(-1) == 1 else o.contiguous()
+        rows = -(-Sq // ATTN_BWD_TILE) * ATTN_BWD_TILE
+    else:
+        q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+        rows = Sq
+    lse = lse.contiguous()
+    dq = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
+    dk, dv = (torch.empty((B, Hkv, Skv, D), dtype=t.dtype, device=t.device)
+              for t in (k, v))
     if Skv == 0:
         dq.zero_()
     if dq.numel() and dk.numel():
-        delta = torch.empty((B, Hq, Sq), dtype=torch.float32,
+        delta = torch.empty((B, Hq, rows), dtype=torch.float32,
                             device=q.device)
+        lse2 = torch.empty_like(delta) if route == "wgmma" else None
         _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), B, Hq, Hkv, Sq, Skv, D, int(causal),
-                *_window_args(window, q_offset, Sq), int(q_offset),
-                kref.attention_scale(D), int(soft_cap is not None),
+                delta.data_ptr(), None if lse2 is None else lse2.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                *o.stride()[:3], *do.stride()[:3], B, Hq, Hkv, Sq, Skv, D,
+                int(causal), *_window_args(window, q_offset, Sq),
+                int(q_offset), kref.attention_scale(D),
+                int(soft_cap is not None),
                 float(soft_cap) if soft_cap is not None else 0.0,
-                int(q.dtype == torch.bfloat16))
+                int(q.dtype == torch.bfloat16), BWD_ROUTE_CODES[route])
+        BWD_ROUTES[route] += 1
     elif dk.numel():
         dk.zero_()
         dv.zero_()

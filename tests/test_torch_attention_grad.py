@@ -16,10 +16,14 @@ grad) and the refusal under autograd of the kernels without a backward
 On the card (marker ``cuda``, skipped elsewhere inside a fixture): the
 ``flash_attention_bwd`` kernel against ``attention_bwd_ref`` at head dims
 64, 120, 128 and 256 in float32 (1e-5) and bfloat16 (1e-2 against the
-plain backward in float32 on the same bf16 inputs), the forward's LSE
-against the plain one, the no-grad output byte-equal to the LSE-writing
-one, gradients the same bytes run to run, and the scans and the ELL
-slab product raising under grad. JAX is imported inside the reference comparisons only:
+plain backward in float32 on the same bf16 inputs), at S up to 4,097
+(many tiles of both passes, off every tile size), each call on the route
+``ops.attention_bwd_route`` names (bf16 at head_dim ≤ 128 on the tensor
+cores), the tensor-core route's strided reads equal to contiguous ones,
+the forward's LSE against the plain one, the no-grad output byte-equal
+to the LSE-writing one, gradients the same bytes run to run, and the
+scans and the ELL slab product raising under grad. The bf16 schedule's
+CPU replay is ``tests/test_torch_attention_bwd_tc.py``. JAX is imported inside the reference comparisons only:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_attention_grad.py
 """
@@ -248,6 +252,11 @@ CUDA_CASES = {
     "cross_1500": (1, 4, 4, 129, 1500, 64, False, None, 0, None),
     "q_offset": (2, 4, 2, 70, 333, 64, True, None, 263, None),
     "masked_rows": (1, 4, 2, 40, 37, 64, True, 3, 33, None),
+    # many tiles of both passes, Sq and Skv off every tile (64, 128, 192)
+    "llama_1000": (1, 32, 8, 1000, 1000, 64, True, None, 0, None),
+    "llama_4097": (1, 32, 8, 4097, 4097, 64, True, None, 0, None),
+    "mha128_1000": (1, 16, 16, 1000, 1000, 128, True, None, 0, None),
+    "mha128_4097": (1, 16, 16, 4097, 4097, 128, True, None, 0, None),
 }
 
 
@@ -267,6 +276,9 @@ def test_cuda_backward_kernel_matches_plain(cuda, case, dtype):
     counts = ops.launch_counts()
     assert counts["flash_attention"] == 1
     assert counts["flash_attention_bwd"] == 1
+    # bf16 at head_dim <= 128 runs the tensor-core kernels, the rest SIMT
+    route = "wgmma" if dtype == "bfloat16" and D <= 128 else "simt"
+    assert ops.BWD_ROUTES == {"wgmma": 0, "simt": 0, route: 1}
     assert all(g.dtype == dt for g in got)
     # the forward's LSE against the plain one, then the plain backward in
     # float32 on the same inputs, output and LSE
@@ -286,6 +298,24 @@ def test_cuda_backward_kernel_matches_plain(cuda, case, dtype):
         assert _trel(a, b) <= lim, (case, dtype, name, _trel(a, b))
     again = ops.attention_bwd(q, k, v, out.detach(), lse, do, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 120, 128])
+def test_cuda_backward_reads_strided_views(cuda, D):
+    """The tensor-core route reads q, k, v and dO through their strides:
+    the model's transposed views (``[B, S, H, D]`` storage) give the same
+    bytes as contiguous copies."""
+    q, k, v, do = _cuda_inputs(cuda, torch.bfloat16, 2, 8, 2, 333, 333, D,
+                               seed=D)
+    o, lse = ops._attention_kernel(q, k, v, True, None, 0, None, True)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in (q, k, v, do)]
+    assert not any(t.is_contiguous() for t in views)
+    want = ops.attention_bwd(q, k, v, o, lse, do)
+    got = ops.attention_bwd(views[0], views[1], views[2], o, lse, views[3])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(a.is_contiguous() for a in got)
 
 
 @pytest.mark.cuda
