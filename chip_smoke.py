@@ -10,7 +10,8 @@ stack's dense serving path at llama3.2-1b's full width, its MoE family
 at olmoe-1b-7b's full width and depth, its recurrent families at
 rwkv6-3b's and zamba2-1.2b's, and its encoder-decoder and VLM families at
 whisper-medium's and llava-next-mistral-7b's, and its training, with
-llama3.2-1b trained at full width and depth. It checks every answer
+llama3.2-1b, rwkv6-3b and zamba2-1.2b trained at full width and depth.
+It checks every answer
 against its guarantee:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
@@ -332,7 +333,44 @@ against its guarantee:
               kernel's output detached, the fault the port had before
               its backward) that the float32 gate must fail, and the
               peak memory (under 80 GB); one more step traced (device
-              busy and idle share, the attention kernels' share).
+              busy and idle share, the attention kernels' share);
+25. recurrent_training — (after phase 24, the peak memory counter
+              reset) the ``wkv6_scan_bwd`` and ``ssd_scan_bwd`` kernels
+              against their plain twins (``ref.wkv6_scan_bwd_ref``,
+              ``ref.ssd_scan_bwd_ref``) at rwkv6-3b's 40 heads of 64 and
+              zamba2-1.2b's 64 heads of 64 with a state of 64: float32 at
+              1 × 4,096 and 2 × 33 from a nonzero state with a nonzero
+              state gradient (every gradient within 1e-5 relative
+              Frobenius, a gate that the dropped state gradient — dS0 or
+              dh0 zeroed — must fail), bf16 at the training shape 2 ×
+              4,096 against the float32 twin on the same inputs (1e-2),
+              every run repeated byte for byte; each forward without grad
+              byte-equal to the launch that writes its chunk checkpoints;
+              then rwkv6-3b and zamba2-1.2b, each in turn, trained at full
+              width and depth (bf16 compute, float32 master weights, AdamW
+              with weight decay 0.1, ``remat``, ``SyntheticTokens`` at B =
+              2, S = 4,096): two runs of the first step's gradients
+              byte-equal, 4 steps (loss, grad norm, s a step, tokens/s,
+              peak memory under 80 GB; a step's launches asserted:
+              ``wkv6_scan`` 64 and ``wkv6_scan_bwd`` 32, or ``ssd_scan``
+              76, ``ssd_scan_bwd`` 38, ``flash_attention`` 12 and
+              ``flash_attention_bwd`` 6 on the tensor-core route), one more
+              step traced (device busy, idle share, the scan kernels'
+              share, the top kernels), the step's gradients against the
+              plain path's (the scans with ``impl="torch"``,
+              ``attn_impl="torch"``: bf16 on the full model at 1 × 1,024,
+              every leaf within 5e-2 but the named leaves whose gradient is
+              a sum that nearly cancels — rwkv's ``u``, zamba2's ``w_in_B``,
+              ``w_in_C`` and block norm scale — which bf16 rounding in the
+              activations moves by several percent and which are held to
+              0.15 instead, reported as not meeting 5e-2; the backward
+              kernel on that step's first and last layers' own inputs and
+              output gradients against its twin, 1e-2; float32 at 2 layers
+              within 1e-4, ``remat`` within 1e-6, a planted fault — the
+              scan's output detached — caught); the two
+              kernels' rows (ms by events and device ms from a trace at
+              the training shape and at 1 × 32,768, the bound, the plain
+              twin's ms at 2 × 4,096, no library call).
 
 Phases 14-16 run after phase 11 and before 12 and 13, which read them.
 Launch counts are reset just before phase 4 and read just after phase 5
@@ -353,7 +391,8 @@ architecture's first prefill forward and the launcher's run and read just
 after each, and in phases 22 and 23 reset just before the first prefill
 forward and the serving run and read just after each, and in phase 24
 reset just before the first of the 6 training steps and read just after
-the last;
+the last, and in phase 25 reset just before each architecture's first of
+4 training steps and read just after the last;
 phases 6, 11, 12 and 13 reset them around each run whose draw launches
 they count.
 The last line is ``{"ok": true, "device": {...}}``; any failed check or
@@ -366,6 +405,7 @@ import functools
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -4818,6 +4858,533 @@ def phase_training(dev) -> list:
     return [row]
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the recurrent families' training (rwkv6-3b, zamba2-1.2b at full
+# width and depth), through the scans' backward kernels
+# ---------------------------------------------------------------------------
+
+# the training step's shape as phase 24's; the plain path's gradient gates
+# at 1 × 1,024, the float32 ones at 2 layers; the backward kernels timed at
+# the training shape and at the 32k prefill's length
+RTRAIN = dict(batch=2, seq=4_096, steps=4, gate_seq=1_024, f32_layers=2,
+              long_seq=32_768)
+# The leaves whose bf16 step gradient is a sum over tokens (and, for
+# zamba2's B and C, over 64 heads) of terms that nearly cancel: rwkv's bonus
+# u (Σ r·k·(do·v)), zamba2's B and C projections and its Mamba blocks' norm
+# scale. Two correct bf16 computations of the step differ in their
+# activations by rounding, and that moves these leaves by 5-9% where every
+# other leaf moves by under 5e-2; the backward kernels themselves match
+# their twins on the step's own inputs (the path-input gate, 1e-2; du to
+# 1e-7). These leaves do not meet the 5e-2 gate; they are held to 0.15.
+NEAR_CANCEL = {"ssm": ("time_mix.u",),
+               "hybrid": ("mamba.w_in_B", "mamba.w_in_C", "ln.scale")}
+NEAR_CANCEL_REL = 0.15
+# each backward kernel at its model's heads: H, D, n (0: no state size)
+SCAN_BWD = {"wkv6_scan_bwd": dict(arch="rwkv6-3b", H=40, D=64, n=0,
+                                  source="wkv6_bwd.cu",
+                                  trace=("wkv6_bwd_kernel",)),
+            "ssd_scan_bwd": dict(arch="zamba2-1.2b", H=64, D=64, n=64,
+                                 source="ssd_scan_bwd.cu",
+                                 trace=("ssd_bwd_kernel",))}
+SCAN_BWD_GRADS = {"wkv6_scan_bwd": ("dr", "dk", "dv", "dw", "du", "dS0"),
+                  "ssd_scan_bwd": ("dx", "dB", "dC", "ddt", "da", "dh0")}
+SCAN_BWD_REL = {"float32": 1e-5, "bfloat16": 1e-2}
+# no TPU kernel: the reference differentiates its lax.scan through XLA
+SCAN_BWD_REPLACES = {
+    "wkv6_scan_bwd": "src/repro/models/rwkv6.py:134 (XLA's gradient of "
+                     "chunked_scan's lax.scan, no Pallas kernel)",
+    "ssd_scan_bwd": "src/repro/models/mamba2.py:122 (XLA's gradient of "
+                    "chunked_scan's lax.scan, no Pallas kernel)"}
+SCAN_BWD_FWD = {"wkv6_scan_bwd": "wkv6_scan", "ssd_scan_bwd": "ssd_scan"}
+# the second pass's launches a call at the models' shapes (wkv6 at D = 64:
+# du; ssd: dB, dC, ddt, da)
+SCAN_BWD_SUMS = {"wkv6_scan_bwd": 1, "ssd_scan_bwd": 4}
+
+
+def tensor_rel(a, b) -> float:
+    """``‖a − b‖_F / ‖b‖_F`` in float64 (the norm of ``a`` where ``b`` is
+    0)."""
+    a, b = a.double(), b.double()
+    den = float(b.norm())
+    return float((a - b).norm()) / den if den else float(a.norm())
+
+
+def scan_bwd_inputs(kernel: str, B: int, S: int, dtype, dev, seed: int):
+    """A backward kernel's operands at its model's heads: the forward's
+    inputs (r, k, v or x, B, C in ``dtype``; realistic decays; a nonzero
+    starting state) and the cotangents of the output and the final state
+    (nonzero)."""
+    import torch
+    c = SCAN_BWD[kernel]
+    H, D, n = c["H"], c["D"], c["n"]
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    if kernel == "wkv6_scan_bwd":
+        r, k, v = (rn(B, S, H, D).to(dtype) for _ in range(3))
+        w = torch.exp(-torch.exp(rn(B, S, H, D) - 1))
+        args = [r, k, v, w, rn(H, D, scale=0.1), rn(B, H, D, D, scale=0.5)]
+        cots = [rn(B, S, H, D).to(dtype), rn(B, H, D, D, scale=0.1)]
+    else:
+        x = rn(B, S, H, D).to(dtype)
+        Bv, Cv = (rn(B, S, n).to(dtype) for _ in range(2))
+        dt = torch.nn.functional.softplus(rn(B, S, H) - 2)
+        a = -torch.linspace(1, 16, H, device=dev)
+        args = [x, Bv, Cv, dt, a, rn(B, H, D, n, scale=0.5)]
+        cots = [rn(B, S, H, D), rn(B, H, D, n, scale=0.1)]
+    return args, cots
+
+
+def scan_bwd_work(kernel: str, args, cots) -> tuple:
+    """``(bytes, operations)`` the backward needs at these shapes: each
+    input read once (the forward's inputs, its chunk checkpoints — float32
+    states, one a 32-step chunk — and the two cotangents), each gradient
+    written once (the five inputs' in their dtypes, the starting state's
+    in float32); 14 float32 operations a state element and step (the state
+    recomputed from its checkpoint: 3; wkv6: G's update 3 and the products
+    for dr, dk, dv, dw 8; ssd: G 2, the products G·B, G·x, dy·h, G·h 8 and
+    the carried decay·G 1)."""
+    def nb(t):
+        return t.numel() * t.element_size()
+
+    B, S, H, D = args[0].shape
+    cols = D if kernel == "wkv6_scan_bwd" else args[1].shape[-1]
+    state = B * H * D * cols * 4
+    ckpt = state * -(-S // 32)
+    reads = sum(nb(t) for t in (*args, *cots)) + ckpt
+    writes = sum(nb(t) for t in args[:5]) + state
+    return reads + writes, 14 * B * S * H * D * cols
+
+
+def scan_forward(kernel: str, args, checkpoints: bool) -> tuple:
+    """One launch of the backward kernel's forward on ``args``, checked as
+    its wrapper checks them: ``(output, final state, chunk checkpoints or
+    None)``."""
+    from repro_torch.kernels import ops
+    fwd = SCAN_BWD_FWD[kernel]
+    if fwd == "wkv6_scan":
+        return ops._wkv6_kernel(*ops._wkv6_operands(fwd, *args),
+                                checkpoints=checkpoints)
+    return ops._ssd_kernel(*ops._ssd_operands(fwd, *args),
+                           checkpoints=checkpoints)
+
+
+def scan_bwd_gate(kernel: str, B: int, S: int, dtype: str, dev,
+                  seed: int) -> float:
+    """The backward kernel against its plain twin (float32, on the same
+    inputs) at B × S: every gradient within ``SCAN_BWD_REL``, two runs
+    byte-equal, and a planted fault (the carried state's gradient dropped:
+    dS0 or dh0 zeroed) that the float32 gate must fail. Returns the
+    largest max abs error."""
+    import torch
+    from repro_torch.kernels import ops
+    fn = getattr(ops, kernel)
+    dt = getattr(torch, dtype)
+    args, cots = scan_bwd_inputs(kernel, B, S, dt, dev, seed)
+    ckpt = scan_forward(kernel, args, checkpoints=True)[2]
+    got = fn(*args, *cots, ckpt=ckpt, impl="cuda")
+    again = fn(*args, *cots, ckpt=ckpt, impl="cuda")
+    sync()
+    equal = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again, ckpt
+    want = fn(*(t.float() for t in args), *(t.float() for t in cots),
+              ckpt=None, impl="torch")
+    errs = [tensor_rel(a, b) for a, b in zip(got, want)]
+    worst = max(float((a.float() - b).abs().max()) for a, b in zip(got, want))
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    lim = SCAN_BWD_REL[dtype]
+    fault = tensor_rel(torch.zeros_like(got[5]), want[5])
+    names = SCAN_BWD_GRADS[kernel]
+    ok = max(errs) <= lim and equal and finite
+    log("25 scan_bwd_gate", kernel=kernel, dtype=dtype, B=B, S=S,
+        heads=SCAN_BWD[kernel]["H"], **{f"rel_{k}": e for k, e in
+                                        zip(names, errs)},
+        max_abs_err=worst, limit=lim, repeat_byte_equal=equal,
+        finite=finite, ok=ok)
+    if dtype == "float32":
+        log("25 scan_bwd_control", kernel=kernel, S=S,
+            fault=f"{names[5]}_zeroed", rel=fault, limit=lim,
+            caught=fault > lim)
+        assert fault > lim, f"{kernel}: the gate misses a dropped {names[5]}"
+    assert ok, f"{kernel} strays from its plain twin ({dtype}, {B}x{S})"
+    return worst
+
+
+def scan_fwd_bytes_equal(kernel: str, dev) -> None:
+    """The forward kernel without grad against the same launch writing the
+    chunk checkpoints, at the training shape in bf16: the same bytes."""
+    import torch
+    fwd = SCAN_BWD_FWD[kernel]
+    args, _ = scan_bwd_inputs(kernel, RTRAIN["batch"], RTRAIN["seq"],
+                              torch.bfloat16, dev, seed=11)
+    plain = scan_forward(kernel, args, checkpoints=False)
+    with_ckpt = scan_forward(kernel, args, checkpoints=True)
+    sync()
+    equal = all(torch.equal(a, b) for a, b in zip(plain[:2], with_ckpt[:2]))
+    log("25 forward_bytes", kernel=fwd, shape=list(args[0].shape),
+        dtype="bfloat16", checkpoints=list(with_ckpt[2].shape),
+        checkpoint_bytes=with_ckpt[2].numel() * 4,
+        no_grad_equals_checkpointing=equal)
+    assert equal, f"{fwd}: writing the checkpoints changes its output"
+
+
+def scan_bwd_row(kernel: str, launches: int, err: float, dev) -> dict:
+    """The backward kernel's ``kernels`` row: ms (events) and device ms (a
+    trace: the kernel and its second pass) at the training shape, the same
+    at 1 × 32,768, the bound from :func:`scan_bwd_work` at the training
+    shape, and the plain twin's ms at the training shape (B = 2, S =
+    4,096, one layer, float32); no PyTorch call computes it."""
+    import torch
+    from repro_torch.kernels import ops
+    fn = getattr(ops, kernel)
+    out = {}
+    for tag, B, S in (("train", RTRAIN["batch"], RTRAIN["seq"]),
+                      ("long", 1, RTRAIN["long_seq"])):
+        args, cots = scan_bwd_inputs(kernel, B, S, torch.bfloat16, dev, 12)
+        ckpt = scan_forward(kernel, args, checkpoints=True)[2]
+
+        def call():
+            return fn(*args, *cots, ckpt=ckpt, impl="cuda")
+
+        ms, reps = time_ms_auto(call)
+        # a trace drops some ctypes launches: per traced launch, the kernel
+        # and its second pass (SCAN_BWD_SUMS launches a call), in 20 calls
+        by = device_busy_ms(lambda: [call() for _ in range(20)],
+                            by_kernel=True)[3]
+        n_main, t_main = by.get(SCAN_BWD[kernel]["trace"][0], (0, 0.0))
+        n_sum, t_sum = by.get("scan_sum_kernel", (0, 0.0))
+        main_ms = t_main / n_main if n_main else "not measured"
+        sum_ms = t_sum / n_sum if n_sum else "not measured"
+        dev_ms = (main_ms + SCAN_BWD_SUMS[kernel] * sum_ms
+                  if n_main and n_sum else "not measured")
+        nbytes, flop = scan_bwd_work(kernel, args, cots)
+        out[tag] = dict(ms=ms, reps=reps, device_ms=dev_ms,
+                        kernel_device_ms=main_ms, traced=n_main,
+                        second_pass_device_ms=sum_ms, traced_passes=n_sum,
+                        bytes=nbytes, flop=flop,
+                        bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                        operations_ms=flop / FP32_FLOP_PER_S * 1e3,
+                        shape=list(args[0].shape))
+        if tag == "train":
+            f32 = [t.float() for t in args + cots]
+            out[tag]["plain_ms"] = time_ms(
+                lambda: fn(*f32, ckpt=None, impl="torch"), reps=1, warmups=0)
+        del args, cots, ckpt
+        free_device_memory()
+    t = out["train"]
+    bound = max(t["bytes_ms"], t["operations_ms"])
+    row = dict(name=kernel, route="cuda",
+               source=f"src/repro_torch/kernels/csrc/"
+                      f"{SCAN_BWD[kernel]['source']}",
+               replaces=SCAN_BWD_REPLACES[kernel], launches=launches,
+               max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
+               bound_ms=bound,
+               bound_by="operations" if t["operations_ms"] >= t["bytes_ms"]
+               else "bytes", library_ms=None)
+    for tag, r in out.items():
+        log("25 kernel", name=kernel, at=tag, **r)
+    log("25 kernel_row", **{k: v for k, v in row.items()
+                            if k not in ("source", "replaces", "route")},
+        device_ms=t["device_ms"], share_of_bound=bound / t["ms"],
+        plain=f"the plain twin at B={RTRAIN['batch']} S={RTRAIN['seq']}, "
+        "float32, one layer", library="none (no PyTorch call computes the "
+        "scan's gradient)")
+    return row
+
+
+def scan_output_detached(orig):
+    """Planted fault: the scan kernel's outputs with no autograd history,
+    as the scans returned them on the card before their backward existed
+    (Queue 3 item 8's fault, on the recurrent path)."""
+    def fn(*a, **kw):
+        return tuple(t.detach() for t in orig(*a, **kw))
+    return fn
+
+
+def plain_scans(cfg):
+    """The plain path's patch: the family's scan with ``impl="torch"``."""
+    from repro_torch.kernels import ops
+    return patched(ops, SCAN_KERNEL[cfg.family],
+                   lambda orig: functools.partial(orig, impl="torch"))
+
+
+def scan_tap(orig, taps: dict, keep):
+    """The scan as it is, recording the inputs of its calls number
+    ``keep`` (the layers, in the forward's order) and, through a hook, the
+    gradient of their output: ``taps[i] = [r, k, v, w, u, S0, do]`` (or
+    ssd's)."""
+    calls = [0]
+
+    def fn(*a, **kw):
+        out = orig(*a, **kw)
+        i = calls[0]
+        calls[0] += 1
+        if i in keep:
+            taps[i] = [t.detach() if t is not None else None for t in a[:6]]
+            out[0].register_hook(lambda g: taps[i].append(g.detach()))
+        return out
+    return fn
+
+
+def grad_errors_to(got: dict, want: dict, dev) -> dict:
+    """:func:`grad_errors` of host-held ``got`` against ``want`` on the
+    card, a leaf at a time on the card."""
+    return {k: grad_errors({k: got[k].to(dev)}, {k: want[k]})[k]
+            for k in want}
+
+
+def recurrent_grad_gates(params, cfg, dev) -> None:
+    """The step's gradients through the kernels against the plain path's
+    (the scan with ``impl="torch"``, ``attn_impl="torch"``): bf16 on the
+    full model at 1 × ``RTRAIN["gate_seq"]``, every leaf within 5e-2 but
+    the ``NEAR_CANCEL`` leaves, which are held to ``NEAR_CANCEL_REL`` and
+    logged as not meeting 5e-2; the backward kernel on the first and last
+    layers' own inputs and output gradients of that step against its
+    plain twin (1e-2: bf16 gradients against the float32 twin); float32
+    at ``RTRAIN["f32_layers"]`` layers (zamba2 with its shared block after
+    the second, so that one site runs), every leaf within 1e-4, ``remat``
+    within 1e-6 of none, and the scan's detached output (planted)
+    caught."""
+    import dataclasses
+    import torch
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    tag = "25 train_grad_gate"
+    data = SyntheticTokens(vocab_size=cfg.vocab_size,
+                           seq_len=RTRAIN["gate_seq"], global_batch=1, seed=3)
+    batch = data.batch(0, device=dev)
+    plain_cfg = dataclasses.replace(cfg, attn_impl="torch")
+    lim = TRAIN_GRAD_REL["bfloat16"]
+    t0 = time.perf_counter()
+    taps = {}
+    scan = SCAN_KERNEL[cfg.family]
+    with patched(ops, scan, lambda orig: scan_tap(
+            orig, taps, (0, cfg.num_layers - 1))):
+        got = {k: v.cpu() for k, v in step_gradients(params, batch, cfg,
+                                                     False)[2].items()}
+    t1 = time.perf_counter()
+    bwd = getattr(ops, scan + "_bwd")
+    for layer, (*args, dout) in sorted(taps.items()):
+        ckpt = scan_forward(scan + "_bwd", args, checkpoints=True)[2]
+        kern = bwd(*args, dout, ckpt=ckpt, impl="cuda")
+        twin = bwd(*(t if t is None else t.float() for t in args),
+                   dout.float(), ckpt=None, impl="torch")
+        errs = [tensor_rel(a, b) for a, b in zip(kern, twin)]
+        names = SCAN_BWD_GRADS[scan + "_bwd"]
+        log("25 path_input_gate", arch=cfg.name, kernel=scan + "_bwd",
+            layer=layer, S=RTRAIN["gate_seq"],
+            **{f"rel_{k}": e for k, e in zip(names, errs)},
+            limit=SCAN_BWD_REL["bfloat16"],
+            ok=max(errs) <= SCAN_BWD_REL["bfloat16"])
+        assert max(errs) <= SCAN_BWD_REL["bfloat16"], (layer, errs)
+        del ckpt, kern, twin
+    del taps
+    with plain_scans(cfg):
+        want = step_gradients(params, batch, plain_cfg, False)[2]
+    t2 = time.perf_counter()
+    errs = grad_errors_to(got, want, dev)
+    del got, want
+    near = NEAR_CANCEL[cfg.family]
+    waived = {k for k in errs
+              if re.fullmatch(r"blocks\.\d+\.(%s)" % "|".join(
+                  map(re.escape, near)), k)}
+    limits = {k: NEAR_CANCEL_REL if k in waived else lim for k in errs}
+    over = {k: errs[k] for k in errs if errs[k] > lim}
+    rest = [k for k in errs if k not in waived]
+    worst = max(errs, key=lambda k: errs[k] / limits[k])
+    rworst = max(rest, key=errs.get)
+    ok = all(errs[k] <= limits[k] for k in errs)
+    log(tag, arch=cfg.name, dtype="bfloat16", S=RTRAIN["gate_seq"],
+        leaves=len(errs), limit=lim, every_leaf_within_limit=not over,
+        leaves_over_limit=json.dumps(over),
+        others_worst_leaf=rworst, others_worst_rel=errs[rworst],
+        near_cancel_kinds=json.dumps(near), near_cancel_leaves=len(waived),
+        near_cancel_worst=max((errs[k] for k in waived), default=0.0),
+        near_cancel_limit=NEAR_CANCEL_REL, worst_leaf=worst,
+        worst_rel=errs[worst], its_limit=limits[worst], ok=ok,
+        kernel_s=t1 - t0, plain_s=t2 - t1)
+    assert ok, f"bf16 gradients stray: {worst} {errs[worst]}"
+    free_device_memory()
+    extra = ({"shared_attn_every": RTRAIN["f32_layers"]}
+             if cfg.family == "hybrid" else {})
+    f32 = dataclasses.replace(cfg, num_layers=RTRAIN["f32_layers"],
+                              dtype="float32", **extra)
+    small = init_params(f32, torch.Generator(device=dev).manual_seed(1),
+                        device=dev)
+    with plain_scans(f32):
+        want = step_gradients(small, batch, dataclasses.replace(
+            f32, attn_impl="torch"), False)[2]
+    got = step_gradients(small, batch, f32, False)[2]
+    remat = step_gradients(small, batch, f32, True)[2]
+    errs = grad_errors(got, want)
+    rerr = grad_errors(remat, got)
+    with patched(ops, SCAN_KERNEL[cfg.family], scan_output_detached):
+        bad = grad_errors(step_gradients(small, batch, f32, False)[2], want)
+    lim32 = TRAIN_GRAD_REL["float32"]
+    worst, rworst, bworst = (max(e, key=e.get) for e in (errs, rerr, bad))
+    log(tag, arch=cfg.name, dtype="float32", layers=f32.num_layers,
+        shared_attn_every=f32.shared_attn_every, S=RTRAIN["gate_seq"],
+        worst_leaf=worst, worst_rel=errs[worst], limit=lim32,
+        ok=errs[worst] <= lim32, remat_worst_leaf=rworst,
+        remat_worst_rel=rerr[rworst], remat_limit=TRAIN_GRAD_REL["remat"],
+        remat_ok=rerr[rworst] <= TRAIN_GRAD_REL["remat"])
+    log("25 train_grad_control", arch=cfg.name,
+        fault="scan_output_detached", worst_leaf=bworst,
+        worst_rel=bad[bworst], limit=lim32, caught=bad[bworst] > lim32)
+    assert errs[worst] <= lim32, f"f32 gradients stray: {worst}"
+    assert rerr[rworst] <= TRAIN_GRAD_REL["remat"], f"remat: {rworst}"
+    assert bad[bworst] > lim32, "the float32 gate misses a detached scan"
+
+
+def recurrent_step_launches(cfg) -> dict:
+    """The launches a ``remat`` training step makes: the scan twice a layer
+    (the forward and the recompute), its backward once; zamba2's shared
+    sites' attention the same way."""
+    L = cfg.num_layers
+    scan = SCAN_KERNEL[cfg.family]
+    want = {scan: 2 * L, scan + "_bwd": L, "flash_attention": 0,
+            "flash_attention_bwd": 0}
+    if cfg.family == "hybrid":
+        sites = L // cfg.shared_attn_every
+        want.update(flash_attention=2 * sites, flash_attention_bwd=sites)
+    return want
+
+
+def phase_recurrent_train_arch(arch: str, dev) -> dict:
+    """One recurrent architecture trained at full width and depth (bf16
+    compute, float32 master weights, AdamW with weight decay 0.1,
+    ``remat``, ``SyntheticTokens`` at ``RTRAIN``'s shape): the first
+    step's gradients byte-equal in two runs, 4 steps with their numbers
+    and launches, one more step traced, the gradient gates. Returns the
+    backward kernel's launches over the 4 steps."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import ops
+    from repro_torch.training import (AdamWConfig, TrainStepConfig,
+                                      make_train_step)
+    from repro_torch.training.train_step import init_train_state
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    B, S = RTRAIN["batch"], RTRAIN["seq"]
+    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    data = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=S,
+                           global_batch=B, seed=0)
+    first = data.batch(0, device=dev)
+    # two runs of the first step's gradients: the same bytes (the first
+    # kept on the host)
+    g1 = {k: v.cpu() for k, v in step_gradients(state["params"], first, cfg,
+                                                True)[2].items()}
+    g2 = step_gradients(state["params"], first, cfg, True)[2]
+    equal = all(torch.equal(g1[k], g2[k].cpu()) for k in g1)
+    log("25 repeat_gradients", arch=arch, leaves=len(g1), remat=True,
+        byte_equal=equal)
+    assert equal, f"{arch}: the first step's gradients differ run to run"
+    del g1, g2
+    opt = AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=100,
+                      weight_decay=0.1)
+    step = make_train_step(cfg, TrainStepConfig(opt=opt, remat=True))
+    free_device_memory()
+    sync()
+    want = recurrent_step_launches(cfg)
+    ops.reset_launch_counts()
+    runs = []
+    for i in range(RTRAIN["steps"]):
+        batch = data.batch(i, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        before = ops.launch_counts()
+        sync()
+        t1 = time.perf_counter()
+        state, metrics = step(state, batch)
+        sync()
+        sec = time.perf_counter() - t1
+        after = ops.launch_counts()
+        runs.append(dict(step=i, loss=float(metrics["loss"]),
+                         grad_norm=float(metrics["grad_norm"]), seconds=sec,
+                         tokens_per_s=B * S / sec,
+                         peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                         **{k: after[k] - before[k] for k in want}))
+        log("25 train_step", arch=arch, **runs[-1])
+    launches = ops.launch_counts()
+    routes = dict(ops.BWD_ROUTES)
+    log("launches", path=f"recurrent_training_{arch}", **launches)
+    log("25 backward_routes", arch=arch, **routes)
+    for r in runs:
+        assert {k: r[k] for k in want} == want, (r, want)
+        assert all(map(lambda x: x == x and abs(x) < float("inf"),
+                       (r["loss"], r["grad_norm"]))), r
+    n = RTRAIN["steps"]
+    assert routes == {"wgmma": want["flash_attention_bwd"] * n, "simt": 0}, \
+        f"the attention backward left the tensor-core route: {routes}"
+    peak = max(r["peak_mem_bytes"] for r in runs)
+    later = runs[1:]
+    log("25 train_summary", card=repr(card_name_power()), arch=arch,
+        batch=B, seq=S, params=n_params, remat=True,
+        s_a_step=sum(r["seconds"] for r in later) / len(later),
+        tokens_per_s=sum(r["tokens_per_s"] for r in later) / len(later),
+        first_step_s=runs[0]["seconds"], peak_mem_bytes=peak,
+        under_80gb=peak < 80e9, losses=[r["loss"] for r in runs],
+        launches_a_step=json.dumps(want))
+    assert peak < 80e9, peak
+    # one more step under the profiler: where its time goes
+    out = {}
+
+    def traced():
+        out["state"] = step(state, data.batch(n, device=dev))
+
+    wall, busy, n_k, by_kernel, top = device_busy_ms(traced, by_kernel=True)
+    state = out["state"][0]
+    del out
+    scan = SCAN_KERNEL[cfg.family]
+    scan_ms = sum(by_kernel.get(k, (0, 0.0))[1] for k in (
+        scan + "_kernel", SCAN_BWD[scan + "_bwd"]["trace"][0],
+        "scan_sum_kernel"))
+    log("25 profile", arch=arch, wall_ms=wall, device_busy_ms=busy,
+        idle_share=1.0 - busy / wall if wall else "not measured",
+        kernels=n_k, scan_kernels_ms=scan_ms,
+        scan_share_of_busy=scan_ms / busy if busy else "not measured",
+        port_kernels=json.dumps(by_kernel), top_kernels=json.dumps(top))
+    recurrent_grad_gates(state["params"], cfg, dev)
+    del state
+    log("25 arch_done", arch=arch, seconds=time.perf_counter() - t0,
+        **free_device_memory())
+    return {scan + "_bwd": launches[scan + "_bwd"]}
+
+
+def phase_recurrent_training(dev) -> list:
+    """Phase 25: the scans' backward kernels against their plain twins
+    (float32 at 1 × 4,096 and 2 × 33 from a nonzero state, bf16 at the
+    training shape against the float32 twin, repeats byte-equal, a planted
+    dropped state gradient), the forwards' no-grad bytes against the
+    checkpointing launch, then rwkv6-3b and zamba2-1.2b trained at full
+    width and depth (:func:`phase_recurrent_train_arch`), and the two
+    kernels' rows."""
+    import torch
+    t0 = time.perf_counter()
+    log("25 device", card=repr(card_name_power()))
+    errs = {}
+    for kernel in SCAN_BWD:
+        errs[kernel] = max(
+            scan_bwd_gate(kernel, 1, RTRAIN["seq"], "float32", dev, seed=1),
+            scan_bwd_gate(kernel, 2, 33, "float32", dev, seed=2))
+        scan_bwd_gate(kernel, RTRAIN["batch"], RTRAIN["seq"], "bfloat16",
+                      dev, seed=3)
+        scan_fwd_bytes_equal(kernel, dev)
+        free_device_memory()
+    launches = {}
+    for kernel, c in SCAN_BWD.items():
+        torch.cuda.reset_peak_memory_stats()
+        launches.update(phase_recurrent_train_arch(c["arch"], dev))
+    rows = [scan_bwd_row(k, launches[k], errs[k], dev) for k in SCAN_BWD]
+    log("25 done", seconds=time.perf_counter() - t0, **free_device_memory())
+    return rows
+
+
 # the port's CUDA kernels by their function names in a trace
 PORT_KERNELS = ("fa_wgmma_kernel", "flash_attention_kernel",
                 "dkdv_wgmma_kernel", "dq_wgmma_kernel", "bwd_prep_kernel",
@@ -4833,7 +5400,8 @@ PORT_KERNELS = ("fa_wgmma_kernel", "flash_attention_kernel",
                 "stitch_step_kernel", "spmv_ell_kernel",
                 "threefry_draw_kernel", "threefry_randint_kernel",
                 "threefry_split_kernel", "threefry_fold_in_kernel",
-                "wkv6_scan_kernel", "ssd_scan_kernel")
+                "wkv6_scan_kernel", "ssd_scan_kernel", "wkv6_bwd_kernel",
+                "ssd_bwd_kernel", "scan_sum_kernel")
 
 
 def port_kernel_times(events) -> dict:
@@ -5156,6 +5724,10 @@ def main() -> int:
     peak = max(peak, torch.cuda.max_memory_allocated())
     torch.cuda.reset_peak_memory_stats()
     rows.extend(phase_training(dev))
+    # the recurrent families' training, once llama is gone
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    rows.extend(phase_recurrent_training(dev))
     log("done", seconds=time.perf_counter() - t_all,
         peak_mem_bytes=max(peak, torch.cuda.max_memory_allocated()))
     print(smi, flush=True)

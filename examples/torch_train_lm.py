@@ -1,4 +1,4 @@
-"""Train a small LM (an attention architecture, reduced config) on the
+"""Train a small LM (reduced config) on the
 synthetic stream with checkpoint/restart through the PyTorch port (the
 twin of ``examples/train_lm.py``); kill it mid-run and relaunch with the
 same ``--ckpt-dir`` to see it resume.
@@ -7,8 +7,8 @@ same ``--ckpt-dir`` to see it resume.
 
 It runs the port's launcher (``python -m repro_torch.launch.train
 --smoke``) on the reduced config of ``--arch`` (llama3.2-1b unless given;
-olmoe-1b-7b too). It runs on the card; ``--device cpu`` runs the plain
-PyTorch path. The checkpoints go to ``--ckpt-dir``, or to a temporary
+olmoe-1b-7b, rwkv6-3b and zamba2-1.2b too). It runs on the card;
+``--device cpu`` runs the plain PyTorch path. The checkpoints go to ``--ckpt-dir``, or to a temporary
 directory that is removed at the end.
 """
 import argparse

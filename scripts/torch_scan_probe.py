@@ -213,12 +213,12 @@ def main() -> int:
         calls = {
             "wkv6.cu": lambda f: f(
                 r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                u.data_ptr(), s0, o.data_ptr(), s_out.data_ptr(), B, S, 40,
-                64, 1, stream),
+                u.data_ptr(), s0, o.data_ptr(), s_out.data_ptr(), None, B, S,
+                40, 64, 1, stream),
             "ssd_scan.cu": lambda f: f(
                 x.data_ptr(), Bv.data_ptr(), Cv.data_ptr(), dt.data_ptr(),
-                a.data_ptr(), h0, y.data_ptr(), h_out.data_ptr(), B, S, 64,
-                64, 64, 1, stream),
+                a.data_ptr(), h0, y.data_ptr(), h_out.data_ptr(), None, B, S,
+                64, 64, 64, 1, stream),
         }
         for src, variants in VARIANTS.items():
             for tag in variants:

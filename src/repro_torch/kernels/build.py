@@ -78,10 +78,14 @@ SIGNATURES = {
     "fw_flash_attention_bwd": [_c_void_p] * 11 + [_c_int64] * 15
     + [_c_int32] * 10 + [_c_float, _c_int32, _c_float, _c_int32, _c_int32,
                          _c_void_p],
-    "fw_wkv6_scan": [_c_void_p] * 8 + [_c_int32, _c_int64] + [_c_int32] * 3
+    "fw_wkv6_scan": [_c_void_p] * 9 + [_c_int32, _c_int64] + [_c_int32] * 3
     + [_c_void_p],
-    "fw_ssd_scan": [_c_void_p] * 8 + [_c_int32, _c_int64] + [_c_int32] * 4
+    "fw_ssd_scan": [_c_void_p] * 9 + [_c_int32, _c_int64] + [_c_int32] * 4
     + [_c_void_p],
+    "fw_wkv6_scan_bwd": [_c_void_p] * 16 + [_c_int32, _c_int64]
+    + [_c_int32] * 3 + [_c_void_p],
+    "fw_ssd_scan_bwd": [_c_void_p] * 15 + [_c_int32, _c_int64]
+    + [_c_int32] * 4 + [_c_void_p],
 }
 
 _LOCK = threading.Lock()

@@ -171,3 +171,123 @@ static cudaError_t scan_smem_limit(Kernel kernel, int bytes, bool* done) {
   if (e == cudaSuccess) *done = true;
   return e;
 }
+
+// The backward kernels' pieces (wkv6_bwd.cu, ssd_scan_bwd.cu).
+//
+// A transposing butterfly over the low ROUNDS bits of a lane's ``sel``
+// (the lanes that hold one row's or column's parts): NV parts a lane in,
+// each summed over the 2^ROUNDS lanes. Round b while parts remain to
+// split: a lane keeps the half that its bit b picks, adds the partner's
+// copy of it (the lane whose bit b differs) and leaves it in the first
+// half; once one part is left, a round adds the partner's. Afterwards a
+// lane holds parts scan_bfly_mine(sel) … + scan_bfly_keep() − 1 in its
+// first entries, and lanes that differ only in the bits past the
+// splitting rounds hold the same sums (every lane adds in one fixed
+// order, so the bytes repeat run to run).
+__host__ __device__ constexpr int scan_log2(int x) {
+  return x <= 1 ? 0 : 1 + scan_log2(x / 2);
+}
+
+template <int NV, int ROUNDS>
+struct ScanBfly {
+  static constexpr int SPLITS =
+      ROUNDS < scan_log2(NV) ? ROUNDS : scan_log2(NV);
+  static constexpr int KEEP = NV >> SPLITS;
+};
+
+template <int NV, int ROUNDS>
+__device__ __forceinline__ void scan_butterfly(float (&part)[NV], int sel) {
+#pragma unroll
+  for (int bit = 0; bit < ROUNDS; ++bit) {
+    if (bit < ScanBfly<NV, ROUNDS>::SPLITS) {
+      const int h = NV >> (bit + 1);
+      const bool hi = (sel >> bit) & 1;
+#pragma unroll
+      for (int i = 0; i < NV / 2; ++i) {
+        if (i < h) {
+          const float send = hi ? part[i] : part[i + h];
+          const float keep = hi ? part[i + h] : part[i];
+          part[i] = keep + __shfl_xor_sync(0xffffffffu, send, 1 << bit);
+        }
+      }
+    } else {
+      part[0] += __shfl_xor_sync(0xffffffffu, part[0], 1 << bit);
+    }
+  }
+}
+
+template <int NV, int ROUNDS>
+__device__ __forceinline__ int scan_bfly_mine(int sel) {
+  int mine = 0;
+#pragma unroll
+  for (int bit = 0; bit < ScanBfly<NV, ROUNDS>::SPLITS; ++bit) {
+    mine += ((sel >> bit) & 1) * (NV >> (bit + 1));
+  }
+  return mine;
+}
+
+// The second pass of a backward kernel: out[e] = sum over p = 0 … P − 1
+// of part[p · stride + e], in that order (the per-CTA partials of a sum
+// across CTAs, added without atomics, so the bytes repeat run to run),
+// rounded once to T.
+template <typename T>
+static __global__ void scan_sum_kernel(const float* __restrict__ part, int P,
+                                       int64_t stride, int64_t n,
+                                       T* __restrict__ out) {
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += (int64_t)gridDim.x * blockDim.x) {
+    float acc = 0.f;
+    for (int p = 0; p < P; ++p) acc += part[p * stride + e];
+    out[e] = scan_from_float<T>(acc);
+  }
+}
+
+template <typename T>
+static cudaError_t scan_sum(const float* part, int P, int64_t stride,
+                            int64_t n, T* out, cudaStream_t stream) {
+  if (n <= 0) return cudaSuccess;
+  const int64_t blocks = (n + 255) / 256;
+  scan_sum_kernel<T><<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0,
+                       stream>>>(part, P, stride, n, out);
+  return cudaGetLastError();
+}
+
+// 4 consecutive elements (8- or 16-byte aligned), widened to float32
+__device__ __forceinline__ void scan_load4(const __nv_bfloat16* p,
+                                           float (&f)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  f[0] = __uint_as_float(u.x << 16);
+  f[1] = __uint_as_float(u.x & 0xffff0000u);
+  f[2] = __uint_as_float(u.y << 16);
+  f[3] = __uint_as_float(u.y & 0xffff0000u);
+}
+__device__ __forceinline__ void scan_load4(const float* p, float (&f)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
+}
+
+// A thread's 4 × 4 tile of a row-major float32 matrix (row stride ld
+// floats) into and out of registers
+__device__ __forceinline__ void scan_tile_load(float (&t)[4][4],
+                                               const float* p, int64_t ld) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) scan_load4(p + i * ld, t[i]);
+}
+
+__device__ __forceinline__ void scan_tile_store(float* p, int64_t ld,
+                                                const float (&t)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    *reinterpret_cast<float4*>(p + i * ld) =
+        make_float4(t[i][0], t[i][1], t[i][2], t[i][3]);
+  }
+}
+
+// Stores ``bytes`` (a multiple of 16) of zeros at p, the CTA's threads in
+// turn (the rows of a last chunk past the sequence's end)
+__device__ __forceinline__ void scan_zero(unsigned char* p, int bytes,
+                                          int tid, int threads) {
+  for (int c = tid * 16; c < bytes; c += threads * 16) {
+    *reinterpret_cast<uint4*>(p + c) = make_uint4(0, 0, 0, 0);
+  }
+}

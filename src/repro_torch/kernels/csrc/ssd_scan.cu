@@ -13,7 +13,10 @@
 // [H] float32, h0 [B, H, D, n] or null for zeros; y is [B, S, H, D]
 // float32 (the D skip, the gate and the norm stay in torch) and h_last
 // [B, H, D, n] float32. Prefill and a decode step (S = 1) are the same
-// call.
+// call. Under autograd the call also writes the state before each 32-step
+// chunk (ckpt [B, H, ceil(S/32), D, n] float32, null otherwise), from which
+// ssd_scan_bwd.cu recomputes the chunk's states; it changes no other
+// output's bytes.
 //
 // Two kernels (scan.cuh), one launch a call, a CTA owning 32 rows of one
 // head's h, grid (D / 32, H, B): 128 CTAs for zamba2-1.2b's 64 heads of 64
@@ -77,13 +80,14 @@ struct SsdLayout {
                        SCAN_T * Shape::THREADS + 2 * SCAN_T);
 };
 
-template <int N, typename T>
+template <int N, typename T, bool CKPT>
 __global__ void __launch_bounds__(ScanShape<N>::THREADS)
     ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ Bv,
                     const T* __restrict__ Cv, const float* __restrict__ dt,
                     const float* __restrict__ a,
                     const float* __restrict__ h0, float* __restrict__ y,
-                    float* __restrict__ h_out, int64_t S, int H, int D) {
+                    float* __restrict__ h_out, float* __restrict__ ckpt,
+                    int64_t S, int H, int D) {
   using L = SsdLayout<N, T>;
   constexpr int Q = L::Shape::Q, P = L::Shape::P;
   constexpr int THREADS = L::Shape::THREADS;
@@ -133,6 +137,8 @@ __global__ void __launch_bounds__(ScanShape<N>::THREADS)
     st[m + 1] = v.y;
     st[m + 2] = v.z;
     st[m + 3] = v.w;
+    // the call's one chunk: its checkpoint is the starting state
+    if constexpr (CKPT) *reinterpret_cast<float4*>(ckpt + state + m) = v;
   }
 
   float dt_next = issue(0);
@@ -324,7 +330,7 @@ __device__ __forceinline__ void ssd_mma3(SsdAcc& d, const SsdFrag<4>& a,
   ssd_mma(d.bb, a.big, b.big);
 }
 
-template <int N, typename T>
+template <int N, typename T, bool CKPT>
 __global__ void __launch_bounds__(SsdChunk<N, T>::THREADS, 1)
     ssd_scan_kernel_chunked(const T* __restrict__ x,
                             const T* __restrict__ Bv,
@@ -333,7 +339,8 @@ __global__ void __launch_bounds__(SsdChunk<N, T>::THREADS, 1)
                             const float* __restrict__ a,
                             const float* __restrict__ h0,
                             float* __restrict__ y,
-                            float* __restrict__ h_out, int64_t S, int H,
+                            float* __restrict__ h_out,
+                            float* __restrict__ ckpt, int64_t S, int H,
                             int D) {
   using K = SsdChunk<N, T>;
   constexpr int L = K::L, BP = K::BP, XP = K::XP, NS = K::NS, MS = K::MS;
@@ -493,6 +500,20 @@ __global__ void __launch_bounds__(SsdChunk<N, T>::THREADS, 1)
     const float* h_c = hs + (c & 1) * SCAN_COLS * NS;   // h before chunk c
     constexpr int BE = BP / (int)sizeof(T), XE = XP / (int)sizeof(T);
     const T* crow = cs + 16 * mt * BE;
+    if (CKPT && has_h) {   // the state before chunk c, for the backward
+      float* ck = ckpt + (((int64_t)b * H + h) * nch + c) * D * N +
+                  (int64_t)d0 * N;
+#pragma unroll
+      for (int q = 0; q < TPW; ++q) {
+        const int m = (wn * TPW + q) * 8 + 2 * t;
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int d = 16 * mt + g + 8 * (e >> 1);
+          *reinterpret_cast<float2*>(ck + (int64_t)d * N + m) =
+              make_float2(hacc[q][e], hacc[q][e + 1]);
+        }
+      }
+    }
     scan_bar_sync(SSD_FULL + (c & 1), THREADS);
 
     // 1. M = (C·Bᵀ) ∘ exp(seg) ∘ dt over the N state columns: warp (mt,
@@ -624,68 +645,89 @@ __global__ void __launch_bounds__(SsdChunk<N, T>::THREADS, 1)
   }
 }
 
-template <int N, typename T>
+template <int N, typename T, bool CKPT>
 static int launch_ssd(const void* x, const void* Bv, const void* Cv,
                       const void* dt, const void* a, const void* h0, void* y,
-                      void* h_out, int B, int64_t S, int H, int D,
+                      void* h_out, void* ckpt, int B, int64_t S, int H, int D,
                       cudaStream_t stream) {
   cudaError_t e;
   const dim3 grid(D / SCAN_COLS, H, B);
   if (S < SCAN_T) {   // shorter than one chunk: the serial kernel
     static bool smem_set = false;
     const int smem = SsdLayout<N, T>::SMEM_BYTES;
-    e = scan_smem_limit(ssd_scan_kernel<N, T>, smem, &smem_set);
+    e = scan_smem_limit(ssd_scan_kernel<N, T, CKPT>, smem, &smem_set);
     if (e != cudaSuccess) return (int)e;
-    ssd_scan_kernel<N, T><<<grid, ScanShape<N>::THREADS, smem, stream>>>(
+    ssd_scan_kernel<N, T, CKPT><<<grid, ScanShape<N>::THREADS, smem, stream>>>(
         (const T*)x, (const T*)Bv, (const T*)Cv, (const float*)dt,
-        (const float*)a, (const float*)h0, (float*)y, (float*)h_out, S, H,
-        D);
+        (const float*)a, (const float*)h0, (float*)y, (float*)h_out,
+        (float*)ckpt, S, H, D);
     return (int)cudaGetLastError();
   }
   using K = SsdChunk<N, T>;
   static bool chunk_set = false;
-  e = scan_smem_limit(ssd_scan_kernel_chunked<N, T>, K::SMEM_BYTES,
+  e = scan_smem_limit(ssd_scan_kernel_chunked<N, T, CKPT>, K::SMEM_BYTES,
                       &chunk_set);
   if (e != cudaSuccess) return (int)e;
-  ssd_scan_kernel_chunked<N, T><<<grid, K::THREADS, K::SMEM_BYTES, stream>>>(
+  ssd_scan_kernel_chunked<N, T, CKPT>
+      <<<grid, K::THREADS, K::SMEM_BYTES, stream>>>(
       (const T*)x, (const T*)Bv, (const T*)Cv, (const float*)dt,
-      (const float*)a, (const float*)h0, (float*)y, (float*)h_out, S, H, D);
+      (const float*)a, (const float*)h0, (float*)y, (float*)h_out,
+      (float*)ckpt, S, H, D);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool CKPT>
 static int dispatch_ssd(const void* x, const void* Bv, const void* Cv,
                         const void* dt, const void* a, const void* h0,
-                        void* y, void* h_out, int B, int64_t S, int H, int D,
-                        int n, cudaStream_t stream) {
+                        void* y, void* h_out, void* ckpt, int B, int64_t S,
+                        int H, int D, int n, cudaStream_t stream) {
   switch (n) {
     case 16:
-      return launch_ssd<16, T>(x, Bv, Cv, dt, a, h0, y, h_out, B, S, H, D,
-                               stream);
+      return launch_ssd<16, T, CKPT>(x, Bv, Cv, dt, a, h0, y, h_out, ckpt,
+                                     B, S, H, D, stream);
     case 32:
-      return launch_ssd<32, T>(x, Bv, Cv, dt, a, h0, y, h_out, B, S, H, D,
-                               stream);
+      return launch_ssd<32, T, CKPT>(x, Bv, Cv, dt, a, h0, y, h_out, ckpt,
+                                     B, S, H, D, stream);
     case 64:
-      return launch_ssd<64, T>(x, Bv, Cv, dt, a, h0, y, h_out, B, S, H, D,
-                               stream);
+      return launch_ssd<64, T, CKPT>(x, Bv, Cv, dt, a, h0, y, h_out, ckpt,
+                                     B, S, H, D, stream);
     case 128:
-      return launch_ssd<128, T>(x, Bv, Cv, dt, a, h0, y, h_out, B, S, H, D,
-                                stream);
+      return launch_ssd<128, T, CKPT>(x, Bv, Cv, dt, a, h0, y, h_out, ckpt,
+                                      B, S, H, D, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
+template <bool CKPT>
+static int dispatch_ssd_io(const void* x, const void* Bv, const void* Cv,
+                           const void* dt, const void* a, const void* h0,
+                           void* y, void* h_out, void* ckpt, int B,
+                           int64_t S, int H, int D, int n, int bf16,
+                           cudaStream_t stream) {
+  return bf16 ? dispatch_ssd<__nv_bfloat16, CKPT>(x, Bv, Cv, dt, a, h0, y,
+                                                  h_out, ckpt, B, S, H, D, n,
+                                                  stream)
+              : dispatch_ssd<float, CKPT>(x, Bv, Cv, dt, a, h0, y, h_out,
+                                          ckpt, B, S, H, D, n, stream);
+}
+
+// ckpt: null, or [B, H, ceil(S / SCAN_T), D, n] float32 for the state
+// before each chunk (ssd_scan_bwd.cu reads them). The checkpoint writes are
+// compiled in only for a non-null ckpt: a call without one runs a kernel
+// with no checkpoint code at all; the other outputs are the same bytes
+// either way
 extern "C" int fw_ssd_scan(const void* x, const void* Bv, const void* Cv,
                            const void* dt, const void* a, const void* h0,
-                           void* y, void* h_out, int32_t B, int64_t S,
-                           int32_t H, int32_t D, int32_t n, int32_t bf16,
-                           void* stream) {
+                           void* y, void* h_out, void* ckpt, int32_t B,
+                           int64_t S, int32_t H, int32_t D, int32_t n,
+                           int32_t bf16, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (D <= 0 || D % SCAN_COLS) return (int)cudaErrorInvalidValue;
-  return bf16 ? dispatch_ssd<__nv_bfloat16>(x, Bv, Cv, dt, a, h0, y, h_out,
-                                            B, S, H, D, n,
-                                            (cudaStream_t)stream)
-              : dispatch_ssd<float>(x, Bv, Cv, dt, a, h0, y, h_out, B, S, H,
-                                    D, n, (cudaStream_t)stream);
+  return ckpt ? dispatch_ssd_io<true>(x, Bv, Cv, dt, a, h0, y, h_out, ckpt,
+                                      B, S, H, D, n, bf16,
+                                      (cudaStream_t)stream)
+              : dispatch_ssd_io<false>(x, Bv, Cv, dt, a, h0, y, h_out,
+                                       nullptr, B, S, H, D, n, bf16,
+                                       (cudaStream_t)stream);
 }

@@ -15,7 +15,10 @@
 // float32, S0 [B, H, D, D] or null for zeros; o is [B, S, H, D] in r's
 // type (rounded to nearest even, the reference's cast of its float32
 // readout) and S_last [B, H, D, D] float32. Prefill and a decode step
-// (S = 1) are the same call.
+// (S = 1) are the same call. Under autograd the call also writes the
+// state before each 32-step chunk (ckpt [B, H, ceil(S/32), D, D] float32,
+// null otherwise), from which wkv6_bwd.cu recomputes the chunk's states;
+// it changes no other output's bytes.
 //
 // Two kernels (scan.cuh), one launch a call. A call shorter than one
 // chunk (a decode step) runs the serial kernel, faster there than the
@@ -83,13 +86,14 @@ struct Wkv6Layout {
                        SCAN_T * Shape::THREADS + SCAN_T);
 };
 
-template <int N, typename T>
+template <int N, typename T, bool CKPT>
 __global__ void __launch_bounds__(ScanShape<N>::THREADS)
     wkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ w,
                      const float* __restrict__ u,
                      const float* __restrict__ s0, T* __restrict__ o,
-                     float* __restrict__ s_out, int64_t S, int H) {
+                     float* __restrict__ s_out, float* __restrict__ ckpt,
+                     int64_t S, int H) {
   using L = Wkv6Layout<N, T>;
   constexpr int Q = L::Shape::Q, P = L::Shape::P;
   constexpr int THREADS = L::Shape::THREADS;
@@ -137,6 +141,10 @@ __global__ void __launch_bounds__(ScanShape<N>::THREADS)
 #pragma unroll
   for (int m = 0; m < Q; ++m) {
     st[m] = s0 ? s0[state + (int64_t)(wp * Q + m) * N + j0 + lane] : 0.f;
+    // the call's one chunk: its checkpoint is the starting state
+    if constexpr (CKPT) {
+      ckpt[state + (int64_t)(wp * Q + m) * N + j0 + lane] = st[m];
+    }
   }
 
   issue(0);
@@ -246,20 +254,6 @@ struct Wkv6Pipe {
 #define WKV6_FULL 1
 #define WKV6_EMPTY 3
 
-// 4 consecutive staged elements, widened to float32
-__device__ __forceinline__ void wkv6_load(const __nv_bfloat16* p,
-                                          float (&f)[4]) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  f[0] = __uint_as_float(u.x << 16);
-  f[1] = __uint_as_float(u.x & 0xffff0000u);
-  f[2] = __uint_as_float(u.y << 16);
-  f[3] = __uint_as_float(u.y & 0xffff0000u);
-}
-__device__ __forceinline__ void wkv6_load(const float* p, float (&f)[4]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
-}
-
 // Round B of the readout's transposing butterfly (nothing past the last):
 // of the first NV >> B parts this lane keeps the half that its row group's
 // bit B picks, adds the copy of that half from the lane whose bit differs
@@ -279,14 +273,15 @@ __device__ __forceinline__ void wkv6_round(float (&part)[NV], int rg,
   }
 }
 
-template <int N, typename T>
+template <int N, typename T, bool CKPT>
 __global__ void __launch_bounds__(Wkv6Pipe<N, T>::THREADS, 1)
     wkv6_scan_kernel_pipe(const T* __restrict__ r, const T* __restrict__ k,
                           const T* __restrict__ v,
                           const float* __restrict__ w,
                           const float* __restrict__ u,
                           const float* __restrict__ s0, T* __restrict__ o,
-                          float* __restrict__ s_out, int64_t S, int H) {
+                          float* __restrict__ s_out,
+                          float* __restrict__ ckpt, int64_t S, int H) {
   using L = Wkv6Pipe<N, T>;
   constexpr int COLS = L::COLS, CQ = L::CQ;
   constexpr int LC = L::LC, NV = L::NV, ROUNDS = L::ROUNDS, KEEP = L::KEEP;
@@ -409,14 +404,23 @@ __global__ void __launch_bounds__(Wkv6Pipe<N, T>::THREADS, 1)
     const T* rr = reinterpret_cast<const T*>(sg + L::R_AT) + i0;
     const T* kk = reinterpret_cast<const T*>(sg + L::K_AT) + i0;
     const T* vv = reinterpret_cast<const T*>(sg + L::V_AT) + jc;
+    if constexpr (CKPT) {   // the state before chunk c, for the backward
+      float* ck = ckpt + (((int64_t)b * H + h) * nch + c) * N * N +
+                  (int64_t)i0 * N + j0 + jc;
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+        *reinterpret_cast<float4*>(ck + ii * N) =
+            make_float4(st[ii][0], st[ii][1], st[ii][2], st[ii][3]);
+      }
+    }
     scan_bar_sync(WKV6_FULL + (c & 1), THREADS);
     // step s's operands in registers; step s + 1's are loaded before step
     // s's FMAs
     float r4[4], k4[4], w4[4], vq[CQ];
-    wkv6_load(rr, r4);
-    wkv6_load(kk, k4);
-    wkv6_load(ww, w4);
-    wkv6_load(vv, vq);
+    scan_load4(rr, r4);
+    scan_load4(kk, k4);
+    scan_load4(ww, w4);
+    scan_load4(vv, vq);
     // the chunk's groups; a whole chunk (the hot path) runs without a
     // branch, a short last one skips the steps past its end
     auto run_chunk = [&](auto whole) {
@@ -431,10 +435,10 @@ __global__ void __launch_bounds__(Wkv6Pipe<N, T>::THREADS, 1)
         const int last = WHOLE ? SCAN_T - 1 : steps - 1;
         const int sn = s < last ? s + 1 : s;
         float rn[4], kn[4], wn[4], vn[CQ];
-        wkv6_load(rr + sn * N, rn);
-        wkv6_load(kk + sn * N, kn);
-        wkv6_load(ww + sn * N, wn);
-        wkv6_load(vv + sn * COLS, vn);
+        scan_load4(rr + sn * N, rn);
+        scan_load4(kk + sn * N, kn);
+        scan_load4(ww + sn * N, wn);
+        scan_load4(vv + sn * COLS, vn);
         // the readout's part over this thread's rows: r·S + v·(r·u·k)
         float bonus = (r4[0] * u4[0]) * k4[0];
 #pragma unroll
@@ -497,62 +501,85 @@ __global__ void __launch_bounds__(Wkv6Pipe<N, T>::THREADS, 1)
   }
 }
 
-template <int N, typename T>
+template <int N, typename T, bool CKPT>
 static int launch_wkv6(const void* r, const void* k, const void* v,
                        const void* w, const void* u, const void* s0,
-                       void* o, void* s_out, int B, int64_t S, int H,
-                       cudaStream_t stream) {
+                       void* o, void* s_out, void* ckpt, int B, int64_t S,
+                       int H, cudaStream_t stream) {
   cudaError_t e;
   if (S < SCAN_T) {   // shorter than one chunk: the serial kernel
     static bool smem_set = false;
     const int smem = Wkv6Layout<N, T>::SMEM_BYTES;
-    e = scan_smem_limit(wkv6_scan_kernel<N, T>, smem, &smem_set);
+    e = scan_smem_limit(wkv6_scan_kernel<N, T, CKPT>, smem, &smem_set);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid(N / SCAN_COLS, H, B);
-    wkv6_scan_kernel<N, T><<<grid, ScanShape<N>::THREADS, smem, stream>>>(
+    wkv6_scan_kernel<N, T, CKPT><<<grid, ScanShape<N>::THREADS, smem, stream>>>(
         (const T*)r, (const T*)k, (const T*)v, (const float*)w,
-        (const float*)u, (const float*)s0, (T*)o, (float*)s_out, S, H);
+        (const float*)u, (const float*)s0, (T*)o, (float*)s_out,
+        (float*)ckpt, S, H);
     return (int)cudaGetLastError();
   }
   using L = Wkv6Pipe<N, T>;
   static bool pipe_set = false;
-  e = scan_smem_limit(wkv6_scan_kernel_pipe<N, T>, L::SMEM_BYTES, &pipe_set);
+  e = scan_smem_limit(wkv6_scan_kernel_pipe<N, T, CKPT>, L::SMEM_BYTES,
+                      &pipe_set);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(N / L::COLS, H, B);
-  wkv6_scan_kernel_pipe<N, T><<<grid, L::THREADS, L::SMEM_BYTES, stream>>>(
+  wkv6_scan_kernel_pipe<N, T, CKPT>
+      <<<grid, L::THREADS, L::SMEM_BYTES, stream>>>(
           (const T*)r, (const T*)k, (const T*)v, (const float*)w,
-          (const float*)u, (const float*)s0, (T*)o, (float*)s_out, S, H);
+          (const float*)u, (const float*)s0, (T*)o, (float*)s_out,
+          (float*)ckpt, S, H);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool CKPT>
 static int dispatch_wkv6(const void* r, const void* k, const void* v,
                          const void* w, const void* u, const void* s0,
-                         void* o, void* s_out, int B, int64_t S, int H,
-                         int D, cudaStream_t stream) {
+                         void* o, void* s_out, void* ckpt, int B, int64_t S,
+                         int H, int D, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch_wkv6<32, T>(r, k, v, w, u, s0, o, s_out, B, S, H,
-                                stream);
+      return launch_wkv6<32, T, CKPT>(r, k, v, w, u, s0, o, s_out, ckpt, B,
+                                      S, H, stream);
     case 64:
-      return launch_wkv6<64, T>(r, k, v, w, u, s0, o, s_out, B, S, H,
-                                stream);
+      return launch_wkv6<64, T, CKPT>(r, k, v, w, u, s0, o, s_out, ckpt, B,
+                                      S, H, stream);
     case 128:
-      return launch_wkv6<128, T>(r, k, v, w, u, s0, o, s_out, B, S, H,
-                                 stream);
+      return launch_wkv6<128, T, CKPT>(r, k, v, w, u, s0, o, s_out, ckpt, B,
+                                       S, H, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
+template <bool CKPT>
+static int dispatch_wkv6_io(const void* r, const void* k, const void* v,
+                            const void* w, const void* u, const void* s0,
+                            void* o, void* s_out, void* ckpt, int B,
+                            int64_t S, int H, int D, int bf16,
+                            cudaStream_t stream) {
+  return bf16 ? dispatch_wkv6<__nv_bfloat16, CKPT>(r, k, v, w, u, s0, o,
+                                                   s_out, ckpt, B, S, H, D,
+                                                   stream)
+              : dispatch_wkv6<float, CKPT>(r, k, v, w, u, s0, o, s_out,
+                                           ckpt, B, S, H, D, stream);
+}
+
+// ckpt: null, or [B, H, ceil(S / SCAN_T), D, D] float32 for the state
+// before each chunk (wkv6_bwd.cu reads them). The checkpoint writes are
+// compiled in only for a non-null ckpt: a call without one runs a kernel
+// with no checkpoint code at all; the other outputs are the same bytes
+// either way
 extern "C" int fw_wkv6_scan(const void* r, const void* k, const void* v,
                             const void* w, const void* u, const void* s0,
-                            void* o, void* s_out, int32_t B, int64_t S,
-                            int32_t H, int32_t D, int32_t bf16,
+                            void* o, void* s_out, void* ckpt, int32_t B,
+                            int64_t S, int32_t H, int32_t D, int32_t bf16,
                             void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
-  return bf16 ? dispatch_wkv6<__nv_bfloat16>(r, k, v, w, u, s0, o, s_out, B,
-                                             S, H, D, (cudaStream_t)stream)
-              : dispatch_wkv6<float>(r, k, v, w, u, s0, o, s_out, B, S, H,
-                                     D, (cudaStream_t)stream);
+  return ckpt ? dispatch_wkv6_io<true>(r, k, v, w, u, s0, o, s_out, ckpt, B,
+                                       S, H, D, bf16, (cudaStream_t)stream)
+              : dispatch_wkv6_io<false>(r, k, v, w, u, s0, o, s_out,
+                                        nullptr, B, S, H, D, bf16,
+                                        (cudaStream_t)stream);
 }

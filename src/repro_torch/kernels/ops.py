@@ -52,8 +52,12 @@ the bits through ``ref.slot_bits`` and run the caller-mode oracle.
 autograd Function whose forward also writes the rows' log-sum-exp and
 whose backward is :func:`attention_bwd` (the ``flash_attention_bwd``
 kernel on CUDA tensors), so no kernel output on the card lacks autograd
-history. The scan kernels have no backward yet, and the ELL slab
-product has none: on CUDA tensors they raise under autograd.
+history. The scans do the same: under autograd their forwards also
+write the state before every 32-step chunk, and their backwards are
+:func:`wkv6_scan_bwd` and :func:`ssd_scan_bwd` (the ``wkv6_scan_bwd`` and
+``ssd_scan_bwd`` kernels on CUDA tensors). The ELL slab product has no
+backward (nor has the reference's kernel): on CUDA tensors it raises
+under autograd.
 
 ``wkv6_scan`` and ``ssd_scan`` are the port's own kernels for the RWKV-6
 and Mamba-2 time recurrences, which the reference runs as ``lax.scan``
@@ -93,6 +97,7 @@ LAUNCHES: Dict[str, int] = {"frog_step": 0, "frog_count": 0,
                             "spmv_ell_slab": 0, "flash_attention": 0,
                             "flash_attention_bwd": 0,
                             "wkv6_scan": 0, "ssd_scan": 0,
+                            "wkv6_scan_bwd": 0, "ssd_scan_bwd": 0,
                             "threefry_bits": 0, "threefry_randint": 0,
                             "threefry_uniform": 0, "threefry_bernoulli": 0,
                             "threefry_split": 0, "threefry_fold_in": 0}
@@ -138,23 +143,22 @@ def _use_kernel(name: str, impl: str, *tensors: torch.Tensor) -> bool:
     return False
 
 
+def _grad_wanted(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether autograd records a call on these inputs (grad mode on and
+    one of them requiring grad)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def _refuse_autograd(name: str, why: str,
                      *tensors: Optional[torch.Tensor]) -> None:
     """A kernel without a backward, called under grad mode with an input
     that requires grad, raises (``why`` says what is missing) rather than
     return an output without autograd history."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
+    if _grad_wanted(*tensors):
         raise NotImplementedError(
             f"{name}: the kernel has no backward{why}. Run under "
             f"torch.no_grad() or with impl='torch'")
-
-
-# the scans' refusal: their backward kernels come with the recurrent
-# families' training
-SCAN_NO_BACKWARD = (" yet; training the recurrent families (the wkv6_scan "
-                    "and ssd_scan backward kernels, models/scan_utils.py) "
-                    "is the next slice of ROADMAP.md Queue 1 item 14")
 
 
 def _check_i32(name: str, arg: str, t: torch.Tensor, ndim: int = 1,
@@ -1162,8 +1166,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Under autograd ``"ref"`` takes the plain route (the oracle computes
     in place and records no history)."""
     name = "flash_attention"
-    grad = torch.is_grad_enabled() and any(t.requires_grad
-                                           for t in (q, k, v))
+    grad = _grad_wanted(q, k, v)
     if impl == "ref" and not grad:
         return kref.attention_ref(q, k, v, causal=causal, window=window,
                                   q_offset=q_offset, logit_soft_cap=soft_cap)
@@ -1370,6 +1373,7 @@ SCAN_DTYPES = (torch.float32, torch.bfloat16)
 # shorter than a 32-step chunk runs the serial kernel, a longer one the
 # pipelined kernel (csrc/scan.cuh)
 SCAN_COLS = 32
+SCAN_T = kref.SCAN_T
 WKV6_HEAD_DIMS = (32, 64, 128)
 SSD_STATES = (16, 32, 64, 128)
 
@@ -1388,6 +1392,70 @@ def _scan_operand(name: str, arg: str, t: torch.Tensor, shape,
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _wkv6_operands(name: str, r, k, v, w, u, S0):
+    """The kernel's operands, checked and contiguous (``_scan_operand``)."""
+    B, S, H, D = r.shape
+    if D not in WKV6_HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {D} not in {WKV6_HEAD_DIMS}")
+    io = (r.dtype,) if r.dtype in SCAN_DTYPES else SCAN_DTYPES
+    r = _scan_operand(name, "r", r, (B, S, H, D), io)
+    k, v = (_scan_operand(name, a, t, (B, S, H, D), (r.dtype,))
+            for a, t in (("k", k), ("v", v)))
+    f32 = (torch.float32,)
+    w = _scan_operand(name, "w", w, (B, S, H, D), f32)
+    u = _scan_operand(name, "u", u, (H, D), f32)
+    if S0 is not None:
+        S0 = _scan_operand(name, "S0", S0, (B, H, D, D), f32)
+    return r, k, v, w, u, S0
+
+
+def _wkv6_kernel(r, k, v, w, u, S0, checkpoints: bool):
+    """One ``wkv6_scan`` launch on checked operands → ``(o, S_last, ckpt
+    or None)``; ``ckpt`` (float32 ``[B, H, ⌈S/32⌉, D, D]``, the state
+    before each chunk) is written only when asked, and ``o`` and
+    ``S_last`` are the same bytes either way."""
+    B, S, H, D = r.shape
+    o = torch.empty((B, S, H, D), dtype=r.dtype, device=r.device)
+    S_last = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
+    ckpt = torch.empty((B, H, -(-S // SCAN_T), D, D), dtype=torch.float32,
+                       device=r.device) if checkpoints else None
+    if S == 0 or B == 0 or H == 0:
+        if S0 is None:
+            S_last.zero_()
+        else:
+            S_last.copy_(S0)
+        return o, S_last, ckpt
+    _launch("wkv6_scan", r.device, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+            w.data_ptr(), u.data_ptr(),
+            None if S0 is None else S0.data_ptr(), o.data_ptr(),
+            S_last.data_ptr(), None if ckpt is None else ckpt.data_ptr(), B,
+            S, H, D, int(r.dtype == torch.bfloat16))
+    return o, S_last, ckpt
+
+
+class _Wkv6Scan(torch.autograd.Function):
+    """``wkv6_scan``'s kernel under autograd: the forward also writes the
+    chunk checkpoints, saved with the inputs; the backward is the
+    ``wkv6_scan_bwd`` kernel (:func:`wkv6_scan_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, S0):
+        args = _wkv6_operands("wkv6_scan", r, k, v, w, u, S0)
+        o, S_last, ckpt = _wkv6_kernel(*args, checkpoints=True)
+        ctx.save_for_backward(*args, ckpt)
+        ctx.set_materialize_grads(False)
+        return o, S_last
+
+    @staticmethod
+    def backward(ctx, do, dS_last):
+        r, k, v, w, u, S0, ckpt = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(r)
+        *grads, dS0 = wkv6_scan_bwd(r, k, v, w, u, S0, do, dS_last,
+                                    ckpt=ckpt, impl="cuda")
+        return (*grads, None if S0 is None else dS0)
+
+
 def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor,
               S0: Optional[torch.Tensor] = None, impl: str = "auto"
@@ -1401,46 +1469,157 @@ def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     float32 decay, ``u [H, D]``, ``S0 [B, H, D, D]`` float32 (key row,
     value column) or None for zeros. The kernel writes a new ``S_last``
     and leaves ``S0`` as it was. A decode step is the same call at S =
-    1."""
+    1. With grad mode on and an input requiring grad, the kernel runs
+    under an autograd Function whose backward is the ``wkv6_scan_bwd``
+    kernel; on the plain route autograd runs through the reference's
+    loop under ``chunked_scan``."""
     name = "wkv6_scan"
     use = _use_kernel(name, impl, r, k, v, w, u,
                       *(() if S0 is None else (S0,)))
-    if use:
-        _refuse_autograd(name, SCAN_NO_BACKWARD, r, k, v, w, u, S0)
     if r.dim() != 4:
         raise ValueError(f"{name}: r must be [B, S, H, D], got "
                          f"{list(r.shape)}")
-    B, S, H, D = r.shape
     if not use:
         for arg, t in (("k", k), ("v", v), ("w", w)):
             if t.shape != r.shape:
                 raise ValueError(f"{name}: {arg} has shape {list(t.shape)},"
                                  f" wanted {list(r.shape)}")
         return kref.wkv6_scan_ref(r, k, v, w, u, S0)
-    if D not in WKV6_HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {D} not in {WKV6_HEAD_DIMS}")
-    io = (r.dtype,) if r.dtype in SCAN_DTYPES else SCAN_DTYPES
-    r = _scan_operand(name, "r", r, (B, S, H, D), io)
-    k, v = (_scan_operand(name, a, t, (B, S, H, D), (r.dtype,))
-            for a, t in (("k", k), ("v", v)))
-    f32 = (torch.float32,)
-    w = _scan_operand(name, "w", w, (B, S, H, D), f32)
-    u = _scan_operand(name, "u", u, (H, D), f32)
-    if S0 is not None:
-        S0 = _scan_operand(name, "S0", S0, (B, H, D, D), f32)
-    o = torch.empty((B, S, H, D), dtype=r.dtype, device=r.device)
-    S_last = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
+    if _grad_wanted(r, k, v, w, u, S0):
+        return _Wkv6Scan.apply(r, k, v, w, u, S0)
+    return _wkv6_kernel(*_wkv6_operands(name, r, k, v, w, u, S0),
+                        checkpoints=False)[:2]
+
+
+# value columns a CTA of the wkv6 backward owns (all of them but at D =
+# 128, whose 8 column CTAs a head sum their row parts in a second pass),
+# and state rows a CTA of the ssd backward owns, by state size
+WKV6_BWD_COLS = {32: 32, 64: 64, 128: 16}
+SSD_BWD_ROWS = {16: 32, 32: 32, 64: 32, 128: 16}
+
+
+def wkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor,
+                  S0: Optional[torch.Tensor], do: torch.Tensor,
+                  dS_last: Optional[torch.Tensor] = None, *,
+                  ckpt: Optional[torch.Tensor], impl: str = "auto"
+                  ) -> Tuple[torch.Tensor, ...]:
+    """The gradients ``(dr, dk, dv, dw, du, dS0)`` of :func:`wkv6_scan`
+    from its inputs, the output's gradient ``do`` (``r``'s shape and
+    dtype) and the final state's ``dS_last`` (float32, zeros when None),
+    each in its input's dtype (``dS0`` float32, also when ``S0`` is None):
+    the ``wkv6_scan_bwd`` kernel for CUDA tensors (``csrc/wkv6_bwd.cu``;
+    one launch, its second pass included), reading the forward's chunk
+    checkpoints ``ckpt`` (float32 ``[B, H, ⌈S/32⌉, D, D]``, which
+    :class:`_Wkv6Scan`'s forward writes); the plain
+    ``ref.wkv6_scan_bwd_ref`` for CPU tensors or ``impl="torch"``, which
+    recomputes its own and takes ``ckpt=None``."""
+    name = "wkv6_scan_bwd"
+    use = _use_kernel(name, impl, r, k, v, w, u, do,
+                      *(t for t in (S0, dS_last, ckpt) if t is not None))
+    if not use:
+        return kref.wkv6_scan_bwd_ref(r, k, v, w, u, S0, do, dS_last)
+    r, k, v, w, u, S0 = _wkv6_operands(name, r, k, v, w, u, S0)
+    B, S, H, D = r.shape
+    do = _scan_operand(name, "do", do, (B, S, H, D), (r.dtype,))
+    if dS_last is not None:
+        dS_last = _scan_operand(name, "dS_last", dS_last, (B, H, D, D),
+                                (torch.float32,))
+    nch = -(-S // SCAN_T)
+    if ckpt is None:
+        raise ValueError(f"{name}: the kernel reads the forward's chunk "
+                         "checkpoints; ckpt is None")
+    ckpt = _scan_operand(name, "ckpt", ckpt, (B, H, nch, D, D),
+                         (torch.float32,))
+    dr, dk, dv = (torch.empty_like(t) for t in (r, k, v))
+    dw = torch.empty_like(w)
+    du = torch.empty_like(u)
+    dS0 = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
     if S == 0 or B == 0 or H == 0:
-        if S0 is None:
-            S_last.zero_()
+        du.zero_()
+        if dS_last is None:
+            dS0.zero_()
         else:
-            S_last.copy_(S0)
-        return o, S_last
+            dS0.copy_(dS_last)
+        return dr, dk, dv, dw, du, dS0
+    nc = D // WKV6_BWD_COLS[D]
+    part = torch.empty((nc, 3, B, S, H, D), dtype=torch.float32,
+                       device=r.device) if nc > 1 else None
+    du_part = torch.empty((nc * B, H, D), dtype=torch.float32,
+                          device=r.device)
     _launch(name, r.device, r.data_ptr(), k.data_ptr(), v.data_ptr(),
-            w.data_ptr(), u.data_ptr(),
-            None if S0 is None else S0.data_ptr(), o.data_ptr(),
-            S_last.data_ptr(), B, S, H, D, int(r.dtype == torch.bfloat16))
-    return o, S_last
+            w.data_ptr(), u.data_ptr(), ckpt.data_ptr(), do.data_ptr(),
+            None if dS_last is None else dS_last.data_ptr(), dr.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+            dS0.data_ptr(), None if part is None else part.data_ptr(),
+            du_part.data_ptr(), B, S, H, D,
+            int(r.dtype == torch.bfloat16))
+    return dr, dk, dv, dw, du, dS0
+
+
+def _ssd_operands(name: str, x, Bv, Cv, dt, a, h0):
+    """The kernel's operands, checked and contiguous (``_scan_operand``)."""
+    B, S, H, D = x.shape
+    n = Bv.shape[-1]
+    if D % SCAN_COLS or n not in SSD_STATES:
+        raise ValueError(f"{name}: head_dim {D} must be a multiple of "
+                         f"{SCAN_COLS} and the state {n} in {SSD_STATES}")
+    io = (x.dtype,) if x.dtype in SCAN_DTYPES else SCAN_DTYPES
+    x = _scan_operand(name, "x", x, (B, S, H, D), io)
+    Bv, Cv = (_scan_operand(name, arg, t, (B, S, n), (x.dtype,))
+              for arg, t in (("Bv", Bv), ("Cv", Cv)))
+    f32 = (torch.float32,)
+    dt = _scan_operand(name, "dt", dt, (B, S, H), f32)
+    a = _scan_operand(name, "a", a, (H,), f32)
+    if h0 is not None:
+        h0 = _scan_operand(name, "h0", h0, (B, H, D, n), f32)
+    return x, Bv, Cv, dt, a, h0
+
+
+def _ssd_kernel(x, Bv, Cv, dt, a, h0, checkpoints: bool):
+    """One ``ssd_scan`` launch on checked operands → ``(y, h_last, ckpt or
+    None)``; ``ckpt`` (float32 ``[B, H, ⌈S/32⌉, D, n]``) as
+    :func:`_wkv6_kernel`'s."""
+    B, S, H, D = x.shape
+    n = Bv.shape[-1]
+    y = torch.empty((B, S, H, D), dtype=torch.float32, device=x.device)
+    h_last = torch.empty((B, H, D, n), dtype=torch.float32, device=x.device)
+    ckpt = torch.empty((B, H, -(-S // SCAN_T), D, n), dtype=torch.float32,
+                       device=x.device) if checkpoints else None
+    if S == 0 or B == 0 or H == 0:
+        if h0 is None:
+            h_last.zero_()
+        else:
+            h_last.copy_(h0)
+        return y, h_last, ckpt
+    _launch("ssd_scan", x.device, x.data_ptr(), Bv.data_ptr(),
+            Cv.data_ptr(), dt.data_ptr(), a.data_ptr(),
+            None if h0 is None else h0.data_ptr(), y.data_ptr(),
+            h_last.data_ptr(), None if ckpt is None else ckpt.data_ptr(), B,
+            S, H, D, n, int(x.dtype == torch.bfloat16))
+    return y, h_last, ckpt
+
+
+class _SsdScan(torch.autograd.Function):
+    """``ssd_scan``'s kernel under autograd, as :class:`_Wkv6Scan`; the
+    backward is the ``ssd_scan_bwd`` kernel (:func:`ssd_scan_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, x, Bv, Cv, dt, a, h0):
+        args = _ssd_operands("ssd_scan", x, Bv, Cv, dt, a, h0)
+        y, h_last, ckpt = _ssd_kernel(*args, checkpoints=True)
+        ctx.save_for_backward(*args, ckpt)
+        ctx.set_materialize_grads(False)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        x, Bv, Cv, dt, a, h0, ckpt = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        *grads, dh0 = ssd_scan_bwd(x, Bv, Cv, dt, a, h0, dy, dh_last,
+                                   ckpt=ckpt, impl="cuda")
+        return (*grads, None if h0 is None else dh0)
 
 
 def ssd_scan(x: torch.Tensor, Bv: torch.Tensor, Cv: torch.Tensor,
@@ -1456,45 +1635,77 @@ def ssd_scan(x: torch.Tensor, Bv: torch.Tensor, Cv: torch.Tensor,
     (Δ after its softplus), ``a [H]`` float32 (negative), ``h0 [B, H, D,
     n]`` float32 or None for zeros. The kernel writes a new ``h_last``
     and leaves ``h0`` as it was. A decode step is the same call at S =
-    1."""
+    1. Under autograd the kernel runs under an autograd Function whose
+    backward is the ``ssd_scan_bwd`` kernel, as :func:`wkv6_scan`'s."""
     name = "ssd_scan"
     use = _use_kernel(name, impl, x, Bv, Cv, dt, a,
                       *(() if h0 is None else (h0,)))
-    if use:
-        _refuse_autograd(name, SCAN_NO_BACKWARD, x, Bv, Cv, dt, a, h0)
     if x.dim() != 4 or Bv.dim() != 3:
         raise ValueError(f"{name}: x must be [B, S, H, D] and Bv [B, S, n],"
                          f" got {list(x.shape)}, {list(Bv.shape)}")
     B, S, H, D = x.shape
-    n = Bv.shape[-1]
     if not use:
         if Cv.shape != Bv.shape or tuple(dt.shape) != (B, S, H):
             raise ValueError(f"{name}: Cv {list(Cv.shape)} or dt "
                              f"{list(dt.shape)} disagree with x and Bv")
         return kref.ssd_scan_ref(x, Bv, Cv, dt, a, h0)
-    if D % SCAN_COLS or n not in SSD_STATES:
-        raise ValueError(f"{name}: head_dim {D} must be a multiple of "
-                         f"{SCAN_COLS} and the state {n} in {SSD_STATES}")
-    io = (x.dtype,) if x.dtype in SCAN_DTYPES else SCAN_DTYPES
-    x = _scan_operand(name, "x", x, (B, S, H, D), io)
-    Bv, Cv = (_scan_operand(name, arg, t, (B, S, n), (x.dtype,))
-              for arg, t in (("Bv", Bv), ("Cv", Cv)))
+    if _grad_wanted(x, Bv, Cv, dt, a, h0):
+        return _SsdScan.apply(x, Bv, Cv, dt, a, h0)
+    return _ssd_kernel(*_ssd_operands(name, x, Bv, Cv, dt, a, h0),
+                       checkpoints=False)[:2]
+
+
+def ssd_scan_bwd(x: torch.Tensor, Bv: torch.Tensor, Cv: torch.Tensor,
+                 dt: torch.Tensor, a: torch.Tensor,
+                 h0: Optional[torch.Tensor], dy: torch.Tensor,
+                 dh_last: Optional[torch.Tensor] = None, *,
+                 ckpt: Optional[torch.Tensor], impl: str = "auto"
+                 ) -> Tuple[torch.Tensor, ...]:
+    """The gradients ``(dx, dB, dC, ddt, da, dh0)`` of :func:`ssd_scan`
+    from its inputs, ``dy`` (float32, ``x``'s shape) and ``dh_last``
+    (float32, zeros when None), each in its input's dtype (``dh0``
+    float32): the ``ssd_scan_bwd`` kernel for CUDA tensors
+    (``csrc/ssd_scan_bwd.cu``; one launch, its second pass included) on
+    the forward's chunk checkpoints ``ckpt`` (float32 ``[B, H, ⌈S/32⌉, D,
+    n]``, which :class:`_SsdScan`'s forward writes); the plain
+    ``ref.ssd_scan_bwd_ref`` for CPU tensors or ``impl="torch"``, which
+    recomputes its own and takes ``ckpt=None``."""
+    name = "ssd_scan_bwd"
+    use = _use_kernel(name, impl, x, Bv, Cv, dt, a, dy,
+                      *(t for t in (h0, dh_last, ckpt) if t is not None))
+    if not use:
+        return kref.ssd_scan_bwd_ref(x, Bv, Cv, dt, a, h0, dy, dh_last)
+    x, Bv, Cv, dt, a, h0 = _ssd_operands(name, x, Bv, Cv, dt, a, h0)
+    B, S, H, D = x.shape
+    n = Bv.shape[-1]
     f32 = (torch.float32,)
-    dt = _scan_operand(name, "dt", dt, (B, S, H), f32)
-    a = _scan_operand(name, "a", a, (H,), f32)
-    if h0 is not None:
-        h0 = _scan_operand(name, "h0", h0, (B, H, D, n), f32)
-    y = torch.empty((B, S, H, D), dtype=torch.float32, device=x.device)
-    h_last = torch.empty((B, H, D, n), dtype=torch.float32, device=x.device)
+    dy = _scan_operand(name, "dy", dy, (B, S, H, D), f32)
+    if dh_last is not None:
+        dh_last = _scan_operand(name, "dh_last", dh_last, (B, H, D, n), f32)
+    if ckpt is None:
+        raise ValueError(f"{name}: the kernel reads the forward's chunk "
+                         "checkpoints; ckpt is None")
+    ckpt = _scan_operand(name, "ckpt", ckpt, (B, H, -(-S // SCAN_T), D, n),
+                         f32)
+    dx = torch.empty_like(x)
+    dB, dC = torch.empty_like(Bv), torch.empty_like(Cv)
+    ddt, da = torch.empty_like(dt), torch.empty_like(a)
+    dh0 = torch.empty((B, H, D, n), dtype=torch.float32, device=x.device)
     if S == 0 or B == 0 or H == 0:
-        if h0 is None:
-            h_last.zero_()
+        for t in (dB, dC, da):
+            t.zero_()
+        if dh_last is None:
+            dh0.zero_()
         else:
-            h_last.copy_(h0)
-        return y, h_last
+            dh0.copy_(dh_last)
+        return dx, dB, dC, ddt, da, dh0
+    nr = D // SSD_BWD_ROWS[n]
+    part = torch.empty(2 * H * nr * B * S * n + nr * B * S * H + nr * B * H,
+                       dtype=torch.float32, device=x.device)
     _launch(name, x.device, x.data_ptr(), Bv.data_ptr(), Cv.data_ptr(),
-            dt.data_ptr(), a.data_ptr(),
-            None if h0 is None else h0.data_ptr(), y.data_ptr(),
-            h_last.data_ptr(), B, S, H, D, n,
+            dt.data_ptr(), a.data_ptr(), ckpt.data_ptr(), dy.data_ptr(),
+            None if dh_last is None else dh_last.data_ptr(), dx.data_ptr(),
+            dB.data_ptr(), dC.data_ptr(), ddt.data_ptr(), da.data_ptr(),
+            dh0.data_ptr(), part.data_ptr(), B, S, H, D, n,
             int(x.dtype == torch.bfloat16))
-    return y, h_last
+    return dx, dB, dC, ddt, da, dh0

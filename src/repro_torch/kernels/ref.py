@@ -581,6 +581,18 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
 # reference: its lax.scan step functions, looped over time)
 # ---------------------------------------------------------------------------
 
+def _chunked_scan():
+    """``models.scan_utils.chunked_scan``, imported at the first call: the
+    models package imports this module through ``kernels.ops``."""
+    from repro_torch.models.scan_utils import chunked_scan
+    return chunked_scan
+
+
+# the reference's chunked_scan segments: models/rwkv6.py:134, mamba2.py:122
+WKV6_REF_CHUNK = 256
+SSD_REF_CHUNK = 64
+
+
 def wkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   w: torch.Tensor, u: torch.Tensor,
                   S0: Optional[torch.Tensor] = None):
@@ -589,19 +601,27 @@ def wkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     v_tᵀ)`` and ``S_t = diag(w_t)·S_{t−1} + k_t v_tᵀ``. ``r``, ``k``,
     ``v``, ``w`` ``[B, S, H, D]``, ``u [H, D]``, ``S0 [B, H, D, D]`` (key
     row, value column; zeros when None) → (``o [B, S, H, D]`` in ``r``'s
-    dtype, ``S_last`` float32)."""
+    dtype, ``S_last`` float32). The loop runs through ``chunked_scan``
+    with the reference's chunk of 256: under autograd each segment is
+    checkpointed."""
     B, S, H, D = r.shape
     rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
     uh = u.float().reshape(H, D)[None, :, :, None]
     st = (torch.zeros(B, H, D, D, dtype=torch.float32, device=r.device)
           if S0 is None else S0.float())
-    outs = []
-    for t in range(S):
-        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]
-        outs.append(torch.einsum("bhi,bhij->bhj", rf[:, t], st + uh * kv))
-        st = wf[:, t, :, :, None] * st + kv
-    o = torch.stack(outs, 1) if outs else rf.new_zeros(B, 0, H, D)
-    return o.to(r.dtype), st
+    if S == 0:
+        return rf.new_zeros(B, 0, H, D).to(r.dtype), st
+
+    def step(st, inp):
+        rt, kt, vt, wt = inp
+        kv = kt[..., :, None] * vt[..., None, :]
+        o = torch.einsum("bhi,bhij->bhj", rt, st + uh * kv)
+        return wt[..., None] * st + kv, o
+
+    st, o = _chunked_scan()(step, st, tuple(t.transpose(0, 1) for t in
+                                            (rf, kf, vf, wf)),
+                                 WKV6_REF_CHUNK)
+    return o.transpose(0, 1).contiguous().to(r.dtype), st
 
 
 def ssd_scan_ref(x: torch.Tensor, Bv: torch.Tensor, Cv: torch.Tensor,
@@ -612,19 +632,167 @@ def ssd_scan_ref(x: torch.Tensor, Bv: torch.Tensor, Cv: torch.Tensor,
     + Δ_t·(x_t ⊗ B_t)`` and ``y_t = h_t·C_t``. ``x [B, S, H, D]``, ``Bv``,
     ``Cv [B, S, n]``, ``dt [B, S, H]``, ``a [H]``, ``h0 [B, H, D, n]``
     (zeros when None) → (``y [B, S, H, D]`` float32, ``h_last``
-    float32). The ``D`` skip, the gate and the norm are the caller's."""
+    float32). The ``D`` skip, the gate and the norm are the caller's. The
+    loop runs through ``chunked_scan`` with the reference's chunk of 64."""
     B, S, H, D = x.shape
     n = Bv.shape[-1]
     xf, Bf, Cf, df = x.float(), Bv.float(), Cv.float(), dt.float()
     af = a.float()
     h = (torch.zeros(B, H, D, n, dtype=torch.float32, device=x.device)
          if h0 is None else h0.float())
-    ys = []
-    for t in range(S):
-        dlt = df[:, t]
+    if S == 0:
+        return xf.new_zeros(B, 0, H, D), h
+
+    def step(h, inp):
+        xt, Bt, Ct, dlt = inp
         decay = torch.exp(dlt * af[None, :])
-        dBx = torch.einsum("bhd,bn,bh->bhdn", xf[:, t], Bf[:, t], dlt)
+        dBx = torch.einsum("bhd,bn,bh->bhdn", xt, Bt, dlt)
         h = decay[..., None, None] * h + dBx
-        ys.append(torch.einsum("bhdn,bn->bhd", h, Cf[:, t]))
-    y = torch.stack(ys, 1) if ys else xf.new_zeros(B, 0, H, D)
-    return y, h
+        return h, torch.einsum("bhdn,bn->bhd", h, Ct)
+
+    h, y = _chunked_scan()(step, h, tuple(t.transpose(0, 1) for t in
+                                          (xf, Bf, Cf, df)), SSD_REF_CHUNK)
+    return y.transpose(0, 1).contiguous(), h
+
+
+# the backward kernels' plain twins: the same chunks of SCAN_T steps
+# (csrc/scan.cuh), their states recomputed from the forward's checkpoints
+# at the chunk boundaries, the same reverse recurrence; written out, not
+# derived through autograd
+SCAN_T = 32
+
+
+def _checkpoints(S: int, state0: torch.Tensor, step) -> list:
+    """The states before steps 0, SCAN_T, 2·SCAN_T, … of a forward run
+    from ``state0`` (``step(state, t)`` the state after step t)."""
+    out, st = [], state0
+    for t in range(S):
+        if t % SCAN_T == 0:
+            out.append(st)
+        st = step(st, t)
+    return out
+
+
+def _chunk_states(ckpt: torch.Tensor, t0: int, t1: int, step) -> list:
+    """The states before steps t0 … t1 − 1, recomputed from the chunk's
+    checkpoint."""
+    states = [ckpt]
+    for t in range(t0, t1 - 1):
+        states.append(step(states[-1], t))
+    return states
+
+
+def wkv6_scan_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      w: torch.Tensor, u: torch.Tensor,
+                      S0: Optional[torch.Tensor], do: torch.Tensor,
+                      dS_last: Optional[torch.Tensor] = None):
+    """The gradients ``(dr, dk, dv, dw, du, dS0)`` of :func:`wkv6_scan_ref`
+    from the output's gradient ``do [B, S, H, D]`` and the final state's
+    ``dS_last [B, H, D, D]`` (zeros when None), each in its input's dtype
+    (``dS0`` float32), computed in float32 as ``csrc/wkv6_bwd.cu`` does:
+    per (batch, head), with ``G`` the gradient of the state after step t
+    (``dS_last`` after the last), walking the chunks from the last,
+
+    * ``dr_t = S_{t−1}·do_t + u ∘ k_t · (do_t·v_t)``,
+    * ``dk_t = G·v_t + u ∘ r_t · (do_t·v_t)``,
+    * ``dv_t = Gᵀ·k_t + do_t · Σ_i r_t u k_t``,
+    * ``dw_t = Σ_j G ∘ S_{t−1}``, ``du = Σ_{b,t} r_t ∘ k_t · (do_t·v_t)``,
+    * ``G ← diag(w_t)·G + r_t do_tᵀ``; ``dS0`` is the last ``G``.
+
+    ``S_{t−1}`` is recomputed from the chunk's checkpoint, never by
+    dividing by ``w`` (which underflows to 0)."""
+    B, S, H, D = r.shape
+    rf, kf, vf, wf, dof = (t.float() for t in (r, k, v, w, do))
+    uh = u.float().reshape(H, D)
+    st0 = (torch.zeros(B, H, D, D, dtype=torch.float32, device=r.device)
+           if S0 is None else S0.float())
+
+    def step(st, t):
+        return wf[:, t, :, :, None] * st + \
+            kf[:, t, :, :, None] * vf[:, t, :, None, :]
+
+    G = (torch.zeros_like(st0) if dS_last is None
+         else dS_last.float().clone())
+    dr, dk, dv, dw = (torch.zeros(B, S, H, D, dtype=torch.float32,
+                                  device=r.device) for _ in range(4))
+    du = torch.zeros(B, H, D, dtype=torch.float32, device=r.device)
+    ckpts = _checkpoints(S, st0, step)
+    for c in reversed(range(len(ckpts))):
+        t0, t1 = c * SCAN_T, min(S, (c + 1) * SCAN_T)
+        states = _chunk_states(ckpts[c], t0, t1, step)
+        for t in reversed(range(t0, t1)):
+            Sp = states[t - t0]
+            rt, kt, vt, wt, dot = (x[:, t] for x in (rf, kf, vf, wf, dof))
+            dov = (dot * vt).sum(-1, keepdim=True)
+            bonus = (rt * uh * kt).sum(-1, keepdim=True)
+            dr[:, t] = torch.einsum("bhij,bhj->bhi", Sp, dot) + \
+                uh * kt * dov
+            dk[:, t] = torch.einsum("bhij,bhj->bhi", G, vt) + uh * rt * dov
+            dv[:, t] = torch.einsum("bhij,bhi->bhj", G, kt) + dot * bonus
+            dw[:, t] = (G * Sp).sum(-1)
+            du += rt * kt * dov
+            G = wt[..., None] * G + rt[..., None] * dot[..., None, :]
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du.sum(0).reshape(u.shape).to(u.dtype), G)
+
+
+def ssd_scan_bwd_ref(x: torch.Tensor, Bv: torch.Tensor, Cv: torch.Tensor,
+                     dt: torch.Tensor, a: torch.Tensor,
+                     h0: Optional[torch.Tensor], dy: torch.Tensor,
+                     dh_last: Optional[torch.Tensor] = None):
+    """The gradients ``(dx, dB, dC, ddt, da, dh0)`` of :func:`ssd_scan_ref`
+    from ``dy [B, S, H, D]`` and ``dh_last [B, H, D, n]`` (zeros when
+    None), each in its input's dtype (``dh0`` float32), computed in float32
+    as ``csrc/ssd_scan_bwd.cu`` does: per (batch, head), with ``decay_t =
+    exp(Δ_t·a)`` and ``G`` the gradient of the state after step t (the
+    carried ``e_{t+1}·G_{t+1}``, ``dh_last`` after the last step, plus
+    ``dy_t ⊗ C_t``), walking the chunks from the last,
+
+    * ``dx_t = Δ_t · G·B_t``, ``dB_t = Σ_{h} Δ_t · Gᵀ·x_t`` and ``dC_t =
+      Σ_{h} h_tᵀ·dy_t`` (B and C are shared by the heads),
+    * ``dΔ_t = Σ G ∘ (x_t ⊗ B_t + a·decay_t·h_{t−1})``,
+      ``da = Σ_{b,t} Δ_t·decay_t · Σ G ∘ h_{t−1}``;
+    * ``dh0 = decay_0·G_0``.
+
+    ``h_{t−1}`` is recomputed from the chunk's checkpoint, never by
+    dividing by the decay (which underflows to 0)."""
+    B, S, H, D = x.shape
+    n = Bv.shape[-1]
+    xf, Bf, Cf, df, dyf = (t.float() for t in (x, Bv, Cv, dt, dy))
+    af = a.float()
+    h_0 = (torch.zeros(B, H, D, n, dtype=torch.float32, device=x.device)
+           if h0 is None else h0.float())
+
+    def decay(t):
+        return torch.exp(df[:, t] * af)[..., None, None]
+
+    def step(h, t):
+        return decay(t) * h + torch.einsum("bhd,bn,bh->bhdn", xf[:, t],
+                                           Bf[:, t], df[:, t])
+
+    Q = torch.zeros_like(h_0) if dh_last is None else \
+        dh_last.float().clone()
+    dx = torch.zeros(B, S, H, D, dtype=torch.float32, device=x.device)
+    dB, dC = (torch.zeros(B, S, n, dtype=torch.float32, device=x.device)
+              for _ in range(2))
+    ddt = torch.zeros(B, S, H, dtype=torch.float32, device=x.device)
+    da = torch.zeros(B, H, dtype=torch.float32, device=x.device)
+    ckpts = _checkpoints(S, h_0, step)
+    for c in reversed(range(len(ckpts))):
+        t0, t1 = c * SCAN_T, min(S, (c + 1) * SCAN_T)
+        states = _chunk_states(ckpts[c], t0, t1, step)
+        for t in reversed(range(t0, t1)):
+            hp = states[t - t0]
+            hn = step(hp, t)
+            dl, e = df[:, t], decay(t)
+            G = Q + dyf[:, t, :, :, None] * Cf[:, t, None, None, :]
+            gB = torch.einsum("bhdn,bn->bhd", G, Bf[:, t])
+            dx[:, t] = dl[..., None] * gB
+            dB[:, t] = torch.einsum("bhdn,bhd,bh->bn", G, xf[:, t], dl)
+            dC[:, t] = torch.einsum("bhdn,bhd->bn", hn, dyf[:, t])
+            gh = (G * hp).sum((-1, -2))
+            ddt[:, t] = (xf[:, t] * gB).sum(-1) + af * e[..., 0, 0] * gh
+            da += dl * e[..., 0, 0] * gh
+            Q = e * G
+    return (dx.to(x.dtype), dB.to(Bv.dtype), dC.to(Cv.dtype),
+            ddt.to(dt.dtype), da.sum(0).to(a.dtype), Q)

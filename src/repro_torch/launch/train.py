@@ -8,16 +8,19 @@ checkpoint when one is there (kill it mid-run and relaunch to see):
       --smoke --device cpu --steps 50 --ckpt-dir /tmp/ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
       --batch 2 --seq 4096 --steps 4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \\
+      --batch 2 --seq 4096 --steps 4
 
 It runs on the card unless ``--device`` says otherwise, at the
 architecture's full width unless ``--smoke`` asks for the reduced config,
 with the reference launcher's flags and optimizer settings (warmup 10,
-cosine to ``--steps``, no weight decay, ``remat``). The attention
-families train (dense, MoE, VLM, encoder-decoder; the VLM and whisper
-need their prefix embeddings or encoder frames in the batch, which the
-token stream does not give, as in the reference). The recurrent
-families, and ``--partial-sync`` below 1 (the p_s-lottery gradient sync
-over a data mesh, ``ROADMAP.md`` Queue 1 item 8), raise. Weights are
+cosine to ``--steps``, no weight decay, ``remat``). The dense, MoE and
+recurrent families train (rwkv6-3b and zamba2-1.2b through the scan
+kernels' backward kernels on the card); the VLM and whisper need their
+prefix embeddings or encoder frames in the batch, which the token stream
+does not give, as in the reference. ``--partial-sync`` below 1 (the
+p_s-lottery gradient sync over a data mesh, ``ROADMAP.md`` Queue 1 item
+8) raises. Weights are
 random, from ``torch.Generator`` seed ``--seed``; the batches are the
 reference's byte for byte. A checkpoint holds the parameters by name and
 the optimizer state (``repro_torch.checkpoint``'s format).

@@ -41,9 +41,10 @@ its decode is the dense path over text alone, as the reference's is. The
 reference's sharding constraints (``distributed.context.constrain``) are
 the identity on one device. ``forward_train(remat=True)`` recomputes each
 block in the backward (``torch.utils.checkpoint``), as the reference's
-``_maybe_remat`` does; ``scan_utils.chunked_scan``'s checkpoints come with
-the recurrent families' training, the next slice of ``ROADMAP.md`` Queue 1
-item 14.
+``_maybe_remat`` does. Inside a recurrent block the scan keeps its own
+checkpoints: the plain scans run under ``scan_utils.chunked_scan`` (the
+segment boundaries' states), the kernels' autograd Functions keep the
+state before every 32-step chunk.
 """
 from __future__ import annotations
 
@@ -206,10 +207,13 @@ def init_params(cfg: ModelConfig,
 def _maybe_remat(fn: Callable, remat: bool) -> Callable:
     """``fn`` as it is, or, under ``remat`` with autograd recording, ``fn``
     through ``torch.utils.checkpoint`` (non-reentrant): the block keeps
-    only its inputs for the backward and runs again there, attention
-    kernel and weight casts included (``compute_weight`` casts anew under
-    grad, so the recompute casts again). The reference's policy, which
-    also keeps the block's matrix products, changes memory only."""
+    only its inputs for the backward and runs again there, attention and
+    scan kernels and weight casts included (``compute_weight`` casts anew
+    under grad, so the recompute casts again). The reference's policy for
+    the dense and MoE blocks, which also keeps the block's matrix
+    products, changes memory only; for the recurrent blocks and zamba2's
+    shared sites (its ``"ssm"`` and ``"hybrid"`` policy) it saves nothing
+    inside a block, as this does."""
     if not remat or not torch.is_grad_enabled():
         return fn
     return functools.partial(torch.utils.checkpoint.checkpoint, fn,
@@ -382,12 +386,11 @@ def forward_train(params: Transformer, batch: Dict[str, torch.Tensor],
     ``batch["prefix_embeds"] [B, P, d]`` and returns ``[B, P + S, V]``;
     whisper takes ``batch["encoder_frames"] [B, T, d]``. It records
     autograd history like any module call, on the card too (the attention
-    kernel runs under an autograd Function with its backward kernel;
-    the scan kernels raise under autograd); serving callers run it under
-    ``torch.inference_mode()``. ``remat=True`` checkpoints each block
-    (:func:`_maybe_remat`): the backward keeps each block's input and
-    recomputes the rest, so a step launches the attention forward twice
-    a layer."""
+    and scan kernels run under autograd Functions with their backward
+    kernels); serving callers run it under ``torch.inference_mode()``.
+    ``remat=True`` checkpoints each block (:func:`_maybe_remat`): the
+    backward keeps each block's input and recomputes the rest, so a step
+    launches the attention or scan forward twice a layer."""
     x = embed_tokens(params.embed, batch["tokens"], cfg)
     aux: Dict[str, torch.Tensor] = {}
     if cfg.family == "vlm":

@@ -1,15 +1,14 @@
 """Train-step factory (port of ``repro/training/train_step.py``).
 
 ``mode="gspmd"``, the reference's baseline, on one device: the loss and
-its gradient through autograd (``forward_train`` under ``remat``, the
-attention kernel's backward kernel on the card), ``accum_steps``
-microbatches summed in float32, then AdamW. The reference's
-``mode="partial_sync"`` (a ``shard_map`` over the data axes and the
-p_s-lottery gradient sync) needs the mesh, ``ROADMAP.md`` Queue 1 item 8,
-and raises. The recurrent families (``"ssm"``, ``"hybrid"``) raise too:
-their training needs the backward kernels of ``wkv6_scan`` and
-``ssd_scan`` and ``models/scan_utils.py``, the next slice of Queue 1
-item 14.
+its gradient through autograd (``forward_train`` under ``remat``; on the
+card the attention kernel's and the scan kernels' backward kernels),
+``accum_steps`` microbatches summed in float32, then AdamW. Every family
+trains, the recurrent ones (``"ssm"``, ``"hybrid"``) included: on the
+CPU their plain scans run under ``models/scan_utils.chunked_scan``. The
+reference's ``mode="partial_sync"`` (a ``shard_map`` over the data axes
+and the p_s-lottery gradient sync) needs the mesh, ``ROADMAP.md`` Queue 1
+item 8, and raises.
 """
 from __future__ import annotations
 
@@ -25,8 +24,6 @@ from repro_torch.training.grad_sync import PartialSyncConfig
 from repro_torch.training.loss import lm_loss
 from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
                                             adamw_update, named_leaves)
-
-RECURRENT = ("ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,11 +44,6 @@ def _check(cfg: ModelConfig, tcfg: TrainStepConfig) -> None:
             "item 8)")
     if tcfg.mode != "gspmd":
         raise ValueError(tcfg.mode)
-    if cfg.family in RECURRENT:
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family needs the wkv6_scan / "
-            f"ssd_scan backward kernels and models/scan_utils.py, the next "
-            f"slice of ROADMAP.md Queue 1 item 14")
 
 
 def _loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,

@@ -191,33 +191,45 @@ def test_function_plumbing():
 
 
 def test_kernels_without_backward_refuse_autograd(monkeypatch):
-    """The scan kernels and the ELL slab product have no backward: under
-    grad with an input that needs grad they raise before launching (here
-    the CPU tensors stand in for CUDA ones by routing the wrappers to the
-    kernel), and without grad they go on to the launch."""
+    """The ELL slab product has no backward: under grad with an input that
+    needs grad it raises before launching (here the CPU tensors stand in
+    for CUDA ones by routing the wrappers to the kernel), and without grad
+    it goes on to the launch. The scan kernels have their backward: under
+    grad their forwards launch with the chunk checkpoints (a ninth pointer
+    that is not null) and the backward launches ``wkv6_scan_bwd`` /
+    ``ssd_scan_bwd``; without grad the forwards launch without them."""
     monkeypatch.setattr(ops, "_use_kernel", lambda *a: True)
-    B, S, H, D = 1, 4, 2, 32
+    launched = []
+    monkeypatch.setattr(ops, "_launch", lambda name, dev, *a: launched.append(
+        (name, a[8] is not None if name in ("wkv6_scan", "ssd_scan")
+         else None)))
+    B, S, H, D = 1, 40, 2, 32
     r = torch.zeros(B, S, H, D, requires_grad=True)
     args = (r, torch.zeros(B, S, H, D), torch.zeros(B, S, H, D),
             torch.zeros(B, S, H, D), torch.zeros(H, D))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ops.wkv6_scan(*args)
+    o, _ = ops.wkv6_scan(*args)
+    assert o.requires_grad
+    (dr,) = torch.autograd.grad(o.sum(), r)
+    assert dr.shape == r.shape
     x = torch.zeros(B, S, H, D, requires_grad=True)
     sargs = (x, torch.zeros(B, S, 16), torch.zeros(B, S, 16),
              torch.zeros(B, S, H), torch.zeros(H))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ops.ssd_scan(*sargs)
+    y, _ = ops.ssd_scan(*sargs)
+    (dx,) = torch.autograd.grad(y.sum(), x)
+    assert dx.shape == x.shape
+    assert launched == [("wkv6_scan", True), ("wkv6_scan_bwd", None),
+                        ("ssd_scan", True), ("ssd_scan_bwd", None)]
     idx = torch.zeros(3, 2, dtype=torch.int32)
     weight = torch.ones(3, 2, requires_grad=True)
     with pytest.raises(NotImplementedError, match="no backward"):
         ops.spmv_ell_slab(idx, weight, torch.ones(3))
-    launched = []
-    monkeypatch.setattr(ops, "_launch", lambda name, *a: launched.append(name))
+    launched.clear()
     with torch.no_grad():
         ops.wkv6_scan(*args)
         ops.ssd_scan(*sargs)
         ops.spmv_ell_slab(idx, weight, torch.ones(3))
-    assert launched == ["wkv6_scan", "ssd_scan", "spmv_ell_slab"]
+    assert launched == [("wkv6_scan", False), ("ssd_scan", False),
+                        ("spmv_ell_slab", None)]
 
 
 # --- on the card ------------------------------------------------------------
@@ -333,20 +345,34 @@ def test_cuda_forward_output_same_with_lse(cuda, dtype):
 
 @pytest.mark.cuda
 def test_cuda_scans_raise_under_grad(cuda):
-    B, S, H, D = 1, 8, 2, 64
-    r, k, v = (torch.randn(B, S, H, D, device=cuda) for _ in range(3))
-    w = torch.rand(B, S, H, D, device=cuda)
-    u = torch.randn(H, D, device=cuda)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ops.wkv6_scan(r.requires_grad_(), k, v, w, u)
-    x = torch.randn(B, S, H, D, device=cuda, requires_grad=True)
-    Bv, Cv = (torch.randn(B, S, 16, device=cuda) for _ in range(2))
-    dt = torch.rand(B, S, H, device=cuda)
-    a = -torch.rand(H, device=cuda)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ops.ssd_scan(x, Bv, Cv, dt, a)
-    with torch.no_grad():
-        ops.ssd_scan(x, Bv, Cv, dt, a)
+    """The scans carry autograd history on the card (their backward
+    kernels): every input's gradient against autograd through the plain
+    loops, float32, within 1e-5; the ELL slab product still raises."""
+    B, S, H, D = 2, 70, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=cuda)
+
+    def grads(fn, inputs, cots, impl):
+        ins = [t.clone().requires_grad_() for t in inputs]
+        out = fn(*ins, impl=impl)
+        assert all(t.requires_grad for t in out)
+        return torch.autograd.grad(out, ins, cots)
+
+    wkv = [rn(B, S, H, D), rn(B, S, H, D), rn(B, S, H, D),
+           torch.sigmoid(rn(B, S, H, D)), rn(H, D), rn(B, H, D, D)]
+    ssd = [rn(B, S, H, D), rn(B, S, 16), rn(B, S, 16),
+           torch.nn.functional.softplus(rn(B, S, H)),
+           -torch.linspace(1, 4, H, device=cuda), rn(B, H, D, 16)]
+    for fn, inputs, last in ((ops.wkv6_scan, wkv, (B, H, D, D)),
+                             (ops.ssd_scan, ssd, (B, H, D, 16))):
+        cots = (rn(B, S, H, D), rn(*last))
+        got = grads(fn, inputs, cots, "cuda")
+        want = grads(fn, inputs, cots, "torch")
+        for a, b in zip(got, want):
+            err = _rel(a.cpu(), b.cpu())
+            assert err <= 1e-5, (fn.__name__, err)
     idx = torch.zeros(16, 4, dtype=torch.int32, device=cuda)
     weight = torch.rand(16, 4, device=cuda, requires_grad=True)
     xs = torch.rand(16, device=cuda)

@@ -10,8 +10,8 @@ the reference's loss within 1e-5 relative and its updated parameters and
 moments within 1e-4. ``remat=True`` gives the bytes of ``remat=False``;
 ``accum_steps=2`` gives the full batch's update within 1e-4 (as the
 reference's ``tests/test_training.py`` holds its own) and the reference's
-``accum_steps=2`` step; ``partial_sync`` and the recurrent families
-raise.
+``accum_steps=2`` step; ``partial_sync`` raises (the recurrent families
+train: ``tests/test_torch_recurrent_train.py``).
 
 On the card (marker ``cuda``, skipped elsewhere inside a fixture): the
 reduced llama's float32 step through the ``flash_attention`` and
@@ -194,10 +194,6 @@ def test_unported_modes_raise():
                          device="cpu")
     with pytest.raises(ValueError):
         make_train_step(llama, TrainStepConfig(mode="sync"))
-    for arch in ("rwkv6-3b", "zamba2-1.2b"):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            make_train_step(reduced_config(get_config(arch)),
-                            TrainStepConfig())
     state = init_train_state(llama, 0, device="cpu")
     assert set(state) == {"params", "opt"}
     assert set(state["opt"]) == {"m", "v", "step"}
