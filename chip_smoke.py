@@ -3969,8 +3969,8 @@ def scan_row(kernel: str, args, launches: int, err: float, tag: str
     prefill's shape (layer 0's inputs as the path gives them), the bound
     from :func:`scan_work` (the bytes against the form the kernel runs:
     wkv6's serial operations at the float32 rate, ssd's chunked products
-    at the TF32 tensor-core rate; ``serial_ops_ms``: the serial form's
-    operations at the float32 rate, for both),
+    at the TF32 tensor-core rate; the log line also gives the serial
+    form's operations at the float32 rate, ``serial_ops_ms``, for both),
     and the plain version's ms at S = 4,096 (the 32k loop would be 32,768
     Python steps); no PyTorch call computes the recurrence."""
     from repro_torch.kernels import ops
@@ -3990,10 +3990,11 @@ def scan_row(kernel: str, args, launches: int, err: float, tag: str
              max_abs_err=err, ms=ms, plain_ms=plain_ms,
              bound_ms=max(t_bytes, t_ops),
              bound_by="operations" if t_ops >= t_bytes else "bytes",
-             library_ms=None, serial_ops_ms=t_serial)
+             library_ms=None)
     log(f"{tag} kernel", **{k: v for k, v in r.items()
                            if k not in ("source", "replaces", "route")},
-        reps=reps, bytes=nbytes, flop=chunked or serial, serial_flop=serial,
+        serial_ops_ms=t_serial, reps=reps, bytes=nbytes,
+        flop=chunked or serial, serial_flop=serial,
         bytes_ms=t_bytes, operations_ms=t_ops, shape=list(args[0].shape),
         dtype=str(args[0].dtype), ms_at_4096=ms_short,
         plain=f"the per-step loop at S={RECURRENT['gate_seq']}, "
@@ -4879,13 +4880,20 @@ RTRAIN = dict(batch=2, seq=4_096, steps=4, gate_seq=1_024, f32_layers=2,
 NEAR_CANCEL = {"ssm": ("time_mix.u",),
                "hybrid": ("mamba.w_in_B", "mamba.w_in_C", "ln.scale")}
 NEAR_CANCEL_REL = 0.15
+# Queue 3 item 9, settled against a float32 step: the same step once in
+# float32 through the kernels (same weights, same batch), and each
+# NEAR_CANCEL leaf's kernel-path bf16 error against it at most this many
+# times the plain path's, or TRAIN_GRAD_REL["bfloat16"], whichever is
+# larger (near_cancel_gate)
+NEAR_CANCEL_F32_RATIO = 1.5
 # each backward kernel at its model's heads: H, D, n (0: no state size)
 SCAN_BWD = {"wkv6_scan_bwd": dict(arch="rwkv6-3b", H=40, D=64, n=0,
                                   source="wkv6_bwd.cu",
                                   trace=("wkv6_bwd_kernel",)),
             "ssd_scan_bwd": dict(arch="zamba2-1.2b", H=64, D=64, n=64,
                                  source="ssd_scan_bwd.cu",
-                                 trace=("ssd_bwd_kernel",))}
+                                 trace=("ssd_bwd_dh_kernel",
+                                        "ssd_bwd_chunk_kernel"))}
 SCAN_BWD_GRADS = {"wkv6_scan_bwd": ("dr", "dk", "dv", "dw", "du", "dS0"),
                   "ssd_scan_bwd": ("dx", "dB", "dC", "ddt", "da", "dh0")}
 SCAN_BWD_REL = {"float32": 1e-5, "bfloat16": 1e-2}
@@ -4896,9 +4904,18 @@ SCAN_BWD_REPLACES = {
     "ssd_scan_bwd": "src/repro/models/mamba2.py:122 (XLA's gradient of "
                     "chunked_scan's lax.scan, no Pallas kernel)"}
 SCAN_BWD_FWD = {"wkv6_scan_bwd": "wkv6_scan", "ssd_scan_bwd": "ssd_scan"}
-# the second pass's launches a call at the models' shapes (wkv6 at D = 64:
-# du; ssd: dB, dC, ddt, da)
-SCAN_BWD_SUMS = {"wkv6_scan_bwd": 1, "ssd_scan_bwd": 4}
+
+
+def scan_bwd_sums(kernel: str, B: int, S: int) -> int:
+    """The second pass's launches (``scan_sum``) of one backward call at
+    its model's heads: wkv6 at D = 64 one (du); ssd one (da) and two more
+    (dB, dC) where its chunk pass has more than one head group, as at the
+    training shape."""
+    if kernel == "wkv6_scan_bwd":
+        return 1
+    from repro_torch.kernels import ops
+    groups = ops.ssd_bwd_groups(B, -(-S // 32), SCAN_BWD[kernel]["H"])
+    return 1 + 2 * (groups > 1)
 
 
 def tensor_rel(a, b) -> float:
@@ -4938,14 +4955,18 @@ def scan_bwd_inputs(kernel: str, B: int, S: int, dtype, dev, seed: int):
 
 
 def scan_bwd_work(kernel: str, args, cots) -> tuple:
-    """``(bytes, operations)`` the backward needs at these shapes: each
-    input read once (the forward's inputs, its chunk checkpoints — float32
-    states, one a 32-step chunk — and the two cotangents), each gradient
-    written once (the five inputs' in their dtypes, the starting state's
-    in float32); 14 float32 operations a state element and step (the state
-    recomputed from its checkpoint: 3; wkv6: G's update 3 and the products
-    for dr, dk, dv, dw 8; ssd: G 2, the products G·B, G·x, dy·h, G·h 8 and
-    the carried decay·G 1)."""
+    """``(bytes, serial operations, chunked products or None)`` the
+    backward needs at these shapes: each input read once (the forward's
+    inputs, its chunk checkpoints — float32 states, one a 32-step chunk —
+    and the two cotangents), each gradient written once (the five inputs'
+    in their dtypes, the starting state's in float32); the serial form's
+    14 float32 operations a state element and step (the state recomputed
+    from its checkpoint: 3; wkv6: G's update 3 and the products for dr,
+    dk, dv, dw 8; ssd: G 2, the products G·B, G·x, dy·h, G·h 8 and the
+    carried decay·G 1); for ssd, Mamba-2's chunked form's products (chunks
+    of 32, a causal triangle L(L + 1)/2: a head and chunk dYᵀ·C, B·dh_endᵀ,
+    X·dh_end and dY·h_start at 2·L·D·n each, dY·Xᵀ and (G ∘ E)ᵀ·dY at
+    2·tri·D, W2ᵀ·C and W2·B at 2·tri·n; C·Bᵀ once a chunk)."""
     def nb(t):
         return t.numel() * t.element_size()
 
@@ -4955,7 +4976,13 @@ def scan_bwd_work(kernel: str, args, cots) -> tuple:
     ckpt = state * -(-S // 32)
     reads = sum(nb(t) for t in (*args, *cots)) + ckpt
     writes = sum(nb(t) for t in args[:5]) + state
-    return reads + writes, 14 * B * S * H * D * cols
+    chunked = None
+    if kernel == "ssd_scan_bwd":
+        L, nch = 32, -(-S // 32)
+        tri = L * (L + 1) // 2
+        chunked = B * nch * (H * (4 * 2 * L * D * cols + 2 * tri * 2 * D
+                                  + 2 * tri * 2 * cols) + 2 * tri * cols)
+    return reads + writes, 14 * B * S * H * D * cols, chunked
 
 
 def scan_forward(kernel: str, args, checkpoints: bool) -> tuple:
@@ -5030,12 +5057,36 @@ def scan_fwd_bytes_equal(kernel: str, dev) -> None:
     assert equal, f"{fwd}: writing the checkpoints changes its output"
 
 
+def traced_launches(call, per_call: dict, calls: int = 5,
+                    attempts: int = 3) -> tuple:
+    """``({kernel: (launches, device ms)}, complete, traces taken)`` of the
+    kernels named in ``per_call`` (their launches a call) in a trace of
+    ``calls`` calls of ``call``, each synchronised. A trace can drop
+    ctypes launches, so up to ``attempts`` traces are taken until one holds
+    every launch; otherwise the launches all the traces caught, summed."""
+    want = {k: calls * n for k, n in per_call.items()}
+    total = dict.fromkeys(want, (0, 0.0))
+    for i in range(attempts):
+        by = device_busy_ms(lambda: [(call(), sync()) for _ in range(calls)],
+                            by_kernel=True)[3]
+        got = {k: tuple(by.get(k, (0, 0.0))) for k in want}
+        if all(got[k][0] == want[k] for k in want):
+            return got, True, i + 1
+        total = {k: (total[k][0] + got[k][0], total[k][1] + got[k][1])
+                 for k in want}
+    return total, False, attempts
+
+
 def scan_bwd_row(kernel: str, launches: int, err: float, dev) -> dict:
     """The backward kernel's ``kernels`` row: ms (events) and device ms (a
-    trace: the kernel and its second pass) at the training shape, the same
-    at 1 × 32,768, the bound from :func:`scan_bwd_work` at the training
-    shape, and the plain twin's ms at the training shape (B = 2, S =
-    4,096, one layer, float32); no PyTorch call computes it."""
+    trace: the kernels and their second passes) at the training shape, the
+    same at 1 × 32,768, the bound from :func:`scan_bwd_work` at the
+    training shape (the bytes against the form the kernel runs: wkv6's
+    serial operations at the float32 rate, ssd's chunked products at the
+    TF32 tensor-core rate; the per-shape log lines also give the serial
+    form's operations at the float32 rate, ``serial_ops_ms``, for both),
+    and the plain twin's ms at the training shape (B = 2, S = 4,096, one
+    layer, float32); no PyTorch call computes it."""
     import torch
     from repro_torch.kernels import ops
     fn = getattr(ops, kernel)
@@ -5049,23 +5100,34 @@ def scan_bwd_row(kernel: str, launches: int, err: float, dev) -> dict:
             return fn(*args, *cots, ckpt=ckpt, impl="cuda")
 
         ms, reps = time_ms_auto(call)
-        # a trace drops some ctypes launches: per traced launch, the kernel
-        # and its second pass (SCAN_BWD_SUMS launches a call), in 20 calls
-        by = device_busy_ms(lambda: [call() for _ in range(20)],
-                            by_kernel=True)[3]
-        n_main, t_main = by.get(SCAN_BWD[kernel]["trace"][0], (0, 0.0))
-        n_sum, t_sum = by.get("scan_sum_kernel", (0, 0.0))
-        main_ms = t_main / n_main if n_main else "not measured"
+        # device ms a launch of the kernels and their second pass
+        # (scan_bwd_sums launches a call)
+        names = SCAN_BWD[kernel]["trace"]
+        sums = scan_bwd_sums(kernel, B, S)
+        by, complete, attempts = traced_launches(
+            call, {**dict.fromkeys(names, 1), "scan_sum_kernel": sums})
+        mains = {k: by[k] for k in names}
+        n_sum, t_sum = by["scan_sum_kernel"]
+        main_ms = {k: t / n if n else "not measured"
+                   for k, (n, t) in mains.items()}
         sum_ms = t_sum / n_sum if n_sum else "not measured"
-        dev_ms = (main_ms + SCAN_BWD_SUMS[kernel] * sum_ms
-                  if n_main and n_sum else "not measured")
-        nbytes, flop = scan_bwd_work(kernel, args, cots)
+        traced = all(n for n, _ in mains.values()) and n_sum
+        dev_ms = (sum(main_ms.values()) + sums * sum_ms if traced
+                  else "not measured")
+        nbytes, flop, chunked = scan_bwd_work(kernel, args, cots)
+        t_serial = flop / FP32_FLOP_PER_S * 1e3
         out[tag] = dict(ms=ms, reps=reps, device_ms=dev_ms,
-                        kernel_device_ms=main_ms, traced=n_main,
-                        second_pass_device_ms=sum_ms, traced_passes=n_sum,
-                        bytes=nbytes, flop=flop,
+                        kernel_device_ms=json.dumps(main_ms),
+                        traced=json.dumps({k: n for k, (n, _) in
+                                           mains.items()}),
+                        second_pass_device_ms=sum_ms, second_passes=sums,
+                        traced_passes=n_sum, trace_complete=complete,
+                        trace_attempts=attempts, bytes=nbytes, flop=flop,
+                        chunked_flop=chunked,
                         bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                        operations_ms=flop / FP32_FLOP_PER_S * 1e3,
+                        operations_ms=(t_serial if chunked is None else
+                                       chunked / TF32_FLOP_PER_S * 1e3),
+                        serial_ops_ms=t_serial,
                         shape=list(args[0].shape))
         if tag == "train":
             f32 = [t.float() for t in args + cots]
@@ -5135,6 +5197,51 @@ def grad_errors_to(got: dict, want: dict, dev) -> dict:
             for k in want}
 
 
+def near_cancel_leaves(cfg, names) -> list:
+    """The ``NEAR_CANCEL`` leaves of ``cfg``'s family among ``names``."""
+    near = NEAR_CANCEL[cfg.family]
+    pat = r"blocks\.\d+\.(%s)" % "|".join(map(re.escape, near))
+    return sorted(k for k in names if re.fullmatch(pat, k))
+
+
+def near_cancel_gate(params, batch, cfg, dev, paths: dict) -> dict:
+    """Queue 3 item 9's gate: the step's gradients once in float32 through
+    the kernels (``cfg`` with ``dtype="float32"``, the same weights and
+    batch), and each bf16 path's error against them on the ``NEAR_CANCEL``
+    leaves (``paths``: ``{"kernel": grads, "plain": grads, ...}``, those
+    leaves' bf16 gradients on the host). Each leaf's kernel-path error is
+    at most ``NEAR_CANCEL_F32_RATIO`` times the plain path's, or
+    ``TRAIN_GRAD_REL["bfloat16"]``, whichever is larger. Returns ``{path:
+    {leaf: error}}``."""
+    import dataclasses
+    t0 = time.perf_counter()
+    leaves = sorted(paths["kernel"])
+    full = step_gradients(params, batch,
+                          dataclasses.replace(cfg, dtype="float32"),
+                          False)[2]
+    ref = {k: full[k] for k in leaves}
+    del full
+    free_device_memory()
+    errs = {p: grad_errors_to(g, ref, dev) for p, g in paths.items()}
+    del ref
+    ek, ep = errs["kernel"], errs["plain"]
+    floor = TRAIN_GRAD_REL["bfloat16"]
+    lim = {k: max(NEAR_CANCEL_F32_RATIO * ep[k], floor) for k in leaves}
+    over = {k: [ek[k], ep[k]] for k in leaves if ek[k] > lim[k]}
+    worst = max(leaves, key=lambda k: ek[k] / lim[k])
+    log("25 near_cancel_f32", arch=cfg.name, S=batch["tokens"].shape[-1],
+        leaves=len(leaves), ratio=NEAR_CANCEL_F32_RATIO, floor=floor,
+        **{f"{p}_worst": max(e.values()) for p, e in errs.items()},
+        **{f"{p}_mean": sum(e.values()) / len(e) for p, e in errs.items()},
+        kernel_over_plain_leaves=sum(ek[k] > ep[k] for k in leaves),
+        worst_leaf=worst, worst_kernel=ek[worst], worst_plain=ep[worst],
+        its_limit=lim[worst], leaves_over=json.dumps(over),
+        seconds=time.perf_counter() - t0, ok=not over)
+    assert not over, f"{cfg.name}: the kernel path strays from the " \
+        f"float32 step past the plain path on {sorted(over)}"
+    return errs
+
+
 def recurrent_grad_gates(params, cfg, dev) -> None:
     """The step's gradients through the kernels against the plain path's
     (the scan with ``impl="torch"``, ``attn_impl="torch"``): bf16 on the
@@ -5142,7 +5249,9 @@ def recurrent_grad_gates(params, cfg, dev) -> None:
     the ``NEAR_CANCEL`` leaves, which are held to ``NEAR_CANCEL_REL`` and
     logged as not meeting 5e-2; the backward kernel on the first and last
     layers' own inputs and output gradients of that step against its
-    plain twin (1e-2: bf16 gradients against the float32 twin); float32
+    plain twin (1e-2: bf16 gradients against the float32 twin); the
+    ``NEAR_CANCEL`` leaves of both bf16 paths against the same step in
+    float32 (:func:`near_cancel_gate`); float32
     at ``RTRAIN["f32_layers"]`` layers (zamba2 with its shared block after
     the second, so that one site runs), every leaf within 1e-4, ``remat``
     within 1e-6 of none, and the scan's detached output (planted)
@@ -5186,11 +5295,11 @@ def recurrent_grad_gates(params, cfg, dev) -> None:
         want = step_gradients(params, batch, plain_cfg, False)[2]
     t2 = time.perf_counter()
     errs = grad_errors_to(got, want, dev)
-    del got, want
     near = NEAR_CANCEL[cfg.family]
-    waived = {k for k in errs
-              if re.fullmatch(r"blocks\.\d+\.(%s)" % "|".join(
-                  map(re.escape, near)), k)}
+    waived = set(near_cancel_leaves(cfg, errs))
+    paths = {"kernel": {k: got[k] for k in waived},
+             "plain": {k: want[k].cpu() for k in waived}}
+    del got, want
     limits = {k: NEAR_CANCEL_REL if k in waived else lim for k in errs}
     over = {k: errs[k] for k in errs if errs[k] > lim}
     rest = [k for k in errs if k not in waived]
@@ -5207,6 +5316,9 @@ def recurrent_grad_gates(params, cfg, dev) -> None:
         worst_rel=errs[worst], its_limit=limits[worst], ok=ok,
         kernel_s=t1 - t0, plain_s=t2 - t1)
     assert ok, f"bf16 gradients stray: {worst} {errs[worst]}"
+    free_device_memory()
+    near_cancel_gate(params, batch, cfg, dev, paths)
+    del paths
     free_device_memory()
     extra = ({"shared_attn_every": RTRAIN["f32_layers"]}
              if cfg.family == "hybrid" else {})
@@ -5341,13 +5453,24 @@ def phase_recurrent_train_arch(arch: str, dev) -> dict:
     state = out["state"][0]
     del out
     scan = SCAN_KERNEL[cfg.family]
-    scan_ms = sum(by_kernel.get(k, (0, 0.0))[1] for k in (
-        scan + "_kernel", SCAN_BWD[scan + "_bwd"]["trace"][0],
-        "scan_sum_kernel"))
+    bwd = scan + "_bwd"
+    # the scans' device ms a step: each kernel's ms a traced launch times
+    # its launches a step (a trace can drop a ctypes launch)
+    per_step = {scan + "_kernel": want[scan],
+                **dict.fromkeys(SCAN_BWD[bwd]["trace"], want[bwd]),
+                "scan_sum_kernel": want[bwd] * scan_bwd_sums(bwd, B, S)}
+    caught = {k: by_kernel.get(k, (0, 0.0)) for k in per_step}
+    scan_ms = (sum(t / n * per_step[k] for k, (n, t) in caught.items())
+               if all(n for n, _ in caught.values()) else "not measured")
     log("25 profile", arch=arch, wall_ms=wall, device_busy_ms=busy,
         idle_share=1.0 - busy / wall if wall else "not measured",
         kernels=n_k, scan_kernels_ms=scan_ms,
-        scan_share_of_busy=scan_ms / busy if busy else "not measured",
+        scan_launches_traced=json.dumps({k: n for k, (n, _) in
+                                         caught.items()}),
+        scan_launches_a_step=json.dumps(per_step),
+        scan_share_of_busy=(scan_ms / busy if busy and
+                            not isinstance(scan_ms, str)
+                            else "not measured"),
         port_kernels=json.dumps(by_kernel), top_kernels=json.dumps(top))
     recurrent_grad_gates(state["params"], cfg, dev)
     del state
@@ -5401,7 +5524,8 @@ PORT_KERNELS = ("fa_wgmma_kernel", "flash_attention_kernel",
                 "threefry_draw_kernel", "threefry_randint_kernel",
                 "threefry_split_kernel", "threefry_fold_in_kernel",
                 "wkv6_scan_kernel", "ssd_scan_kernel", "wkv6_bwd_kernel",
-                "ssd_bwd_kernel", "scan_sum_kernel")
+                "ssd_bwd_dh_kernel", "ssd_bwd_chunk_kernel",
+                "scan_sum_kernel")
 
 
 def port_kernel_times(events) -> dict:

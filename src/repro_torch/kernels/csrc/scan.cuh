@@ -291,3 +291,100 @@ __device__ __forceinline__ void scan_zero(unsigned char* p, int bytes,
     *reinterpret_cast<uint4*>(p + c) = make_uint4(0, 0, 0, 0);
   }
 }
+
+// The tensor-core pieces of the chunked ssd kernels (ssd_scan.cu,
+// ssd_scan_bwd.cu).
+//
+// 3xTF32 on the tensor cores: x = big + small, big x rounded to TF32 (a
+// 10-bit mantissa) with two integer operations, small = x − big exactly;
+// the tensor core reads the top 19 bits of each operand, so small is
+// passed as it is (truncated there: ~2^-21 of x). A product a·b is taken
+// as a_small·b_big + a_big·b_small + a_big·b_big (a_small·b_small, ~2^-22
+// of it, dropped) with float32 sums: float32 accuracy, where one TF32
+// product keeps about 3 digits. An operand exact in TF32 (a bf16 input)
+// has no small part, and its cross term is skipped. (cvt.rna.tf32.f32
+// costs four integer and compare instructions on sm_90a; this split costs
+// three in all.)
+__device__ __forceinline__ void ssd_split(float x, uint32_t& big,
+                                          uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ float ssd_ld(const float* p) { return *p; }
+__device__ __forceinline__ float ssd_ld(const __nv_bfloat16* p) {
+  return __uint_as_float((uint32_t)*reinterpret_cast<const uint16_t*>(p)
+                         << 16);
+}
+
+__device__ __forceinline__ void ssd_mma(float (&d)[4], const uint32_t (&a)[4],
+                                        const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// An m16n8k8 fragment, split: A holds (g, t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4) of a 16 × 8 tile, B (k t, n g) and (k t + 4, n g) of an
+// 8 × 8 one; ``at(row, col)`` gives the element, ``exact`` leaves small
+// unset.
+template <int K>
+struct SsdFrag {
+  uint32_t big[K], small[K];
+};
+
+template <bool EXACT, typename At>
+__device__ __forceinline__ SsdFrag<4> ssd_frag_a(At at, int g, int t) {
+  SsdFrag<4> f;
+  const float v[4] = {at(g, t), at(g + 8, t), at(g, t + 4), at(g + 8, t + 4)};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (EXACT) {
+      f.big[i] = __float_as_uint(v[i]);
+    } else {
+      ssd_split(v[i], f.big[i], f.small[i]);
+    }
+  }
+  return f;
+}
+
+template <bool EXACT, typename At>
+__device__ __forceinline__ SsdFrag<2> ssd_frag_b(At at, int g, int t) {
+  SsdFrag<2> f;
+  const float v[2] = {at(t, g), at(t + 4, g)};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (EXACT) {
+      f.big[i] = __float_as_uint(v[i]);
+    } else {
+      ssd_split(v[i], f.big[i], f.small[i]);
+    }
+  }
+  return f;
+}
+
+// A product into three accumulators (big·big and the two cross terms), so
+// that a tile's tensor-core products do not wait on each other; the caller
+// adds them once the tile's sum is done.
+struct SsdAcc {
+  float bb[4], bs[4], sb[4];
+};
+
+__device__ __forceinline__ void ssd_acc_zero(SsdAcc& d) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d.bb[e] = d.bs[e] = d.sb[e] = 0.f;
+}
+
+__device__ __forceinline__ float ssd_acc_sum(const SsdAcc& d, int e) {
+  return d.bb[e] + (d.bs[e] + d.sb[e]);
+}
+
+template <bool A_EXACT, bool B_EXACT>
+__device__ __forceinline__ void ssd_mma3(SsdAcc& d, const SsdFrag<4>& a,
+                                         const SsdFrag<2>& b) {
+  if (!A_EXACT) ssd_mma(d.sb, a.small, b.big);
+  if (!B_EXACT) ssd_mma(d.bs, a.big, b.small);
+  ssd_mma(d.bb, a.big, b.big);
+}

@@ -1,177 +1,189 @@
-// ssd_scan_bwd: the gradient of ssd_scan, Mamba-2's selective scan
-// (sm_90a).
+// ssd_scan_bwd: the gradient of ssd_scan, Mamba-2's selective scan, in
+// Mamba-2's chunked form on the tensor cores (sm_90a).
 //
 // Replaces no TPU kernel: the reference has no backward kernel for the
 // scan; XLA differentiates its lax.scan (src/repro/models/mamba2.py:
 // 110-122, under chunked_scan). The port adds it for the reason
 // wkv6_bwd.cu gives.
 //
-// Per (batch, head), h [D rows d, n state columns m] in float32,
-// decay_t = exp(dt_t a), G the gradient of the state after step t: the
-// carried Q = decay_{t+1} G_{t+1} (dh_last after the last step) plus
-// dy_t (x) C_t. Then
+// Per (batch, head), h [D rows d, n state columns m] in float32, the
+// forward h_t = exp(ℓ_t) h_{t-1} + dt_t x_t ⊗ B_t, y_t = h_t C_t with
+// ℓ_t = dt_t a. The decay is one scalar a head and step, so the backward
+// has the forward's state-space-dual chunked form (ssd_scan.cu, chunks of
+// L = 32 steps). Within a chunk, with seg[i][j] the sum of ℓ over steps
+// j + 1 … i, pre_i over 0 … i, suf_j over j + 1 … L − 1 and total over
+// all, E = exp(seg) (causal), G = C·Bᵀ, A = dY·Xᵀ (a head) and W2 =
+// A ∘ E ∘ dt_j:
 //
-//   dx_t = dt_t G B_t,   dB_t = sum_{h,d} dt_t G x_t,   dC_t = sum_{h,d} dy_t h_t
-//   ddt_t = sum_{d,m} G o (x_t (x) B_t + a decay_t h_{t-1})
-//   da = sum_{b,t} dt_t decay_t sum_{d,m} G o h_{t-1},   Q <- decay_t G
+//   dh_start = exp(total) dh_end + dYᵀ·diag(exp pre)·C
+//   dx  = dt ∘ gB,   gB = (G ∘ E)ᵀ·dY + diag(exp suf)·B·dh_endᵀ
+//   dB  = Σ_h W2ᵀ·C + diag(dt exp suf)·X·dh_end
+//   dC  = Σ_h W2·B + diag(exp pre)·dY·h_start
 //
-// and dh0 is the last Q. h_{t-1} comes from the forward kernel's
-// checkpoints (ssd_scan.cu writes the state before every 32-step chunk
-// when asked, [B, H, ceil(S/32), D, n] float32), never from dividing by
-// the decay, which underflows to 0. x, B and C come in float32 or bfloat16
-// (widened in registers), dt, a and dy in float32; everything is computed
-// in float32 and each gradient rounded once to its input's type.
+// and the gradient of each step's log-decay, dℓ_k, is the sum of the
+// chunk's terms whose segment holds step k: G ∘ W2 [i][j] (j < k ≤ i),
+// exp(pre_i) dy_i·(h_start C_i) (k ≤ i), exp(suf_j) dt_j x_j·(dh_end B_j)
+// (j < k) and exp(total) Σ dh_end ∘ h_start; ddt_k = a dℓ_k + x_k·gB_k and
+// da = Σ dt_k dℓ_k. h_start is the forward's checkpoint (ssd_scan.cu writes
+// the state before every chunk when asked, [B, H, ceil(S/32), D, n]
+// float32); no state is recomputed.
 //
-// A CTA owns ROWS = 32 rows of one head's state (16 at n = 128) and all n
-// columns, a thread a 4 × 4 tile of the state and of Q in registers: 256
-// CTAs of 128 threads at zamba2-1.2b's training shape (B 2, H 64, D 64,
-// n 64). It walks the chunks from the last, their rows copied with
-// cp.async into one of two stages while the chunk before runs, each chunk
-// in 8 sub-chunks of 4 steps as wkv6_bwd.cu's: pass A keeps the tile's
-// state before each sub-chunk in shared memory, pass B steps a
-// sub-chunk's 4 states into registers and runs its steps backward. A
-// step's row sums (G B, for dx and ddt) go through a transposing shuffle
-// butterfly over the warp's column groups, its column sums (G x, dy h, for
-// dB and dC) over the warp's row groups by shuffles and over the warps
-// through shared memory, and sum G o h_{t-1} over the warp and the warps;
-// after each sub-chunk one barrier, then the CTA writes the sub-chunk's dx
-// and its parts of dB, dC and ddt. B and C are shared by all heads, so
-// their gradients sum over every head and row block, ddt over the row
-// blocks and da over the batch rows and row blocks: per-CTA partials that
-// a second pass (scan_sum_kernel) adds in a fixed order. No float atomics
-// anywhere, so the bytes repeat run to run. The recomputed states use the
-// serial forward's operations (the chunked forward's checkpoints differ
-// from it only by rounding).
+// Two kernels and two short passes, one call:
 //
-// Bound at zamba2-1.2b's training shape (B 2, S 4,096, H 64, D 64, n 64;
-// x and dx bf16, B and C bf16, dt, dy, ddt float32): 549 MB moved (the
-// inputs, the checkpoints' 268 MB and the gradients once each), 0.16 ms at
-// 3.35 TB/s; 14 float32 operations a state element and step (the state's
-// recompute 3, G 2, the products G B, G x, dy h and G h 8, Q 1), 30.1
-// GFLOP, 0.45 ms at 67 TFLOP/s: operation-bound. The design recomputes
-// the states twice and h_t once more (20 operations) and is issue-bound on
-// each step's shuffles besides; dB's and dC's partials (268 MB each at
-// that shape) cost a pass of their own. Mamba-2's chunked backward on the
-// tensor cores is queued as later work (ROADMAP.md Queue 2).
+// 1. ssd_bwd_dh_kernel walks the chunks from the last, a CTA (4 warps) a
+//    16-row block of one head's state and all n columns: it stores the
+//    gradient of the state after each chunk (dh_end, [B, H, ceil(S/32),
+//    D, n] float32 scratch, the checkpoints' size) and steps dh_end(c − 1)
+//    = exp(total) dh_end(c) + P_c, P_c = dYᵀ·diag(exp pre)·C on mma; its
+//    last value is dh0. Grid (D / 16, H, B): 512 CTAs at zamba2-1.2b's
+//    training shape (B 2, S 4,096, H 64, D 64, n 64), 256 at 1 × 32,768.
+//    Its time is mostly dh_end's writes (the chunk's serial part is one
+//    FMA; deeper copy rings, column blocks and four chunks a step measured
+//    no faster).
+// 2. ssd_bwd_chunk_kernel runs every chunk at once, a CTA (8 warps) one
+//    (chunk, batch row) and a group of heads, walked in order: C·Bᵀ once,
+//    then for each head and each 32-row slice of its state, copied with
+//    cp.async into one of two stages while the last one runs, the products
+//    dY·Xᵀ, dY·h_start, X·dh_end, (G ∘ E)ᵀ·dY and B·dh_endᵀ; after a head's
+//    slices W2 ·C and ·B into dB and dC (summed over the CTA's heads in
+//    registers, in head order), and one warp forms dℓ from the terms
+//    above: each row's running sum over its columns, then each column's
+//    sum over its rows, in order (a scan across the lanes a row measured
+//    slower). Grid (ceil(S/32), B, groups), the groups of heads as many
+//    as put two CTAs on each of 132 SMs (the caller picks them: ops.py's
+//    ssd_bwd_groups; 2 at the training shape, 1 at
+//    1 × 32,768: 512 and 1,024 CTAs), two CTAs an SM (128 registers a
+//    thread; one CTA an SM measured 1.46 times the time).
+// 3. scan_sum adds the groups' dB and dC partials (only with more than one
+//    group) and da over the batch rows and chunks, in a fixed order.
+//
+// Every product is 3xTF32 mma.sync m16n8k8 (scan.cuh's ssd_* pieces, shared
+// with the forward; an operand read from bf16 is exact in TF32 and has no
+// small part), every decay exp of a sum over its own segment (E's in
+// order, Mamba-2's segsum as the forward forms it), never a difference of
+// two cumulative sums, which cancels once a chunk's sum passes −87. No float
+// atomics anywhere, so the bytes repeat run to run. Rows past S are
+// zeros (dt = 0: a decay of 1 and no input), as in the forward.
+//
+// Bound at zamba2-1.2b's training shape (x, B, C, dx, dB, dC bf16; dt,
+// dy, ddt float32): 549 MB moved by the function (inputs, checkpoints and
+// gradients once each), 0.16 ms at 3.35 TB/s; the chunked products 21.6
+// GFLOP, 0.04 ms at 495 TFLOP/s (TF32); chip_smoke.py states both. The
+// design moves about 0.7 GB more (dh_end written and read, dy read twice)
+// and spends most of its time in the chunk pass's products and their
+// fragment loads; PERF.md has the split by stage.
 #include "scan.cuh"
 
+// an m16n8k8 product into one accumulator, the small parts first (a tile
+// whose chains interleave with other tiles' needs no accumulator of each)
+template <bool A_EXACT, bool B_EXACT>
+__device__ __forceinline__ void ssd_mma3_into(float (&d)[4],
+                                              const SsdFrag<4>& a,
+                                              const SsdFrag<2>& b) {
+  if (!A_EXACT) ssd_mma(d, a.small, b.big);
+  if (!B_EXACT) ssd_mma(d, a.big, b.small);
+  ssd_mma(d, a.big, b.big);
+}
+
+__device__ __forceinline__ void ssd_store2(float* p, float lo, float hi) {
+  *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+}
+__device__ __forceinline__ void ssd_store2(__nv_bfloat16* p, float lo,
+                                           float hi) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
+}
+
+// ---------------------------------------------------------------------------
+// 1. the chunk-end gradients
+// ---------------------------------------------------------------------------
+
+// A stage (bytes): dy [L][YS] float32 (this CTA's 16 rows), C [L][CR] (T),
+// dt [L] float32; row paddings put the fragments' loads in distinct banks.
 template <int N, typename T>
-struct SsdBwd {
-  static constexpr int ROWS = N == 128 ? 16 : 32;  // state rows a CTA
-  static constexpr int CG = N / 4, RG = ROWS / 4;  // column, row groups
-  static constexpr int THREADS = CG * RG, WARPS = THREADS / 32;
-  static constexpr int RPW = 32 / CG;              // row groups a warp
-  static constexpr int SUB = 4, NSUB = SCAN_T / SUB;
-  static constexpr int ROUNDS = scan_log2(CG);
-  // a stage (bytes): SCAN_T rows of B and C (T), this CTA's x (T) and dy
-  // (float32), and dt (float32)
-  static constexpr int C_AT = SCAN_T * N * (int)sizeof(T);
-  static constexpr int X_AT = 2 * C_AT;
-  static constexpr int Y_AT = X_AT + SCAN_T * ROWS * (int)sizeof(T);
-  static constexpr int DT_AT = Y_AT + SCAN_T * ROWS * 4;
-  static constexpr int STAGE = DT_AT + SCAN_T * 4;
-  // then in float32: the stash (each thread's tile before sub-chunks
-  // 1 … NSUB − 1) and, two of each by sub-chunk parity, a sub-chunk's row
-  // sums G·B [SUB][ROWS], the warps' column parts [SUB][WARPS][2][N] (G·x,
-  // dy·h) and their sums of G ∘ h_{t−1} [SUB][WARPS]
-  static constexpr int STASH = (NSUB - 1) * 16 * THREADS;
-  static constexpr int GB = 2 * SUB * ROWS;
-  static constexpr int COLS = 2 * SUB * WARPS * 2 * N;
-  static constexpr int GH = 2 * SUB * WARPS;
-  static constexpr int SMEM_BYTES = 2 * STAGE + 4 * (STASH + GB + COLS + GH);
-  static_assert(THREADS >= 32 && THREADS % 32 == 0 && ROWS <= 32, "layout");
-  static_assert(STAGE % 16 == 0 && SMEM_BYTES <= 232448, "shared memory");
+struct SsdBwdDh {
+  static constexpr int L = SCAN_T, ROWS = 16, THREADS = 128;
+  static constexpr int YS = ROWS + 8;
+  static constexpr int CR = N + 16 / (int)sizeof(T);
+  static constexpr int C_AT = 4 * L * YS;
+  static constexpr int DT_AT = C_AT + L * CR * (int)sizeof(T);
+  static constexpr int STAGE = DT_AT + 4 * L;
+  static constexpr int SMEM_BYTES = 2 * STAGE;
+  static constexpr int NT = N / 8, TPW = NT >= 4 ? NT / 4 : 1;
+  static constexpr bool EXACT = sizeof(T) == 2;
+  static_assert(STAGE % 16 == 0 && C_AT % 16 == 0, "layout");
 };
 
 template <int N, typename T>
-__global__ void __launch_bounds__(SsdBwd<N, T>::THREADS, 1)
-    ssd_bwd_kernel(const T* __restrict__ x, const T* __restrict__ Bv,
-                   const T* __restrict__ Cv, const float* __restrict__ dt,
-                   const float* __restrict__ a,
-                   const float* __restrict__ ckpt,
-                   const float* __restrict__ dy,
-                   const float* __restrict__ dh_last, T* __restrict__ dx,
-                   float* __restrict__ db_part, float* __restrict__ dc_part,
-                   float* __restrict__ ddt_part,
-                   float* __restrict__ da_part, float* __restrict__ dh0,
-                   int64_t S, int H, int D) {
-  using L = SsdBwd<N, T>;
-  constexpr int ROWS = L::ROWS, CG = L::CG, THREADS = L::THREADS;
-  constexpr int WARPS = L::WARPS, SUB = L::SUB, NSUB = L::NSUB;
-  constexpr int ROUNDS = L::ROUNDS;
+__global__ void __launch_bounds__(SsdBwdDh<N, T>::THREADS)
+    ssd_bwd_dh_kernel(const T* __restrict__ Cv, const float* __restrict__ dt,
+                      const float* __restrict__ a,
+                      const float* __restrict__ dy,
+                      const float* __restrict__ dh_last,
+                      float* __restrict__ dhe, float* __restrict__ dh0,
+                      int64_t S, int H, int D) {
+  using K = SsdBwdDh<N, T>;
+  constexpr int L = K::L, YS = K::YS, CR = K::CR, TPW = K::TPW;
+  constexpr int THREADS = K::THREADS;
+  constexpr bool EXACT = K::EXACT;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* stash = reinterpret_cast<float*>(smem + 2 * L::STAGE);
-  float* gb_s = stash + L::STASH;
-  float* col_s = gb_s + L::GB;
-  float* gh_s = col_s + L::COLS;
-
+  const unsigned all = 0xffffffffu;
   const int tid = threadIdx.x, lane = tid & 31, wp = tid >> 5;
-  const int cg = lane % CG, rg = wp * L::RPW + lane / CG;
-  const int i0 = 4 * rg, jc = 4 * cg;   // the tile: rows d0 + i0 …, columns jc …
-  const int rb = blockIdx.x, d0 = rb * ROWS, h = blockIdx.y, b = blockIdx.z;
-  const int NR = gridDim.x, B = gridDim.z;
-  const int64_t x_step = (int64_t)H * D;                  // one time step
-  const int64_t x_base = ((int64_t)b * S * H + h) * D + d0;
-  const int64_t bc_base = (int64_t)b * S * N;
-  const int64_t dt_base = (int64_t)b * S * H + h;
-  const int64_t state = (((int64_t)b * H + h) * D + d0) * N;   // h[b, h, d0]
-  const int nch = (int)((S + SCAN_T - 1) / SCAN_T);
+  const int g = lane >> 2, t = lane & 3;
+  const int d0 = blockIdx.x * K::ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int64_t x_step = (int64_t)H * D;
+  const int nch = (int)((S + L - 1) / L);
   const float a_h = a[h];
-  auto stage = [&](int c) { return smem + (c & 1) * L::STAGE; };
+  auto stage = [&](int c) { return smem + (c & 1) * K::STAGE; };
 
-  // chunk c's rows into its stage; the rows past the sequence's end get
-  // zeros (dt = 0: a decay of 1 and no input, steps that leave the state
-  // and Q as they are)
+  // chunk c's rows into its stage; rows past the sequence's end are zeros
   auto issue = [&](int c) {
-    const int64_t t0 = (int64_t)c * SCAN_T;
+    const int64_t t0 = (int64_t)c * L;
     const int steps = scan_steps(S, t0);
     unsigned char* sg = stage(c);
-    scan_copy_rows<N * (int)sizeof(T) / 16>(
-        sg, reinterpret_cast<const unsigned char*>(Bv + bc_base + t0 * N),
-        N * sizeof(T), steps, tid, THREADS);
-    scan_copy_rows<N * (int)sizeof(T) / 16>(
-        sg + L::C_AT,
-        reinterpret_cast<const unsigned char*>(Cv + bc_base + t0 * N),
-        N * sizeof(T), steps, tid, THREADS);
-    scan_copy_rows<ROWS * (int)sizeof(T) / 16>(
-        sg + L::X_AT,
-        reinterpret_cast<const unsigned char*>(x + x_base + t0 * x_step),
-        x_step * sizeof(T), steps, tid, THREADS);
-    scan_copy_rows<ROWS * 4 / 16>(
-        sg + L::Y_AT,
-        reinterpret_cast<const unsigned char*>(dy + x_base + t0 * x_step),
-        x_step * 4, steps, tid, THREADS);
+    const float* ysrc = dy + ((int64_t)b * S + t0) * x_step +
+                        (int64_t)h * D + d0;
+    for (int q = tid; q < steps * 4; q += THREADS) {   // 64 bytes a row
+      scan_cp_async16(sg + (q >> 2) * YS * 4 + (q & 3) * 16,
+                      ysrc + (q >> 2) * x_step + (q & 3) * 4);
+    }
+    constexpr int CV = N * (int)sizeof(T) / 16;
+    const unsigned char* csrc = reinterpret_cast<const unsigned char*>(
+        Cv + ((int64_t)b * S + t0) * N);
+    for (int q = tid; q < steps * CV; q += THREADS) {
+      const int row = q / CV, col = (q % CV) * 16;
+      scan_cp_async16(sg + K::C_AT + row * CR * (int)sizeof(T) + col,
+                      csrc + (int64_t)row * N * sizeof(T) + col);
+    }
     if (tid < steps) {
-      scan_cp_async4(sg + L::DT_AT + 4 * tid, dt + dt_base + (t0 + tid) * H);
+      scan_cp_async4(sg + K::DT_AT + 4 * tid,
+                     dt + ((int64_t)b * S + t0 + tid) * H + h);
     }
     scan_cp_async_commit();
-    if (steps < SCAN_T) {
-      const int bc = N * (int)sizeof(T), xr = ROWS * (int)sizeof(T);
-      scan_zero(sg + steps * bc, (SCAN_T - steps) * bc, tid, THREADS);
-      scan_zero(sg + L::C_AT + steps * bc, (SCAN_T - steps) * bc, tid,
-                THREADS);
-      scan_zero(sg + L::X_AT + steps * xr, (SCAN_T - steps) * xr, tid,
-                THREADS);
-      scan_zero(sg + L::Y_AT + steps * ROWS * 4, (SCAN_T - steps) * ROWS * 4,
-                tid, THREADS);
-      for (int s = steps + tid; s < SCAN_T; s += THREADS) {
-        reinterpret_cast<float*>(sg + L::DT_AT)[s] = 0.f;
+    if (steps < L) {
+      scan_zero(sg + steps * YS * 4, (L - steps) * YS * 4, tid, THREADS);
+      scan_zero(sg + K::C_AT + steps * CR * (int)sizeof(T),
+                (L - steps) * CR * (int)sizeof(T), tid, THREADS);
+      if (tid >= steps && tid < L) {
+        reinterpret_cast<float*>(sg + K::DT_AT)[tid] = 0.f;
       }
     }
   };
 
-  float Q[4][4];
-  if (dh_last) {
-    scan_tile_load(Q, dh_last + state + (int64_t)i0 * N + jc, N);
-  } else {
+  // warp wp's n-tiles: wp, wp + 4, … (n = 16: warps 0 and 1)
+  const bool has = wp < K::NT;
+  const int64_t state = (((int64_t)b * H + h) * D + d0) * N;
+  float acc[TPW][4];
 #pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
+  for (int q = 0; q < TPW; ++q) {
+    const int m = (wp + 4 * q) * 8 + 2 * t;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) Q[ii][jj] = 0.f;
+    for (int e = 0; e < 4; ++e) {
+      acc[q][e] = has && dh_last
+                      ? dh_last[state + (int64_t)(g + 8 * (e >> 1)) * N + m +
+                                (e & 1)]
+                      : 0.f;
     }
   }
-  float da_acc = 0.f;
-  int sub = 0;   // sub-chunks run, for the parity of the double buffers
 
   issue(nch - 1);
   for (int c = nch - 1; c >= 0; --c) {
@@ -179,177 +191,553 @@ __global__ void __launch_bounds__(SsdBwd<N, T>::THREADS, 1)
     __syncthreads();
     if (c > 0) issue(c - 1);
     const unsigned char* sg = stage(c);
-    const T* bs = reinterpret_cast<const T*>(sg);
-    const T* cs = reinterpret_cast<const T*>(sg + L::C_AT);
-    const T* xs = reinterpret_cast<const T*>(sg + L::X_AT);
-    const float* ys = reinterpret_cast<const float*>(sg + L::Y_AT);
-    const float* dts = reinterpret_cast<const float*>(sg + L::DT_AT);
-    // one forward step of the tile: the serial forward's operations
-    auto fwd = [&](float (&st)[4][4], int tl) {
-      const float dl = dts[tl], e = expf(dl * a_h);
-      float x4[4], b4[4];
-      scan_load4(xs + tl * ROWS + i0, x4);
-      scan_load4(bs + tl * N + jc, b4);
+    const float* ys = reinterpret_cast<const float*>(sg);
+    const T* cs = reinterpret_cast<const T*>(sg + K::C_AT);
+    // the chunk's prefix decays, lane s: exp of the sum of ℓ over 0 … s
+    float pre = reinterpret_cast<const float*>(sg + K::DT_AT)[lane] * a_h;
 #pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        const float dxi = dl * x4[ii];
+    for (int o = 1; o < 32; o <<= 1) {
+      const float v = __shfl_up_sync(all, pre, o);
+      if (lane >= o) pre += v;
+    }
+    const float ep = expf(pre);
+    const float et = expf(__shfl_sync(all, pre, 31));
+    if (!has) continue;
+    // dh_end(c), for the chunk pass
+    float* out = dhe + (((int64_t)b * H + h) * nch + c) * D * N +
+                 (int64_t)d0 * N;
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          st[ii][jj] = fmaf(e, st[ii][jj], dxi * b4[jj]);
-        }
-      }
-    };
-    const float* ck = ckpt + (((int64_t)b * H + h) * nch + c) * D * N +
-                      (int64_t)(d0 + i0) * N + jc;
-    // pass A: the tile's state before sub-chunks 1 … NSUB − 1
-    {
-      float st[4][4];
-      scan_tile_load(st, ck, N);
-      for (int q = 1; q < NSUB; ++q) {
+    for (int q = 0; q < TPW; ++q) {
+      const int m = (wp + 4 * q) * 8 + 2 * t;
+      ssd_store2(out + (int64_t)g * N + m, acc[q][0], acc[q][1]);
+      ssd_store2(out + (int64_t)(g + 8) * N + m, acc[q][2], acc[q][3]);
+    }
+    // dh_end(c − 1) = exp(total)·dh_end(c) + dYᵀ·diag(exp pre)·C
+    float p[TPW][4];
 #pragma unroll
-        for (int sl = 0; sl < SUB; ++sl) fwd(st, SUB * (q - 1) + sl);
-        float* sp = stash + (q - 1) * 16 * THREADS;
+    for (int q = 0; q < TPW; ++q) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          reinterpret_cast<float4*>(sp)[e * THREADS + tid] =
-              make_float4(st[e][0], st[e][1], st[e][2], st[e][3]);
-        }
+      for (int e = 0; e < 4; ++e) p[q][e] = 0.f;
+    }
+#pragma unroll
+    for (int k0 = 0; k0 < L; k0 += 8) {
+      const float e0 = __shfl_sync(all, ep, k0 + t);
+      const float e1 = __shfl_sync(all, ep, k0 + t + 4);
+      const SsdFrag<4> fa = ssd_frag_a<false>(
+          [&](int r, int k) {
+            return ys[(k0 + k) * YS + r] * (k < 4 ? e0 : e1);
+          },
+          g, t);
+#pragma unroll
+      for (int q = 0; q < TPW; ++q) {
+        const T* ccol = cs + k0 * CR + (wp + 4 * q) * 8;
+        const SsdFrag<2> fb = ssd_frag_b<EXACT>(
+            [&](int kk, int n) { return ssd_ld(ccol + kk * CR + n); }, g, t);
+        ssd_mma3_into<false, EXACT>(p[q], fa, fb);
       }
     }
-    // pass B: the sub-chunks from the last, each's steps backward
-    for (int q = NSUB - 1; q >= 0; --q) {
-      float s4[SUB][4][4];   // the state before each of its steps
-      if (q == 0) {
-        scan_tile_load(s4[0], ck, N);
-      } else {
-        const float* sp = stash + (q - 1) * 16 * THREADS;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float4 v = reinterpret_cast<const float4*>(sp)[e * THREADS +
-                                                                tid];
-          s4[0][e][0] = v.x, s4[0][e][1] = v.y, s4[0][e][2] = v.z,
-          s4[0][e][3] = v.w;
-        }
-      }
+    for (int q = 0; q < TPW; ++q) {
 #pragma unroll
-      for (int sl = 1; sl < SUB; ++sl) {
-#pragma unroll
-        for (int ii = 0; ii < 4; ++ii) {
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) s4[sl][ii][jj] = s4[sl - 1][ii][jj];
-        }
-        fwd(s4[sl], SUB * q + sl - 1);
-      }
-      const int par = sub & 1;
-#pragma unroll
-      for (int sl = SUB - 1; sl >= 0; --sl) {
-        const int tl = SUB * q + sl;
-        const float dl = dts[tl], e = expf(dl * a_h);
-        float x4[4], y4[4], b4[4], c4[4];
-        scan_load4(xs + tl * ROWS + i0, x4);
-        scan_load4(ys + tl * ROWS + i0, y4);
-        scan_load4(bs + tl * N + jc, b4);
-        scan_load4(cs + tl * N + jc, c4);
-        float gbr[4], gx[4] = {0.f, 0.f, 0.f, 0.f};
-        float ch[4] = {0.f, 0.f, 0.f, 0.f}, gh = 0.f;
-#pragma unroll
-        for (int ii = 0; ii < 4; ++ii) {
-          const float dxi = dl * x4[ii];
-          float acc = 0.f;
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            const float hp = s4[sl][ii][jj];
-            const float hn = fmaf(e, hp, dxi * b4[jj]);
-            const float g = fmaf(y4[ii], c4[jj], Q[ii][jj]);
-            acc = fmaf(g, b4[jj], acc);
-            gx[jj] = fmaf(g, x4[ii], gx[jj]);
-            ch[jj] = fmaf(y4[ii], hn, ch[jj]);
-            gh = fmaf(g, hp, gh);
-            Q[ii][jj] = e * g;
-          }
-          gbr[ii] = acc;
-        }
-        // G·B: over the warp's column groups
-        scan_butterfly<4, ROUNDS>(gbr, cg);
-        if (cg < 4) {
-          gb_s[(par * SUB + sl) * ROWS + i0 + scan_bfly_mine<4, ROUNDS>(cg)] =
-              gbr[0];
-        }
-        // G·x and dy·h: over the warp's row groups, then (after the
-        // barrier) the warps
-#pragma unroll
-        for (int m = CG; m < 32; m <<= 1) {
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            gx[jj] += __shfl_xor_sync(0xffffffffu, gx[jj], m);
-            ch[jj] += __shfl_xor_sync(0xffffffffu, ch[jj], m);
-          }
-        }
-        if (lane < CG) {
-          float* cw = col_s + ((par * SUB + sl) * WARPS + wp) * 2 * N + jc;
-          *reinterpret_cast<float4*>(cw) =
-              make_float4(gx[0], gx[1], gx[2], gx[3]);
-          *reinterpret_cast<float4*>(cw + N) =
-              make_float4(ch[0], ch[1], ch[2], ch[3]);
-        }
-        gh = scan_warp_sum(gh);
-        if (lane == 0) gh_s[(par * SUB + sl) * WARPS + wp] = gh;
-      }
-      __syncthreads();
-      // the sub-chunk's dx and its parts of dB, dC, ddt and da
-      const int64_t tb = (int64_t)c * SCAN_T + SUB * q;
-      for (int e = tid; e < SUB * ROWS; e += THREADS) {
-        const int sl = e / ROWS, d = e % ROWS, tl = SUB * q + sl;
-        if (tb + sl < S) {
-          dx[x_base + (tb + sl) * x_step + d] = scan_from_float<T>(
-              dts[tl] * gb_s[(par * SUB + sl) * ROWS + d]);
-        }
-      }
-      for (int e = tid; e < SUB * N; e += THREADS) {
-        const int sl = e / N, m = e % N, tl = SUB * q + sl;
-        if (tb + sl < S) {
-          float gxs = 0.f, chs = 0.f;
-#pragma unroll
-          for (int w = 0; w < WARPS; ++w) {
-            const float* cw = col_s + ((par * SUB + sl) * WARPS + w) * 2 * N;
-            gxs += cw[m];
-            chs += cw[N + m];
-          }
-          const int64_t at = (((int64_t)h * NR + rb) * B + b) * S * N +
-                             (tb + sl) * N + m;
-          db_part[at] = dts[tl] * gxs;
-          dc_part[at] = chs;
-        }
-      }
-      if (wp == 0) {
-#pragma unroll
-        for (int sl = 0; sl < SUB; ++sl) {
-          const int tl = SUB * q + sl;
-          if (tb + sl < S) {
-            const float xg =
-                lane < ROWS ? scan_to_float(xs[tl * ROWS + lane]) *
-                                  gb_s[(par * SUB + sl) * ROWS + lane]
-                            : 0.f;
-            const float xgs = scan_warp_sum(xg);
-            float ghs = 0.f;
-#pragma unroll
-            for (int w = 0; w < WARPS; ++w) {
-              ghs += gh_s[(par * SUB + sl) * WARPS + w];
-            }
-            const float dl = dts[tl], e = expf(dl * a_h);
-            if (lane == 0) {
-              ddt_part[(int64_t)rb * B * S * H + dt_base + (tb + sl) * H] =
-                  fmaf(a_h * e, ghs, xgs);
-              da_acc = fmaf(dl * e, ghs, da_acc);
-            }
-          }
-        }
-      }
-      ++sub;
+      for (int e = 0; e < 4; ++e) acc[q][e] = fmaf(et, acc[q][e], p[q][e]);
     }
   }
-  scan_tile_store(dh0 + state + (int64_t)i0 * N + jc, N, Q);
-  if (tid == 0) da_part[((int64_t)rb * B + b) * H + h] = da_acc;
+  if (has) {
+#pragma unroll
+    for (int q = 0; q < TPW; ++q) {
+      const int m = (wp + 4 * q) * 8 + 2 * t;
+      ssd_store2(dh0 + state + (int64_t)g * N + m, acc[q][0], acc[q][1]);
+      ssd_store2(dh0 + state + (int64_t)(g + 8) * N + m, acc[q][2],
+                 acc[q][3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 2. each chunk's gradients
+// ---------------------------------------------------------------------------
+
+// A stage (bytes), one head's 32-row slice: dy [L][FS] float32, x [L][XR]
+// (T), h_start and dh_end [DS][HR] float32, dt [L] float32. The CTA's own:
+// B, C [L][BR] (T); G = C·Bᵀ, the head's E, M = G ∘ E and W2 [L][FS]
+// float32; the dℓ terms [L + 1][TS]; vectors (dt, exp pre, exp suf, exp
+// total, the warps' row parts of x·gB, x·exp(suf)·B·dh_endᵀ and Z·C, and of
+// Σ dh_end ∘ h_start).
+template <int N, typename T>
+struct SsdBwdChunk {
+  static constexpr int L = SCAN_T, DS = 32, THREADS = 256;
+  static constexpr int FS = L + 4;
+  static constexpr int XR = DS + 16 / (int)sizeof(T);
+  static constexpr int HR = N + 4;
+  static constexpr int BR = N + 16 / (int)sizeof(T);
+  static constexpr int TS = L + 2;
+  static constexpr int X_AT = 4 * L * FS;
+  static constexpr int HS_AT = X_AT + L * XR * (int)sizeof(T);
+  static constexpr int HE_AT = HS_AT + 4 * DS * HR;
+  static constexpr int DT_AT = HE_AT + 4 * DS * HR;
+  static constexpr int STAGE = DT_AT + 4 * L;
+  static constexpr int B_AT = 2 * STAGE;
+  static constexpr int C_AT = B_AT + L * BR * (int)sizeof(T);
+  static constexpr int G_AT = C_AT + L * BR * (int)sizeof(T);
+  static constexpr int E_AT = G_AT + 4 * L * FS;
+  static constexpr int M_AT = E_AT + 4 * L * FS;
+  static constexpr int W_AT = M_AT + 4 * L * FS;
+  static constexpr int T_AT = W_AT + 4 * L * FS;
+  static constexpr int V_AT = T_AT + 4 * (L + 1) * TS;
+  static constexpr int VEC = 3 * L + 4 + 3 * 4 * L + 8;
+  static constexpr int SMEM_BYTES = V_AT + 4 * VEC;
+  static constexpr int NT = N / 8, TPW = NT >= 4 ? NT / 4 : 1;
+  static constexpr bool EXACT = sizeof(T) == 2;
+  // two CTAs an SM where their shared memory fits (registers capped at
+  // 128 a thread), one otherwise
+  static constexpr int MIN_BLOCKS = 2 * SMEM_BYTES <= 232448 ? 2 : 1;
+  static_assert(STAGE % 16 == 0 && X_AT % 16 == 0 && HS_AT % 16 == 0 &&
+                    B_AT % 16 == 0 && C_AT % 16 == 0 &&
+                    SMEM_BYTES <= 232448,
+                "layout");
+};
+
+template <int N, typename T>
+__global__ void __launch_bounds__(SsdBwdChunk<N, T>::THREADS,
+                                  SsdBwdChunk<N, T>::MIN_BLOCKS)
+    ssd_bwd_chunk_kernel(const T* __restrict__ x, const T* __restrict__ Bv,
+                         const T* __restrict__ Cv,
+                         const float* __restrict__ dt,
+                         const float* __restrict__ a,
+                         const float* __restrict__ ckpt,
+                         const float* __restrict__ dy,
+                         const float* __restrict__ dhe, T* __restrict__ dx,
+                         T* __restrict__ dB, T* __restrict__ dC,
+                         float* __restrict__ dbc_part,
+                         float* __restrict__ ddt,
+                         float* __restrict__ da_part, int64_t S, int H,
+                         int D, int hpc) {
+  using K = SsdBwdChunk<N, T>;
+  constexpr int L = K::L, DS = K::DS, FS = K::FS, XR = K::XR, HR = K::HR;
+  constexpr int BR = K::BR, TS = K::TS, TPW = K::TPW, THREADS = K::THREADS;
+  constexpr bool EXACT = K::EXACT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* bsm = reinterpret_cast<T*>(smem + K::B_AT);
+  T* csm = reinterpret_cast<T*>(smem + K::C_AT);
+  float* gs = reinterpret_cast<float*>(smem + K::G_AT);
+  float* es = reinterpret_cast<float*>(smem + K::E_AT);
+  float* ms = reinterpret_cast<float*>(smem + K::M_AT);
+  float* ws = reinterpret_cast<float*>(smem + K::W_AT);
+  float* ts = reinterpret_cast<float*>(smem + K::T_AT);
+  float* dtv = reinterpret_cast<float*>(smem + K::V_AT);
+  float* epv = dtv + L;
+  float* esv = epv + L;
+  float* etv = esv + L;
+  float* rin = etv + 4;       // [4][L]: Σ x·gB over the warps' d columns
+  float* rsuf = rin + 4 * L;  // [4][L]: Σ x·exp(suf)·B·dh_endᵀ
+  float* rpre = rsuf + 4 * L; // [4][L]: Σ Z·C over the warps' m columns
+  float* rtot = rpre + 4 * L; // [8]: Σ dh_end ∘ h_start
+
+  const int tid = threadIdx.x, lane = tid & 31, wp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3, mt = wp & 1, wn = wp >> 1;
+  const int c = blockIdx.x, b = blockIdx.y, grp = blockIdx.z;
+  const int Bn = gridDim.y;
+  const int h_begin = grp * hpc;
+  const int nh = H - h_begin < hpc ? H - h_begin : hpc;
+  const int nch = (int)((S + L - 1) / L);
+  const int64_t t0 = (int64_t)c * L;
+  const int steps = scan_steps(S, t0);
+  const int NSL = D / DS, units = nh * NSL;
+  const int64_t x_step = (int64_t)H * D;
+  const int64_t row0 = (int64_t)b * S + t0;   // the chunk's first (b, t)
+  auto stage = [&](int u) { return smem + (u & 1) * K::STAGE; };
+
+  // unit u = (head h_begin + u / NSL, slice u % NSL) into its stage
+  auto issue = [&](int u) {
+    const int hh = h_begin + u / NSL, s = u % NSL;
+    unsigned char* sg = stage(u);
+    const int64_t col0 = (int64_t)hh * D + s * DS;
+    for (int q = tid; q < steps * 8; q += THREADS) {   // 128 bytes a row
+      scan_cp_async16(sg + (q >> 3) * FS * 4 + (q & 7) * 16,
+                      dy + (row0 + (q >> 3)) * x_step + col0 + (q & 7) * 4);
+    }
+    constexpr int XV = DS * (int)sizeof(T) / 16;
+    for (int q = tid; q < steps * XV; q += THREADS) {
+      const int row = q / XV, col = (q % XV) * 16;
+      scan_cp_async16(sg + K::X_AT + row * XR * (int)sizeof(T) + col,
+                      reinterpret_cast<const unsigned char*>(
+                          x + (row0 + row) * x_step + col0) + col);
+    }
+    constexpr int HV = N / 4;
+    const int64_t st = ((((int64_t)b * H + hh) * nch + c) * D + s * DS) * N;
+    for (int q = tid; q < DS * HV; q += THREADS) {
+      const int row = q / HV, col = (q % HV) * 4;
+      scan_cp_async16(sg + K::HS_AT + (row * HR + col) * 4,
+                      ckpt + st + (int64_t)row * N + col);
+      scan_cp_async16(sg + K::HE_AT + (row * HR + col) * 4,
+                      dhe + st + (int64_t)row * N + col);
+    }
+    if (tid < steps) {
+      scan_cp_async4(sg + K::DT_AT + 4 * tid, dt + (row0 + tid) * H + hh);
+    }
+    scan_cp_async_commit();
+    if (steps < L) {
+      scan_zero(sg + steps * FS * 4, (L - steps) * FS * 4, tid, THREADS);
+      scan_zero(sg + K::X_AT + steps * XR * (int)sizeof(T),
+                (L - steps) * XR * (int)sizeof(T), tid, THREADS);
+      if (tid >= steps && tid < L) {
+        reinterpret_cast<float*>(sg + K::DT_AT)[tid] = 0.f;
+      }
+    }
+  };
+
+  // the chunk's B and C rows, with the first unit
+  {
+    constexpr int BV = N * (int)sizeof(T) / 16;
+    for (int q = tid; q < steps * BV; q += THREADS) {
+      const int row = q / BV, col = (q % BV) * 16;
+      const int64_t src = (row0 + row) * N * (int64_t)sizeof(T) + col;
+      scan_cp_async16(reinterpret_cast<unsigned char*>(bsm) +
+                          row * BR * (int)sizeof(T) + col,
+                      reinterpret_cast<const unsigned char*>(Bv) + src);
+      scan_cp_async16(reinterpret_cast<unsigned char*>(csm) +
+                          row * BR * (int)sizeof(T) + col,
+                      reinterpret_cast<const unsigned char*>(Cv) + src);
+    }
+    if (steps < L) {
+      const int rb = BR * (int)sizeof(T);
+      scan_zero(reinterpret_cast<unsigned char*>(bsm) + steps * rb,
+                (L - steps) * rb, tid, THREADS);
+      scan_zero(reinterpret_cast<unsigned char*>(csm) + steps * rb,
+                (L - steps) * rb, tid, THREADS);
+    }
+  }
+  issue(0);
+  scan_cp_async_wait_all();
+  __syncthreads();
+  // G = C·Bᵀ: warp (mt, wn) the rows i = 16·mt …, the columns j = 8·wn …
+  {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int k0 = 0; k0 < N; k0 += 8) {
+      const SsdFrag<4> fa = ssd_frag_a<EXACT>(
+          [&](int r, int k) { return ssd_ld(csm + (16 * mt + r) * BR + k0 + k); },
+          g, t);
+      const SsdFrag<2> fb = ssd_frag_b<EXACT>(
+          [&](int kk, int n) { return ssd_ld(bsm + (8 * wn + n) * BR + k0 + kk); },
+          g, t);
+      ssd_mma3_into<EXACT, EXACT>(acc, fa, fb);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      gs[(16 * mt + g + 8 * (e >> 1)) * FS + 8 * wn + 2 * t + (e & 1)] =
+          acc[e];
+    }
+  }
+
+  // warp (mt, wn): A's tile (i rows 16·mt …, j columns 8·wn …; none above
+  // the diagonal), gB's (j rows 16·mt …, d columns 8·wn … of a slice), and
+  // n-tiles wn, wn + 4, … of the 32 × n products (rows 16·mt …)
+  const bool has_a = !(mt == 0 && wn >= 2);
+  const bool has_n = wn < K::NT;
+  float dBacc[TPW][4], dCacc[TPW][4];
+#pragma unroll
+  for (int q = 0; q < TPW; ++q) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dBacc[q][e] = dCacc[q][e] = 0.f;
+  }
+
+  for (int hl = 0; hl < nh; ++hl) {
+    const int hh = h_begin + hl;
+    const float a_h = a[hh];
+    float Aacc[4] = {0.f, 0.f, 0.f, 0.f};
+    float U[TPW][4], Z[TPW][4];
+#pragma unroll
+    for (int q = 0; q < TPW; ++q) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) U[q][e] = Z[q][e] = 0.f;
+    }
+    float rin_acc[2] = {0.f, 0.f}, rsuf_acc[2] = {0.f, 0.f}, ttot = 0.f;
+    for (int s = 0; s < NSL; ++s) {
+      const int u = hl * NSL + s;
+      scan_cp_async_wait_all();
+      __syncthreads();
+      if (u + 1 < units) issue(u + 1);
+      const unsigned char* sg = stage(u);
+      const float* ys = reinterpret_cast<const float*>(sg);
+      const T* xs = reinterpret_cast<const T*>(sg + K::X_AT);
+      const float* hsv = reinterpret_cast<const float*>(sg + K::HS_AT);
+      const float* hev = reinterpret_cast<const float*>(sg + K::HE_AT);
+      const float* dts = reinterpret_cast<const float*>(sg + K::DT_AT);
+      if (s == 0) {
+        // the head's decays, every sum over its own segment added in
+        // order: E[i][j] = exp(ℓ_{j+1} + … + ℓ_i) (lane j; the forward's
+        // segsum) and M = G ∘ E, warps 0-3 a quarter of the rows i each
+        // (the sum up to the quarter's first row first, without exps);
+        // exp(pre_i), exp(suf_j) and exp(total), warps 4-6
+        const float ell = dts[lane] * a_h;
+        float run = 0.f;
+        if (wp < 4) {
+          const int i0 = 8 * wp;
+          for (int k = 0; k < i0; ++k) {
+            const float dk = __shfl_sync(0xffffffffu, ell, k);
+            if (k > lane) run += dk;
+          }
+#pragma unroll
+          for (int i = i0; i < i0 + 8; ++i) {
+            const float di = __shfl_sync(0xffffffffu, ell, i);
+            if (i > lane) run += di;
+            const float v = i >= lane ? expf(run) : 0.f;
+            es[i * FS + lane] = v;
+            ms[i * FS + lane] = gs[i * FS + lane] * v;
+          }
+        } else if (wp == 4) {   // steps 0 … i (lane i)
+#pragma unroll 8
+          for (int k = 0; k < L; ++k) {
+            const float dk = __shfl_sync(0xffffffffu, ell, k);
+            if (k <= lane) run += dk;
+          }
+          epv[lane] = expf(run);
+          dtv[lane] = dts[lane];
+        } else if (wp == 5) {   // steps j + 1 … L − 1 (lane j)
+#pragma unroll 8
+          for (int k = 0; k < L; ++k) {
+            const float dk = __shfl_sync(0xffffffffu, ell, k);
+            if (k > lane) run += dk;
+          }
+          esv[lane] = expf(run);
+        } else if (wp == 6) {   // all steps
+#pragma unroll 8
+          for (int k = 0; k < L; ++k) run += __shfl_sync(0xffffffffu, ell, k);
+          if (lane == 0) etv[0] = expf(run);
+        }
+        __syncthreads();
+      }
+      // A += dY·Xᵀ, Z += dY·h_start, U += X·dh_end over the slice's rows d
+#pragma unroll
+      for (int k0 = 0; k0 < DS; k0 += 8) {
+        const SsdFrag<4> fy = ssd_frag_a<false>(
+            [&](int r, int k) { return ys[(16 * mt + r) * FS + k0 + k]; }, g,
+            t);
+        if (has_a) {
+          const SsdFrag<2> fx = ssd_frag_b<EXACT>(
+              [&](int kk, int n) {
+                return ssd_ld(xs + (8 * wn + n) * XR + k0 + kk);
+              },
+              g, t);
+          ssd_mma3_into<false, EXACT>(Aacc, fy, fx);
+        }
+        if (has_n) {
+          const SsdFrag<4> fxa = ssd_frag_a<EXACT>(
+              [&](int r, int k) {
+                return ssd_ld(xs + (16 * mt + r) * XR + k0 + k);
+              },
+              g, t);
+#pragma unroll
+          for (int q = 0; q < TPW; ++q) {
+            const int m0 = (wn + 4 * q) * 8;
+            const SsdFrag<2> fh = ssd_frag_b<false>(
+                [&](int kk, int n) { return hsv[(k0 + kk) * HR + m0 + n]; },
+                g, t);
+            ssd_mma3_into<false, false>(Z[q], fy, fh);
+            const SsdFrag<2> fe = ssd_frag_b<false>(
+                [&](int kk, int n) { return hev[(k0 + kk) * HR + m0 + n]; },
+                g, t);
+            ssd_mma3_into<EXACT, false>(U[q], fxa, fe);
+          }
+        }
+      }
+      for (int e = tid; e < DS * N; e += THREADS) {
+        const int r = e / N, m = e % N;
+        ttot = fmaf(hev[r * HR + m], hsv[r * HR + m], ttot);
+      }
+      // gB = (G ∘ E)ᵀ·dY + diag(exp suf)·B·dh_endᵀ (j rows, d columns)
+      {
+        float p1[4] = {0.f, 0.f, 0.f, 0.f}, p2[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int k0 = 16 * mt; k0 < L; k0 += 8) {   // M[i][j] = 0 for i < j
+          const SsdFrag<4> fm = ssd_frag_a<false>(
+              [&](int r, int k) { return ms[(k0 + k) * FS + 16 * mt + r]; },
+              g, t);
+          const SsdFrag<2> fy = ssd_frag_b<false>(
+              [&](int kk, int n) { return ys[(k0 + kk) * FS + 8 * wn + n]; },
+              g, t);
+          ssd_mma3_into<false, false>(p1, fm, fy);
+        }
+#pragma unroll
+        for (int k0 = 0; k0 < N; k0 += 8) {
+          const SsdFrag<4> fb = ssd_frag_a<EXACT>(
+              [&](int r, int k) {
+                return ssd_ld(bsm + (16 * mt + r) * BR + k0 + k);
+              },
+              g, t);
+          const SsdFrag<2> fe = ssd_frag_b<false>(
+              [&](int kk, int n) { return hev[(8 * wn + n) * HR + k0 + kk]; },
+              g, t);
+          ssd_mma3_into<EXACT, false>(p2, fb, fe);
+        }
+        float out[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 16 * mt + g + 8 * (e >> 1);
+          const int d = 8 * wn + 2 * t + (e & 1);
+          const float sj = esv[j];
+          const float v = fmaf(sj, p2[e], p1[e]);
+          const float xv = ssd_ld(xs + j * XR + d);
+          rin_acc[e >> 1] = fmaf(xv, v, rin_acc[e >> 1]);
+          rsuf_acc[e >> 1] = fmaf(xv, sj * p2[e], rsuf_acc[e >> 1]);
+          out[e] = dtv[j] * v;
+        }
+        const int64_t col = (int64_t)hh * D + s * DS + 8 * wn + 2 * t;
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int j = 16 * mt + g + 8 * (e >> 1);
+          if (j < steps) {
+            ssd_store2(dx + (row0 + j) * x_step + col, out[e], out[e + 1]);
+          }
+        }
+      }
+    }
+    // the head's end: W2 = A ∘ E ∘ dt_j, the dℓ terms G ∘ W2 (j < i) and
+    // the warps' row parts
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 16 * mt + g + 8 * (e >> 1);
+      const int j = 8 * wn + 2 * t + (e & 1);
+      const float w2 = has_a ? Aacc[e] * es[i * FS + j] * dtv[j] : 0.f;
+      ws[i * FS + j] = w2;
+      if (j < i) ts[i * TS + j + 1] = gs[i * FS + j] * w2;
+    }
+    float zc[2] = {0.f, 0.f};
+    if (has_n) {
+#pragma unroll
+      for (int q = 0; q < TPW; ++q) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 16 * mt + g + 8 * (e >> 1);
+          const int m = (wn + 4 * q) * 8 + 2 * t + (e & 1);
+          zc[e >> 1] = fmaf(Z[q][e], ssd_ld(csm + i * BR + m), zc[e >> 1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        rin_acc[r] += __shfl_xor_sync(0xffffffffu, rin_acc[r], o);
+        rsuf_acc[r] += __shfl_xor_sync(0xffffffffu, rsuf_acc[r], o);
+        zc[r] += __shfl_xor_sync(0xffffffffu, zc[r], o);
+      }
+      if (t == 0) {
+        const int row = 16 * mt + g + 8 * r;
+        rin[wn * L + row] = rin_acc[r];
+        rsuf[wn * L + row] = rsuf_acc[r];
+        rpre[wn * L + row] = zc[r];
+      }
+    }
+    ttot = scan_warp_sum(ttot);
+    if (lane == 0) rtot[wp] = ttot;
+    __syncthreads();
+    // dB += W2ᵀ·C + dt·exp(suf)·U, dC += W2·B + exp(pre)·Z
+    if (has_n) {
+      float pb[TPW][4], pc[TPW][4];
+#pragma unroll
+      for (int q = 0; q < TPW; ++q) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pb[q][e] = pc[q][e] = 0.f;
+      }
+      for (int k0 = 16 * mt; k0 < L; k0 += 8) {   // W2[i][j] = 0 for i < j
+        const SsdFrag<4> fw = ssd_frag_a<false>(
+            [&](int r, int k) { return ws[(k0 + k) * FS + 16 * mt + r]; }, g,
+            t);
+#pragma unroll
+        for (int q = 0; q < TPW; ++q) {
+          const T* ccol = csm + k0 * BR + (wn + 4 * q) * 8;
+          const SsdFrag<2> fc = ssd_frag_b<EXACT>(
+              [&](int kk, int n) { return ssd_ld(ccol + kk * BR + n); }, g, t);
+          ssd_mma3_into<false, EXACT>(pb[q], fw, fc);
+        }
+      }
+      for (int k0 = 0; k0 < 16 * mt + 16; k0 += 8) {   // j ≤ i
+        const SsdFrag<4> fw = ssd_frag_a<false>(
+            [&](int r, int k) { return ws[(16 * mt + r) * FS + k0 + k]; }, g,
+            t);
+#pragma unroll
+        for (int q = 0; q < TPW; ++q) {
+          const T* bcol = bsm + k0 * BR + (wn + 4 * q) * 8;
+          const SsdFrag<2> fb = ssd_frag_b<EXACT>(
+              [&](int kk, int n) { return ssd_ld(bcol + kk * BR + n); }, g, t);
+          ssd_mma3_into<false, EXACT>(pc[q], fw, fb);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < TPW; ++q) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 16 * mt + g + 8 * (e >> 1);
+          dBacc[q][e] += fmaf(dtv[r] * esv[r], U[q][e], pb[q][e]);
+          dCacc[q][e] += fmaf(epv[r], Z[q][e], pc[q][e]);
+        }
+      }
+    }
+    // dℓ, ddt and the chunk's part of da: one warp
+    if (wp == 0) {
+      const int nw = K::NT < 4 ? K::NT : 4;   // warps a row part has
+      float tp = 0.f, sf = 0.f, gin = 0.f;
+      for (int w = 0; w < nw; ++w) tp += rpre[w * L + lane];
+      for (int w = 0; w < 4; ++w) {
+        sf += rsuf[w * L + lane];
+        gin += rin[w * L + lane];
+      }
+      ts[lane * TS] = epv[lane] * tp;
+      ts[L * TS + lane + 1] = dtv[lane] * sf;
+      if (lane == 0) {
+        float tt = 0.f;
+        for (int w = 0; w < 8; ++w) tt += rtot[w];
+        ts[L * TS] = etv[0] * tt;
+      }
+      __syncwarp();
+      // each row's running sum over its columns 0 … i (lane 0 also the
+      // end row's 0 … L)
+      {
+        float run = 0.f;
+        for (int j = 0; j <= lane; ++j) {
+          run += ts[lane * TS + j];
+          ts[lane * TS + j] = run;
+        }
+      }
+      if (lane == 0) {
+        float run = 0.f;
+        for (int j = 0; j <= L; ++j) {
+          run += ts[L * TS + j];
+          ts[L * TS + j] = run;
+        }
+      }
+      __syncwarp();
+      // dℓ_k: column k's running sums over the rows k … L
+      float dl = 0.f;
+      for (int i = lane; i <= L; ++i) dl += ts[i * TS + lane];
+      if (lane < steps) ddt[(row0 + lane) * H + hh] = fmaf(a_h, dl, gin);
+      const float dap = scan_warp_sum(lane < steps ? dtv[lane] * dl : 0.f);
+      if (lane == 0) da_part[((int64_t)b * nch + c) * H + hh] = dap;
+    }
+  }
+  // the CTA's dB and dC, its heads' sums
+  if (has_n) {
+#pragma unroll
+    for (int q = 0; q < TPW; ++q) {
+      const int m = (wn + 4 * q) * 8 + 2 * t;
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int r = 16 * mt + g + 8 * (e >> 1);
+        if (r >= steps) continue;
+        const int64_t at = (row0 + r) * N + m;
+        if (dbc_part) {
+          const int64_t bsn = (int64_t)Bn * S * N;
+          ssd_store2(dbc_part + grp * bsn + at, dBacc[q][e], dBacc[q][e + 1]);
+          ssd_store2(dbc_part + ((int64_t)gridDim.z + grp) * bsn + at,
+                     dCacc[q][e], dCacc[q][e + 1]);
+        } else {
+          ssd_store2(dB + at, dBacc[q][e], dBacc[q][e + 1]);
+          ssd_store2(dC + at, dCacc[q][e], dCacc[q][e + 1]);
+        }
+      }
+    }
+  }
 }
 
 template <int N, typename T>
@@ -358,35 +746,45 @@ static int launch_ssd_bwd(const void* x, const void* Bv, const void* Cv,
                           const void* dy, const void* dh_last, void* dx,
                           void* dB, void* dC, void* ddt, void* da, void* dh0,
                           void* part, int B, int64_t S, int H, int D,
-                          cudaStream_t stream) {
-  using L = SsdBwd<N, T>;
-  if (D % L::ROWS) return (int)cudaErrorInvalidValue;
-  static bool smem_set = false;
-  cudaError_t e =
-      scan_smem_limit(ssd_bwd_kernel<N, T>, L::SMEM_BYTES, &smem_set);
+                          int groups, cudaStream_t stream) {
+  using K1 = SsdBwdDh<N, T>;
+  using K2 = SsdBwdChunk<N, T>;
+  static bool dh_set = false, chunk_set = false;
+  cudaError_t e = scan_smem_limit(ssd_bwd_dh_kernel<N, T>, K1::SMEM_BYTES,
+                                  &dh_set);
+  if (e == cudaSuccess) {
+    e = scan_smem_limit(ssd_bwd_chunk_kernel<N, T>, K2::SMEM_BYTES,
+                        &chunk_set);
+  }
   if (e != cudaSuccess) return (int)e;
-  const int NR = D / L::ROWS;
-  const int64_t bsn = (int64_t)B * S * N, bsh = (int64_t)B * S * H;
-  float* db_part = (float*)part;
-  float* dc_part = db_part + (int64_t)H * NR * bsn;
-  float* ddt_part = dc_part + (int64_t)H * NR * bsn;
-  float* da_part = ddt_part + NR * bsh;
-  const dim3 grid(NR, H, B);
-  ssd_bwd_kernel<N, T><<<grid, L::THREADS, L::SMEM_BYTES, stream>>>(
-      (const T*)x, (const T*)Bv, (const T*)Cv, (const float*)dt,
-      (const float*)a, (const float*)ckpt, (const float*)dy,
-      (const float*)dh_last, (T*)dx, db_part, dc_part, ddt_part, da_part,
-      (float*)dh0, S, H, D);
+  const int nch = (int)((S + SCAN_T - 1) / SCAN_T);
+  const int hpc = (H + groups - 1) / groups;
+  float* dhe = (float*)part;
+  float* da_part = dhe + (int64_t)B * H * nch * D * N;
+  float* dbc_part = groups > 1 ? da_part + (int64_t)B * nch * H : nullptr;
+  ssd_bwd_dh_kernel<N, T>
+      <<<dim3(D / K1::ROWS, H, B), K1::THREADS, K1::SMEM_BYTES, stream>>>(
+          (const T*)Cv, (const float*)dt, (const float*)a, (const float*)dy,
+          (const float*)dh_last, dhe, (float*)dh0, S, H, D);
   e = cudaGetLastError();
-  // the second pass: dB and dC over the heads and row blocks, ddt over the
-  // row blocks, da over the row blocks and batch rows
-  if (e == cudaSuccess) e = scan_sum<T>(db_part, H * NR, bsn, bsn, (T*)dB,
-                                        stream);
-  if (e == cudaSuccess) e = scan_sum<T>(dc_part, H * NR, bsn, bsn, (T*)dC,
-                                        stream);
-  if (e == cudaSuccess) e = scan_sum<float>(ddt_part, NR, bsh, bsh,
-                                            (float*)ddt, stream);
-  if (e == cudaSuccess) e = scan_sum<float>(da_part, NR * B, H, H,
+  if (e != cudaSuccess) return (int)e;
+  ssd_bwd_chunk_kernel<N, T>
+      <<<dim3(nch, B, groups), K2::THREADS, K2::SMEM_BYTES, stream>>>(
+          (const T*)x, (const T*)Bv, (const T*)Cv, (const float*)dt,
+          (const float*)a, (const float*)ckpt, (const float*)dy, dhe,
+          (T*)dx, (T*)dB, (T*)dC, dbc_part, (float*)ddt, da_part, S, H, D,
+          hpc);
+  e = cudaGetLastError();
+  const int64_t bsn = (int64_t)B * S * N;
+  if (e == cudaSuccess && dbc_part) {
+    e = scan_sum<T>(dbc_part, groups, bsn, bsn, (T*)dB, stream);
+    if (e == cudaSuccess) {
+      e = scan_sum<T>(dbc_part + groups * bsn, groups, bsn, bsn, (T*)dC,
+                      stream);
+    }
+  }
+  // da over the batch rows and chunks
+  if (e == cudaSuccess) e = scan_sum<float>(da_part, B * nch, H, H,
                                             (float*)da, stream);
   return (int)e;
 }
@@ -397,24 +795,24 @@ static int dispatch_ssd_bwd(const void* x, const void* Bv, const void* Cv,
                             const void* dy, const void* dh_last, void* dx,
                             void* dB, void* dC, void* ddt, void* da,
                             void* dh0, void* part, int B, int64_t S, int H,
-                            int D, int n, cudaStream_t stream) {
+                            int D, int n, int groups, cudaStream_t stream) {
   switch (n) {
     case 16:
       return launch_ssd_bwd<16, T>(x, Bv, Cv, dt, a, ckpt, dy, dh_last, dx,
                                    dB, dC, ddt, da, dh0, part, B, S, H, D,
-                                   stream);
+                                   groups, stream);
     case 32:
       return launch_ssd_bwd<32, T>(x, Bv, Cv, dt, a, ckpt, dy, dh_last, dx,
                                    dB, dC, ddt, da, dh0, part, B, S, H, D,
-                                   stream);
+                                   groups, stream);
     case 64:
       return launch_ssd_bwd<64, T>(x, Bv, Cv, dt, a, ckpt, dy, dh_last, dx,
                                    dB, dC, ddt, da, dh0, part, B, S, H, D,
-                                   stream);
+                                   groups, stream);
     case 128:
       return launch_ssd_bwd<128, T>(x, Bv, Cv, dt, a, ckpt, dy, dh_last, dx,
                                     dB, dC, ddt, da, dh0, part, B, S, H, D,
-                                    stream);
+                                    groups, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -423,9 +821,11 @@ static int dispatch_ssd_bwd(const void* x, const void* Bv, const void* Cv,
 // x [B, S, H, D], Bv, Cv [B, S, n] (T), dt [B, S, H] and a [H] float32,
 // ckpt [B, H, ceil(S / 32), D, n] float32 (ssd_scan's), dy [B, S, H, D]
 // float32, dh_last [B, H, D, n] float32 or null for zeros → dx (T), dB,
-// dC (T), ddt float32, da [H] and dh0 [B, H, D, n] float32. Scratch: part,
-// float32, 2·H·NR·B·S·n + NR·B·S·H + NR·B·H elements (NR = D / 32 row
-// blocks, D / 16 at n = 128).
+// dC (T), ddt float32, da [H] and dh0 [B, H, D, n] float32. groups: the
+// chunk pass's head groups, ceil(H / ceil(H / groups)) == groups (ops.py's
+// ssd_bwd_groups picks them). Scratch: part, float32, B·H·nch·D·n (dh_end)
+// + B·nch·H (da's parts) + 2·groups·B·S·n (dB's and dC's parts, only where
+// groups > 1) elements, nch = ceil(S / 32).
 extern "C" int fw_ssd_scan_bwd(const void* x, const void* Bv, const void* Cv,
                                const void* dt, const void* a,
                                const void* ckpt, const void* dy,
@@ -433,13 +833,17 @@ extern "C" int fw_ssd_scan_bwd(const void* x, const void* Bv, const void* Cv,
                                void* dC, void* ddt, void* da, void* dh0,
                                void* part, int32_t B, int64_t S, int32_t H,
                                int32_t D, int32_t n, int32_t bf16,
-                               void* stream) {
+                               int32_t groups, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (D <= 0 || D % SCAN_COLS) return (int)cudaErrorInvalidValue;
+  // every group holds a head, as the scratch's layout assumes
+  if (groups < 1 || groups > H) return (int)cudaErrorInvalidValue;
+  const int hpc = (H + groups - 1) / groups;
+  if ((H + hpc - 1) / hpc != groups) return (int)cudaErrorInvalidValue;
   return bf16 ? dispatch_ssd_bwd<__nv_bfloat16>(
                     x, Bv, Cv, dt, a, ckpt, dy, dh_last, dx, dB, dC, ddt, da,
-                    dh0, part, B, S, H, D, n, (cudaStream_t)stream)
+                    dh0, part, B, S, H, D, n, groups, (cudaStream_t)stream)
               : dispatch_ssd_bwd<float>(
                     x, Bv, Cv, dt, a, ckpt, dy, dh_last, dx, dB, dC, ddt, da,
-                    dh0, part, B, S, H, D, n, (cudaStream_t)stream);
+                    dh0, part, B, S, H, D, n, groups, (cudaStream_t)stream);
 }

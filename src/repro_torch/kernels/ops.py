@@ -1492,10 +1492,31 @@ def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # value columns a CTA of the wkv6 backward owns (all of them but at D =
-# 128, whose 8 column CTAs a head sum their row parts in a second pass),
-# and state rows a CTA of the ssd backward owns, by state size
+# 128, whose 8 column CTAs a head sum their row parts in a second pass)
 WKV6_BWD_COLS = {32: 32, 64: 64, 128: 16}
-SSD_BWD_ROWS = {16: 32, 32: 32, 64: 32, 128: 16}
+
+
+def ssd_bwd_groups(B: int, nch: int, H: int) -> int:
+    """The head groups of ``ssd_scan_bwd``'s chunk pass: doubled while the
+    grid (chunks × batch rows × groups) has fewer than two CTAs for each of
+    the card's 132 SMs, then cut to the groups that hold a head. The
+    wrapper passes them to ``fw_ssd_scan_bwd``, which checks them and
+    lays out its scratch by them, as :func:`ssd_bwd_scratch` sizes it."""
+    groups = 1
+    while groups < H and B * nch * groups < 264:
+        groups *= 2
+    hpc = -(-H // groups)
+    return -(-H // hpc)
+
+
+def ssd_bwd_scratch(B: int, S: int, H: int, D: int, n: int) -> int:
+    """float32 elements of ``ssd_scan_bwd``'s scratch: the chunk-end
+    gradients ``[B, H, ⌈S/32⌉, D, n]``, da's parts a (batch row, chunk)
+    and, with more than one head group, dB's and dC's parts a group."""
+    nch = -(-S // SCAN_T)
+    groups = ssd_bwd_groups(B, nch, H)
+    return (B * H * nch * D * n + B * nch * H
+            + (2 * groups * B * S * n if groups > 1 else 0))
 
 
 def wkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -1665,9 +1686,10 @@ def ssd_scan_bwd(x: torch.Tensor, Bv: torch.Tensor, Cv: torch.Tensor,
     from its inputs, ``dy`` (float32, ``x``'s shape) and ``dh_last``
     (float32, zeros when None), each in its input's dtype (``dh0``
     float32): the ``ssd_scan_bwd`` kernel for CUDA tensors
-    (``csrc/ssd_scan_bwd.cu``; one launch, its second pass included) on
-    the forward's chunk checkpoints ``ckpt`` (float32 ``[B, H, ⌈S/32⌉, D,
-    n]``, which :class:`_SsdScan`'s forward writes); the plain
+    (``csrc/ssd_scan_bwd.cu``: Mamba-2's chunked form on the tensor cores;
+    one launch, its passes included) on the forward's chunk checkpoints
+    ``ckpt`` (float32 ``[B, H, ⌈S/32⌉, D, n]``, which :class:`_SsdScan`'s
+    forward writes); the plain
     ``ref.ssd_scan_bwd_ref`` for CPU tensors or ``impl="torch"``, which
     recomputes its own and takes ``ckpt=None``."""
     name = "ssd_scan_bwd"
@@ -1699,13 +1721,13 @@ def ssd_scan_bwd(x: torch.Tensor, Bv: torch.Tensor, Cv: torch.Tensor,
         else:
             dh0.copy_(dh_last)
         return dx, dB, dC, ddt, da, dh0
-    nr = D // SSD_BWD_ROWS[n]
-    part = torch.empty(2 * H * nr * B * S * n + nr * B * S * H + nr * B * H,
-                       dtype=torch.float32, device=x.device)
+    part = torch.empty(ssd_bwd_scratch(B, S, H, D, n), dtype=torch.float32,
+                       device=x.device)
     _launch(name, x.device, x.data_ptr(), Bv.data_ptr(), Cv.data_ptr(),
             dt.data_ptr(), a.data_ptr(), ckpt.data_ptr(), dy.data_ptr(),
             None if dh_last is None else dh_last.data_ptr(), dx.data_ptr(),
             dB.data_ptr(), dC.data_ptr(), ddt.data_ptr(), da.data_ptr(),
             dh0.data_ptr(), part.data_ptr(), B, S, H, D, n,
-            int(x.dtype == torch.bfloat16))
+            int(x.dtype == torch.bfloat16),
+            ssd_bwd_groups(B, -(-S // SCAN_T), H))
     return dx, dB, dC, ddt, da, dh0

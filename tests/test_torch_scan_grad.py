@@ -23,7 +23,9 @@ blocks' gradients against the reference's, on the CPU.
 Marker ``cuda``: the ``wkv6_scan_bwd`` and ``ssd_scan_bwd`` kernels
 against their plain twins at every head dim and state size the forwards
 accept, S = 1, 33 and 4,097, B = 2, float32 (1e-5) and bf16 (1e-2 against
-the float32 twin on the same inputs), repeats byte-equal; the forwards'
+the float32 twin on the same inputs), repeats byte-equal, and the ssd
+backward's chunk-end state gradients (its scratch) against the twin's
+gradient of the state that starts the steps after each; the forwards'
 chunk checkpoints against the plain states, and their outputs byte-equal
 with and without them. JAX is imported inside the reference comparisons
 only.
@@ -308,6 +310,26 @@ def test_mamba2_grads_match_reference(blocks, S):
                convert._MAMBA_MATRICES, seed=S)
 
 
+@pytest.mark.parametrize("B,S,H,D,n", [(2, 4096, 64, 64, 64),
+                                         (1, 32768, 64, 64, 64),
+                                         (2, 33, 2, 64, 128),
+                                         (3, 1, 5, 32, 16)])
+def test_ssd_bwd_groups_and_scratch(B, S, H, D, n):
+    """The chunk pass's head groups fill the card (two CTAs for each of 132
+    SMs, or one group a head) and every group holds a head; at zamba2-1.2b's
+    heads (64 of 64, n = 64; training 2 × 4,096 and 1 × 32,768) the scratch
+    is at most the serial design's (2·H·NR·B·S·n + NR·B·S·H + NR·B·H
+    float32, NR = D / 32 row blocks), 537 MB at the training shape."""
+    nch = -(-S // 32)
+    groups = ops.ssd_bwd_groups(B, nch, H)
+    hpc = -(-H // groups)
+    assert 1 <= groups <= H and -(-H // hpc) == groups
+    assert B * nch * groups >= 264 or hpc == 1
+    if (H, D, n) == (64, 64, 64):
+        serial = 2 * H * 2 * B * S * n + 2 * B * S * H + 2 * B * H
+        assert ops.ssd_bwd_scratch(B, S, H, D, n) <= serial
+
+
 # --- on the card --------------------------------------------------------------
 
 
@@ -319,9 +341,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _cuda_scan_inputs(kernel, dev, B, S, H, D, n, dtype, seed):
+def _cuda_scan_inputs(kernel, dev, B, S, H, D, n, dtype, seed,
+                      strong=False):
     """A kernel's inputs on the card (r, k, v or x, B, C in ``dtype``; a
-    nonzero starting state) and float32 cotangents of its outputs."""
+    nonzero starting state) and float32 cotangents of its outputs.
+    ``strong`` (ssd): a = −16 and Δ = 8 over the first 16 steps of every
+    32, so that a chunk's sum of Δ·a reaches −2,048 (each burst step's
+    decay underflows to 0), then Δ ≈ 0.002."""
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def rn(*shape, scale=1.0):
@@ -337,16 +363,53 @@ def _cuda_scan_inputs(kernel, dev, B, S, H, D, n, dtype, seed):
         Bv, Cv = (rn(B, S, n).to(dtype) for _ in range(2))
         dt = torch.nn.functional.softplus(rn(B, S, H) - 2)
         a = -torch.linspace(1, 16, H, device=dev)
+        if strong:
+            burst = (torch.arange(S, device=dev) % 32 < 16)[None, :, None]
+            dt = torch.where(burst, 8.0, 0.002 * (1 + 0.1 * rn(B, S, H)))
+            a = torch.full((H,), -16.0, device=dev)
         args = [x, Bv, Cv, dt, a, rn(B, H, D, n, scale=0.5)]
         cot = [rn(B, S, H, D), rn(B, H, D, n)]
     return args, cot
 
 
-def _check_scan_bwd(kernel, dev, S, D, n, dtype):
+class _DevicePointer:
+    """``count`` float32 values at a device address, for ``torch.as_tensor``
+    (``__cuda_array_interface__``)."""
+
+    def __init__(self, ptr, count):
+        self.__cuda_array_interface__ = {"shape": (count,), "typestr": "<f4",
+                                         "data": (ptr, False), "version": 2}
+
+
+def _ssd_bwd_chunk_ends(args, cot, ckpt):
+    """One ``ssd_scan_bwd`` launch on the card and a copy of the chunk-end
+    state gradients it left in its scratch (the first B·H·⌈S/32⌉·D·n
+    floats, ``[B, H, ⌈S/32⌉, D, n]``), taken while the call holds it."""
+    ends = []
+    orig = ops._launch
+
+    def launch(name, device, *a):
+        orig(name, device, *a)
+        if name == "ssd_scan_bwd":
+            B, S, H, D, n = a[15:20]
+            shape = (B, H, -(-S // 32), D, n)
+            view = _DevicePointer(a[14], int(np.prod(shape)))
+            ends.append(torch.as_tensor(view, device=device).clone()
+                        .view(shape))
+
+    ops._launch = launch
+    try:
+        ops.ssd_scan_bwd(*args, *cot, ckpt=ckpt, impl="cuda")
+    finally:
+        ops._launch = orig
+    return ends[0]
+
+
+def _check_scan_bwd(kernel, dev, S, D, n, dtype, strong=False):
     dt = getattr(torch, dtype)
     H = 2
     args, cot = _cuda_scan_inputs(kernel, dev, 2, S, H, D, n, dt,
-                                  seed=S + D + n)
+                                  seed=S + D + n, strong=strong)
     bwd, fwd, checked = ((ops.wkv6_scan_bwd, ops._wkv6_kernel,
                           ops._wkv6_operands) if kernel == "wkv6" else
                          (ops.ssd_scan_bwd, ops._ssd_kernel,
@@ -366,6 +429,20 @@ def _check_scan_bwd(kernel, dev, S, D, n, dtype):
         assert torch.equal(a, b), f"gradient {i} differs run to run"
         assert bool(torch.isfinite(a).all()), i
         assert _rel(a, c) <= lim, (i, _rel(a, c))
+    if kernel == "ssd":
+        # the chunked route: the gradient of the state after each chunk,
+        # in its scratch, is dh_last for the last chunk and, for the three
+        # before it, the plain twin's dh0 of the steps that follow
+        ends = _ssd_bwd_chunk_ends(args, cot, ckpt)
+        nch = ends.shape[2]
+        assert torch.equal(ends[:, :, -1], cot[1])
+        for c in range(max(nch - 4, 0), nch - 1):
+            s0 = 32 * (c + 1)
+            tail = [t[:, s0:] for t in f32[:4]]
+            dh = bwd(*tail, f32[4], ckpt[:, :, c + 1], f32[6][:, s0:],
+                     f32[7], ckpt=None, impl="torch")[5]
+            assert _rel(ends[:, :, c], dh) <= lim, (c, _rel(ends[:, :, c],
+                                                            dh))
 
 
 @pytest.mark.cuda
@@ -382,6 +459,25 @@ def test_cuda_wkv6_bwd_matches_plain(cuda, D, S, dtype):
 @pytest.mark.parametrize("n", ops.SSD_STATES)
 def test_cuda_ssd_bwd_matches_plain(cuda, n, S, dtype):
     _check_scan_bwd("ssd", cuda, S, 64 if n > 16 else 32, n, dtype)
+
+
+# the chunked ssd backward's own cases: strong decays; n = 128 off the
+# chunk (3 chunks and a step); a grid with one head group (B · chunks ≥
+# 264: dB and dC written by the chunk pass, no partials)
+SSD_BWD_CASES = {"strong": dict(S=200, n=64, strong=True),
+                 "n128_off_chunk": dict(S=97, n=128),
+                 "one_head_group": dict(S=8448, n=16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(SSD_BWD_CASES))
+def test_cuda_ssd_bwd_chunked_cases(cuda, case, dtype):
+    c = SSD_BWD_CASES[case]
+    if case == "one_head_group":
+        assert ops.ssd_bwd_groups(2, -(-c["S"] // 32), 2) == 1
+    _check_scan_bwd("ssd", cuda, c["S"], 64 if c["n"] > 16 else 32, c["n"],
+                    dtype, strong=c.get("strong", False))
 
 
 @pytest.mark.cuda
