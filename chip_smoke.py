@@ -356,9 +356,11 @@ against its guarantee:
               76, ``ssd_scan_bwd`` 38, ``flash_attention`` 12 and
               ``flash_attention_bwd`` 6 on the tensor-core route), one more
               step traced (device busy, idle share, the scan kernels'
-              share, the top kernels), the step's gradients against the
-              plain path's (the scans with ``impl="torch"``,
-              ``attn_impl="torch"``: bf16 on the full model at 1 × 1,024,
+              share, the top kernels), and, on the initial weights before
+              those steps (a state no kernel under test produced), the
+              step's gradients against the plain path's (the scans with
+              ``impl="torch"``, ``attn_impl="torch"``: bf16 on the full
+              model at 1 × 1,024,
               every leaf within 5e-2 but the named leaves whose gradient is
               a sum that nearly cancels — rwkv's ``u``, zamba2's ``w_in_B``,
               ``w_in_C`` and block norm scale — which bf16 rounding in the
@@ -4889,12 +4891,13 @@ NEAR_CANCEL_F32_RATIO = 1.5
 # each backward kernel at its model's heads: H, D, n (0: no state size)
 SCAN_BWD = {"wkv6_scan_bwd": dict(arch="rwkv6-3b", H=40, D=64, n=0,
                                   source="wkv6_bwd.cu",
-                                  trace=("wkv6_bwd_kernel",)),
+                                  trace=("wkv6_bwd_dh_kernel",
+                                         "wkv6_bwd_chunk_kernel")),
             "ssd_scan_bwd": dict(arch="zamba2-1.2b", H=64, D=64, n=64,
                                  source="ssd_scan_bwd.cu",
                                  trace=("ssd_bwd_dh_kernel",
                                         "ssd_bwd_chunk_kernel"))}
-SCAN_BWD_GRADS = {"wkv6_scan_bwd": ("dr", "dk", "dv", "dw", "du", "dS0"),
+SCAN_BWD_GRADS = {"wkv6_scan_bwd": ("dr", "dk", "dv", "dlw", "du", "dS0"),
                   "ssd_scan_bwd": ("dx", "dB", "dC", "ddt", "da", "dh0")}
 SCAN_BWD_REL = {"float32": 1e-5, "bfloat16": 1e-2}
 # no TPU kernel: the reference differentiates its lax.scan through XLA
@@ -4907,10 +4910,10 @@ SCAN_BWD_FWD = {"wkv6_scan_bwd": "wkv6_scan", "ssd_scan_bwd": "ssd_scan"}
 
 
 def scan_bwd_sums(kernel: str, B: int, S: int) -> int:
-    """The second pass's launches (``scan_sum``) of one backward call at
-    its model's heads: wkv6 at D = 64 one (du); ssd one (da) and two more
-    (dB, dC) where its chunk pass has more than one head group, as at the
-    training shape."""
+    """The short passes' launches (``scan_sum``) of one backward call at
+    its model's heads: wkv6 one (du); ssd one (da) and two more (dB, dC)
+    where its chunk pass has more than one head group, as at the training
+    shape."""
     if kernel == "wkv6_scan_bwd":
         return 1
     from repro_torch.kernels import ops
@@ -4929,8 +4932,9 @@ def tensor_rel(a, b) -> float:
 def scan_bwd_inputs(kernel: str, B: int, S: int, dtype, dev, seed: int):
     """A backward kernel's operands at its model's heads: the forward's
     inputs (r, k, v or x, B, C in ``dtype``; realistic decays; a nonzero
-    starting state) and the cotangents of the output and the final state
-    (nonzero)."""
+    starting state), the cotangents of the output and the final state
+    (nonzero) and the backward's keywords (wkv6: ``log_w``, the log-decay
+    that w is exp of)."""
     import torch
     c = SCAN_BWD[kernel]
     H, D, n = c["H"], c["D"], c["n"]
@@ -4941,9 +4945,11 @@ def scan_bwd_inputs(kernel: str, B: int, S: int, dtype, dev, seed: int):
 
     if kernel == "wkv6_scan_bwd":
         r, k, v = (rn(B, S, H, D).to(dtype) for _ in range(3))
-        w = torch.exp(-torch.exp(rn(B, S, H, D) - 1))
-        args = [r, k, v, w, rn(H, D, scale=0.1), rn(B, H, D, D, scale=0.5)]
+        lw = -torch.exp(rn(B, S, H, D) - 1)
+        args = [r, k, v, torch.exp(lw), rn(H, D, scale=0.1),
+                rn(B, H, D, D, scale=0.5)]
         cots = [rn(B, S, H, D).to(dtype), rn(B, H, D, D, scale=0.1)]
+        return args, cots, {"log_w": lw}
     else:
         x = rn(B, S, H, D).to(dtype)
         Bv, Cv = (rn(B, S, n).to(dtype) for _ in range(2))
@@ -4951,22 +4957,27 @@ def scan_bwd_inputs(kernel: str, B: int, S: int, dtype, dev, seed: int):
         a = -torch.linspace(1, 16, H, device=dev)
         args = [x, Bv, Cv, dt, a, rn(B, H, D, n, scale=0.5)]
         cots = [rn(B, S, H, D), rn(B, H, D, n, scale=0.1)]
-    return args, cots
+    return args, cots, {}
 
 
 def scan_bwd_work(kernel: str, args, cots) -> tuple:
-    """``(bytes, serial operations, chunked products or None)`` the
-    backward needs at these shapes: each input read once (the forward's
-    inputs, its chunk checkpoints — float32 states, one a 32-step chunk —
-    and the two cotangents), each gradient written once (the five inputs'
-    in their dtypes, the starting state's in float32); the serial form's
-    14 float32 operations a state element and step (the state recomputed
-    from its checkpoint: 3; wkv6: G's update 3 and the products for dr,
-    dk, dv, dw 8; ssd: G 2, the products G·B, G·x, dy·h, G·h 8 and the
-    carried decay·G 1); for ssd, Mamba-2's chunked form's products (chunks
-    of 32, a causal triangle L(L + 1)/2: a head and chunk dYᵀ·C, B·dh_endᵀ,
-    X·dh_end and dY·h_start at 2·L·D·n each, dY·Xᵀ and (G ∘ E)ᵀ·dY at
-    2·tri·D, W2ᵀ·C and W2·B at 2·tri·n; C·Bᵀ once a chunk)."""
+    """``(bytes, serial operations, chunked products, float32 operations
+    beside them)`` the backward needs at these shapes: each input read
+    once (the forward's inputs, its chunk checkpoints — float32 states,
+    one a 32-step chunk — and the two cotangents), each gradient written
+    once (the five inputs' in their dtypes, the starting state's in
+    float32); the serial form's 14 float32 operations a state element and
+    step (the state recomputed from its checkpoint: 3; wkv6: G's update 3
+    and the products for dr, dk, dv, dlw 8; ssd: G 2, the products G·B,
+    G·x, dy·h, G·h 8 and the carried decay·G 1); the chunked forms'
+    tensor-core products, chunks of L = 32 (tri = L(L + 1)/2): ssd a head
+    and chunk dYᵀ·C, B·dh_endᵀ, X·dh_end and dY·h_start at 2·L·D·n each,
+    dY·Xᵀ and (G ∘ E)ᵀ·dY at 2·tri·D, W2ᵀ·C and W2·B at 2·tri·n, C·Bᵀ
+    once a chunk; wkv6 a head and chunk (R ∘ pre)ᵀ·dO, dO·S_cᵀ, V·G_eᵀ
+    and (K ∘ suf)·G_e at 2·L·D² each, dO·Vᵀ at 2·tri·D, Qᵀ·dO at
+    2·L(L − 1)/2·D, and the three 16 × 16 × D cross products R̂·K̂ᵀ, M·K̂,
+    Mᵀ·R̂; and wkv6's sub-chunks' pairs, formed on the SIMT units: 8
+    float32 operations a pair s < t of a 16-step sub-chunk and channel."""
     def nb(t):
         return t.numel() * t.element_size()
 
@@ -4976,13 +4987,18 @@ def scan_bwd_work(kernel: str, args, cots) -> tuple:
     ckpt = state * -(-S // 32)
     reads = sum(nb(t) for t in (*args, *cots)) + ckpt
     writes = sum(nb(t) for t in args[:5]) + state
-    chunked = None
+    L, nch = 32, -(-S // 32)
+    tri = L * (L + 1) // 2
     if kernel == "ssd_scan_bwd":
-        L, nch = 32, -(-S // 32)
-        tri = L * (L + 1) // 2
         chunked = B * nch * (H * (4 * 2 * L * D * cols + 2 * tri * 2 * D
                                   + 2 * tri * 2 * cols) + 2 * tri * cols)
-    return reads + writes, 14 * B * S * H * D * cols, chunked
+        simt = 0
+    else:
+        chunked = B * nch * H * (4 * 2 * L * D * D + 2 * tri * D
+                                 + 2 * (L * (L - 1) // 2) * D
+                                 + 3 * 2 * 16 * 16 * D)
+        simt = B * nch * H * 2 * (16 * 15 // 2) * D * 8
+    return reads + writes, 14 * B * S * H * D * cols, chunked, simt
 
 
 def scan_forward(kernel: str, args, checkpoints: bool) -> tuple:
@@ -5009,10 +5025,10 @@ def scan_bwd_gate(kernel: str, B: int, S: int, dtype: str, dev,
     from repro_torch.kernels import ops
     fn = getattr(ops, kernel)
     dt = getattr(torch, dtype)
-    args, cots = scan_bwd_inputs(kernel, B, S, dt, dev, seed)
+    args, cots, kw = scan_bwd_inputs(kernel, B, S, dt, dev, seed)
     ckpt = scan_forward(kernel, args, checkpoints=True)[2]
-    got = fn(*args, *cots, ckpt=ckpt, impl="cuda")
-    again = fn(*args, *cots, ckpt=ckpt, impl="cuda")
+    got = fn(*args, *cots, ckpt=ckpt, impl="cuda", **kw)
+    again = fn(*args, *cots, ckpt=ckpt, impl="cuda", **kw)
     sync()
     equal = all(torch.equal(a, b) for a, b in zip(got, again))
     del again, ckpt
@@ -5044,7 +5060,7 @@ def scan_fwd_bytes_equal(kernel: str, dev) -> None:
     chunk checkpoints, at the training shape in bf16: the same bytes."""
     import torch
     fwd = SCAN_BWD_FWD[kernel]
-    args, _ = scan_bwd_inputs(kernel, RTRAIN["batch"], RTRAIN["seq"],
+    args, _, _ = scan_bwd_inputs(kernel, RTRAIN["batch"], RTRAIN["seq"],
                               torch.bfloat16, dev, seed=11)
     plain = scan_forward(kernel, args, checkpoints=False)
     with_ckpt = scan_forward(kernel, args, checkpoints=True)
@@ -5081,10 +5097,11 @@ def scan_bwd_row(kernel: str, launches: int, err: float, dev) -> dict:
     """The backward kernel's ``kernels`` row: ms (events) and device ms (a
     trace: the kernels and their second passes) at the training shape, the
     same at 1 × 32,768, the bound from :func:`scan_bwd_work` at the
-    training shape (the bytes against the form the kernel runs: wkv6's
-    serial operations at the float32 rate, ssd's chunked products at the
-    TF32 tensor-core rate; the per-shape log lines also give the serial
-    form's operations at the float32 rate, ``serial_ops_ms``, for both),
+    training shape (the bytes against the chunked form both kernels run:
+    its products at the TF32 tensor-core rate or, for wkv6, its
+    sub-chunks' pair terms at the float32 rate, whichever takes longer;
+    the per-shape log lines also give the serial form's operations at the
+    float32 rate, ``serial_ops_ms``, for both),
     and the plain twin's ms at the training shape (B = 2, S = 4,096, one
     layer, float32); no PyTorch call computes it."""
     import torch
@@ -5093,11 +5110,12 @@ def scan_bwd_row(kernel: str, launches: int, err: float, dev) -> dict:
     out = {}
     for tag, B, S in (("train", RTRAIN["batch"], RTRAIN["seq"]),
                       ("long", 1, RTRAIN["long_seq"])):
-        args, cots = scan_bwd_inputs(kernel, B, S, torch.bfloat16, dev, 12)
+        args, cots, kw = scan_bwd_inputs(kernel, B, S, torch.bfloat16, dev,
+                                         12)
         ckpt = scan_forward(kernel, args, checkpoints=True)[2]
 
         def call():
-            return fn(*args, *cots, ckpt=ckpt, impl="cuda")
+            return fn(*args, *cots, ckpt=ckpt, impl="cuda", **kw)
 
         ms, reps = time_ms_auto(call)
         # device ms a launch of the kernels and their second pass
@@ -5114,7 +5132,7 @@ def scan_bwd_row(kernel: str, launches: int, err: float, dev) -> dict:
         traced = all(n for n, _ in mains.values()) and n_sum
         dev_ms = (sum(main_ms.values()) + sums * sum_ms if traced
                   else "not measured")
-        nbytes, flop, chunked = scan_bwd_work(kernel, args, cots)
+        nbytes, flop, chunked, simt = scan_bwd_work(kernel, args, cots)
         t_serial = flop / FP32_FLOP_PER_S * 1e3
         out[tag] = dict(ms=ms, reps=reps, device_ms=dev_ms,
                         kernel_device_ms=json.dumps(main_ms),
@@ -5123,17 +5141,17 @@ def scan_bwd_row(kernel: str, launches: int, err: float, dev) -> dict:
                         second_pass_device_ms=sum_ms, second_passes=sums,
                         traced_passes=n_sum, trace_complete=complete,
                         trace_attempts=attempts, bytes=nbytes, flop=flop,
-                        chunked_flop=chunked,
+                        chunked_flop=chunked, simt_flop=simt,
                         bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                        operations_ms=(t_serial if chunked is None else
-                                       chunked / TF32_FLOP_PER_S * 1e3),
+                        operations_ms=max(chunked / TF32_FLOP_PER_S,
+                                          simt / FP32_FLOP_PER_S) * 1e3,
                         serial_ops_ms=t_serial,
                         shape=list(args[0].shape))
         if tag == "train":
             f32 = [t.float() for t in args + cots]
             out[tag]["plain_ms"] = time_ms(
                 lambda: fn(*f32, ckpt=None, impl="torch"), reps=1, warmups=0)
-        del args, cots, ckpt
+        del args, cots, ckpt, kw
         free_device_memory()
     t = out["train"]
     bound = max(t["bytes_ms"], t["operations_ms"])
@@ -5175,8 +5193,8 @@ def plain_scans(cfg):
 def scan_tap(orig, taps: dict, keep):
     """The scan as it is, recording the inputs of its calls number
     ``keep`` (the layers, in the forward's order) and, through a hook, the
-    gradient of their output: ``taps[i] = [r, k, v, w, u, S0, do]`` (or
-    ssd's)."""
+    gradient of their output: ``taps[i] = ({"log_w": …} or {}, r, k, v,
+    w, u, S0, do)`` (or ssd's)."""
     calls = [0]
 
     def fn(*a, **kw):
@@ -5184,7 +5202,9 @@ def scan_tap(orig, taps: dict, keep):
         i = calls[0]
         calls[0] += 1
         if i in keep:
-            taps[i] = [t.detach() if t is not None else None for t in a[:6]]
+            extra = {k: v.detach() for k, v in kw.items() if k == "log_w"}
+            taps[i] = [extra] + [t.detach() if t is not None else None
+                                 for t in a[:6]]
             out[0].register_hook(lambda g: taps[i].append(g.detach()))
         return out
     return fn
@@ -5276,9 +5296,9 @@ def recurrent_grad_gates(params, cfg, dev) -> None:
                                                      False)[2].items()}
     t1 = time.perf_counter()
     bwd = getattr(ops, scan + "_bwd")
-    for layer, (*args, dout) in sorted(taps.items()):
+    for layer, (kw, *args, dout) in sorted(taps.items()):
         ckpt = scan_forward(scan + "_bwd", args, checkpoints=True)[2]
-        kern = bwd(*args, dout, ckpt=ckpt, impl="cuda")
+        kern = bwd(*args, dout, ckpt=ckpt, impl="cuda", **kw)
         twin = bwd(*(t if t is None else t.float() for t in args),
                    dout.float(), ckpt=None, impl="torch")
         errs = [tensor_rel(a, b) for a, b in zip(kern, twin)]
@@ -5369,9 +5389,10 @@ def phase_recurrent_train_arch(arch: str, dev) -> dict:
     """One recurrent architecture trained at full width and depth (bf16
     compute, float32 master weights, AdamW with weight decay 0.1,
     ``remat``, ``SyntheticTokens`` at ``RTRAIN``'s shape): the first
-    step's gradients byte-equal in two runs, 4 steps with their numbers
-    and launches, one more step traced, the gradient gates. Returns the
-    backward kernel's launches over the 4 steps."""
+    step's gradients byte-equal in two runs, the gradient gates on the
+    initial weights, 4 steps with their numbers and launches, one more
+    step traced. Returns the backward kernel's launches over the 4
+    steps."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.data import SyntheticTokens
@@ -5398,6 +5419,12 @@ def phase_recurrent_train_arch(arch: str, dev) -> dict:
         byte_equal=equal)
     assert equal, f"{arch}: the first step's gradients differ run to run"
     del g1, g2
+    # the gradient gates on these initial weights, a state that no kernel
+    # under test produced: trained through the backward under test, the
+    # state and the leaves that nearly cancel in it follow that kernel's
+    # last bits (ROADMAP.md Queue 3 item 10)
+    recurrent_grad_gates(state["params"], cfg, dev)
+    free_device_memory()
     opt = AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=100,
                       weight_decay=0.1)
     step = make_train_step(cfg, TrainStepConfig(opt=opt, remat=True))
@@ -5472,7 +5499,6 @@ def phase_recurrent_train_arch(arch: str, dev) -> dict:
                             not isinstance(scan_ms, str)
                             else "not measured"),
         port_kernels=json.dumps(by_kernel), top_kernels=json.dumps(top))
-    recurrent_grad_gates(state["params"], cfg, dev)
     del state
     log("25 arch_done", arch=arch, seconds=time.perf_counter() - t0,
         **free_device_memory())
@@ -5523,7 +5549,8 @@ PORT_KERNELS = ("fa_wgmma_kernel", "flash_attention_kernel",
                 "stitch_step_kernel", "spmv_ell_kernel",
                 "threefry_draw_kernel", "threefry_randint_kernel",
                 "threefry_split_kernel", "threefry_fold_in_kernel",
-                "wkv6_scan_kernel", "ssd_scan_kernel", "wkv6_bwd_kernel",
+                "wkv6_scan_kernel", "ssd_scan_kernel", "wkv6_bwd_dh_kernel",
+                "wkv6_bwd_chunk_kernel",
                 "ssd_bwd_dh_kernel", "ssd_bwd_chunk_kernel",
                 "scan_sum_kernel")
 

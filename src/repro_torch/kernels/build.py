@@ -82,7 +82,7 @@ SIGNATURES = {
     + [_c_void_p],
     "fw_ssd_scan": [_c_void_p] * 9 + [_c_int32, _c_int64] + [_c_int32] * 4
     + [_c_void_p],
-    "fw_wkv6_scan_bwd": [_c_void_p] * 16 + [_c_int32, _c_int64]
+    "fw_wkv6_scan_bwd": [_c_void_p] * 15 + [_c_int32, _c_int64]
     + [_c_int32] * 3 + [_c_void_p],
     "fw_ssd_scan_bwd": [_c_void_p] * 15 + [_c_int32, _c_int64]
     + [_c_int32] * 5 + [_c_void_p],

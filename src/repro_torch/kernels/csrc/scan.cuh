@@ -292,8 +292,8 @@ __device__ __forceinline__ void scan_zero(unsigned char* p, int bytes,
   }
 }
 
-// The tensor-core pieces of the chunked ssd kernels (ssd_scan.cu,
-// ssd_scan_bwd.cu).
+// The tensor-core pieces of the chunked kernels (ssd_scan.cu,
+// ssd_scan_bwd.cu, wkv6_bwd.cu).
 //
 // 3xTF32 on the tensor cores: x = big + small, big x rounded to TF32 (a
 // 10-bit mantissa) with two integer operations, small = x − big exactly;
@@ -387,4 +387,25 @@ __device__ __forceinline__ void ssd_mma3(SsdAcc& d, const SsdFrag<4>& a,
   if (!A_EXACT) ssd_mma(d.sb, a.small, b.big);
   if (!B_EXACT) ssd_mma(d.bs, a.big, b.small);
   ssd_mma(d.bb, a.big, b.big);
+}
+
+// The backward kernels' (ssd_scan_bwd.cu, wkv6_bwd.cu): an m16n8k8 product
+// into one accumulator, the small parts first (a tile whose chains
+// interleave with other tiles' needs no accumulator of each), and a pair
+// of neighbouring outputs stored at once.
+template <bool A_EXACT, bool B_EXACT>
+__device__ __forceinline__ void ssd_mma3_into(float (&d)[4],
+                                              const SsdFrag<4>& a,
+                                              const SsdFrag<2>& b) {
+  if (!A_EXACT) ssd_mma(d, a.small, b.big);
+  if (!B_EXACT) ssd_mma(d, a.big, b.small);
+  ssd_mma(d, a.big, b.big);
+}
+
+__device__ __forceinline__ void ssd_store2(float* p, float lo, float hi) {
+  *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+}
+__device__ __forceinline__ void ssd_store2(__nv_bfloat16* p, float lo,
+                                           float hi) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
 }

@@ -74,25 +74,6 @@
 // fragment loads; PERF.md has the split by stage.
 #include "scan.cuh"
 
-// an m16n8k8 product into one accumulator, the small parts first (a tile
-// whose chains interleave with other tiles' needs no accumulator of each)
-template <bool A_EXACT, bool B_EXACT>
-__device__ __forceinline__ void ssd_mma3_into(float (&d)[4],
-                                              const SsdFrag<4>& a,
-                                              const SsdFrag<2>& b) {
-  if (!A_EXACT) ssd_mma(d, a.small, b.big);
-  if (!B_EXACT) ssd_mma(d, a.big, b.small);
-  ssd_mma(d, a.big, b.big);
-}
-
-__device__ __forceinline__ void ssd_store2(float* p, float lo, float hi) {
-  *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
-}
-__device__ __forceinline__ void ssd_store2(__nv_bfloat16* p, float lo,
-                                           float hi) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
-}
-
 // ---------------------------------------------------------------------------
 // 1. the chunk-end gradients
 // ---------------------------------------------------------------------------

@@ -1433,32 +1433,53 @@ def _wkv6_kernel(r, k, v, w, u, S0, checkpoints: bool):
     return o, S_last, ckpt
 
 
+def _wkv6_log_decay(name: str, w: torch.Tensor,
+                    log_w: Optional[torch.Tensor]) -> torch.Tensor:
+    """The kernel route's log-decay operand: ``log_w`` as given (checked
+    against ``w``'s shape), or, where w's gradient is not wanted,
+    ``log(w)``. A call that wants w's gradient needs ``log_w``: the
+    backward kernel returns the gradient of log w, and w's own would be
+    that divided by w, which underflows to 0."""
+    if log_w is None:
+        if _grad_wanted(w):
+            raise ValueError(
+                f"{name}: w requires grad, so the kernel route needs log_w "
+                "(w = exp(log_w)); it returns the gradient of log_w and "
+                "never divides by w")
+        return torch.log(w.detach())
+    return _scan_operand(name, "log_w", log_w, tuple(w.shape),
+                         (torch.float32,))
+
+
 class _Wkv6Scan(torch.autograd.Function):
     """``wkv6_scan``'s kernel under autograd: the forward also writes the
     chunk checkpoints, saved with the inputs; the backward is the
-    ``wkv6_scan_bwd`` kernel (:func:`wkv6_scan_bwd`)."""
+    ``wkv6_scan_bwd`` kernel (:func:`wkv6_scan_bwd`). The decay's gradient
+    goes to ``log_w`` (``w = exp(log_w)``), none to ``w``."""
 
     @staticmethod
-    def forward(ctx, r, k, v, w, u, S0):
+    def forward(ctx, r, k, v, w, u, S0, log_w):
         args = _wkv6_operands("wkv6_scan", r, k, v, w, u, S0)
         o, S_last, ckpt = _wkv6_kernel(*args, checkpoints=True)
-        ctx.save_for_backward(*args, ckpt)
+        ctx.save_for_backward(*args, ckpt, log_w)
         ctx.set_materialize_grads(False)
         return o, S_last
 
     @staticmethod
     def backward(ctx, do, dS_last):
-        r, k, v, w, u, S0, ckpt = ctx.saved_tensors
+        r, k, v, w, u, S0, ckpt, log_w = ctx.saved_tensors
         if do is None:
             do = torch.zeros_like(r)
-        *grads, dS0 = wkv6_scan_bwd(r, k, v, w, u, S0, do, dS_last,
-                                    ckpt=ckpt, impl="cuda")
-        return (*grads, None if S0 is None else dS0)
+        dr, dk, dv, dlw, du, dS0 = wkv6_scan_bwd(
+            r, k, v, w, u, S0, do, dS_last, ckpt=ckpt, log_w=log_w,
+            impl="cuda")
+        return (dr, dk, dv, None, du, None if S0 is None else dS0, dlw)
 
 
 def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor,
-              S0: Optional[torch.Tensor] = None, impl: str = "auto"
+              S0: Optional[torch.Tensor] = None, impl: str = "auto", *,
+              log_w: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """RWKV-6's time recurrence over a whole sequence → (``o [B, S, H,
     D]`` in ``r``'s dtype, ``S_last [B, H, D, D]`` float32): per (batch,
@@ -1467,15 +1488,18 @@ def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``v`` ``[B, S, H, D]`` float32 or bfloat16 (one dtype; the kernel
     widens them in registers, as the reference's cast does), ``w`` the
     float32 decay, ``u [H, D]``, ``S0 [B, H, D, D]`` float32 (key row,
-    value column) or None for zeros. The kernel writes a new ``S_last``
-    and leaves ``S0`` as it was. A decode step is the same call at S =
-    1. With grad mode on and an input requiring grad, the kernel runs
-    under an autograd Function whose backward is the ``wkv6_scan_bwd``
-    kernel; on the plain route autograd runs through the reference's
-    loop under ``chunked_scan``."""
+    value column) or None for zeros, ``log_w`` the float32 log-decay that
+    ``w`` is ``exp`` of (the model passes both). The kernel writes a new
+    ``S_last`` and leaves ``S0`` as it was. A decode step is the same call
+    at S = 1. With grad mode on and an input requiring grad, the kernel
+    runs under an autograd Function whose backward is the
+    ``wkv6_scan_bwd`` kernel: the decay's gradient goes to ``log_w``, and
+    a call whose ``w`` requires grad without ``log_w`` raises. On the
+    plain route autograd runs through the reference's loop under
+    ``chunked_scan``, and through ``w``."""
     name = "wkv6_scan"
     use = _use_kernel(name, impl, r, k, v, w, u,
-                      *(() if S0 is None else (S0,)))
+                      *(t for t in (S0, log_w) if t is not None))
     if r.dim() != 4:
         raise ValueError(f"{name}: r must be [B, S, H, D], got "
                          f"{list(r.shape)}")
@@ -1485,15 +1509,19 @@ def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 raise ValueError(f"{name}: {arg} has shape {list(t.shape)},"
                                  f" wanted {list(r.shape)}")
         return kref.wkv6_scan_ref(r, k, v, w, u, S0)
-    if _grad_wanted(r, k, v, w, u, S0):
-        return _Wkv6Scan.apply(r, k, v, w, u, S0)
+    if _grad_wanted(r, k, v, w, u, S0, log_w):
+        return _Wkv6Scan.apply(r, k, v, w, u, S0,
+                               _wkv6_log_decay(name, w, log_w))
     return _wkv6_kernel(*_wkv6_operands(name, r, k, v, w, u, S0),
                         checkpoints=False)[:2]
 
 
-# value columns a CTA of the wkv6 backward owns (all of them but at D =
-# 128, whose 8 column CTAs a head sum their row parts in a second pass)
-WKV6_BWD_COLS = {32: 32, 64: 64, 128: 16}
+def wkv6_bwd_scratch(B: int, S: int, H: int, D: int) -> int:
+    """float32 elements of ``wkv6_scan_bwd``'s scratch: the chunk-end
+    gradients ``[B, H, ⌈S/32⌉, D, D]`` and du's parts a (batch row,
+    chunk) ``[B·⌈S/32⌉, H, D]``."""
+    nch = -(-S // SCAN_T)
+    return B * H * nch * D * D + B * nch * H * D
 
 
 def ssd_bwd_groups(B: int, nch: int, H: int) -> int:
@@ -1523,21 +1551,25 @@ def wkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   w: torch.Tensor, u: torch.Tensor,
                   S0: Optional[torch.Tensor], do: torch.Tensor,
                   dS_last: Optional[torch.Tensor] = None, *,
-                  ckpt: Optional[torch.Tensor], impl: str = "auto"
+                  ckpt: Optional[torch.Tensor],
+                  log_w: Optional[torch.Tensor] = None, impl: str = "auto"
                   ) -> Tuple[torch.Tensor, ...]:
-    """The gradients ``(dr, dk, dv, dw, du, dS0)`` of :func:`wkv6_scan`
+    """The gradients ``(dr, dk, dv, dlw, du, dS0)`` of :func:`wkv6_scan`
     from its inputs, the output's gradient ``do`` (``r``'s shape and
     dtype) and the final state's ``dS_last`` (float32, zeros when None),
-    each in its input's dtype (``dS0`` float32, also when ``S0`` is None):
-    the ``wkv6_scan_bwd`` kernel for CUDA tensors (``csrc/wkv6_bwd.cu``;
-    one launch, its second pass included), reading the forward's chunk
-    checkpoints ``ckpt`` (float32 ``[B, H, ⌈S/32⌉, D, D]``, which
-    :class:`_Wkv6Scan`'s forward writes); the plain
+    each in its input's dtype (``dlw``, the gradient of log w, and ``dS0``
+    float32, also when ``S0`` is None): the ``wkv6_scan_bwd`` kernel for
+    CUDA tensors (``csrc/wkv6_bwd.cu``: RWKV-6's chunked form on the
+    tensor cores; one launch, its passes included), reading the forward's
+    chunk checkpoints ``ckpt`` (float32 ``[B, H, ⌈S/32⌉, D, D]``, which
+    :class:`_Wkv6Scan`'s forward writes) and the log-decay ``log_w``
+    (float32, ``w = exp(log_w)``), both required; the plain
     ``ref.wkv6_scan_bwd_ref`` for CPU tensors or ``impl="torch"``, which
-    recomputes its own and takes ``ckpt=None``."""
+    recomputes its own states from ``w`` and takes ``ckpt=None``."""
     name = "wkv6_scan_bwd"
     use = _use_kernel(name, impl, r, k, v, w, u, do,
-                      *(t for t in (S0, dS_last, ckpt) if t is not None))
+                      *(t for t in (S0, dS_last, ckpt, log_w)
+                        if t is not None))
     if not use:
         return kref.wkv6_scan_bwd_ref(r, k, v, w, u, S0, do, dS_last)
     r, k, v, w, u, S0 = _wkv6_operands(name, r, k, v, w, u, S0)
@@ -1550,10 +1582,16 @@ def wkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if ckpt is None:
         raise ValueError(f"{name}: the kernel reads the forward's chunk "
                          "checkpoints; ckpt is None")
+    if log_w is None:
+        raise ValueError(f"{name}: the kernel reads the log-decay log_w "
+                         "(w = exp(log_w)) and returns its gradient; log_w "
+                         "is None")
     ckpt = _scan_operand(name, "ckpt", ckpt, (B, H, nch, D, D),
                          (torch.float32,))
+    log_w = _scan_operand(name, "log_w", log_w, (B, S, H, D),
+                          (torch.float32,))
     dr, dk, dv = (torch.empty_like(t) for t in (r, k, v))
-    dw = torch.empty_like(w)
+    dlw = torch.empty_like(log_w)
     du = torch.empty_like(u)
     dS0 = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
     if S == 0 or B == 0 or H == 0:
@@ -1562,20 +1600,16 @@ def wkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dS0.zero_()
         else:
             dS0.copy_(dS_last)
-        return dr, dk, dv, dw, du, dS0
-    nc = D // WKV6_BWD_COLS[D]
-    part = torch.empty((nc, 3, B, S, H, D), dtype=torch.float32,
-                       device=r.device) if nc > 1 else None
-    du_part = torch.empty((nc * B, H, D), dtype=torch.float32,
-                          device=r.device)
+        return dr, dk, dv, dlw, du, dS0
+    part = torch.empty(wkv6_bwd_scratch(B, S, H, D), dtype=torch.float32,
+                       device=r.device)
     _launch(name, r.device, r.data_ptr(), k.data_ptr(), v.data_ptr(),
-            w.data_ptr(), u.data_ptr(), ckpt.data_ptr(), do.data_ptr(),
+            log_w.data_ptr(), u.data_ptr(), ckpt.data_ptr(), do.data_ptr(),
             None if dS_last is None else dS_last.data_ptr(), dr.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
-            dS0.data_ptr(), None if part is None else part.data_ptr(),
-            du_part.data_ptr(), B, S, H, D,
+            dk.data_ptr(), dv.data_ptr(), dlw.data_ptr(), du.data_ptr(),
+            dS0.data_ptr(), part.data_ptr(), B, S, H, D,
             int(r.dtype == torch.bfloat16))
-    return dr, dk, dv, dw, du, dS0
+    return dr, dk, dv, dlw, du, dS0
 
 
 def _ssd_operands(name: str, x, Bv, Cv, dt, a, h0):

@@ -686,21 +686,24 @@ def wkv6_scan_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       w: torch.Tensor, u: torch.Tensor,
                       S0: Optional[torch.Tensor], do: torch.Tensor,
                       dS_last: Optional[torch.Tensor] = None):
-    """The gradients ``(dr, dk, dv, dw, du, dS0)`` of :func:`wkv6_scan_ref`
+    """The gradients ``(dr, dk, dv, dlw, du, dS0)`` of :func:`wkv6_scan_ref`
     from the output's gradient ``do [B, S, H, D]`` and the final state's
     ``dS_last [B, H, D, D]`` (zeros when None), each in its input's dtype
-    (``dS0`` float32), computed in float32 as ``csrc/wkv6_bwd.cu`` does:
-    per (batch, head), with ``G`` the gradient of the state after step t
+    (``dlw`` and ``dS0`` float32), computed in float32 step by step: per
+    (batch, head), with ``G`` the gradient of the state after step t
     (``dS_last`` after the last), walking the chunks from the last,
 
     * ``dr_t = S_{t−1}·do_t + u ∘ k_t · (do_t·v_t)``,
     * ``dk_t = G·v_t + u ∘ r_t · (do_t·v_t)``,
     * ``dv_t = Gᵀ·k_t + do_t · Σ_i r_t u k_t``,
-    * ``dw_t = Σ_j G ∘ S_{t−1}``, ``du = Σ_{b,t} r_t ∘ k_t · (do_t·v_t)``,
+    * ``dlw_t = w_t ∘ Σ_j G ∘ S_{t−1}`` (the gradient of ``log w_t``, a
+      product: ``w`` is never divided by), ``du = Σ_{b,t} r_t ∘ k_t ·
+      (do_t·v_t)``,
     * ``G ← diag(w_t)·G + r_t do_tᵀ``; ``dS0`` is the last ``G``.
 
     ``S_{t−1}`` is recomputed from the chunk's checkpoint, never by
-    dividing by ``w`` (which underflows to 0)."""
+    dividing by ``w`` (which underflows to 0). ``csrc/wkv6_bwd.cu``
+    computes the same gradients in RWKV-6's chunked form."""
     B, S, H, D = r.shape
     rf, kf, vf, wf, dof = (t.float() for t in (r, k, v, w, do))
     uh = u.float().reshape(H, D)
@@ -713,8 +716,8 @@ def wkv6_scan_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     G = (torch.zeros_like(st0) if dS_last is None
          else dS_last.float().clone())
-    dr, dk, dv, dw = (torch.zeros(B, S, H, D, dtype=torch.float32,
-                                  device=r.device) for _ in range(4))
+    dr, dk, dv, dlw = (torch.zeros(B, S, H, D, dtype=torch.float32,
+                                   device=r.device) for _ in range(4))
     du = torch.zeros(B, H, D, dtype=torch.float32, device=r.device)
     ckpts = _checkpoints(S, st0, step)
     for c in reversed(range(len(ckpts))):
@@ -729,10 +732,10 @@ def wkv6_scan_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 uh * kt * dov
             dk[:, t] = torch.einsum("bhij,bhj->bhi", G, vt) + uh * rt * dov
             dv[:, t] = torch.einsum("bhij,bhi->bhj", G, kt) + dot * bonus
-            dw[:, t] = (G * Sp).sum(-1)
+            dlw[:, t] = wt * (G * Sp).sum(-1)
             du += rt * kt * dov
             G = wt[..., None] * G + rt[..., None] * dot[..., None, :]
-    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dlw.to(w.dtype),
             du.sum(0).reshape(u.shape).to(u.dtype), G)
 
 

@@ -5,7 +5,8 @@ data-dependent decay (port of ``repro/models/rwkv6.py``).
   before it (``μ``-interpolation), the carry ``x_prev`` in the compute
   dtype; decode returns ``x[:, -1]``, the pre-mix input;
 * the data-dependent decay ``w_t = exp(−exp(w0 + tanh(x·A)·B))`` in
-  float32 from a LoRA run in the compute dtype;
+  float32 from a LoRA run in the compute dtype, passed to the scan with
+  its log (the scan kernel's backward returns the gradient of ``log w``);
 * per head the state ``S ∈ R^{D×D}``: ``S_t = diag(w_t)·S_{t−1} + k_t
   v_tᵀ`` with the readout ``o_t = r_tᵀ(S_{t−1} + diag(u)·k_t v_tᵀ)``, run
   by ``kernels.ops.wkv6_scan`` (the hand-written CUDA scan on the card,
@@ -88,14 +89,21 @@ def _shift(x: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
     return torch.cat([x_prev[:, None], x[:, :-1]], dim=1)
 
 
-def _decay(params: RWKVTimeMix, xw: torch.Tensor,
-           cfg: ModelConfig) -> torch.Tensor:
-    """``w_t ∈ (0, 1)``: ``exp(−exp(w0 + tanh(x·A)·B))``, the LoRA in the
-    compute dtype, the rest in float32."""
+def _log_decay(params: RWKVTimeMix, xw: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """``log w_t``: ``−exp(w0 + tanh(x·A)·B)``, the LoRA in the compute
+    dtype, the rest in float32."""
     a = torch.tanh(F.linear(xw, compute_weight(params, "w_lora_a", cfg)))
     lora = F.linear(a, compute_weight(params, "w_lora_b", cfg))
     raw = params.w0.float() + lora.float()
-    return torch.exp(-torch.exp(raw))
+    return -torch.exp(raw)
+
+
+def _decay(params: RWKVTimeMix, xw: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    """``w_t ∈ (0, 1)``: ``exp(−exp(w0 + tanh(x·A)·B))``, the reference's
+    operations (``exp`` of :func:`_log_decay`)."""
+    return torch.exp(_log_decay(params, xw, cfg))
 
 
 def _group_norm(x: torch.Tensor, scale: torch.Tensor, H: int,
@@ -133,11 +141,15 @@ def rwkv_time_mix(params: RWKVTimeMix, x: torch.Tensor, cfg: ModelConfig,
         r, k, v, g = (F.linear(mix(mu), compute_weight(params, wname, cfg))
                       for mu, wname in (("mu_r", "w_r"), ("mu_k", "w_k"),
                                         ("mu_v", "w_v"), ("mu_g", "w_g")))
-        w = _decay(params, mix("mu_w"), cfg)                    # float32
+        # float32; the scan kernel's backward takes the decay's gradient
+        # in log space (w underflows to 0), so it gets log w beside w
+        lw = _log_decay(params, mix("mu_w"), cfg)
+        w = torch.exp(lw)
         with record_function("rwkv.scan"):
             o, S_last = kops.wkv6_scan(
                 r.view(B, S, H, D), k.view(B, S, H, D), v.view(B, S, H, D),
-                w.view(B, S, H, D), params.u.float().view(H, D), S0)
+                w.view(B, S, H, D), params.u.float().view(H, D), S0,
+                log_w=lw.view(B, S, H, D))
         out = _group_norm(o.view(B, S, d), params.ln_scale, H, cfg.norm_eps)
         out = out * F.silu(g)
         out = F.linear(out, compute_weight(params, "w_o", cfg))

@@ -347,7 +347,9 @@ def test_cuda_forward_output_same_with_lse(cuda, dtype):
 def test_cuda_scans_raise_under_grad(cuda):
     """The scans carry autograd history on the card (their backward
     kernels): every input's gradient against autograd through the plain
-    loops, float32, within 1e-5; the ELL slab product still raises."""
+    loops, float32, within 1e-5 (wkv6's decay given as its log, as the
+    model gives it: the kernel route returns the gradient of log w); the
+    ELL slab product still raises."""
     B, S, H, D = 2, 70, 2, 64
     g = torch.Generator(device=cuda).manual_seed(0)
 
@@ -360,12 +362,17 @@ def test_cuda_scans_raise_under_grad(cuda):
         assert all(t.requires_grad for t in out)
         return torch.autograd.grad(out, ins, cots)
 
+    def wkv6_in_log_w(r, k, v, lw, u, S0, impl):
+        return ops.wkv6_scan(r, k, v, torch.exp(lw), u, S0, impl=impl,
+                             log_w=lw)
+
     wkv = [rn(B, S, H, D), rn(B, S, H, D), rn(B, S, H, D),
-           torch.sigmoid(rn(B, S, H, D)), rn(H, D), rn(B, H, D, D)]
+           torch.log(torch.sigmoid(rn(B, S, H, D))), rn(H, D),
+           rn(B, H, D, D)]
     ssd = [rn(B, S, H, D), rn(B, S, 16), rn(B, S, 16),
            torch.nn.functional.softplus(rn(B, S, H)),
            -torch.linspace(1, 4, H, device=cuda), rn(B, H, D, 16)]
-    for fn, inputs, last in ((ops.wkv6_scan, wkv, (B, H, D, D)),
+    for fn, inputs, last in ((wkv6_in_log_w, wkv, (B, H, D, D)),
                              (ops.ssd_scan, ssd, (B, H, D, 16))):
         cots = (rn(B, S, H, D), rn(*last))
         got = grads(fn, inputs, cots, "cuda")

@@ -8,12 +8,13 @@ blocks' gradients against the reference's, on the CPU.
   carries at the segment boundaries, and nothing inside a segment is
   saved for the backward (counted with ``saved_tensors_hooks``).
 * ``ref.wkv6_scan_bwd_ref`` and ``ref.ssd_scan_bwd_ref`` (the backward
-  kernels' algorithm: chunks of 32 steps, states recomputed from the
+  kernels' plain twins: chunks of 32 steps, states recomputed from the
   chunk checkpoints, the reverse recurrence) equal ``torch.autograd.grad``
   through the plain loops within 1e-5 relative Frobenius error, at S = 1,
   31, 32, 33 and 65, B = 2, from a nonzero state with a nonzero state
   gradient, and with strong decays (w = 0 at some steps; Δ·a below −87 at
-  some steps), every gradient finite.
+  some steps), every gradient finite; the wkv6 twin's decay gradient is
+  that of log w (the loop fed ``exp(log w)``).
 * ``rwkv_time_mix`` and ``mamba2_forward`` of the reduced rwkv6-3b and
   zamba2-1.2b: the gradient of every parameter and of x (cotangents on
   the output and the final state) against ``jax.vjp`` of the reference's
@@ -23,12 +24,16 @@ blocks' gradients against the reference's, on the CPU.
 Marker ``cuda``: the ``wkv6_scan_bwd`` and ``ssd_scan_bwd`` kernels
 against their plain twins at every head dim and state size the forwards
 accept, S = 1, 33 and 4,097, B = 2, float32 (1e-5) and bf16 (1e-2 against
-the float32 twin on the same inputs), repeats byte-equal, and the ssd
+the float32 twin on the same inputs), repeats byte-equal, and each
 backward's chunk-end state gradients (its scratch) against the twin's
-gradient of the state that starts the steps after each; the forwards'
-chunk checkpoints against the plain states, and their outputs byte-equal
-with and without them. JAX is imported inside the reference comparisons
-only.
+gradient of the state that starts the steps after each; each chunked
+backward's own cases (``WKV6_BWD_CASES``: strong decays with w = 0 on
+some channels, where dlw must be 0 exactly, D = 128 off the chunk, B = 1
+at S = 4,097; ``SSD_BWD_CASES``); the forwards' chunk checkpoints
+against the plain states, and their outputs byte-equal with and without
+them. JAX is imported inside the reference comparisons only. The CPU
+tests also hold the time mix's ``w`` to ``exp(−exp(raw))`` byte for byte
+and the wkv6 kernel route to its ``log_w`` contract.
 """
 import dataclasses
 
@@ -182,14 +187,23 @@ def _autograd(fn, inputs, seed):
     return cots, torch.autograd.grad((out, last), ins, cots)
 
 
+def _wkv6_in_log_w(r, k, v, lw, u, S0):
+    """``ref.wkv6_scan_ref`` with the decay given as its log (``w =
+    exp(log w)``, as the model forms it), so that autograd's gradient of
+    the fourth input is the gradient of log w."""
+    return kref.wkv6_scan_ref(r, k, v, torch.exp(lw), u, S0)
+
+
 @pytest.mark.parametrize("strong", [False, True])
 @pytest.mark.parametrize("S", [1, 31, 32, 33, 65])
 def test_wkv6_bwd_ref_matches_autograd(S, strong):
-    inputs = _wkv6_inputs(2, S, 3, 8, strong, seed=S)
-    (do, dS), want = _autograd(kref.wkv6_scan_ref, inputs, seed=S)
-    got = kref.wkv6_scan_bwd_ref(*inputs, do, dS)
+    r, k, v, w, u, S0 = _wkv6_inputs(2, S, 3, 8, strong, seed=S)
+    inputs = (r, k, v, torch.log(w), u, S0)   # log 0 = −inf: w = 0
+    (do, dS), want = _autograd(_wkv6_in_log_w, inputs, seed=S)
+    got = kref.wkv6_scan_bwd_ref(r, k, v, torch.exp(inputs[3]), u, S0, do,
+                                 dS)
     assert [g.shape for g in got] == [t.shape for t in inputs]
-    for name, g, w in zip(("dr", "dk", "dv", "dw", "du", "dS0"), got, want):
+    for name, g, w in zip(("dr", "dk", "dv", "dlw", "du", "dS0"), got, want):
         assert bool(torch.isfinite(g).all()), name
         assert _rel(g, w) <= 1e-5, (name, _rel(g, w))
 
@@ -222,6 +236,56 @@ def test_bwd_refs_without_state():
     want = kref.ssd_scan_bwd_ref(x, Bv, Cv, dt, a, torch.zeros(1, 2, 4, 4),
                                  dy, torch.zeros(1, 2, 4, 4))
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_decay_is_exp_of_log_decay():
+    """The time mix forms ``log w = −exp(raw)`` and ``w = exp(log w)``: the
+    same two torch operations as ``exp(−exp(raw))``, so w keeps its
+    bytes."""
+    from repro_torch.configs.registry import get_config, reduced_config
+    cfg = reduced_config(get_config("rwkv6-3b"))
+    params = trwkv.RWKVTimeMix(cfg, torch.device("cpu"),
+                               torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        params.w0.copy_(_rand(params.w0.shape, 5, 3.0))
+        xw = _rand((2, 7, cfg.d_model), 6)
+        lw = trwkv._log_decay(params, xw, cfg)
+        a = torch.tanh(torch.nn.functional.linear(
+            xw, trwkv.compute_weight(params, "w_lora_a", cfg)))
+        raw = params.w0.float() + torch.nn.functional.linear(
+            a, trwkv.compute_weight(params, "w_lora_b", cfg)).float()
+        w = trwkv._decay(params, xw, cfg)
+    assert lw.dtype == w.dtype == torch.float32
+    assert torch.equal(w, torch.exp(-torch.exp(raw)))
+    assert torch.equal(w, torch.exp(lw))
+
+
+def test_wkv6_kernel_route_needs_log_w(monkeypatch):
+    """On the kernel route (the CPU tensors routed to it, launches
+    recorded) a call whose w requires grad raises a ValueError naming
+    log_w; given log_w, the backward kernel launches and the decay's
+    gradient reaches log_w, none reaching w; called directly, the backward
+    refuses a missing log_w."""
+    monkeypatch.setattr(ops, "_use_kernel", lambda *a: True)
+    launched = []
+    monkeypatch.setattr(ops, "_launch",
+                        lambda name, dev, *a: launched.append(name))
+    B, S, H, D = 1, 40, 2, 32
+    r, k, v, u = (_rand(shape, i) for i, shape in enumerate(
+        ((B, S, H, D),) * 3 + ((H, D),)))
+    raw = _rand((B, S, H, D), 9).requires_grad_()
+    lw = -torch.exp(raw)
+    w = torch.exp(lw)
+    with pytest.raises(ValueError, match="log_w"):
+        ops.wkv6_scan(r, k, v, w, u)
+    assert launched == []
+    o, _ = ops.wkv6_scan(r, k, v, w, u, log_w=lw)
+    (graw,) = torch.autograd.grad(o.sum(), raw)
+    assert graw.shape == raw.shape
+    assert launched == ["wkv6_scan", "wkv6_scan_bwd"]
+    with pytest.raises(ValueError, match="log_w"):
+        ops.wkv6_scan_bwd(r, k, v, w.detach(), u, None, torch.zeros_like(r),
+                          ckpt=torch.zeros(B, H, 2, D, D), impl="cuda")
 
 
 # --- the blocks against jax.vjp of the reference's ---------------------------
@@ -344,10 +408,13 @@ def cuda():
 def _cuda_scan_inputs(kernel, dev, B, S, H, D, n, dtype, seed,
                       strong=False):
     """A kernel's inputs on the card (r, k, v or x, B, C in ``dtype``; a
-    nonzero starting state) and float32 cotangents of its outputs.
-    ``strong`` (ssd): a = −16 and Δ = 8 over the first 16 steps of every
-    32, so that a chunk's sum of Δ·a reaches −2,048 (each burst step's
-    decay underflows to 0), then Δ ≈ 0.002."""
+    nonzero starting state), float32 cotangents of its outputs and the
+    backward's keywords (wkv6: ``log_w``, w = exp(log w)). ``strong``
+    (ssd): a = −16 and Δ = 8 over the first 16 steps of every 32, so that
+    a chunk's sum of Δ·a reaches −2,048 (each burst step's decay
+    underflows to 0), then Δ ≈ 0.002; (wkv6) log w = −exp(raw) with raw =
+    7.6 (log w ≈ −2,000) on the even key channels at every chunk's step
+    3 and raw = 5 (w = 0 in float32) on channels 1 mod 4 at its step 20."""
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def rn(*shape, scale=1.0):
@@ -355,9 +422,16 @@ def _cuda_scan_inputs(kernel, dev, B, S, H, D, n, dtype, seed,
 
     if kernel == "wkv6":
         r, k, v = (rn(B, S, H, D).to(dtype) for _ in range(3))
-        w = torch.exp(-torch.exp(rn(B, S, H, D) - 1))
-        args = [r, k, v, w, rn(H, D), rn(B, H, D, D, scale=0.5)]
+        raw = rn(B, S, H, D) - 1
+        if strong:
+            t = torch.arange(S, device=dev)[None, :, None, None] % 32
+            ch = torch.arange(D, device=dev)
+            raw = torch.where((t == 3) & (ch % 2 == 0), 7.6, raw)
+            raw = torch.where((t == 20) & (ch % 4 == 1), 5.0, raw)
+        lw = -torch.exp(raw)
+        args = [r, k, v, torch.exp(lw), rn(H, D), rn(B, H, D, D, scale=0.5)]
         cot = [rn(B, S, H, D).to(dtype), rn(B, H, D, D)]
+        return args, cot, {"log_w": lw}
     else:
         x = rn(B, S, H, D).to(dtype)
         Bv, Cv = (rn(B, S, n).to(dtype) for _ in range(2))
@@ -369,7 +443,7 @@ def _cuda_scan_inputs(kernel, dev, B, S, H, D, n, dtype, seed,
             a = torch.full((H,), -16.0, device=dev)
         args = [x, Bv, Cv, dt, a, rn(B, H, D, n, scale=0.5)]
         cot = [rn(B, S, H, D), rn(B, H, D, n)]
-    return args, cot
+    return args, cot, {}
 
 
 class _DevicePointer:
@@ -381,17 +455,20 @@ class _DevicePointer:
                                          "data": (ptr, False), "version": 2}
 
 
-def _ssd_bwd_chunk_ends(args, cot, ckpt):
-    """One ``ssd_scan_bwd`` launch on the card and a copy of the chunk-end
-    state gradients it left in its scratch (the first B·H·⌈S/32⌉·D·n
-    floats, ``[B, H, ⌈S/32⌉, D, n]``), taken while the call holds it."""
+def _bwd_chunk_ends(kernel, args, cot, ckpt, kw):
+    """One backward launch on the card and a copy of the chunk-end state
+    gradients it left in its scratch (the first B·H·⌈S/32⌉·D·n floats,
+    ``[B, H, ⌈S/32⌉, D, n]``, n = D for wkv6), taken while the call holds
+    it."""
     ends = []
     orig = ops._launch
+    name = f"{kernel}_scan_bwd"
 
-    def launch(name, device, *a):
-        orig(name, device, *a)
-        if name == "ssd_scan_bwd":
-            B, S, H, D, n = a[15:20]
+    def launch(nm, device, *a):
+        orig(nm, device, *a)
+        if nm == name:
+            B, S, H, D = a[15:19]
+            n = D if kernel == "wkv6" else a[19]
             shape = (B, H, -(-S // 32), D, n)
             view = _DevicePointer(a[14], int(np.prod(shape)))
             ends.append(torch.as_tensor(view, device=device).clone()
@@ -399,17 +476,17 @@ def _ssd_bwd_chunk_ends(args, cot, ckpt):
 
     ops._launch = launch
     try:
-        ops.ssd_scan_bwd(*args, *cot, ckpt=ckpt, impl="cuda")
+        getattr(ops, name)(*args, *cot, ckpt=ckpt, impl="cuda", **kw)
     finally:
         ops._launch = orig
     return ends[0]
 
 
-def _check_scan_bwd(kernel, dev, S, D, n, dtype, strong=False):
+def _check_scan_bwd(kernel, dev, S, D, n, dtype, strong=False, B=2):
     dt = getattr(torch, dtype)
     H = 2
-    args, cot = _cuda_scan_inputs(kernel, dev, 2, S, H, D, n, dt,
-                                  seed=S + D + n, strong=strong)
+    args, cot, kw = _cuda_scan_inputs(kernel, dev, B, S, H, D, n, dt,
+                                      seed=S + D + n, strong=strong)
     bwd, fwd, checked = ((ops.wkv6_scan_bwd, ops._wkv6_kernel,
                           ops._wkv6_operands) if kernel == "wkv6" else
                          (ops.ssd_scan_bwd, ops._ssd_kernel,
@@ -417,8 +494,8 @@ def _check_scan_bwd(kernel, dev, S, D, n, dtype, strong=False):
     ckpt = fwd(*checked(kernel, *args), checkpoints=True)[2]
     name = f"{kernel}_scan_bwd"
     before = ops.launch_counts()[name]
-    got = bwd(*args, *cot, ckpt=ckpt, impl="cuda")
-    again = bwd(*args, *cot, ckpt=ckpt, impl="cuda")
+    got = bwd(*args, *cot, ckpt=ckpt, impl="cuda", **kw)
+    again = bwd(*args, *cot, ckpt=ckpt, impl="cuda", **kw)
     torch.cuda.synchronize()
     assert ops.launch_counts()[name] == before + 2
     f32 = [t if t is None else t.float() for t in args + cot]
@@ -429,20 +506,25 @@ def _check_scan_bwd(kernel, dev, S, D, n, dtype, strong=False):
         assert torch.equal(a, b), f"gradient {i} differs run to run"
         assert bool(torch.isfinite(a).all()), i
         assert _rel(a, c) <= lim, (i, _rel(a, c))
-    if kernel == "ssd":
-        # the chunked route: the gradient of the state after each chunk,
-        # in its scratch, is dh_last for the last chunk and, for the three
-        # before it, the plain twin's dh0 of the steps that follow
-        ends = _ssd_bwd_chunk_ends(args, cot, ckpt)
-        nch = ends.shape[2]
-        assert torch.equal(ends[:, :, -1], cot[1])
-        for c in range(max(nch - 4, 0), nch - 1):
-            s0 = 32 * (c + 1)
-            tail = [t[:, s0:] for t in f32[:4]]
-            dh = bwd(*tail, f32[4], ckpt[:, :, c + 1], f32[6][:, s0:],
-                     f32[7], ckpt=None, impl="torch")[5]
-            assert _rel(ends[:, :, c], dh) <= lim, (c, _rel(ends[:, :, c],
-                                                            dh))
+    if kernel == "wkv6" and strong:
+        # where w underflowed, the gradient of log w (and of raw, dlw · log
+        # w) is 0, as the twin's w ∘ rowsum(G ∘ S) is: no residue
+        under = args[3] == 0
+        assert bool(under.any())
+        assert not bool(got[3][under].any()), got[3][under].abs().max()
+        assert not bool(want[3][under].any())
+    # the chunked route: the gradient of the state after each chunk, in
+    # its scratch, is the final state's for the last chunk and, for the
+    # three before it, the plain twin's dS0 / dh0 of the steps that follow
+    ends = _bwd_chunk_ends(kernel, args, cot, ckpt, kw)
+    nch = ends.shape[2]
+    assert torch.equal(ends[:, :, -1], cot[1])
+    for c in range(max(nch - 4, 0), nch - 1):
+        s0 = 32 * (c + 1)
+        tail = [t[:, s0:] for t in f32[:4]]
+        dh = bwd(*tail, f32[4], ckpt[:, :, c + 1], f32[6][:, s0:],
+                 f32[7], ckpt=None, impl="torch")[5]
+        assert _rel(ends[:, :, c], dh) <= lim, (c, _rel(ends[:, :, c], dh))
 
 
 @pytest.mark.cuda
@@ -459,6 +541,23 @@ def test_cuda_wkv6_bwd_matches_plain(cuda, D, S, dtype):
 @pytest.mark.parametrize("n", ops.SSD_STATES)
 def test_cuda_ssd_bwd_matches_plain(cuda, n, S, dtype):
     _check_scan_bwd("ssd", cuda, S, 64 if n > 16 else 32, n, dtype)
+
+
+# the chunked wkv6 backward's own cases: strong decays, w underflowing to
+# 0 on some channels; D = 128 (S_c and G_e in slices) off the chunk (3
+# chunks and a step); one batch row a chunk and a step past 4,096
+WKV6_BWD_CASES = {"strong": dict(S=200, D=64, strong=True),
+                  "d128_off_chunk": dict(S=97, D=128),
+                  "b1_long": dict(S=4097, D=64, B=1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(WKV6_BWD_CASES))
+def test_cuda_wkv6_bwd_chunked_cases(cuda, case, dtype):
+    c = WKV6_BWD_CASES[case]
+    _check_scan_bwd("wkv6", cuda, c["S"], c["D"], 0, dtype,
+                    strong=c.get("strong", False), B=c.get("B", 2))
 
 
 # the chunked ssd backward's own cases: strong decays; n = 128 off the
@@ -487,8 +586,8 @@ def test_cuda_forward_checkpoints(cuda, S):
     32-step chunk (1e-5), and the outputs written beside them are the
     no-grad call's bytes."""
     for kernel, D, n in (("wkv6", 64, 0), ("ssd", 64, 64)):
-        args, _ = _cuda_scan_inputs(kernel, cuda, 2, S, 3, D, n,
-                                    torch.float32, seed=S)
+        args, _, _ = _cuda_scan_inputs(kernel, cuda, 2, S, 3, D, n,
+                                       torch.float32, seed=S)
         fwd, ops_args = ((ops._wkv6_kernel, ops._wkv6_operands)
                          if kernel == "wkv6" else
                          (ops._ssd_kernel, ops._ssd_operands))
