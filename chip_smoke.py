@@ -374,12 +374,34 @@ against its guarantee:
               the training shape and at 1 × 32,768, the bound, the plain
               twin's ms at 2 × 4,096, no library call).
 
-Phases 14-16 run after phase 11 and before 12 and 13, which read them.
+26. engine  — (runs after phase 11) the distributed GAS engine
+              (``engine/gas.py``) at LiveJournal scale as 8 shards on
+              the card (``ShardMesh(8)``): the per-shard blocks built
+              with and without the streamed step's slabs (seconds,
+              bytes); ``FrogWildService.open(..., mesh=).pagerank(ε=0.1,
+              δ=0.1, k=100)`` (phase 4's plan) with ``step_impl="auto"``,
+              ``"stream"`` and ``"torch"`` byte-equal, 256 launches of
+              ``frog_step`` and of ``frog_step_stream_sorted`` with the
+              caller's bits, frogs conserved, no overflow, phase 4's
+              bound; p_s = 0.4 (the blocking draw) held to ε(…, p_s, p_∩
+              bound), its sync messages 0.25-0.55 of p_s = 1's, the wire
+              bytes beside GraphLab-PR's model; the ``"auto"`` run again
+              through a one-rank NCCL process group, byte-equal;
+              ``distributed_power_iteration`` within 1e-3 of phase 4's
+              COO iteration; on a 100,000-vertex graph the card's engine
+              byte-equal to the CPU's at p_s = 1 and 0.4; seconds and ms
+              a superstep of each run, the phase's total. Phase 12's
+              ``frog_step`` and ``frog_step_stream_sorted`` rows run at
+              the engine's first launch's operands.
+
+Phases 14-16 run after phase 26 and before 12 and 13, which read them.
+A ``[lap]`` line after each group of phases gives its seconds.
 Launch counts are reset just before phase 4 and read just after phase 5
 (slice 1's path), reset just before phase 7 and read just after the
 queries of phase 8 (the streamed and sharded paths), reset just before
 phase 9 and read just after phase 10's ELL power iteration (the erasure
-walks and the GraphLab-PR baseline), reset just before the 32k forward of
+walks and the GraphLab-PR baseline), in phase 26 reset just before each
+engine run and read just after it, reset just before the 32k forward of
 phase 14 and read just after it, reset just before phase 15's
 scheduler run and read just after it, in phase 17 reset just before
 the repair and each degraded service's queries and read just after each,
@@ -685,6 +707,19 @@ def phase_data(dev):
 def sync():
     import torch
     torch.cuda.synchronize()
+
+
+LAP = [0.0]
+
+
+def lap(upto: str) -> None:
+    """Logs the host seconds since the last lap (the card synchronized),
+    the phases run since it named by ``upto``: where the smoke's time
+    goes."""
+    sync()
+    now = time.perf_counter()
+    log("lap", upto=upto, seconds=now - LAP[0])
+    LAP[0] = now
 
 
 def phase_batch(svc, dev):
@@ -1961,12 +1996,270 @@ def phase_figure1(g, pi, ell, erasure_runs, t):
         bytes_ratio=fw.total / pr.total)
 
 
-def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
+# ---------------------------------------------------------------------------
+# phase 26: the distributed GAS engine, 8 shards on the card
+# ---------------------------------------------------------------------------
+
+# the engine's mesh: 8 shards (the service's ``ShardConfig.num_shards``),
+# the streamed step's slabs at the service's vertex block; the partial
+# sync's p_s; the reduced graph held against the CPU (phase 11's size)
+ENGINE = dict(shards=SHARDS, vertex_block=512, p_s=0.4, reduced_n=100_000,
+              reduced_frogs=100_000, reduced_t=8)
+ENGINE_STATS = ("sent_per_step", "open_channels_per_step",
+                "sync_msgs_per_step")
+
+
+def engine_equal(a, b) -> bool:
+    """Two engine results byte-equal: counts, π̂, the three per-step
+    statistics and the overflow."""
+    import numpy as np
+    import torch
+    return (torch.equal(a.counts.cpu(), b.counts.cpu())
+            and torch.equal(a.pi_hat.cpu(), b.pi_hat.cpu())
+            and all(np.array_equal(getattr(a, f), getattr(b, f))
+                    for f in ENGINE_STATS)
+            and a.overflow == b.overflow)
+
+
+def _cloned(x):
+    """``x`` with its tensors copied: a tensor, a tuple of them, or a
+    ``BlockedCSR`` (so a recorded operand keeps no engine graph alive)."""
+    import dataclasses
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        return tuple(_cloned(v) for v in x)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: _cloned(getattr(x, f.name))
+            for f in dataclasses.fields(x)
+            if isinstance(getattr(x, f.name), torch.Tensor)})
+    return x
+
+
+def first_operands(store: dict, name: str):
+    """A tap recording (cloned) the operands of the first call."""
+    import torch
+
+    def make(orig):
+        def fn(*a, **kw):
+            if name not in store:
+                store[name] = tuple(_cloned(x) for x in a)
+            return orig(*a, **kw)
+        return fn
+    return make
+
+
+def phase_engine(g, pi, dev) -> dict:
+    """The distributed GAS engine (``engine/gas.py``) at LiveJournal scale
+    as 8 shards on the card: the per-shard blocks built with and without
+    the streamed step's slabs; ``FrogWildService.open(..., mesh=)
+    .pagerank(ε=0.1, δ=0.1, k=100)`` (phase 4's plan, N = 400,000, t = 32)
+    with ``step_impl="auto"`` (one ``frog_step`` launch a shard and
+    superstep, the caller's bits), ``"stream"`` (one
+    ``frog_step_stream_sorted``) and ``"torch"`` (the plain step), byte
+    for byte the same, each conserving its frogs with no overflow and held
+    to phase 4's Theorem 1 bound; p_s = 0.4 (the blocking draw) held to
+    ε(…, p_s, p_∩ bound), its sync messages 0.25-0.55 of p_s = 1's, and
+    the wire bytes beside GraphLab-PR's model; the ``"auto"`` run again
+    through a one-rank NCCL process group, byte-equal; the GraphLab-PR
+    baseline (``distributed_power_iteration``) within 1e-3 of phase 4's
+    COO iteration; on a 100,000-vertex graph, the card against the CPU at
+    p_s = 1 and 0.4. Returns the launches of the two kernels and the first
+    call's operands of each, for phase 12's rows."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import (FrogWildService, KernelConfig, RuntimeConfig,
+                             ShardConfig)
+    from repro_torch.core import mass_captured, theory
+    from repro_torch.core.blocking import rejection_is_profitable
+    from repro_torch.distributed.runtime import ShardMesh
+    from repro_torch.engine import (build_distributed_graph,
+                                    distributed_power_iteration,
+                                    frogwild_bytes_measured,
+                                    pagerank_bytes_model)
+    from repro_torch.engine.baseline import build_pull_graph
+    from repro_torch.engine.gas import channel_capacity
+    from repro_torch.graph import chung_lu_powerlaw
+    from repro_torch.kernels import ops
+    from repro_torch.query.engine import plan_query
+    t_phase = time.perf_counter()
+    S, vb = ENGINE["shards"], ENGINE["vertex_block"]
+    for layout, kw in (("plain", {}), ("slabs", {"vertex_block": vb})):
+        sync()
+        t0 = time.perf_counter()
+        dgx = build_distributed_graph(g, S, **kw)
+        sync()
+        log("26 build", layout=layout, shards=S, shard_size=dgx.shard_size,
+            nnz_max=dgx.nnz_max, vertex_block=dgx.vertex_block,
+            e_blk=dgx.nnz_blk_max, seconds=time.perf_counter() - t0,
+            bytes=dgx.nbytes)
+        del dgx
+    eps, delta, k = 0.1, 0.1, 100
+    rc = RuntimeConfig(runtime=ShardConfig(num_shards=S, vertex_block=vb))
+    plan = plan_query(k, eps, delta, p_T=rc.p_T,
+                      max_steps=rc.serving.max_steps)
+    N, t = plan.num_walks, plan.num_steps
+    assert (N, t) == (400_000, 32), (N, t)
+    mu_opt = float(mass_captured(pi, pi, k))
+    p_cap = theory.p_cap_bound(g.n, t, float(pi.max()), rc.p_T)
+    eps_ps = theory.epsilon_bound(rc.p_T, t, k, delta, N, ENGINE["p_s"],
+                                  p_cap)
+    svc = FrogWildService.open(g, rc, mesh=ShardMesh(S, dev))
+    operands, runs = {}, {}
+
+    def run(name, cfg, service=svc, bound=plan.epsilon_bound, taps=()):
+        ops.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            for kernel in taps:
+                stack.enter_context(patched(ops, kernel, first_operands(
+                    operands, kernel)))
+            res = service.pagerank(epsilon=eps, delta=delta, k=k,
+                                   config=cfg)
+        sync()
+        secs = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        B = S * channel_capacity(dataclasses.replace(
+            cfg, num_frogs=N, num_steps=t).engine(), S)
+        mu_hat = float(mass_captured(res.pi_hat, pi, k))
+        ok = (int(res.counts.sum()) == N and res.overflow == 0
+              and bool(torch.isfinite(res.pi_hat).all())
+              and mu_hat >= mu_opt - bound)
+        draw = ("fused" if cfg.p_s >= 1.0 else
+                "rejection" if cfg.kernel.draw == "rejection" or (
+                    cfg.kernel.draw == "auto" and rejection_is_profitable(
+                        B, svc._dgraph(rc).nnz_max, cfg.p_s, S))
+                else "cumsum")
+        log("26 engine", run=name, N=N, t=t, p_s=cfg.p_s,
+            step_impl=cfg.kernel.step_impl, draw=draw, frogs_a_shard=B,
+            seconds=secs, ms_per_superstep=secs / t * 1e3,
+            conserved=int(res.counts.sum()) == N, overflow=res.overflow,
+            mu_hat=mu_hat, mu_opt=mu_opt, epsilon_bound=bound,
+            bound_vacuous=bound >= mu_opt, ok=ok,
+            frog_step=launches["frog_step"],
+            frog_step_stream_sorted=launches["frog_step_stream_sorted"],
+            sent=int(res.sent_per_step.sum()),
+            open_channels=int(res.open_channels_per_step.sum()),
+            sync_msgs=int(res.sync_msgs_per_step.sum()))
+        assert ok, f"engine run {name} fails conservation or its bound"
+        runs[name] = (res, secs, launches)
+        return res
+
+    auto = dataclasses.replace(rc, kernel=KernelConfig(step_impl="auto"))
+    run("auto_first", auto)                  # the service's blocks built
+    run("auto", auto, taps=("frog_step",))
+    run("stream", dataclasses.replace(
+        rc, kernel=KernelConfig(step_impl="stream")),
+        taps=("frog_step_stream_sorted",))
+    run("torch", dataclasses.replace(
+        rc, kernel=KernelConfig(step_impl="torch")))
+    partial = run("p_s", dataclasses.replace(auto, p_s=ENGINE["p_s"]),
+                  bound=eps_ps)
+    # every shard and superstep is one launch with the caller's bits
+    counts = {"frog_step": runs["auto"][2]["frog_step"],
+              "frog_step_stream_sorted":
+                  runs["stream"][2]["frog_step_stream_sorted"]}
+    assert counts == {"frog_step": S * t,
+                      "frog_step_stream_sorted": S * t}, counts
+    assert runs["auto"][2]["frog_step_stream_sorted"] == 0
+    assert runs["torch"][2]["frog_step"] == 0
+    full = runs["auto"][0]
+    equal = {name: engine_equal(runs[name][0], full)
+             for name in ("auto_first", "stream", "torch")}
+    log("26 byte_equal", **equal)
+    assert all(equal.values()), equal
+    ratio = (partial.sync_msgs_per_step.sum()
+             / full.sync_msgs_per_step.sum())
+    wire = {name: frogwild_bytes_measured(r.sent_per_step,
+                                          r.sync_msgs_per_step).total
+            for name, r in (("p_s_1", full), ("p_s", partial))}
+    pr = pagerank_bytes_model(g.n, 50, S).total
+    log("26 sync", p_s=ENGINE["p_s"], sync_ratio=float(ratio),
+        ok=0.25 < ratio < 0.55, frogwild_bytes_p_s_1=wire["p_s_1"],
+        frogwild_bytes_p_s=wire["p_s"], pagerank_50iter_bytes_model=pr,
+        bytes_ratio_p_s_1=wire["p_s_1"] / pr,
+        bytes_ratio_p_s=wire["p_s"] / pr)
+    assert 0.25 < ratio < 0.55, f"sync ratio {ratio} outside (0.25, 0.55)"
+    # the "auto" run again through a one-rank NCCL group: the exchange
+    # goes through NCCL's collectives
+    rendezvous = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    dist.init_process_group("nccl", init_method=f"file://{rendezvous}/rv",
+                            rank=0, world_size=1)
+    try:
+        nccl = FrogWildService.open(g, rc, mesh=ShardMesh(
+            S, dev, group=dist.group.WORLD))
+        run("nccl_auto", auto, service=nccl)
+        same = engine_equal(runs["nccl_auto"][0], full)
+        log("26 nccl", world=dist.get_world_size(),
+            backend=str(dist.get_backend()), byte_equal=same,
+            frog_step=runs["nccl_auto"][2]["frog_step"])
+        assert same, "the NCCL group's run differs from the mesh's"
+        nccl.close()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rendezvous, ignore_errors=True)
+    # GraphLab-PR on the mesh: an all-gather and a segment sum an iteration
+    sync()
+    t0 = time.perf_counter()
+    pg = build_pull_graph(g, S)
+    sync()
+    t_pg = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x = distributed_power_iteration(pg, svc._mesh, num_iters=50)
+    sync()
+    t_it = time.perf_counter() - t0
+    assert x.shape == (g.n,) and bool(torch.isfinite(x).all())
+    rel = float(((x - pi).abs() / pi).max())
+    log("26 baseline", iters=50, build_s=t_pg, bytes=pg.nbytes,
+        seconds=t_it, ms_per_iter=t_it / 50 * 1e3, max_rel_diff_coo=rel,
+        mu100=float(mass_captured(x, pi, 100)), ok=rel <= 1e-3)
+    assert rel <= 1e-3, "the mesh's power iteration strays from COO"
+    del pg, x
+    svc.close()
+    # the card against the CPU on a reduced graph
+    lj = livejournal()
+    gr = chung_lu_powerlaw(ENGINE["reduced_n"], avg_out_deg=lj.avg_out_deg,
+                           theta=lj.theta, seed=1)
+    for p_s in (1.0, ENGINE["p_s"]):
+        rcr = RuntimeConfig(num_frogs=ENGINE["reduced_frogs"],
+                            num_steps=ENGINE["reduced_t"], p_s=p_s,
+                            runtime=ShardConfig(num_shards=S))
+        t0 = time.perf_counter()
+        card = FrogWildService.open(gr, rcr, mesh=ShardMesh(S, dev)
+                                    ).pagerank(seed=0)
+        sync()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = FrogWildService.open(gr, rcr, mesh=ShardMesh(S, "cpu")
+                                   ).pagerank(seed=0)
+        t_cpu = time.perf_counter() - t0
+        same = engine_equal(card, cpu)
+        log("26 engine_cpu", n=gr.n, N=ENGINE["reduced_frogs"],
+            t=ENGINE["reduced_t"], p_s=p_s, card_s=t_card, cpu_s=t_cpu,
+            byte_equal=same, overflow=card.overflow)
+        assert same, f"p_s={p_s}: the card's engine differs from the CPU's"
+    secs = time.perf_counter() - t_phase
+    log("26 done", seconds=secs, within_60_s=secs <= 60.0,
+        peak_mem_bytes_so_far=torch.cuda.max_memory_allocated())
+    return {"launches": counts, "operands": operands}
+
+
+def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi,
+                engine_operands):
     """Each kernel at the main path's shapes: kernel vs plain (byte-equal),
     times and bounds. ``launches`` maps each kernel to its count on the
     path that runs it; ``blocked`` is the graph's slab layout, ``sharded``
-    the S = 8 index, ``ell`` the K = 32 ELL layout and ``pi`` a rank
-    vector to multiply."""
+    the S = 8 index, ``ell`` the K = 32 ELL layout, ``pi`` a rank vector
+    to multiply and ``engine_operands`` the first call's operands of
+    ``frog_step`` and ``frog_step_stream_sorted`` in phase 26's engine
+    (their path: one shard's frogs and block)."""
     import torch
     from repro_torch import prng
     from repro_torch.kernels import ops
@@ -2001,7 +2294,25 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
             bytes_bound_ms=bound_ms(nbytes), ops_bound_ms=by_ops)
         rows.append(r)
 
-    # frog_step at the batch superstep's shape (N = 400,000 frogs)
+    # frog_step with the caller's bits at its path's shape: the engine's
+    # first launch, one shard's 8 · cap frogs over its 605,947-row block
+    e_pos, e_die, e_bits, e_rp, e_col, e_deg, e_n = \
+        engine_operands["frog_step"][:7]
+    e_d = e_deg[e_pos.long()]
+    e_edge = (e_rp[e_pos.long()].long()
+              + torch.remainder(torch.abs(e_bits),
+                                torch.clamp_min(e_d, 1)).long())
+    nb = (16 * e_pos.numel() + 4 * e_n
+          + 32 * (2 * sectors(e_pos) + sectors(e_edge)))
+    row("frog_step", "src/repro_torch/kernels/csrc/frog_step.cu",
+        "src/repro/kernels/frog_step.py:84",
+        lambda: ops.frog_step(e_pos, e_die, e_bits, e_rp, e_col, e_deg, e_n,
+                              impl="cuda"),
+        lambda: kref.frog_step_ref(e_pos, e_die.to(torch.int32),
+                                   torch.abs(e_bits), e_rp, e_col, e_deg,
+                                   e_n), nb)
+    # and at the batch superstep's shape (N = 400,000 frogs over the whole
+    # graph), its row before the engine gave it a path
     key = prng.PRNGKey(3, dev)
     k1, k2, k3 = prng.split(key, 3)
     N = 400_000
@@ -2011,13 +2322,12 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
     d = g.out_deg[pos.long()]
     edge = (g.row_ptr[pos.long()].long()
             + torch.remainder(bits, torch.clamp_min(d, 1)).long())
-    nb = 16 * N + 4 * n + 32 * (2 * sectors(pos) + sectors(edge))
-    row("frog_step", "src/repro_torch/kernels/csrc/frog_step.cu",
-        "src/repro/kernels/frog_step.py:84",
-        lambda: ops.frog_step(pos, die, bits, g.row_ptr, g.col_idx,
-                              g.out_deg, n, impl="cuda"),
-        lambda: kref.frog_step_ref(pos, die, bits, g.row_ptr, g.col_idx,
-                                   g.out_deg, n), nb)
+    log("12 frog_step_batch_shape", frogs=N,
+        ms=time_ms(lambda: ops.frog_step(pos, die, bits, g.row_ptr,
+                                         g.col_idx, g.out_deg, n,
+                                         impl="cuda")),
+        bound_ms=bound_ms(16 * N + 4 * n
+                          + 32 * (2 * sectors(pos) + sectors(edge))))
 
     # one wave's walks after its prologue, for the stitch rounds and tally
     W, Q, R = sc.max_walks, sc.max_queries, index.segments_per_vertex
@@ -2297,14 +2607,31 @@ def kernel_rows(svc, index, hubs, launches, dev, blocked, sharded, ell, pi):
         torch.remainder(bits_s, torch.clamp_min(d, 1)).long()
     nb = (16 * N + 4 * num_vb * bv + 4 * (num_vb + 1)
           + 32 * (2 * sectors(pos_s) + sectors(cidx[d > 0])))
+    log("12 frog_step_stream_sorted_batch_shape", frogs=N,
+        ms=time_ms(lambda: ops.frog_step_stream_sorted(
+            pos_s, die_s, bits_s, seg_off, sched, blocked, impl="cuda")),
+        bound_ms=bound_ms(nb))
+    # at its path's shape: the engine's first streamed launch, one shard's
+    # frogs sorted over its block's slabs
+    (e_pos_s, e_die_s, e_bits_s, e_seg, e_sched,
+     e_blk) = engine_operands["frog_step_stream_sorted"][:6]
+    e_bv, e_nvb = e_blk.vertex_block, e_blk.num_blocks
+    e_vb = e_pos_s.long() // e_bv
+    e_local = e_pos_s.long() - e_vb * e_bv
+    e_d = e_blk.deg[e_vb, e_local]
+    e_cidx = e_vb * e_blk.e_blk + e_blk.row_off[e_vb, e_local].long() + \
+        torch.remainder(torch.abs(e_bits_s), torch.clamp_min(e_d, 1)).long()
+    nb = (16 * e_pos_s.numel() + 4 * e_nvb * e_bv + 4 * (e_nvb + 1)
+          + 32 * (2 * sectors(e_pos_s) + sectors(e_cidx[e_d > 0])))
     row("frog_step_stream_sorted",
         "src/repro_torch/kernels/csrc/frog_step_stream.cu",
         "src/repro/kernels/frog_step_stream.py:215",
-        lambda: ops.frog_step_stream_sorted(pos_s, die_s, bits_s, seg_off,
-                                            sched, blocked, impl="cuda"),
+        lambda: ops.frog_step_stream_sorted(e_pos_s, e_die_s, e_bits_s,
+                                            e_seg, e_sched, e_blk,
+                                            impl="cuda"),
         lambda: kref.frog_step_stream_sorted_ref(
-            pos_s, die_s, bits_s, seg_off, blocked.row_off, blocked.deg,
-            blocked.col), nb)
+            e_pos_s, e_die_s.to(torch.int32), torch.abs(e_bits_s), e_seg,
+            e_blk.row_off, e_blk.deg, e_blk.col), nb)
     # the whole streamed step (sort, kernel, unsort) at the index build's
     # shape of one build shard: R · n / build_shards frogs
     ms = time_ms(lambda: ops.frog_step(ipos, zeros, ibits, g.row_ptr,
@@ -3035,6 +3362,34 @@ def attention_launches(cfg) -> int:
     return cfg.num_layers
 
 
+# The logits gates (gate 1 and 1b, phase 21's plain forward) of phases
+# 21-23 run at a quarter of the depth, full width, on the first layers'
+# own weights: the plain attention at 32k (0.41-0.87 s a layer) and the
+# plain scans' loops are most of those phases, and phase 26 needs the time.
+# {arch: decoder layers, or (encoder, decoder) layers}
+GATE1_DEPTH = {"whisper-medium": (6, 6), "llava-next-mistral-7b": 8,
+               "rwkv6-3b": 8, "zamba2-1.2b": 12}
+
+
+def depth_cut(params, cfg, layers):
+    """``(params, cfg)`` of the model's first ``layers`` blocks (``(encoder,
+    decoder)`` for whisper), sharing the weights: the same embedding,
+    final norm, head and shared blocks, a shallower stack."""
+    import copy
+    import dataclasses
+    from torch import nn
+    cut = copy.copy(params)
+    cut._modules = dict(params._modules)
+    if cfg.family == "encdec":
+        enc, dec = layers
+        cut.enc_blocks = nn.ModuleList(list(params.enc_blocks)[:enc])
+        cut.dec_blocks = nn.ModuleList(list(params.dec_blocks)[:dec])
+        return cut, dataclasses.replace(cfg, encoder_layers=enc,
+                                        num_layers=dec)
+    cut.blocks = nn.ModuleList(list(params.blocks)[:layers])
+    return cut, dataclasses.replace(cfg, num_layers=layers)
+
+
 def prefix_len(cfg) -> int:
     """Positions before the text: the VLM's patch embeddings."""
     return cfg.num_prefix_embeddings if cfg.family == "vlm" else 0
@@ -3083,7 +3438,8 @@ def kv_padded_to_tile(orig):
 def phase_lm_prefill(cfg, dev, batch=LM_PREFILL["batch"],
                      seq=LM_PREFILL["seq"],
                      gate2_seq=LM_PREFILL["gate2_seq"], tag="14",
-                     path="lm_prefill", gate2_fault=late_keys_dropped):
+                     path="lm_prefill", gate2_fault=late_keys_dropped,
+                     gate1_layers=None):
     """``forward_train`` at full width and depth on :func:`lm_inputs` at
     ``[batch, seq]`` through the ``flash_attention`` kernel
     (:func:`attention_launches`), then gate 1 (bf16: relative Frobenius
@@ -3092,10 +3448,12 @@ def phase_lm_prefill(cfg, dev, batch=LM_PREFILL["batch"],
     attention inputs against its chunked output, ``ATTN_REL``) and gate 2
     (float32 at ``gate2_seq`` positions: max abs error ≤ 1e-3 · max
     |logits|, and each attention output within ``ATTN_REL``, which the
-    planted ``gate2_fault`` must fail). ``tag`` and ``path`` label its
-    lines. Returns the parameters, the inputs, the first forward's kernel
-    launches, its peak memory and those launches by ``(q shape, k shape,
-    causal)``."""
+    planted ``gate2_fault`` must fail). With ``gate1_layers`` (see
+    :func:`depth_cut`) gates 1 and 1b run on that shallower model, the
+    kernel's forward of it against its plain forward. ``tag`` and ``path``
+    label its lines. Returns the parameters, the inputs, the first
+    forward's kernel launches, its peak memory and those launches by ``(q
+    shape, k shape, causal)``."""
     import dataclasses
     import torch
     from repro_torch.kernels import ops
@@ -3174,22 +3532,29 @@ def phase_lm_prefill(cfg, dev, batch=LM_PREFILL["batch"],
             return out
         return fn
 
-    plain = dataclasses.replace(cfg, attn_impl="torch")
+    g1_params, g1_cfg = params, cfg
+    if gate1_layers is not None:
+        del logits
+        g1_params, g1_cfg = depth_cut(params, cfg, gate1_layers)
+        with torch.inference_mode():
+            logits, _ = forward_train(g1_params, inputs, g1_cfg)
+    plain = dataclasses.replace(g1_cfg, attn_impl="torch")
     ops.reset_launch_counts()
     sync()
     t0 = time.perf_counter()
     with patched(ops, "attention", check), torch.inference_mode():
-        logits_t, _ = forward_train(params, inputs, plain)
+        logits_t, _ = forward_train(g1_params, inputs, plain)
     sync()
     t_plain = time.perf_counter() - t0
     rel = rel_frobenius(logits, logits_t)
     log(f"{tag} lm_prefill_gate1", dtype=cfg.dtype,
+        layers=attention_launches(g1_cfg),
         plain_and_gate1b_wall_s=t_plain, rel_frobenius=rel, limit=5e-2,
         ok=rel <= 5e-2)
     assert rel <= 5e-2, "bf16 prefill logits stray from the plain path"
-    del logits, logits_t
+    del logits, logits_t, g1_params
     checked = ops.launch_counts()["flash_attention"]
-    assert checked == n_attn, checked
+    assert checked == attention_launches(g1_cfg), checked
     lim = ATTN_REL[cfg.dtype]
     log(f"{tag} lm_prefill_gate1b", dtype=cfg.dtype, launches=checked,
         max_rel_frobenius=worst[0], max_rel_frobenius_last_eighth=worst[1],
@@ -3980,7 +4345,8 @@ def scan_row(kernel: str, args, launches: int, err: float, tag: str
     ms, reps = time_ms_auto(lambda: fn(*args, impl="cuda"))
     short = scan_args(kernel, args, seq=RECURRENT["gate_seq"])
     ms_short, _ = time_ms_auto(lambda: fn(*short, impl="cuda"))
-    plain_ms = time_ms(lambda: fn(*short, impl="torch"), reps=1)
+    # the plain loop ran at this shape in the scan gates: no warm-up
+    plain_ms = time_ms(lambda: fn(*short, impl="torch"), reps=1, warmups=0)
     nbytes, serial, chunked = scan_work(kernel, args)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_serial = serial / FP32_FLOP_PER_S * 1e3
@@ -4082,22 +4448,25 @@ def phase_recurrent_arch(arch: str, dev) -> dict:
     scan_in, layer_in = list(seen["scan"]), seen["layer"][1]
     with torch.inference_mode():
         err = scan_gates(kernel, scan_in, "21")
-        # the bf16 forward against the plain path (scans and attention)
+        # the bf16 forward against the plain path (scans and attention),
+        # on the first GATE1_DEPTH layers
         short = {"tokens": toks[:, :RECURRENT["plain_seq"]]}
-        plain = dataclasses.replace(cfg, attn_impl="torch")
-        got, _ = forward_train(params, short, cfg)
+        g1_params, g1_cfg = depth_cut(params, cfg, GATE1_DEPTH[arch])
+        plain = dataclasses.replace(g1_cfg, attn_impl="torch")
+        got, _ = forward_train(g1_params, short, g1_cfg)
         sync()
         t1 = time.perf_counter()
         with patched(ops, kernel, lambda orig: functools.partial(
                 orig, impl="torch")):
-            want, _ = forward_train(params, short, plain)
+            want, _ = forward_train(g1_params, short, plain)
         sync()
         rel = rel_frobenius(got, want)
         log("21 prefill_gate", arch=arch, dtype=cfg.dtype,
-            seq=RECURRENT["plain_seq"], plain_wall_s=time.perf_counter() - t1,
+            seq=RECURRENT["plain_seq"], layers=g1_cfg.num_layers,
+            plain_wall_s=time.perf_counter() - t1,
             rel_frobenius=rel, limit=5e-2, ok=rel <= 5e-2)
         assert rel <= 5e-2, "bf16 logits stray from the plain path"
-        del got, want
+        del got, want, g1_params
         recurrent_carry(params, cfg, layer_fn, layer_in)
     state, cur = phase_lm_serve(params, cfg, dev, tag="21",
                                 path=f"{arch}_serve")
@@ -4313,7 +4682,7 @@ def phase_encdec(dev) -> list:
     cfg = get_config(ENCDEC_ARCH)
     params, inputs, _, _, by_shape = phase_lm_prefill(
         cfg, dev, tag="22", path="encdec_prefill",
-        gate2_fault=kv_padded_to_tile)
+        gate2_fault=kv_padded_to_tile, gate1_layers=GATE1_DEPTH[cfg.name])
     log_tree(cfg, params, "22")
     # each row's launches: the prefill's count at the row's shape
     B, S = LM_PREFILL["batch"], LM_PREFILL["seq"]
@@ -4362,7 +4731,8 @@ def phase_vlm(dev) -> list:
     t0 = time.perf_counter()
     cfg = get_config(VLM_ARCH)
     params, inputs, fa_launches, _, _ = phase_lm_prefill(
-        cfg, dev, tag="23", path="vlm_prefill")
+        cfg, dev, tag="23", path="vlm_prefill",
+        gate1_layers=GATE1_DEPTH[cfg.name])
     log_tree(cfg, params, "23")
     state, cur = phase_lm_serve(params, cfg, dev, tag="23",
                                 path="vlm_serve")
@@ -5744,11 +6114,12 @@ def main() -> int:
     from repro_torch import FrogWildService, RuntimeConfig
     from repro_torch.kernels import ops
 
-    t_all = time.perf_counter()
+    t_all = LAP[0] = time.perf_counter()
     name, smi = phase_device()
     dev = torch.device("cuda")
     phase_build()
     g = phase_data(dev)
+    lap("1-3")
     svc = FrogWildService.open(g, RuntimeConfig())
     # slice 1's path: batch estimate, walk index, serving
     ops.reset_launch_counts()
@@ -5773,6 +6144,7 @@ def main() -> int:
     assert launches["frog_segment_walk"] == sc.build_shards, launches
     assert launches["frog_hop"] == 0, launches
     phase_plain(svc, res, index, hubs, dev)
+    lap("4-6")
     # the streamed batch estimate and sharded serving
     ops.reset_launch_counts()
     stream_svc = phase_stream(g, res, pi, dev)
@@ -5796,11 +6168,14 @@ def main() -> int:
         ssc.build_shards * ssc.segment_len, launches2
     # the hops write no mask row: one mask pass a build shard
     assert launches2["frog_segment_masks"] == ssc.build_shards, launches2
+    lap("7-8")
     phase_lost_wave(sharded, hubs, dev)
     phase_faults(g, sharded, results, hubs, dev)
+    lap("17")
     log("17 peak", peak_mem_bytes_so_far=torch.cuda.max_memory_allocated())
     # dynamic graphs: mutations, refresh and the epoch commit
     dyn_launches = phase_dynamic(g, index, sharded, results, hubs, dev)
+    lap("18")
     log("18 peak", peak_mem_bytes_so_far=torch.cuda.max_memory_allocated())
     # the serving gateway over phase 5's graph
     t0 = time.perf_counter()
@@ -5836,49 +6211,67 @@ def main() -> int:
     for k in ops.DRAW_KERNELS:
         launches[k] += launches2[k] + launches3[k]
     phase_figure1(g, pi, ell, erasure_runs, t)
+    lap("19, 9-10")
     phase_erasure_cpu()
+    lap("11")
+    # the distributed engine: 8 shards on the card, its kernels' launches
+    # (the caller's bits) counted in its own runs
+    engine = phase_engine(g, pi, dev)
+    launches.update(engine["launches"])
+    lap("26")
     # the LM stack: llama3.2-1b's 32k prefill forward, its serving loop,
     # and the reduced model's tokens against the CPU's
     from repro_torch.configs.registry import get_config, reduced_config
     lm_cfg = get_config(LM_ARCH)
     params, inputs, fa_launches, lm_peak, _ = phase_lm_prefill(lm_cfg, dev)
+    lap("14")
     state, cur = phase_lm_serve(params, lm_cfg, dev)
     phase_lm_cpu(reduced_config(lm_cfg), dev)
+    lap("15-16")
     rows = kernel_rows(svc, index, hubs, launches, dev,
                        stream_svc.blocked_csr(),
-                       sharded["fused"].ensure_index(), ell, pi)
+                       sharded["fused"].ensure_index(), ell, pi,
+                       engine["operands"])
     rows.append(flash_attention_row(fa_launches, lm_cfg, dev))
+    lap("12")
     phase_profile(svc, stream_svc, sharded["loop"], erasure_svc, g)
     phase_lm_profile(params, lm_cfg, inputs, state, cur)
+    lap("13")
     for s in (svc, stream_svc, erasure_svc, *sharded.values()):
         s.close()
     # the MoE family, once the llama model and the FrogWild! tensors are
     # gone
     peak = max(peak, erasure_peak, lm_peak, torch.cuda.max_memory_allocated())
     del (params, inputs, state, cur, svc, stream_svc, erasure_svc, sharded,
-         index, res, pi, results, hubs, ell, erasure_runs, g, s)
+         index, res, pi, results, hubs, ell, erasure_runs, g, s, engine)
     log("20 released", **free_device_memory())
     torch.cuda.reset_peak_memory_stats()
     moe_peak = phase_moe(dev)
+    lap("20")
     # the recurrent families, once the MoE models are gone
     torch.cuda.reset_peak_memory_stats()
     rows.extend(phase_recurrent(dev))
+    lap("21")
     peak = max(peak, moe_peak, torch.cuda.max_memory_allocated())
     # the encoder-decoder and VLM families, once the recurrent models are
     # gone
     torch.cuda.reset_peak_memory_stats()
     rows.extend(phase_encdec(dev))
+    lap("22")
     peak = max(peak, torch.cuda.max_memory_allocated())
     torch.cuda.reset_peak_memory_stats()
     rows.extend(phase_vlm(dev))
+    lap("23")
     # training, once the VLM is gone
     peak = max(peak, torch.cuda.max_memory_allocated())
     torch.cuda.reset_peak_memory_stats()
     rows.extend(phase_training(dev))
+    lap("24")
     # the recurrent families' training, once llama is gone
     peak = max(peak, torch.cuda.max_memory_allocated())
     torch.cuda.reset_peak_memory_stats()
     rows.extend(phase_recurrent_training(dev))
+    lap("25")
     log("done", seconds=time.perf_counter() - t_all,
         peak_mem_bytes=max(peak, torch.cuda.max_memory_allocated()))
     print(smi, flush=True)

@@ -30,7 +30,7 @@ Fault-tolerance properties:
 
 The reference's elastic restore (a target mesh and spec tree placing each
 leaf with a new sharding) comes with the mesh, ``ROADMAP.md`` Queue 1
-item 8; here a restore places every leaf on one ``torch.device``.
+item 8d; here a restore places every leaf on one ``torch.device``.
 """
 from __future__ import annotations
 

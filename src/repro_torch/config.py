@@ -17,17 +17,21 @@ defaults, except the kernel flags, whose values name the port's backends:
 (p_s < 1), as in the reference: ``"auto"``, ``"rejection"`` or
 ``"cumsum"``.
 
-A field exists here once the port reads it: the reference's
-engine-placement fields arrive with the mesh (``ROADMAP.md`` Queue 1 item
-8) and ``donate_wave_buffers`` / ``aot_warmup`` with the captured wave
-programs (Queue 2 R2), so passing one today is a ``TypeError``, not a
-setting silently ignored. ``num_shards > 1`` serves a sharded walk index
-on the service's one device (``ServingConfig.sharded_dispatch``:
-``"fused"`` or ``"loop"``) and sets the channel erasure's destination
-shards. ``ServingConfig.checkpoint_dir`` persists and reloads the walk
-index, and ``RuntimeConfig.faults`` (a :class:`~repro_torch.distributed.
-faults.FaultPlan`) drives the wave supervisor's fault injection, whose
-timeout, retry and backoff fields ``ServingConfig`` holds.
+A field exists here once the port reads it: ``donate_wave_buffers`` /
+``aot_warmup`` arrive with the captured wave programs (Queue 2 R2), so
+passing one today is a ``TypeError``, not a setting silently ignored. The
+engine's placement fields (``ShardConfig.capacity_factor`` and
+``vertex_block``, :class:`EngineConfig`) came with the distributed engine
+(``ROADMAP.md`` Queue 1 item 8b). ``axis_name`` stays out: the port's
+mesh (:class:`~repro_torch.distributed.runtime.ShardMesh`) has one
+unnamed shard axis, so nothing would read it. ``num_shards > 1`` serves a
+sharded walk index on the service's one device
+(``ServingConfig.sharded_dispatch``: ``"fused"`` or ``"loop"``) and sets
+the channel erasure's destination shards. ``ServingConfig.checkpoint_dir``
+persists and reloads the walk index, and ``RuntimeConfig.faults`` (a
+:class:`~repro_torch.distributed.faults.FaultPlan`) drives the wave
+supervisor's fault injection, whose timeout, retry and backoff fields
+``ServingConfig`` holds.
 """
 from __future__ import annotations
 
@@ -79,11 +83,15 @@ class KernelConfig:
 @dataclasses.dataclass(frozen=True)
 class ShardConfig:
     """Placement: ``num_shards`` range shards of the walk index, served on
-    the service's one device (the mesh over several cards is ROADMAP.md
-    Queue 1 item 8), which are also the channel erasure's destination
-    shards, and the PRNG seed."""
+    the service's one device (serving over a mesh is ROADMAP.md Queue 1
+    item 8c), which are also the channel erasure's destination shards; the
+    engine's per-channel buffer slack ``capacity_factor`` and the slab
+    width ``vertex_block`` of its streamed step (Queue 1 item 8b); and the
+    PRNG seed."""
 
     num_shards: int = 1
+    capacity_factor: float = 4.0     # engine per-channel buffer slack (≥ 1)
+    vertex_block: Optional[int] = None
     seed: int = 0
 
     def __post_init__(self):
@@ -173,6 +181,14 @@ class RuntimeConfig:
             tally_impl=self.kernel.tally_impl,
         )
 
+    def engine(self) -> "EngineConfig":
+        return EngineConfig(
+            num_frogs=self.num_frogs, num_steps=self.num_steps,
+            p_T=self.p_T, p_s=self.p_s,
+            capacity_factor=self.runtime.capacity_factor,
+            draw=self.kernel.draw, step_impl=self.kernel.step_impl,
+        )
+
     def walk_index(self) -> "WalkIndexConfig":
         return WalkIndexConfig(
             segments_per_vertex=self.serving.segments_per_vertex,
@@ -201,6 +217,36 @@ class FrogWildConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Distributed-engine view (``engine/gas.py``); the shard count comes
+    from the mesh, not the config. ``step_impl`` runs the plain (p_s = 1)
+    superstep through ``ops.frog_step``: ``"auto"`` (the resident kernel on
+    the card, its plain version on the CPU), ``"cuda"`` or ``"stream"``
+    (needs the graph's slabs, ``build_distributed_graph(...,
+    vertex_block=)``); ``"torch"`` runs the reference's unfused ``"xla"``
+    program (a scatter tally, then the draw). At p_s < 1 the blocking draw
+    ``draw`` moves the frogs, so ``"cuda"`` and ``"stream"`` raise there
+    and ``"auto"`` / ``"torch"`` take the draw paths, as the erasure walks
+    of ``core/frogwild.py`` do."""
+
+    num_frogs: int = DEFAULT_NUM_FROGS
+    num_steps: int = DEFAULT_NUM_STEPS
+    p_T: float = DEFAULT_P_T
+    p_s: float = DEFAULT_P_S
+    capacity_factor: float = _SHARD.capacity_factor
+    draw: str = _KERNEL.draw
+    step_impl: str = _KERNEL.step_impl
+
+    def __post_init__(self):
+        if self.draw not in DRAWS:
+            raise ValueError(f"EngineConfig.draw must be one of {DRAWS}, "
+                             f"got {self.draw!r}")
+        if self.step_impl not in STEP_IMPLS:
+            raise ValueError(f"EngineConfig.step_impl must be one of "
+                             f"{STEP_IMPLS}, got {self.step_impl!r}")
+
+
+@dataclasses.dataclass(frozen=True)
 class WalkIndexConfig:
     """Index-build view (``query/index.py``)."""
 
@@ -217,5 +263,6 @@ __all__ = [
     "ServingConfig",
     "RuntimeConfig",
     "FrogWildConfig",
+    "EngineConfig",
     "WalkIndexConfig",
 ]

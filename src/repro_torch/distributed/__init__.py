@@ -1,4 +1,5 @@
-"""Shard execution: the host-loop runtime under sharded serving."""
-from repro_torch.distributed.runtime import ShardRuntime
+"""Shard execution: the mesh and its collectives (the engine's), and the
+host-loop runtime under sharded serving."""
+from repro_torch.distributed.runtime import ShardMesh, ShardRuntime
 
-__all__ = ["ShardRuntime"]
+__all__ = ["ShardMesh", "ShardRuntime"]

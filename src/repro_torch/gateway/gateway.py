@@ -53,7 +53,7 @@ gateway reacts to what it reports:
 The device is threaded from :meth:`Gateway.open` through the pool into
 every replica's ``FrogWildService.open``: ``device=None`` is the card
 (raising without one), ``device="cpu"`` the plain PyTorch path. A gateway
-over a mesh comes with ``ROADMAP.md`` Queue 1 item 8.
+over a mesh comes with ``ROADMAP.md`` Queue 1 item 8d.
 """
 from __future__ import annotations
 

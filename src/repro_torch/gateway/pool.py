@@ -56,7 +56,8 @@ open, :meth:`route` raises :class:`NoReplicaAvailable` — the gateway
 turns that into load shedding, never a hang.
 
 The pool runs on one device; a pool over a mesh comes with ``ROADMAP.md``
-Queue 1 item 8, as the port's ``FrogWildService.open`` has no ``mesh=``.
+Queue 1 item 8d (``FrogWildService.open(mesh=)`` runs only the batch
+estimate through the engine so far).
 """
 from __future__ import annotations
 

@@ -15,7 +15,7 @@ hand-written ``flash_attention`` kernel for CUDA tensors under ``"auto"``.
 Decode attention is the plain ``decode_attention_ref``, as in the
 reference. The projections read their weights through
 ``layers.compute_weight``, which keeps one compute-dtype copy of each. The reference's context-parallel ``cp_kv_attention`` and its
-split-KV decode need the mesh (``ROADMAP.md`` Queue 1 item 8).
+split-KV decode need the mesh (``ROADMAP.md`` Queue 1 item 8e).
 """
 from __future__ import annotations
 

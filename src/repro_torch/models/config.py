@@ -8,7 +8,7 @@ precomputed frame embeddings) and the ``"vlm"`` one (llava:
 ``num_prefix_embeddings`` precomputed patch embeddings before the text).
 Only the fields a ported path reads exist here: passing one of the
 reference's others is a ``TypeError``, not a setting silently ignored.
-Its ``ssm_state_sharding`` is a mesh knob (``ROADMAP.md`` Queue 1 item 8)
+Its ``ssm_state_sharding`` is a mesh knob (``ROADMAP.md`` Queue 1 item 8e)
 and its ``attn_bf16_probs`` a probability dtype of its ``cp_kv`` path;
 neither is a field.
 
@@ -104,7 +104,7 @@ class ModelConfig:
         if self.attn_impl == "cp_kv":
             raise NotImplementedError(
                 "attn_impl='cp_kv' needs the mesh, which is not ported to "
-                "repro_torch yet (ROADMAP.md Queue 1 item 8)")
+                "repro_torch yet (ROADMAP.md Queue 1 item 8e)")
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                              f"{self.attn_impl!r}")

@@ -48,7 +48,7 @@ which it builds in XLA around its step. Masks travel with the
 slab: :meth:`ShardedWalkIndex.reassemble`, :func:`shard_walk_index`
 (zero rows past ``n``), the savers and the loaders; an index from a
 pre-epoch checkpoint has ``None``. A repaired shard carries the masks its
-re-walk recorded. The ``shard_map`` build comes with the mesh (item 8).
+re-walk recorded. The ``shard_map`` build comes with the mesh (item 8c).
 """
 from __future__ import annotations
 

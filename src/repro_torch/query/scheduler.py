@@ -45,7 +45,7 @@ the same seed, on every dispatch.
   it includes the device's work). Retries that run out raise
   :class:`WaveFailedError` with nothing tallied (the reference's
   behaviour off a mesh; its mesh → host-loop failover comes with the mesh,
-  ``ROADMAP.md`` Queue 1 item 8);
+  ``ROADMAP.md`` Queue 1 item 8c);
 * a **permanent** shard fault evicts the shard: later waves drop the walks
   that need a gather from, or end in, its rows; scores renormalize by the
   walks that completed, and ``epsilon_bound`` widens to exactly the ε

@@ -22,7 +22,11 @@ With ``runtime.num_shards = S > 1`` the service serves the walk index as
 ``S`` range-partitioned blocks on its one device (a host-loop
 :class:`ShardRuntime`), through the fused or the per-shard loop wave
 (``serving.sharded_dispatch``); the batch estimate stays the single-device
-walk, as in the reference without a mesh. ``kernel.step_impl="stream"``
+walk, as in the reference without a mesh. A service opened with ``mesh=``
+(a :class:`~repro_torch.distributed.runtime.ShardMesh`) runs its batch
+estimate through the distributed engine (``engine/gas.py``, ``ROADMAP.md``
+Queue 1 item 8b) and returns its :class:`~repro_torch.engine.gas.
+EngineResult`; serving over a mesh is item 8c. ``kernel.step_impl="stream"``
 runs the batch walk and the index build through the streamed superstep,
 whose slab layout the service builds once and keeps.
 
@@ -46,9 +50,9 @@ queries admitted before it finish on their own epoch's scheduler, which
 :meth:`~FrogWildService.step` and :meth:`~FrogWildService.drain` keep
 driving until they settle, and new admissions land on the new epoch.
 
-``device=None`` means the CUDA card everywhere; without one these raise,
-and ``device="cpu"`` runs the plain PyTorch path. Mesh runs come with
-``ROADMAP.md`` Queue 1 item 8.
+``device=None`` means the CUDA card everywhere (a mesh's device where a
+mesh is given); without one these raise, and ``device="cpu"`` runs the
+plain PyTorch path.
 """
 from __future__ import annotations
 
@@ -61,13 +65,15 @@ import torch
 
 from repro_torch import prng
 from repro_torch.checkpoint import CheckpointCorruptError
-from repro_torch.config import (FrogWildConfig, KernelConfig, RuntimeConfig,
-                                ServingConfig, ShardConfig, WalkIndexConfig)
+from repro_torch.config import (EngineConfig, FrogWildConfig, KernelConfig,
+                                RuntimeConfig, ServingConfig, ShardConfig,
+                                WalkIndexConfig)
 from repro_torch.core.frogwild import (FrogWildResult, _frogwild_walks,
                                       compiled_estimate)
 from repro_torch.device import DeviceLike, on_device, resolve_device
 from repro_torch.distributed.faults import FaultInjector, WaveFailedError
-from repro_torch.distributed.runtime import ShardRuntime
+from repro_torch.distributed.runtime import ShardMesh, ShardRuntime
+from repro_torch.engine import gas as _gas
 from repro_torch.graph.csr import CSRGraph, load_graph
 from repro_torch.kernels.frog_step_stream import BlockedCSR, blocked_csr_of
 from repro_torch.query.engine import plan_query
@@ -100,13 +106,54 @@ def _key_on(key: Optional[torch.Tensor], seed: int,
     return prng.wrap_key_data(key, device)
 
 
-def batch_pagerank(graph: CSRGraph,
-                   config: Union[RuntimeConfig, FrogWildConfig], *,
+def _mesh_device(device: DeviceLike, mesh: Optional[ShardMesh]
+                 ) -> torch.device:
+    """``device``, or the mesh's where none is given; a mesh elsewhere
+    raises."""
+    if mesh is None:
+        return resolve_device(device)
+    if not isinstance(mesh, ShardMesh):
+        raise TypeError(f"mesh must be a ShardMesh, got "
+                        f"{type(mesh).__name__}")
+    if device is not None and resolve_device(device) != mesh.device:
+        raise ValueError(f"device {device} differs from the mesh's "
+                         f"{mesh.device}")
+    return mesh.device
+
+
+def batch_pagerank(graph: Union[CSRGraph, "_gas.DistributedGraph"],
+                   config: Union[RuntimeConfig, FrogWildConfig,
+                                 EngineConfig], *,
                    key: Optional[torch.Tensor] = None,
                    seed: Optional[int] = None,
-                   device: DeviceLike = None) -> FrogWildResult:
-    """One batch FrogWild run on ``device`` (default: the card) with
+                   device: DeviceLike = None,
+                   mesh: Optional[ShardMesh] = None):
+    """One batch FrogWild run: the single dispatch point under
+    :meth:`FrogWildService.pagerank` and the engine's deprecated
+    ``distributed_frogwild``.
+
+    A mesh (or a prebuilt :class:`~repro_torch.engine.gas.
+    DistributedGraph`) runs the distributed engine seeded by ``seed`` and
+    returns its :class:`~repro_torch.engine.gas.EngineResult`; otherwise
+    the walker estimator runs on ``device`` (default: the card) with
     ``key`` (or ``PRNGKey(seed)``, seed 0 by default)."""
+    if isinstance(graph, _gas.DistributedGraph) or mesh is not None:
+        if mesh is None:
+            raise ValueError("a DistributedGraph run needs mesh=")
+        _mesh_device(device, mesh)
+        if isinstance(config, RuntimeConfig):
+            rc, cfg = config, config.engine()
+        elif isinstance(config, EngineConfig):
+            rc, cfg = None, config
+        else:
+            raise TypeError(f"an engine run takes a RuntimeConfig or an "
+                            f"EngineConfig, got {type(config).__name__}")
+        if not isinstance(graph, _gas.DistributedGraph):
+            vb = rc.runtime.vertex_block if rc is not None else None
+            graph = _gas.build_distributed_graph(graph, mesh.num_shards,
+                                                 vertex_block=vb)
+        return _gas._distributed_frogwild(graph, cfg, mesh,
+                                          seed=0 if seed is None else seed)
     dev = resolve_device(device)
     cfg = config.frogwild() if isinstance(config, RuntimeConfig) else config
     return _frogwild_walks(graph.to(dev), cfg,
@@ -364,14 +411,19 @@ class FrogWildService:
 
     def __init__(self, graph: CSRGraph, config: RuntimeConfig,
                  device: torch.device,
-                 index: Union[WalkIndex, ShardedWalkIndex, None] = None):
+                 index: Union[WalkIndex, ShardedWalkIndex, None] = None,
+                 mesh: Optional[ShardMesh] = None):
         self.device = device
         self.graph = graph.to(device)
         self.config = config
         S = config.runtime.num_shards
         self.runtime = ShardRuntime.acquire(S) if S > 1 else None
+        self._mesh = mesh
         self._index = _on_device(index, device)
         self._blocked: Optional[BlockedCSR] = None
+        # the engine's per-shard blocks, cached per (S, vertex_block)
+        self._dg: Optional["_gas.DistributedGraph"] = None
+        self._dg_key = None
         self._scheduler: Optional[QueryScheduler] = None
         # retired epochs' schedulers, kept until their last pinned query
         # settles (commit_epoch, step)
@@ -387,12 +439,14 @@ class FrogWildService:
     def open(cls, graph_or_path: Union[CSRGraph, str, os.PathLike],
              config: Optional[RuntimeConfig] = None, *,
              device: DeviceLike = None,
-             index: Union[WalkIndex, ShardedWalkIndex, None] = None
-             ) -> "FrogWildService":
+             index: Union[WalkIndex, ShardedWalkIndex, None] = None,
+             mesh: Optional[ShardMesh] = None) -> "FrogWildService":
         """Opens a service over a graph (or a ``save_graph`` ``.npz`` path)
-        on ``device`` (default: the card; raises without one). ``index``
-        short-circuits the index build with a prebuilt slab."""
-        dev = resolve_device(device)
+        on ``device`` (default: the mesh's device, else the card; raises
+        without one). ``mesh`` routes batch runs through the distributed
+        engine; ``index`` short-circuits the index build with a prebuilt
+        slab."""
+        dev = _mesh_device(device, mesh)
         if config is None:
             config = RuntimeConfig()
         elif not isinstance(config, RuntimeConfig):
@@ -406,7 +460,7 @@ class FrogWildService:
             raise TypeError(
                 f"graph_or_path must be a CSRGraph or a path, got "
                 f"{type(graph_or_path).__name__}")
-        return cls(graph, config, dev, index=index)
+        return cls(graph, config, dev, index=index, mesh=mesh)
 
     @property
     def closed(self) -> bool:
@@ -428,6 +482,8 @@ class FrogWildService:
         self._scheduler = None
         self._index = None
         self._blocked = None
+        self._dg = None
+        self._dg_key = None
         self._closed = True
 
     def _check_open(self) -> None:
@@ -515,13 +571,17 @@ class FrogWildService:
     def pagerank(self, epsilon: Optional[float] = None, delta: float = 0.1,
                  k: int = 10, *, key: Optional[torch.Tensor] = None,
                  seed: Optional[int] = None,
-                 config: Optional[RuntimeConfig] = None) -> FrogWildResult:
+                 config: Optional[RuntimeConfig] = None):
         """One batch FrogWild estimate of the full PageRank vector.
 
         With ``epsilon`` given, Theorem 1 is inverted into ``(t, N)`` for a
         ``μ_k`` guarantee at confidence ``1 − delta`` (``t`` capped by
         ``serving.max_steps``); otherwise the config's ``num_frogs`` /
-        ``num_steps`` run as they are.
+        ``num_steps`` run as they are. A service opened with a mesh runs
+        the distributed engine (seeded by ``seed``, else
+        ``runtime.seed``) and returns its :class:`~repro_torch.engine.gas.
+        EngineResult`; otherwise the walker estimator's
+        :class:`FrogWildResult`.
         """
         self._check_open()
         rc = config if config is not None else self.config
@@ -530,12 +590,26 @@ class FrogWildService:
                               max_steps=rc.serving.max_steps)
             rc = dataclasses.replace(rc, num_frogs=plan.num_walks,
                                      num_steps=plan.num_steps)
+        if self._mesh is not None:
+            return batch_pagerank(
+                self._dgraph(rc), rc.engine(), mesh=self._mesh,
+                seed=rc.runtime.seed if seed is None else seed)
         key = _key_on(key, rc.runtime.seed if seed is None else seed,
                       self.device)
         cfg = rc.frogwild()
         blocked = self.blocked_csr() if cfg.step_impl == "stream" else None
         return compiled_estimate(
             _frogwild_walks(self.graph, cfg, key, blocked))
+
+    def _dgraph(self, rc: RuntimeConfig) -> "_gas.DistributedGraph":
+        """The engine's per-shard blocks of the graph on the service's
+        device, built at first use and kept per (S, vertex_block)."""
+        shape = (self._mesh.num_shards, rc.runtime.vertex_block)
+        if self._dg is None or self._dg_key != shape:
+            self._dg = _gas.build_distributed_graph(
+                self.graph, shape[0], vertex_block=shape[1])
+            self._dg_key = shape
+        return self._dg
 
     def blocked_csr(self) -> BlockedCSR:
         """The graph's slab layout for ``step_impl="stream"``, built on
@@ -701,6 +775,8 @@ class FrogWildService:
         self.graph = graph.to(self.device)
         self._index = _on_device(index, self.device)
         self._blocked = None
+        self._dg = None
+        self._dg_key = None
         return graph.epoch
 
     def apply_mutations(self, batch, *, chunk: int = 1024):

@@ -3,7 +3,7 @@
 
 The reference's ``sync_grads_shard`` and ``sync_grads_layer`` run inside a
 ``shard_map`` over the data axes of a mesh; they come with the mesh,
-``ROADMAP.md`` Queue 1 item 8. ``TrainStepConfig(mode="partial_sync")``
+``ROADMAP.md`` Queue 1 item 8e. ``TrainStepConfig(mode="partial_sync")``
 raises until then.
 """
 from __future__ import annotations

@@ -8,7 +8,7 @@ trains, the recurrent ones (``"ssm"``, ``"hybrid"``) included: on the
 CPU their plain scans run under ``models/scan_utils.chunked_scan``. The
 reference's ``mode="partial_sync"`` (a ``shard_map`` over the data axes
 and the p_s-lottery gradient sync) needs the mesh, ``ROADMAP.md`` Queue 1
-item 8, and raises.
+item 8e, and raises.
 """
 from __future__ import annotations
 
@@ -41,7 +41,7 @@ def _check(cfg: ModelConfig, tcfg: TrainStepConfig) -> None:
         raise NotImplementedError(
             "mode='partial_sync' syncs gradients inside a shard_map over "
             "the data mesh, which is not ported yet (ROADMAP.md Queue 1 "
-            "item 8)")
+            "item 8e)")
     if tcfg.mode != "gspmd":
         raise ValueError(tcfg.mode)
 
